@@ -1,0 +1,41 @@
+"""repro_torch.comm — the gossip transport between training and aggregation.
+
+  codecs    — payload compression (fp32 / bf16 / int8 with error feedback
+              and stochastic rounding / top-k with optional momentum), each
+              with exact bytes_on_wire;
+  trigger   — event-triggered transmission: send only when the model has
+              drifted past a threshold since the last payload, per node or
+              per edge (drift-rate-adaptive per-edge thresholds);
+  transport — CommConfig + GossipTransport (per-node state) +
+              EdgeGossipTransport (per-edge `[N, max_deg, ...]` state) on
+              the dense padded-neighbour layout.
+
+Receivers always decode before aggregating, so DecDiff's Eq. 5-6 act on
+reconstructed models; only the bytes on the wire change.  The sparse CSR
+transport (ROADMAP A.6) and the pod context (A.10) are not ported.
+"""
+from repro_torch.comm.codecs import (  # noqa: F401
+    CODECS,
+    BF16Codec,
+    Codec,
+    FP32Codec,
+    Int8Codec,
+    TopKCodec,
+    make_codec,
+    payload_nbytes,
+)
+from repro_torch.comm.transport import (  # noqa: F401
+    WIRES,
+    CommConfig,
+    CommState,
+    EdgeCommState,
+    EdgeGossipTransport,
+    GossipTransport,
+    codec_roundtrip_stacked,
+)
+from repro_torch.comm.trigger import (  # noqa: F401
+    adaptive_threshold_update,
+    drift_gate,
+    edge_delivery,
+    edge_drift_gate,
+)

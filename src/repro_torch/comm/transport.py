@@ -1,0 +1,477 @@
+"""Gossip transport: codecs x event trigger x exact bytes-on-wire accounting,
+on the dense padded-neighbour layout (the JAX package's
+`repro.comm.transport` on its dense context).
+
+Sits between local training and aggregation.  Each round every node:
+
+  1. measures its drift ||w_i - w^last_sent|| and decides whether to
+     transmit (trigger module; threshold 0 = always send),
+  2. if transmitting, encodes its payload — delta codecs (int8, top-k)
+     compress the drift plus the carried error-feedback residual, dense
+     codecs (fp32, bf16) the model itself,
+  3. receivers decode first and aggregate second, so DecDiff's Eq. 5-6
+     act on the reconstructed models ŵ_j.
+
+`GossipTransport` — per-NODE state: one `last_sent[j]` [N, D] doubles as
+sender j's trigger reference and every receiver's cached copy of j, one
+residual per node; a node encodes once and broadcasts on all its edges.
+
+`EdgeGossipTransport` — per-EDGE state in the padded-neighbour layout
+`[N, max_deg, ...]`: each directed link (i -> nbr_idx[i, d]) keeps its own
+reference, residual, threshold and drift EMA, and state advances only on
+links that delivered, so a failed link leaves every other link's state
+bit-identical.  Receivers read sender j's slot toward them through the
+reverse-slot map, one row gather over the flattened [N·max_deg, D] table
+(`repro_torch.kernels.ops.gather_rows`, the CUDA kernel on the card).
+
+Every tensor lives on the device of the params the transport was built
+with; the exchange syncs nothing.  Randomness comes from the
+`torch.Generator` passed to `exchange` (only when `wants_rng`: a
+stochastic int8 codec): the per-node transport draws one uniform row per
+node, the per-edge transport one row per canonical directed edge, indexed
+by `edge_id` (the CSR enumeration the sparse transport, ROADMAP A.6, will
+share).
+
+`wire` ("encoded" | "decoded") is what the pod backend's all-gather
+carries.  On this single-process dense path nothing is gathered, so the two
+wires are the same computation; both are accepted and validated.  The pod
+backend (`PodContext`, ROADMAP A.10) and the sparse CSR transport (A.6) are
+not ported.
+
+Accounting is exact and static: `payload_bytes` is the serialized size of
+one payload (`codec.payload_bytes_for`); bytes per round = payload_bytes x
+fired edges — per node Σ_i gate_i·outdeg_i, per edge Σ_ij gate_ij.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.comm.codecs import Codec, make_codec
+from repro_torch.comm.trigger import (
+    adaptive_threshold_update,
+    drift_gate,
+    edge_drift_gate,
+)
+from repro_torch.kernels.ops import gather_rows
+from repro_torch.utils.pytree import tree_flatten_stacked
+
+POLICIES = ("fixed", "adaptive")
+WIRES = ("encoded", "decoded")
+
+
+@dataclasses.dataclass(frozen=True)
+class CommConfig:
+    """Transport knobs, carried on Experiment(comm=...).
+
+    codec: "fp32" | "bf16" | "int8" | "topk".
+    trigger_threshold: L2 drift below which a sender stays silent (0 =
+      always send).  Used by the "fixed" policy.
+    policy: "fixed" (one scalar threshold) or "adaptive" (per-edge
+      drift-rate-controlled thresholds; implies per-edge state).
+    per_edge: keep transport state per directed link instead of per node.
+    target_trigger: the adaptive policy's per-edge long-run triggered
+      fraction, in (0, 1].
+    drift_ema_beta: decay of the per-edge drift EMA.
+    threshold_rate: adaptive controller gain.
+    topk_ratio / topk_momentum: the top-k codec's knobs.
+    stochastic: int8 rounding mode (True = unbiased stochastic rounding).
+    on_silence: what receivers aggregate for a neighbour that did not fire:
+      "stale" (its cached last-transmitted model) or "drop" (mask it out
+      like a failed link).  Exogenous link failures always drop.
+    """
+
+    codec: str = "fp32"
+    trigger_threshold: float = 0.0
+    policy: str = "fixed"
+    per_edge: bool = False
+    target_trigger: float = 0.5
+    drift_ema_beta: float = 0.9
+    threshold_rate: float = 0.5
+    topk_ratio: float = 0.01
+    topk_momentum: float = 0.0
+    stochastic: bool = True
+    on_silence: str = "stale"
+
+    def __post_init__(self):
+        if self.on_silence not in ("stale", "drop"):
+            raise ValueError(f"on_silence must be 'stale' or 'drop', "
+                             f"got {self.on_silence!r}")
+        if self.policy not in POLICIES:
+            raise ValueError(f"policy must be one of {POLICIES}, "
+                             f"got {self.policy!r}")
+        if self.policy == "adaptive" and not (0.0 < self.target_trigger <= 1.0):
+            raise ValueError(f"target_trigger must be in (0, 1], "
+                             f"got {self.target_trigger}")
+
+    @property
+    def use_per_edge(self) -> bool:
+        """Per-edge state is explicit (`per_edge`) or implied by the
+        adaptive policy (per-edge thresholds need per-edge references)."""
+        return self.per_edge or self.policy == "adaptive"
+
+    def make_codec(self) -> Codec:
+        kwargs = {}
+        if self.codec == "topk":
+            kwargs["ratio"] = self.topk_ratio
+            if self.topk_momentum > 0:
+                kwargs["momentum"] = self.topk_momentum
+        if self.codec == "int8":
+            kwargs["stochastic"] = self.stochastic
+        return make_codec(self.codec, **kwargs)
+
+
+class CommState(NamedTuple):
+    """Per-node transport state.  `ever_recv` is the per-EDGE delivery
+    history in the receiver layout [N, max_deg] (None without an edge
+    layout): the `on_silence="stale"` mask consults it, so a receiver never
+    aggregates a cache that no payload ever filled."""
+
+    last_sent: torch.Tensor            # [N, D] last reconstruction on the wire
+    residual: Optional[torch.Tensor]   # [N, ...] EF residual (None if stateless)
+    ever_sent: torch.Tensor            # [N] {0,1}: has node i transmitted yet?
+    ever_recv: Optional[torch.Tensor] = None  # [N, max_deg] {0,1}
+
+
+class EdgeCommState(NamedTuple):
+    """Per-EDGE transport state, `[N, max_deg, ...]`: slot d of node i is
+    the directed link i -> nbr_idx[i, d]; padding slots never fire."""
+
+    last_sent: torch.Tensor            # [N, E, D] per-link reconstruction ref
+    residual: Optional[torch.Tensor]   # [N, E, ...] per-link EF residual
+    threshold: torch.Tensor            # [N, E] per-link trigger thresholds
+    drift_ema: torch.Tensor            # [N, E] per-link drift EMA (adaptive)
+    ever_delivered: torch.Tensor       # [N, E] {0,1}: link ever delivered?
+
+
+def _check_wire(wire: str):
+    if wire not in WIRES:
+        raise ValueError(f"wire must be one of {WIRES}, got {wire!r}")
+
+
+def _wants_rng(codec: Codec) -> bool:
+    return codec.needs_rng and getattr(codec, "stochastic", True)
+
+
+def reverse_slot_map(nbr_idx: np.ndarray) -> np.ndarray:
+    """rev[r, e] = the slot d with nbr_idx[j, d] == r for j = nbr_idx[r, e]
+    (0 on padding slots, where nbr_idx < 0).  Raises if the layout is not
+    symmetric: per-edge state needs an undirected graph."""
+    idx = np.asarray(nbr_idx, np.int64)
+    n, e = idx.shape
+    rev = np.zeros((n, e), np.int64)
+    for r in range(n):
+        for s in range(e):
+            j = idx[r, s]
+            if j < 0:
+                continue
+            (slots,) = np.nonzero(idx[j] == r)
+            if slots.size == 0:
+                raise ValueError(
+                    f"neighbour layout not symmetric: {r} lists {j} but "
+                    f"{j} does not list {r} — per-edge state needs an "
+                    f"undirected graph")
+            rev[r, s] = int(slots[0])
+    return rev
+
+
+class GossipTransport:
+    """Flatten -> trigger -> encode -> decode, with per-node state.
+
+    Pass `nbr_idx` / `nbr_valid` (the padded [N, max_deg] panels) to give
+    the transport its per-edge delivery history (`CommState.ever_recv`);
+    without them `ever_recv` stays None.  The sparse layout's edge-list
+    form is ROADMAP A.6."""
+
+    def __init__(self, config: CommConfig, stacked_params, *,
+                 nbr_idx=None, nbr_valid=None):
+        self.config = config
+        self.codec = config.make_codec()
+        mat, _ = tree_flatten_stacked(stacked_params)
+        self.n, self.d = int(mat.shape[0]), int(mat.shape[1])
+        self.device = mat.device
+        # exact serialized payload size for ONE node's transmission
+        self.payload_bytes = self.codec.payload_bytes_for(self.d)
+        self.wants_rng = _wants_rng(self.codec)
+        if nbr_idx is not None:
+            idx = np.maximum(np.asarray(nbr_idx, np.int64), 0)
+            self._recv_idx = torch.from_numpy(idx).to(self.device)
+            self._recv_valid = torch.from_numpy(
+                np.asarray(nbr_valid, np.float32)).to(self.device)
+        else:
+            self._recv_idx = self._recv_valid = None
+
+    def init_state(self, stacked_params) -> CommState:
+        mat, _ = tree_flatten_stacked(stacked_params)
+        ever_recv = (torch.zeros(self._recv_idx.shape, dtype=torch.float32,
+                                 device=self.device)
+                     if self._recv_idx is not None else None)
+        # zero reference: the first transmission carries the full model
+        # through the codec, so receivers need no out-of-band bootstrap.
+        return CommState(
+            last_sent=torch.zeros_like(mat),
+            residual=self.codec.init_residual(mat),
+            ever_sent=torch.zeros((self.n,), dtype=torch.float32,
+                                  device=self.device),
+            ever_recv=ever_recv)
+
+    def note_delivery(self, state: CommState, delivered) -> CommState:
+        """Fold one round's realized deliveries ([N, max_deg] {0,1}: trigger
+        AND link) into the per-edge delivery history."""
+        if state.ever_recv is None:
+            return state
+        return state._replace(
+            ever_recv=torch.maximum(state.ever_recv, delivered))
+
+    def reset_rows(self, state: CommState, reset) -> CommState:
+        """Rows where `reset` ([N] {0,1}) > 0 return to the zero bootstrap
+        (reference, residual, ever_sent cleared; every edge incident to a
+        reset node loses its delivery history).  Other rows stay
+        bit-identical."""
+        r = reset > 0
+        residual = state.residual
+        if residual is not None:
+            rb = r.reshape(r.shape + (1,) * (residual.dim() - 1))
+            residual = torch.where(rb, 0.0, residual)
+        ever_recv = state.ever_recv
+        if ever_recv is not None:
+            clear = torch.maximum(reset[:, None], reset[self._recv_idx]) \
+                * self._recv_valid
+            ever_recv = torch.where(clear > 0, 0.0, ever_recv)
+        return CommState(
+            last_sent=torch.where(r[:, None], 0.0, state.last_sent),
+            residual=residual,
+            ever_sent=torch.where(r, 0.0, state.ever_sent),
+            ever_recv=ever_recv)
+
+    def exchange(self, stacked_params, state: CommState,
+                 rng: Optional[torch.Generator] = None, send_mask=None, *,
+                 wire: str = "encoded"):
+        """One transport round over all N sender rows.
+
+        rng: the generator the codec draws from (required iff
+        `wants_rng`); send_mask: optional [N] {0,1} sender veto.
+
+        Returns (decoded [N, D], gate [N], new_state): for each sender the
+        flat model its neighbours reconstruct this round (a silent node's
+        row holds its previous reconstruction), who transmitted, and the
+        threaded CommState (`ever_recv` is folded in afterwards by
+        `note_delivery`, since only the engine knows the link mask).  The
+        reference returns `decoded` as a params tree; its only caller
+        flattens it again, so the port hands over the flat matrix."""
+        _check_wire(wire)
+        codec = self.codec
+        w, _ = tree_flatten_stacked(stacked_params)
+        if self.wants_rng and rng is None:
+            raise ValueError(f"codec {codec.name!r} needs a torch.Generator")
+        last = state.last_sent
+        gate, _ = drift_gate(w, last, self.config.trigger_threshold)
+        if send_mask is not None:
+            gate = gate * send_mask
+        x = w - last if codec.is_delta else w
+        u = (torch.rand((self.n, self.d), generator=rng, device=self.device)
+             if self.wants_rng else None)
+        payload, new_res = codec.encode(x, rng=u, residual=state.residual)
+        dec = codec.decode(payload, out_size=self.d)
+        recon = last + dec if codec.is_delta else dec
+        new_last = torch.where(gate[:, None] > 0, recon, last)
+        if codec.has_residual:
+            # a silent node keeps accumulating: its un-flushed residual
+            # stays put until the trigger fires again.
+            keep = gate.reshape((self.n,) + (1,) * (new_res.dim() - 1)) > 0
+            new_res = torch.where(keep, new_res, state.residual)
+        new_state = CommState(
+            last_sent=new_last, residual=new_res,
+            ever_sent=torch.maximum(state.ever_sent, gate),
+            ever_recv=state.ever_recv)
+        return new_last, gate, new_state
+
+
+class EdgeGossipTransport:
+    """Per-edge transport: one (reference, residual, threshold) per link.
+
+    Construction takes the padded-neighbour layout (`nbr_idx` [N, E] int
+    with -1 padding, `nbr_valid` [N, E] {0,1}) and builds, once, in numpy:
+    the reverse-slot map `rev_slot` (receiver r hearing neighbour j at slot
+    e reads j's state at slot rev_slot[r, e]), the canonical CSR edge id
+    `edge_id` of every sender slot, and the flat gather index
+    `flat_idx = nbr_idx·E + rev_slot` into the [N·E, D] per-link table,
+    range-checked here so the per-round gather needs no check."""
+
+    def __init__(self, config: CommConfig, stacked_params,
+                 nbr_idx: np.ndarray, nbr_valid: np.ndarray):
+        self.config = config
+        self.codec = config.make_codec()
+        mat, _ = tree_flatten_stacked(stacked_params)
+        self.n, self.d = int(mat.shape[0]), int(mat.shape[1])
+        self.device = dev = mat.device
+        self.e = int(nbr_idx.shape[1])
+        self.payload_bytes = self.codec.payload_bytes_for(self.d)
+        self.wants_rng = _wants_rng(self.codec)
+
+        idx = np.asarray(nbr_idx, np.int64)
+        valid = np.asarray(nbr_valid, np.float32)
+        rev = reverse_slot_map(idx)
+        idx0 = np.maximum(idx, 0)
+        self.nbr_idx = torch.from_numpy(idx0).to(dev)
+        self.nbr_valid = torch.from_numpy(valid).to(dev)
+        self.rev_slot = torch.from_numpy(rev).to(dev)
+        self.num_edges = float(valid.sum())  # directed edge count
+        # canonical CSR directed-edge id of the link (i -> j) at sender slot
+        # (i, d): receiver j's row offset plus i's position among j's
+        # senders (the padded lists are sorted, so rev IS that position).
+        # Padding slots alias edge 0; their draws never gate an update.
+        deg = valid.sum(axis=1).astype(np.int64)
+        offsets = np.concatenate([np.zeros(1, np.int64), np.cumsum(deg)])
+        self.num_directed = int(deg.sum())
+        self.edge_id = torch.from_numpy(offsets[idx0] + rev).to(dev)
+        flat = (idx0 * self.e + rev).reshape(-1)
+        if flat.size and not (0 <= flat.min() and flat.max() < self.n * self.e):
+            raise ValueError("reverse-slot gather index out of range")
+        self.flat_idx = torch.from_numpy(flat).to(dev)
+        # the threshold an edge (re)starts from: the scalar for the fixed
+        # policy, the always-send bootstrap for the adaptive one
+        self.thr0 = (config.trigger_threshold if config.policy == "fixed"
+                     else 0.0)
+
+    def init_state(self, stacked_params) -> EdgeCommState:
+        shape = (self.n, self.e)
+        zeros = torch.zeros(shape + (self.d,), dtype=torch.float32,
+                            device=self.device)
+        return EdgeCommState(
+            last_sent=zeros,
+            residual=self.codec.init_residual(zeros),
+            threshold=torch.full(shape, self.thr0, dtype=torch.float32,
+                                 device=self.device),
+            drift_ema=torch.zeros(shape, dtype=torch.float32,
+                                  device=self.device),
+            ever_delivered=torch.zeros(shape, dtype=torch.float32,
+                                       device=self.device))
+
+    def reset_edges(self, state: EdgeCommState, reset) -> EdgeCommState:
+        """Per-link state on edges where `reset` [N, E] > 0 returns to its
+        init_state values (a rejoined endpoint is a fresh device); other
+        edges stay bit-identical."""
+        r = reset > 0
+        residual = state.residual
+        if residual is not None:
+            rb = r.reshape(r.shape + (1,) * (residual.dim() - 2))
+            residual = torch.where(rb, 0.0, residual)
+        return EdgeCommState(
+            last_sent=torch.where(r[:, :, None], 0.0, state.last_sent),
+            residual=residual,
+            threshold=torch.where(r, self.thr0, state.threshold),
+            drift_ema=torch.where(r, 0.0, state.drift_ema),
+            ever_delivered=torch.where(r, 0.0, state.ever_delivered))
+
+    def _swap_layout(self, arr):
+        """Swap an [N, E, ...] array between the sender and receiver edge
+        layouts (an involution on valid slots): entry (i, e) reads the
+        other endpoint's slot for the same link, nbr_idx[i, e] at
+        rev_slot[i, e]."""
+        return arr[self.nbr_idx, self.rev_slot]
+
+    def recv_layout(self, arr):
+        """Receiver-layout view of a sender-layout [N, E] panel, zeroed on
+        padding slots: entry (r, e) is the sender's value for the link
+        (nbr_idx[r, e] -> r)."""
+        return self._swap_layout(arr) * self.nbr_valid
+
+    def _gather_receiver_rows(self, new_last):
+        """The reverse-slot gather: receiver r's slot e reads sender
+        nbr_idx[r, e]'s reference at slot rev_slot[r, e] out of the
+        flattened [N·E, D] per-link table -> [N, E, D]."""
+        tbl = new_last.reshape(self.n * self.e, self.d)
+        return gather_rows(tbl, self.flat_idx).reshape(self.n, self.e, self.d)
+
+    def exchange(self, stacked_params, state: EdgeCommState, link_mask,
+                 rng: Optional[torch.Generator] = None, live=None,
+                 reset=None, *, wire: str = "encoded"):
+        """One per-edge transport round.
+
+        link_mask: [N, E] receiver-layout exogenous link mask (1 = the
+        (nbr_idx[r, e] -> r) link is up; validity included).  rng: the
+        generator the codec draws from (iff `wants_rng`).  live: optional
+        [N, E] symmetric live-edge mask — a dead edge cannot fire, costs
+        nothing and freezes its controller.  reset: optional [N, E] edges
+        returned to bootstrap before the drift is measured.
+
+        Returns (gathered [N, E, D], agg_mask [N, E], gate [N, E],
+        new_state): slot e of row r holds r's current reconstruction of
+        neighbour nbr_idx[r, e] (fresh if delivered this round, the
+        per-link cache otherwise), the receiver-layout aggregation mask per
+        `on_silence`, the sender-layout fired edges, and the threaded
+        state.  The reference returns `gathered` as a params tree with
+        leaves [N, E, ...]; the port hands over the flat panel its only
+        caller reduces."""
+        _check_wire(wire)
+        codec, cfg = self.codec, self.config
+        w, _ = tree_flatten_stacked(stacked_params)
+        if reset is not None:
+            state = self.reset_edges(state, reset)
+        valid = self.nbr_valid if live is None else self.nbr_valid * live
+        last = state.last_sent
+        gate, drift = edge_drift_gate(w, last, state.threshold, valid)
+        # link-layer ack: a payload advances its edge's state only if the
+        # edge fired AND the link stayed up (sender layout).
+        delivered = gate * self._swap_layout(link_mask)
+
+        x = (w[:, None, :] - last if codec.is_delta
+             else w[:, None, :].expand(last.shape))
+        if self.wants_rng:
+            if rng is None:
+                raise ValueError(
+                    f"codec {codec.name!r} needs a torch.Generator")
+            # one uniform row per CANONICAL directed edge, indexed by slot
+            u = torch.rand((max(self.num_directed, 1), self.d),
+                           generator=rng, device=self.device)[self.edge_id]
+        else:
+            u = None
+        payload, enc_res = codec.encode(x, rng=u, residual=state.residual)
+        dec = codec.decode(payload, out_size=self.d)
+
+        recon = last + dec if codec.is_delta else dec
+        new_last = torch.where(delivered[:, :, None] > 0, recon, last)
+        if codec.has_residual:
+            # the EF residual tracks DELIVERED information only: a dropped
+            # or silent link keeps its residual bit-identical.
+            keep = delivered.reshape(
+                (self.n, self.e) + (1,) * (enc_res.dim() - 2)) > 0
+            new_res = torch.where(keep, enc_res, state.residual)
+        else:
+            new_res = None
+
+        if cfg.policy == "adaptive":
+            new_thr, new_ema = adaptive_threshold_update(
+                state.threshold, state.drift_ema, drift, gate, valid,
+                target=cfg.target_trigger, ema_beta=cfg.drift_ema_beta,
+                rate=cfg.threshold_rate)
+        else:
+            new_thr, new_ema = state.threshold, state.drift_ema
+        ever = torch.maximum(state.ever_delivered, delivered)
+        new_state = EdgeCommState(last_sent=new_last, residual=new_res,
+                                  threshold=new_thr, drift_ema=new_ema,
+                                  ever_delivered=ever)
+
+        gathered = self._gather_receiver_rows(new_last)
+        if cfg.on_silence == "drop":
+            agg_mask = link_mask * self._swap_layout(gate)
+        else:
+            # stale: aggregate the per-link cache, masking only links that
+            # never delivered; exogenous failures still drop.
+            agg_mask = link_mask * self._swap_layout(ever)
+        return gathered, agg_mask, gate, new_state
+
+
+def codec_roundtrip_stacked(codec: Codec, stacked,
+                            rng: Optional[torch.Generator] = None):
+    """Reference-free encode->decode of stacked [N, ...] models: delta
+    codecs compress against the implicit zero reference.  Returns the
+    decoded stacked params tree."""
+    w, unflatten = tree_flatten_stacked(stacked)
+    wants = _wants_rng(codec) and rng is not None
+    payload, _ = codec.encode(w, rng=rng if wants else None)
+    return unflatten(codec.decode(payload, out_size=int(w.shape[1])))

@@ -3,21 +3,33 @@
 One round is (local SGD steps -> neighbour exchange -> aggregation) over
 every node at once, on the experiment's device, with no host
 synchronisation.  This is the JAX package's round body on its dense
-context with no transport, no dynamics, no event clock and no telemetry:
+context, with or without the `repro_torch.comm` gossip transport, and with
+no dynamics, no event clock and no telemetry:
 
-    round_fn(params, opt, round_idx) -> (params, opt, train_loss)
+    round_fn(params, opt, comm_state, round_idx)
+        -> (params, opt, comm_state, train_loss, sent_edges, trig)
 
 `train_loss` is a 0-d device tensor: the mean over local steps of the mean
-over nodes of each step's loss, as in the reference.  Heterogeneous step
-budgets and participation masks draw from the experiment's
-`torch.Generator`, never from the global RNG; at the defaults
-(`hetero_steps_min=0`, `participation=1.0`) a round draws nothing.  The
-`shard_map` backend is ROADMAP A.10.
+over nodes of each step's loss, as in the reference.  With a transport,
+`sent_edges` (the round's fired directed edges: Σ_i gate_i·outdeg_i per
+node, Σ_ij gate_ij per edge) and `trig` (their fraction of the directed
+edges) are 0-d device tensors too; without one, `comm_state`, `sent_edges`
+and `trig` are None.
+
+Random draws come from the experiment's `torch.Generator`, never from the
+global RNG, in the reference's order: heterogeneous step budgets, the
+participation mask, then the codec's uniforms — each only when it is
+used (`hetero_steps_min > 0`, `participation < 1`, a stochastic int8
+codec), so the defaults and `CommConfig()` draw nothing.  The `shard_map`
+backend is ROADMAP A.10.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.comm.transport import EdgeGossipTransport
+from repro_torch.comm.trigger import edge_delivery
 from repro_torch.engine.neighborhood import DenseNeighborhood
 from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
 
@@ -85,24 +97,98 @@ def _make_delivery_mask(exp):
 def build_round(exp):
     """Lower `exp` to its `vmap`-backend round function (module docstring);
     `Experiment` refuses the other backends before it gets here."""
-    strategy = exp.strategy
+    strategy, agg_state = exp.strategy, exp.agg_state
     caps = strategy.capabilities
+    transport = exp.transport
+    per_edge = isinstance(transport, EdgeGossipTransport)
+    wire = exp.wire
     nbr_idx, nbr_weight = exp.nbr_idx, exp.nbr_weight
+    degrees = torch.sum(exp.nbr_valid, dim=1)
+    # trig = fired / directed edges.  The reference divides by a constant,
+    # which XLA folds into a multiply by the constant's float32 reciprocal;
+    # the port multiplies by the same reciprocal, so the fractions agree
+    # bit for bit.
+    inv_edges = torch.tensor(
+        np.float32(1.0) / np.float32(exp.topo.neighbor_mask.sum()),
+        device=exp.device)
+    # Gossip aggregation lowers to the strategy's flat form whenever it has
+    # one: one weighted neighbour reduce over a DenseNeighborhood, over the
+    # [N, D] table or over the per-edge transport's pre-gathered panel (the
+    # same kernel, so per-edge fp32 at threshold 0 stays bitwise equal to
+    # the per-node round).  Strategies without a flat form take the
+    # padded-gather exchange/aggregate pair.
+    use_flat = (caps.kind == "gossip"
+                and strategy.flat_aggregate is not None)
     local_training = _make_local_training(exp)
     delivery_mask = _make_delivery_mask(exp)
 
-    def round_fn(params, opt, round_idx: int):
+    def over_table(params, table_mat, mask):
+        """Aggregate over a full [N, D] table of sender models, slot
+        weights ω·|D| times the [N, max_deg] {0,1} mask."""
+        local_mat, unflatten = tree_flatten_stacked(params)
+        if use_flat:
+            nb = DenseNeighborhood(table_mat, nbr_idx, nbr_weight * mask,
+                                   local_mat, unflatten)
+            return strategy.flat_aggregate(exp, agg_state, nb)
+        gathered = strategy.exchange(exp, unflatten(table_mat), nbr_idx)
+        return strategy.aggregate(exp, agg_state, params, gathered, mask)
+
+    def over_panel(params, panel, mask):
+        """Aggregate over the per-edge transport's [N, max_deg, D] panel."""
+        local_mat, unflatten = tree_flatten_stacked(params)
+        if use_flat:
+            nb = DenseNeighborhood(None, None, nbr_weight * mask, local_mat,
+                                   unflatten, panel=panel)
+            return strategy.flat_aggregate(exp, agg_state, nb)
+        n, e, d = panel.shape
+        gathered = tree_map(lambda l: l.reshape((n, e) + l.shape[1:]),
+                            unflatten(panel.reshape(n * e, d)))
+        return strategy.aggregate(exp, agg_state, params, gathered, mask)
+
+    def round_fn(params, opt, comm_state, round_idx: int):
         params, opt, train_loss = local_training(params, opt, round_idx)
         link = delivery_mask()
-        if caps.kind == "gossip":
-            with torch.no_grad():
-                local_mat, unflatten = tree_flatten_stacked(params)
-                # every sender broadcasts (no transport): the delivered
-                # weights are ω·|D| times the link mask
-                nb = DenseNeighborhood(local_mat, nbr_idx, nbr_weight * link,
-                                       local_mat, unflatten)
-                params = strategy.flat_aggregate(exp, exp.agg_state, nb)
-        # kind == "none": isolation — no communication at all.
-        return params, opt, train_loss
+        sent_edges = trig = None
+        with torch.no_grad():
+            if transport is None:
+                if caps.kind == "gossip":
+                    # every sender broadcasts: the delivered weights are
+                    # ω·|D| times the link mask
+                    table = tree_flatten_stacked(params)[0]
+                    params = over_table(params, table, link)
+                # kind == "none": isolation — no communication at all.
+            elif per_edge:
+                # per-EDGE transport: the link mask feeds the exchange
+                # (link-layer ack through the layout swap); it hands back
+                # the receiver-layout panel (fresh or per-link stale cache)
+                # and the aggregation mask.
+                gen = exp.gen if transport.wants_rng else None
+                panel, mask, gate, comm_state = transport.exchange(
+                    params, comm_state, link, gen, wire=wire)
+                params = over_panel(params, panel, mask)
+                # unicast accounting: one payload per FIRED edge; failed
+                # links still burn the sender's bytes.
+                sent_edges = torch.sum(gate)
+                trig = sent_edges * inv_edges
+            else:
+                # per-NODE transport: a node encodes once and broadcasts.
+                # "stale" aggregates a silent neighbour's cached model,
+                # masking only edges that never DELIVERED; "drop" masks
+                # every silent or undelivered edge like a failed link.
+                gen = exp.gen if transport.wants_rng else None
+                decoded, gate, comm_state = transport.exchange(
+                    params, comm_state, gen, wire=wire)
+                delivered = edge_delivery(gate, link, nbr_idx)
+                comm_state = transport.note_delivery(comm_state, delivered)
+                if transport.config.on_silence == "drop":
+                    mask = delivered
+                else:
+                    mask = link * comm_state.ever_recv
+                params = over_table(params, decoded, mask)
+                # broadcast accounting: a transmitting node pays one
+                # payload per outgoing edge.
+                sent_edges = torch.sum(gate * degrees)
+                trig = sent_edges * inv_edges
+        return params, opt, comm_state, train_loss, sent_edges, trig
 
     return round_fn

@@ -5,25 +5,30 @@
 packages the paper's procedure — heterogeneous per-node init, B local
 SGD(momentum) steps, neighbour exchange, method aggregation, periodic
 evaluation — behind one object, as the JAX package's `repro.engine` does.
-This slice runs the dense node-axis layout on the `vmap` backend with no
-transport.  Options that are not ported yet raise NotImplementedError
-naming the ROADMAP item that ports them: `comm=` (A.5),
-`layout="sparse"` (A.6), `dynamics=` (A.7), `timing=` and
-`Schedule(deadline=)` (A.8), `telemetry=` (A.9), `backend="shard_map"`
+The port runs the dense node-axis layout on the `vmap` backend, with or
+without the gossip transport (`comm=CommConfig(...)`: codecs, event
+triggers, per-node or per-edge state, exact bytes on the wire; `wire=`
+names what the pod backend would gather).  Options that are not ported yet
+raise NotImplementedError naming the ROADMAP item that ports them:
+`layout="sparse"` and its transport (A.6), `dynamics=` (A.7), `timing=`
+and `Schedule(deadline=)` (A.8), `telemetry=` (A.9), `backend="shard_map"`
 (A.10), the CNN (A.2), and the `fedavg` / `cfa-ge` methods (A.3).
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
 its device and an Experiment runs on the same one.
 
-Schedule modes: "loop" reads each eval back to the host as it happens;
-"fused" (the default) runs the same rounds and evals with every result
-kept on the device, stacked, and read back once at the end.  Both modes
-run the same operations in the same order, so they are bitwise equal.
+Schedule modes: "loop" reads each round's transport accounting and each
+eval back to the host as it happens; "fused" (the default) runs the same
+rounds and evals with every result kept on the device, stacked, and read
+back once at the end, then accounts the bytes round by round in the same
+order.  Both modes run the same operations in the same order, so they are
+bitwise equal, bytes on the wire included.
 
-Mutable run state (params, optimizer state, the generator) lives on the
-instance, so `run()` can be called repeatedly and continues where the last
-call stopped (round indices restart, as in the reference).
+Mutable run state (params, optimizer and transport state, the generator,
+the byte counters) lives on the instance, so `run()` can be called
+repeatedly and continues where the last call stopped (round indices
+restart, as in the reference).
 """
 from __future__ import annotations
 
@@ -33,12 +38,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm.transport import (WIRES, CommConfig,
+                                        EdgeGossipTransport, GossipTransport)
 from repro_torch.core.virtual_teacher import make_loss_fn
 from repro_torch.data.allocation import pad_node_datasets
 from repro_torch.data.pipeline import Batcher
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import backends
-from repro_torch.engine.strategies import MethodSpec, get_method
+from repro_torch.engine.strategies import (MethodSpec, available_methods,
+                                           get_method)
 from repro_torch.fl.metrics import RoundMetrics
 from repro_torch.fl.trainer import make_eval_fn, make_train_step
 from repro_torch.graphs.topology import Topology
@@ -165,7 +173,8 @@ class Experiment:
     """One method over one world — see module docstring."""
 
     def __init__(self, world: World, method: str = "decdiff+vt", *,
-                 comm=None, backend: str = "vmap",
+                 comm: Optional[CommConfig] = None, backend: str = "vmap",
+                 wire: str = "encoded",
                  schedule: Optional[Schedule] = None,
                  train: Optional[TrainConfig] = None,
                  layout: Optional[str] = None, device: DeviceLike = None,
@@ -184,15 +193,27 @@ class Experiment:
             raise ValueError(f"unknown layout {layout!r}; "
                              f"available: {LAYOUTS}")
         if layout == "sparse":
-            raise _not_ported("layout='sparse'", "A.6")
-        if comm is not None:
-            raise _not_ported("comm= (the gossip transport)", "A.5")
+            raise _not_ported("layout='sparse' (and its transport)", "A.6")
+        if wire not in WIRES:
+            raise ValueError(f"unknown wire {wire!r}; available: {WIRES}")
         self.method: MethodSpec = get_method(method)
         self.strategy = self.method.strategy
+        if comm is not None:
+            if not isinstance(comm, CommConfig):
+                raise TypeError(f"comm must be a repro_torch.comm.CommConfig, "
+                                f"got {type(comm).__name__}")
+            if not self.strategy.supports_transport:
+                roster = [m for m in available_methods()
+                          if get_method(m).strategy.supports_transport]
+                raise ValueError(
+                    f"comm transport models neighbour model-gossip only; "
+                    f"method {method!r} is unsupported "
+                    f"(transport-capable methods: {roster})")
         if self.strategy.pending is not None:
             raise _not_ported(f"method {method!r}", self.strategy.pending)
         self.world = world
         self.backend = backend
+        self.wire = wire
         self.layout = "dense"
         self.schedule = schedule or Schedule()
         train = train or TrainConfig()
@@ -254,6 +275,24 @@ class Experiment:
         self.gen = torch.Generator(device=dev).manual_seed(
             _node_seed(train.seed, 23))
 
+        # --- gossip transport (capability-gated above) ---
+        self.comm = comm
+        self.transport = None
+        self.comm_state = None
+        self.comm_bytes_total = 0.0
+        self._trig_sum = 0.0
+        self._comm_rounds = 0
+        self.trig_history: List[float] = []  # per-round triggered fraction
+        if comm is not None:
+            if comm.use_per_edge:
+                self.transport = EdgeGossipTransport(
+                    comm, self.params, topo.neighbor_idx, topo.neighbor_mask)
+            else:
+                self.transport = GossipTransport(
+                    comm, self.params, nbr_idx=topo.neighbor_idx,
+                    nbr_valid=topo.neighbor_mask)
+            self.comm_state = self.transport.init_state(self.params)
+
         self.agg_state = self.strategy.init_state(self)
         self._round = backends.build_round(self)
         self.train_loss_history: List[float] = []  # one entry per round
@@ -264,12 +303,29 @@ class Experiment:
         return RoundMetrics(round=-1, acc_per_node=acc.cpu().numpy(),
                             loss_per_node=loss.cpu().numpy())
 
+    def _account_comm(self, sent_edges: float, trig: float):
+        """The same float accounting, in round order, in both modes; the
+        byte multiply stays in Python so exact accounting survives past
+        f32's 2^24 integers."""
+        self.comm_bytes_total += self.transport.payload_bytes * float(
+            sent_edges)
+        self._trig_sum += float(trig)
+        self._comm_rounds += 1
+        self.trig_history.append(float(trig))
+
+    def _finish_metrics(self, m: RoundMetrics) -> RoundMetrics:
+        if self.transport is not None:
+            m.bytes_on_wire = self.comm_bytes_total
+            m.triggered_frac = self._trig_sum / max(self._comm_rounds, 1)
+        return m
+
     def run(self, rounds: Optional[int] = None,
             eval_every: Optional[int] = None,
             mode: Optional[str] = None) -> List[RoundMetrics]:
         """Run the schedule; returns the eval history (round 0 = after the
         first round's local training and exchange).  The per-round train
-        losses are appended to `train_loss_history`."""
+        losses are appended to `train_loss_history`, and with a transport
+        the triggered fractions to `trig_history`."""
         rounds = self.schedule.rounds if rounds is None else rounds
         eval_every = (self.schedule.eval_every if eval_every is None
                       else eval_every)
@@ -280,26 +336,44 @@ class Experiment:
         evals = set(Schedule.eval_rounds(rounds, eval_every))
         history: List[RoundMetrics] = []
         pending = []  # fused: (round, acc, loss) kept on the device
-        losses = []
+        losses, comm_out = [], []
         for r in range(rounds):
-            self.params, self.opt_state, loss = self._round(
-                self.params, self.opt_state, r)
+            (self.params, self.opt_state, self.comm_state, loss, sent,
+             trig) = self._round(self.params, self.opt_state,
+                                 self.comm_state, r)
             losses.append(loss)
+            if self.transport is not None:
+                if mode == "loop":
+                    self._account_comm(sent, trig)
+                else:
+                    comm_out.append(torch.stack([sent, trig]))
             if r in evals:
                 if mode == "loop":
                     m = self.evaluate()
                     m.round = r
-                    history.append(m)
+                    history.append(self._finish_metrics(m))
                 else:
                     acc, eloss = self._eval(self.params, self.x_test,
                                             self.y_test)
                     pending.append((r, acc, eloss))
-        if pending:
-            acc_r = torch.stack([a for _, a, _ in pending]).cpu().numpy()
-            loss_r = torch.stack([lo for _, _, lo in pending]).cpu().numpy()
-            history = [RoundMetrics(round=r, acc_per_node=acc_r[i],
-                                    loss_per_node=loss_r[i])
-                       for i, (r, _, _) in enumerate(pending)]
+        if mode == "fused" and rounds:
+            # one read-back of everything the rounds left on the device,
+            # then the host-side accounting in round order
+            acc_r = loss_r = comm_r = None
+            if pending:
+                acc_r = torch.stack([a for _, a, _ in pending]).cpu().numpy()
+                loss_r = torch.stack([lo for _, _, lo in pending]
+                                     ).cpu().numpy()
+            if comm_out:
+                comm_r = torch.stack(comm_out).cpu().tolist()
+            at = {r: i for i, (r, _, _) in enumerate(pending)}
+            for r in range(rounds):
+                if comm_r is not None:
+                    self._account_comm(*comm_r[r])
+                if r in at:
+                    history.append(self._finish_metrics(RoundMetrics(
+                        round=r, acc_per_node=acc_r[at[r]],
+                        loss_per_node=loss_r[at[r]])))
         if losses:
             self.train_loss_history.extend(
                 torch.stack(losses).cpu().tolist())

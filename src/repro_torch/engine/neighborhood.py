@@ -16,7 +16,7 @@ of the same ordered loop as the sums.  The sparse CSR view is ROADMAP A.6.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -25,18 +25,29 @@ from repro_torch.kernels.ops import segment_neighbor_avg
 
 class DenseNeighborhood:
     """table [N, D], nbr_idx / w [R, max_deg] (int64 ids, fp32 weights with
-    0 at padding and undelivered slots)."""
+    0 at padding and undelivered slots).
 
-    def __init__(self, table: torch.Tensor, nbr_idx: torch.Tensor,
-                 w: torch.Tensor, local_mat: torch.Tensor,
-                 unflatten_fn: Callable):
+    When the transport has already materialized the per-slot neighbour
+    models (the per-edge transport's reverse-slot gather yields per-link
+    reconstructions, so no single [N, D] table exists), pass them as
+    ``panel`` [R, max_deg, D] instead of ``table``/``nbr_idx``: the reduce
+    contracts the panel through the same kernel, so the bits match the
+    table form whenever the values do."""
+
+    def __init__(self, table: Optional[torch.Tensor],
+                 nbr_idx: Optional[torch.Tensor], w: torch.Tensor,
+                 local_mat: torch.Tensor, unflatten_fn: Callable,
+                 panel: Optional[torch.Tensor] = None):
         self.table = table
         self.nbr_idx = nbr_idx
         self.w = w
         self.local_mat = local_mat
         self._unflatten = unflatten_fn
+        self.panel = panel
 
     def _vals(self) -> torch.Tensor:
+        if self.panel is not None:
+            return self.panel
         return self.table[self.nbr_idx]  # [R, max_deg, D], contiguous
 
     def local(self) -> torch.Tensor:

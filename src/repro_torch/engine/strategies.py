@@ -10,7 +10,11 @@ neighbour reduce are the engine's.  Each strategy carries ONE frozen
   * ``flat_aggregate(exp, state, nb)`` — the update over a
     :class:`~repro_torch.engine.neighborhood.DenseNeighborhood`: one
     weighted neighbour reduce, then per-row scalar normalization on the
-    flattened [R, D] model matrix.
+    flattened [R, D] model matrix.  A strategy without it supplies the
+    padded-gather pair ``exchange`` / ``aggregate`` instead.
+
+``Capabilities.transport`` (plain model gossip) says whether the method
+may run over the `repro_torch.comm` transport.
 
 A *method* (what users name in ``Experiment(method=...)``) is a
 :class:`MethodSpec`: a strategy plus the loss ("ce" | "vt") and the init
@@ -25,6 +29,8 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.utils.pytree import tree_map
 
 KINDS = ("gossip", "server", "none")
 LAYOUTS = ("dense", "sparse")
@@ -53,24 +59,55 @@ class Capabilities:
                 f"{LAYOUTS}, got {self.layouts!r}")
         object.__setattr__(self, "layouts", layouts)
 
+    @property
+    def transport(self) -> bool:
+        """Can the neighbour exchange ride the repro_torch.comm gossip
+        transport?  True exactly for plain model-gossip: transport payload
+        state models *model* traffic, not CFA-GE's extra gradient legs or
+        FedAvg's star."""
+        return self.kind == "gossip" and not self.grad_exchange
+
 
 class AggregationStrategy:
-    """Base strategy: stateless; per-experiment tensors live in `state`."""
+    """Base strategy: stateless; per-experiment tensors live in `state`.
+
+    A gossip strategy implements ``flat_aggregate`` (the form every ported
+    method has).  One without it (``flat_aggregate = None``) implements
+    ``aggregate`` over the padded per-slot views that ``exchange`` gathers
+    instead, which the engine then takes for its dense rounds."""
 
     name: str = "base"
     capabilities: Capabilities = Capabilities()
     #: the ROADMAP item that ports this strategy, while it is not ported
     pending: Optional[str] = None
 
+    #: ``flat_aggregate(exp, state, nb)`` — the update over a
+    #: DenseNeighborhood view; None means the padded-gather form only.
+    flat_aggregate = None
+
     @property
     def kind(self) -> str:
         return self.capabilities.kind
 
-    def init_state(self, exp) -> Dict[str, torch.Tensor]:
-        """Per-node |D_i| (the neighbour weights ride in the view's w)."""
-        return {"counts": exp.counts.to(torch.float32)}
+    @property
+    def supports_transport(self) -> bool:
+        return self.capabilities.transport
 
-    def flat_aggregate(self, exp, state, nb):
+    def init_state(self, exp) -> Dict[str, torch.Tensor]:
+        """Per-node |D_i| and the combined ω_ij·|D_j| neighbour weights
+        [N, max_deg] (the flat forms take theirs from the view's w)."""
+        return {"counts": exp.counts.to(torch.float32),
+                "weights": exp.nbr_weight}
+
+    def exchange(self, exp, params, nbr_idx):
+        """Neighbour exchange for the padded-gather form: stacked models
+        [N, ...] -> per-slot views [N, max_deg, ...]."""
+        return tree_map(lambda p: p[nbr_idx], params)
+
+    def aggregate(self, exp, state, params, gathered, mask):
+        """Padded-gather form: new models from `params` [N, ...],
+        `gathered` [N, max_deg, ...] and `mask` [N, max_deg] {0,1}
+        delivered this round."""
         raise NotImplementedError
 
     def __repr__(self):  # pragma: no cover - debugging nicety

@@ -1,12 +1,14 @@
 """Per-eval-round metrics of a decentralized-learning run.
 
-The fields this slice fills: the eval round and every node's test accuracy
-and loss.  The JAX package's comm, dynamics, timing and telemetry fields
-arrive with those subsystems (ROADMAP A.5-A.9).
+The fields the port fills: the eval round, every node's test accuracy and
+loss, and with a transport the bytes on the wire and the triggered
+fraction.  The JAX package's dynamics, timing and telemetry fields arrive
+with those subsystems (ROADMAP A.7-A.9).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -16,6 +18,11 @@ class RoundMetrics:
     round: int
     acc_per_node: np.ndarray   # [N]
     loss_per_node: np.ndarray  # [N]
+    # Transport accounting (None without a CommConfig): cumulative bytes put
+    # on the wire up to and including this round, and the running mean
+    # fraction of directed edges that carried a payload per round.
+    bytes_on_wire: Optional[float] = None
+    triggered_frac: Optional[float] = None
 
     @property
     def acc_mean(self) -> float:

@@ -138,3 +138,111 @@ def test_ctypes_binding_declares_64_bit_arguments(monkeypatch):
     assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
         ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
+
+
+# ------------------------------------------------------------ gather rows
+
+def _table(m, d, seed=0):
+    rng = np.random.default_rng([seed, m, d])
+    return rng.standard_normal((m, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,d,idx", [
+    (12, 7, [3, 3, 0, 11, 0, 0, 5]),          # repeats, D odd
+    (40, 2050, list(range(40))[::-1] * 2),     # D = 2 mod 4, every row twice
+    (6, 4096, [0] * 9 + [5]),                 # padding slots alias row 0
+    (1, 1, [0, 0]),
+    (5, 3, [4]),
+])
+def test_gather_rows_plain_matches_jax_bitwise(m, d, idx):
+    """A pure copy: bitwise equal to the Pallas kernel (interpret mode)."""
+    from repro.kernels.ops import gather_rows as jax_gather_rows
+
+    tbl = _table(m, d)
+    idx = np.asarray(idx, np.int64)
+    want = np.asarray(jax_gather_rows(tbl, idx.astype(np.int32),
+                                      interpret=True))
+    got = ops.gather_rows(torch.from_numpy(tbl), torch.from_numpy(idx))
+    assert got.shape == (len(idx), d) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.reshape(len(idx), d))
+
+
+def test_gather_rows_on_the_per_edge_index():
+    """The transport's real flat index (16-node BA m=2): the plain version
+    equals the reference's gather and fancy indexing."""
+    from repro.kernels.ops import gather_rows as jax_gather_rows
+    from repro_torch.comm import CommConfig, EdgeGossipTransport
+    from repro_torch.graphs.topology import make_topology
+
+    topo = make_topology("barabasi_albert", n=16, m=2, seed=0)
+    tr = EdgeGossipTransport(CommConfig(per_edge=True),
+                             {"w": torch.zeros((16, 1))}, topo.neighbor_idx,
+                             topo.neighbor_mask)
+    n_slots = 16 * topo.max_degree
+    tbl = _table(n_slots, 33, seed=1)
+    idx = tr.flat_idx.numpy()
+    assert idx.shape == (n_slots,)
+    # padding slots alias row 0; valid slots are a permutation of themselves
+    valid = topo.neighbor_mask.reshape(-1) > 0
+    assert (idx[~valid] == 0).all()
+    assert sorted(idx[valid].tolist()) == np.flatnonzero(valid).tolist()
+    got = ops.gather_rows(torch.from_numpy(tbl), tr.flat_idx)
+    want = np.asarray(jax_gather_rows(tbl, idx.astype(np.int32),
+                                      interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), tbl[idx])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "idx-dtype", "shape", "contig",
+                                 "device", "empty-table"])
+def test_gather_rows_wrapper_rejects_bad_inputs(bad):
+    tbl, idx = torch.from_numpy(_table(6, 5)), torch.tensor([0, 5, 2])
+    if bad == "dtype":
+        tbl = tbl.double()
+    elif bad == "idx-dtype":
+        idx = idx.to(torch.int32)
+    elif bad == "shape":
+        idx = idx[None, :]
+    elif bad == "contig":
+        tbl = tbl.t().contiguous().t()
+    elif bad == "device":
+        tbl, idx = tbl.to("meta"), idx.to("meta")
+    else:
+        tbl = tbl[:0]
+    with pytest.raises((TypeError, ValueError)):
+        ops.gather_rows(tbl, idx)
+
+
+def test_gather_rows_cpu_path_counts_no_launch():
+    ops.reset_launches()
+    ops.gather_rows(torch.from_numpy(_table(6, 5)), torch.tensor([1, 1, 4]))
+    empty = ops.gather_rows(torch.from_numpy(_table(6, 5)),
+                            torch.zeros((0,), dtype=torch.int64))
+    assert empty.shape == (0, 5)
+    assert ops.LAUNCHES == {"segment_neighbor_avg": 0, "gather_rows": 0}
+
+
+def test_gather_rows_ctypes_binding_declares_64_bit_arguments(monkeypatch):
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gather_rows as gr
+
+    fake = types.SimpleNamespace(gather_rows_f32=types.SimpleNamespace(
+        argtypes=None, restype=ctypes.c_int))
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    fn = gr._library().gather_rows_f32
+    assert fn.argtypes == [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+        ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+
+
+def test_every_kernel_source_is_built_by_name():
+    """Each csrc/*.cu has a wrapper entry, so `_build.build` of the
+    wrappers' names builds every kernel of the port."""
+    from repro_torch.kernels import _build
+
+    sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert sources == ["gather_rows", "segment_avg"]
+    assert sorted(ops.LAUNCHES) == ["gather_rows", "segment_neighbor_avg"]
