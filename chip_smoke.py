@@ -19,9 +19,10 @@ It imports the port only (no JAX), and:
           policy="adaptive", target_trigger=0.95)` — `gather_rows` must
           launch once per round and the segment reduce at least once;
        c. the per-node transport, `CommConfig(codec="int8")`, always send;
-     a kernel of a path that was never launched fails the run; then the
-     three paths run again in turns (a, b, c, c, b, a) for their ms per
-     round;
+     on each, the VT loss's forward and backward kernels launch once per
+     local step; a kernel of a path that was never launched fails the
+     run; then the three paths run again in turns (a, b, c, c, b, a) for
+     their ms per round;
   4. checks what comes out: per-node accuracies of shape [16] in [0, 1],
      finite train losses and params, bytes on the wire equal to the
      payload formula (567,438 bytes per fired edge) and a triggered
@@ -30,17 +31,34 @@ It imports the port only (no JAX), and:
      hold against the JAX reference), without and with the per-edge
      transport (params to 1e-4, accuracy to one test sample, bytes
      exactly);
-  5. holds each kernel against its plain PyTorch version on the card at
-     the main path's shapes and at a 64-node BA m=2 shape (both kernels
-     bitwise, `torch.equal`), and times kernel, plain version and one
-     PyTorch library call with CUDA events (median of 20) beside the HBM
-     bound;
-  6. prints one JSON line listing the kernels, then the card's name and
+  5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
+     its one-pod form with the fused int8 gossip
+     (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
+     at full width (463,987,712 bf16 params per node), a 4-node ring,
+     `sgd_momentum(lr=3e-3, momentum=0.9)`, the VT loss (β = 0.98), batch
+     4 and seq 128 from `synthetic_token_batch`: one warm round, then 3
+     measured rounds with the counts set to 0 just before and read just
+     after — `dequant_neighbor_avg_rows` must launch once per round and the
+     VT loss's forward and backward once per node-step; it prints ms per
+     round, the peak device memory and the (finite) losses; then a reduced
+     fp32 round (2 layers, d_model 64, vocab 256, 4 nodes, 2 rounds) on the
+     card agrees with the CPU (params to 1e-4, loss to 1e-5);
+  6. holds each kernel against its plain PyTorch version on the card at
+     the main paths' shapes (and more), and times kernel, plain version and
+     one PyTorch library call with CUDA events (median of 20) beside the
+     bound: the segment reduce and the gather bitwise at paths a and b's
+     shapes and at a 64-node BA m=2 shape; `dequant_neighbor_avg_rows`
+     bitwise on path d's real int8 payload [4, 463987712] and at an odd D
+     with 8 receivers and one zero row; the VT loss forward and backward
+     within a stated tolerance on path d's real logits [512, 151936] (bf16
+     and fp32) and at the MLP's [512, 10] and [32, 10];
+  7. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
 With `--profile` it also traces one more round (eval included) of paths
-a and b under `torch.profiler` and prints the device time by kernel and
-the device's busy share of the round's wall time.
+a and b, and one round of path d, under `torch.profiler` and prints the
+device time by kernel and the device's busy share of the round's wall
+time.
 
 Any failure exits non-zero before the last line is printed.  Without a
 CUDA card, or without the port beside this script, it exits 2.
@@ -62,6 +80,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 ROUNDS = 3
 REPS = 20
+LM_ARCH = "qwen1.5-0.5b"
+LM_PARAMS = 463_987_712     # per node, bf16
+LM_NODES, LM_BATCH, LM_SEQ, LM_BETA = 4, 4, 128, 0.98
 
 
 class SmokeFailure(Exception):
@@ -257,12 +278,13 @@ def drive(torch, ops, exp, label):
             exp.trig_history[ntrig:])
 
 
-def profile_round(torch, exp, label):
-    """One fused round, eval included, under torch.profiler: device time
-    by kernel name and the device's busy share of the wall time."""
+def profile_round(torch, run, label):
+    """One call of `run` (one round) under torch.profiler: device time by
+    kernel name and the device's busy share of the wall time.  Returns
+    ({kernel name: (count, device us)}, the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    exp.run(rounds=1, eval_every=1)
+    run()
     torch.cuda.synchronize()
     # the first trace of a process also pays the profiler's start-up: trace
     # twice and keep the second
@@ -270,11 +292,15 @@ def profile_round(torch, exp, label):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            exp.run(rounds=1, eval_every=1)
+            run()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the round's record_function ranges appear on the device timeline as
+    # spans, not kernels: kept apart
+    ranges = [e for e in on_dev if e.name.startswith("dfl_round.")]
+    dev = [e for e in on_dev if not e.name.startswith("dfl_round.")]
     check(dev, "the profiler saw no device activity")
     by_name = {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -287,14 +313,339 @@ def profile_round(torch, exp, label):
             busy += b - max(a, end)
             end = b
     total = sum(t for _, t in by_name.values())
-    print(f"profile of one {label} round (eval included): wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall_us:.1f}% of wall), {len(dev)} device "
-          f"events over {len(by_name)} kernels")
+    print(f"profile of one {label} round: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of "
+          f"wall), {len(dev)} device events over {len(by_name)} kernels")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
             :15]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / total:5.1f}%  x{n:<5d} "
               f"{name[:110]}")
+    for r in ranges:
+        lo, hi = r.time_range.start, r.time_range.end
+        inside = sum(e.time_range.elapsed_us() for e in dev
+                     if lo <= e.time_range.start < hi)
+        host = sum(e.cpu_time_total for e in prof.events()
+                   if e.name == r.name
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+        print(f"  range {r.name}: host {host / 1e3:.3f} ms, device span "
+              f"{(hi - lo) / 1e3:.3f} ms, kernels in it {inside / 1e3:.3f} ms")
+    return by_name, prof
+
+
+# kernel-name families of path d's profile, matched in this order
+LM_FAMILIES = (
+    ("vt_kl_loss kernels", ("vt_fwd_kernel", "vt_bwd_kernel")),
+    ("dequant_avg_rows kernel", ("dequant_avg_rows_kernel",)),
+    ("GEMM (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_",
+                               "cublas", "nvjet")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "fill", "cat",
+                                "index")),
+)
+
+
+def print_families(by_name, label):
+    sums = {}
+    for name, (_, t) in by_name.items():
+        low = name.lower()
+        fam = next((f for f, keys in LM_FAMILIES
+                    if any(k.lower() in low for k in keys)), "other")
+        sums[fam] = sums.get(fam, 0.0) + t
+    total = sum(sums.values())
+    print(f"{label} device time by family: " + ", ".join(
+        f"{f} {t / 1e3:.3f} ms ({100 * t / total:.1f}%)"
+        for f, t in sorted(sums.items(), key=lambda kv: -kv[1])))
+
+
+def path_d(torch, ops, dev, profile):
+    """The LM DFL pod round at full qwen1.5-0.5b width (see the module
+    docstring).  Returns what the kernel phases need: the launches, the
+    round times, the peak memory, and the kernels' real inputs (the final
+    int8 payload with its weights, and node 0's logits and labels)."""
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import _normalized, build_dfl_round_shardmap
+    from repro_torch.launch.train import (
+        init_nodes,
+        make_batches,
+        ring_adjacency,
+    )
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import (
+        tree_flatten_stacked,
+        tree_leaves,
+        tree_map,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = build_lm(get_config(LM_ARCH))
+    params = init_nodes(lm, LM_NODES, dev)
+    d = sum(t[0].numel() for t in tree_leaves(params))
+    check(d == LM_PARAMS, f"{LM_ARCH} has {d} params per node")
+    check(all(t.dtype == torch.bfloat16 for t in tree_leaves(params)),
+          "full-width params are not bf16")
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    state = opt.init(params)
+    codec = Int8Codec(stochastic=False)
+    adj = ring_adjacency(LM_NODES)
+    rnd = build_dfl_round_shardmap(lm, opt, adj, loss_kind="vt",
+                                   beta=LM_BETA, codec=codec)
+    batches = list(make_batches(lm, LM_NODES, LM_BATCH, LM_SEQ, 1 + ROUNDS,
+                                dev))
+    torch.cuda.synchronize()
+    print(f"path d set-up in {time.perf_counter() - t0:.1f} s: {LM_ARCH} "
+          f"full width, {LM_NODES} nodes x {d} bf16 params, "
+          f"{len(tree_leaves(params))} leaves per node, batch {LM_BATCH} x "
+          f"seq {LM_SEQ} per node")
+    t0 = time.perf_counter()
+    params, state, loss = rnd(params, state, 0, batches[0])  # warm round
+    warm = float(loss)
+    torch.cuda.synchronize()
+    print(f"path d warm round: {1e3 * (time.perf_counter() - t0):.1f} ms, "
+          f"loss {warm:.5f}")
+    ops.reset_launches()
+    alloc0 = torch.cuda.memory_stats()
+    ms, losses = [], []
+    for r in range(1, ROUNDS + 1):
+        t0 = time.perf_counter()
+        params, state, loss = rnd(params, state, r, batches[r])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    alloc1 = torch.cuda.memory_stats()
+    print("path d caching allocator over the measured rounds: " + ", ".join(
+        f"{k} +{alloc1.get(k, 0) - alloc0.get(k, 0)}"
+        for k in ("num_device_alloc", "num_device_free", "num_alloc_retries",
+                  "num_sync_all_streams")))
+    print(f"path d (LM DFL pod round, fused int8): {ROUNDS} rounds, ms per "
+          f"round {', '.join(f'{x:.2f}' for x in ms)} (median "
+          f"{statistics.median(ms):.2f}); losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B); kernel launches {launches}")
+    check(all(math.isfinite(x) for x in [warm] + losses),
+          f"path d losses {losses}")
+    check(launches["dequant_neighbor_avg_rows"] == ROUNDS,
+          f"dequant_neighbor_avg_rows launched "
+          f"{launches['dequant_neighbor_avg_rows']} times in {ROUNDS} rounds")
+    check(launches["vt_kl_loss_fwd"] == launches["vt_kl_loss_bwd"]
+          == LM_NODES * ROUNDS,
+          f"vt_kl_loss launches {launches} in {LM_NODES * ROUNDS} "
+          f"node-steps")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+          "path d: non-finite params")
+    if profile:
+        box = [params, state]
+
+        def one_round():
+            box[0], box[1], _ = rnd(box[0], box[1], ROUNDS, batches[-1])
+
+        by_name, prof = profile_round(torch, one_round, "path d (LM pod)")
+        print_families(by_name, "path d")
+        averages = prof.key_averages()
+        print("  host time by op (self, top 12; the backward runs on "
+              "autograd's device thread while the range's own thread "
+              "waits):")
+        for e in sorted(averages, key=lambda e: -e.self_cpu_time_total)[:12]:
+            print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+                  f"{e.key[:100]}")
+        params, state = box
+    # the kernels' real inputs at this path's shapes
+    node0 = tree_map(lambda t: t[0], params)
+    with torch.no_grad():
+        logits, _ = lm.forward(node0, {k: v[0] for k, v in
+                                       batches[-1].items()})
+    w, _ = tree_flatten_stacked(params)
+    payload, _ = codec.encode(w)
+    del w
+    wn, _ = _normalized(torch.from_numpy(adj).to(dev), None)
+    return dict(launches=launches, ms=ms, losses=losses, peak=peak,
+                q=payload["q"], scale=payload["scale"], wn=wn.contiguous(),
+                logits=logits.reshape(-1, logits.shape[-1]).contiguous(),
+                labels=batches[-1]["labels"][0].reshape(-1).contiguous())
+
+
+def small_lm_agrees(torch, dev):
+    """Two fused int8 one-pod rounds of qwen1.5-0.5b reduced to 2 layers,
+    d_model 64, vocab 256 (fp32), 4-node ring, on the card and on the CPU
+    (the plain versions, which the CPU tests hold against the JAX
+    reference): params within 1e-4, loss within 1e-5."""
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_dfl_round_shardmap
+    from repro_torch.launch.train import (
+        init_nodes,
+        make_batches,
+        ring_adjacency,
+    )
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    lm = build_lm(get_config(LM_ARCH).reduced(n_layers=2, d_model=64,
+                                              vocab=256))
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    rnd = build_dfl_round_shardmap(lm, opt, ring_adjacency(LM_NODES),
+                                   loss_kind="vt", beta=LM_BETA,
+                                   codec=Int8Codec(stochastic=False))
+    p0 = init_nodes(lm, LM_NODES, "cpu")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(where, copy=True), p0)
+        state = opt.init(params)
+        losses = []
+        for r, b in enumerate(make_batches(lm, LM_NODES, 2, 16, 2, where)):
+            params, state, loss = rnd(params, state, r, b)
+            losses.append(float(loss))
+        runs.append(([t.cpu() for t in tree_leaves(params)], losses))
+    (pc, lc), (ph, lh) = runs
+    perr = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    lerr = max(abs(a - b) for a, b in zip(lc, lh))
+    print(f"small LM round (qwen1.5-0.5b reduced: 2 layers, d_model 64, "
+          f"vocab 256, fp32; 4 nodes, 2 fused int8 rounds) card vs cpu: max "
+          f"|param diff| {perr:.3g}, max |loss diff| {lerr:.3g} (losses card "
+          f"{lc}, cpu {lh})")
+    check(perr <= 1e-4, f"small LM round: card and cpu params differ by "
+                        f"{perr}")
+    check(lerr <= 1e-5, f"small LM round: card and cpu losses differ by "
+                        f"{lerr}")
+
+
+def dequant_vs_plain(torch, ops, q, scale, wn, label):
+    """Hold `dequant_neighbor_avg_rows` against its plain version (bitwise)
+    and time the kernel, the plain version and `ws @ q.float()`."""
+    from repro_torch.kernels import dequant_avg as dq
+
+    n, d = q.shape
+    r = wn.shape[0]
+    out = ops.dequant_neighbor_avg_rows(q, scale, wn)
+    torch.cuda.synchronize()
+    ws = (wn * scale[None, :]).contiguous()
+    ref = dq.dequant_avg_rows_plain(q, ws)
+    equal = bool(torch.equal(out, ref))
+    err = float((out - ref).abs().max())
+    zero_rows = int((wn.abs().sum(1) == 0).sum())
+    zeros_ok = bool((out[wn.abs().sum(1) == 0] == 0).all())
+    del out, ref
+    ms = median_ms(torch, lambda: dq.dequant_avg_rows_cuda(q, ws))
+    plain_ms = median_ms(torch, lambda: dq.dequant_avg_rows_plain(q, ws))
+    lib_ms = median_ms(torch, lambda: ws @ q.float())
+    nbytes = n * d + 4 * (r * n + r * d)
+    flops = 2 * r * n * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"dequant_neighbor_avg_rows {label} [N={n}, R={r}, D={d}, "
+          f"{zero_rows} zero weight rows]: torch.equal(kernel, plain)="
+          f"{equal} max_abs_err={err:g} kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, ws @ q.float() {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), kernel at "
+          f"{100 * bound_ms / ms:.1f}% of bound")
+    check(equal, f"dequant_neighbor_avg_rows {label}: kernel != plain "
+                 f"(max_abs_err {err:g})")
+    check(zeros_ok, f"dequant_neighbor_avg_rows {label}: a zero weight row "
+                    f"did not average to zero")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=[n, r, d])
+
+
+def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
+    """Hold the VT loss kernels against their plain versions and time
+    kernel, plain version and `F.cross_entropy` with label smoothing
+    ε = V(1-β)/(V-1), which puts β on the label and (1-β)/(V-1) elsewhere
+    (the same teacher), forward and backward.  Tolerance (the kernels sum
+    in another order): per-row KL within 1e-5·|KL| + 1e-5·log V; each
+    gradient entry within 1e-5·|ref| (fp32) or one bf16 rounding,
+    2^-7·|ref| (bf16), plus min(1e-5·(p + p_t), 1e-6)·|g|: the fp32
+    rounding of the two terms whose difference it is, at most 1e-6·|g|.
+    The gradient's tolerance is checked to reject the plain backward with
+    the teacher's tail a = (1-β)/(V-1) dropped from the wrong classes."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.virtual_teacher import teacher_entropy
+    from repro_torch.kernels import vt_kl_loss as vt
+
+    b, v = z.shape
+    h = float(teacher_entropy(beta, v))
+    g = torch.full((b,), 1.0 / b, dtype=torch.float32, device=z.device)
+    zr = z.detach().clone().requires_grad_(True)
+    kl = ops.vt_kl_loss(zr, y, beta, -h)
+    (dz,) = torch.autograd.grad(kl, zr, g)
+    torch.cuda.synchronize()
+    pk, pm, ps = vt.vt_forward_plain(z, y, beta, -h)
+    pdz = vt.vt_backward_plain(z, y, pm, ps, g, beta)
+    kl = kl.detach()
+    fwd_err = float((kl - pk).abs().max())
+    fwd_ok = bool(((kl - pk).abs() <= 1e-5 * pk.abs()
+                   + 1e-5 * math.log(v)).all())
+    rtol = 2.0 ** -7 if z.dtype == torch.bfloat16 else 1e-5
+    a = vt.teacher_tail(beta, v)
+    rows = torch.arange(b, device=z.device)
+    terms = torch.exp(z.float() - pm[:, None]) / ps[:, None] + a  # p + p_t
+    terms[rows, y] += beta - a
+    tol = rtol * pdz.float().abs() + torch.clamp(
+        1e-5 * terms, max=1e-6) * g.abs()[:, None]
+    del terms
+    diff = (dz.float() - pdz.float()).abs()
+    bwd_err = float(diff.max())
+    bwd_ok = bool((diff <= tol).all())
+    no_tail = pdz.float() + a * g[:, None]  # a backward that leaves p_t
+    no_tail[rows, y] -= a * g               # out of the wrong classes
+    tail_caught = not bool(((no_tail.to(z.dtype).float() - pdz.float()).abs()
+                            <= tol).all())
+    del tol, no_tail
+    eps = v * (1.0 - beta) / (v - 1)
+    ce_minus_h = float(F.cross_entropy(z, y, label_smoothing=eps)) - h
+    del dz, pdz, diff
+    km, ks = vt.vt_forward_cuda(z, y, beta, -h)[1:]
+    fwd_ms = median_ms(torch, lambda: vt.vt_forward_cuda(z, y, beta, -h))
+    bwd_ms = median_ms(torch, lambda: vt.vt_backward_cuda(z, y, km, ks, g,
+                                                          beta))
+    fwd_plain = median_ms(torch, lambda: vt.vt_forward_plain(z, y, beta, -h))
+    bwd_plain = median_ms(torch, lambda: vt.vt_backward_plain(z, y, pm, ps,
+                                                              g, beta))
+    fwd_lib = median_ms(torch, lambda: F.cross_entropy(
+        z, y, label_smoothing=eps))
+    zl = z.detach().clone().requires_grad_(True)
+    lib_loss = F.cross_entropy(zl, y, label_smoothing=eps)
+    bwd_lib = median_ms(torch, lambda: torch.autograd.grad(
+        lib_loss, zl, retain_graph=True))
+    del zl, lib_loss
+    elt = z.element_size()
+    small = 8 * b + 12 * b  # labels in, three fp32 row stats out / in
+    out = {}
+    for kind, nbytes, ops_per, ms, plain_ms, lib_ms, err in [
+            ("fwd", b * v * elt + small, 4, fwd_ms, fwd_plain, fwd_lib,
+             fwd_err),
+            ("bwd", 2 * b * v * elt + small + 4 * b, 5, bwd_ms, bwd_plain,
+             bwd_lib, bwd_err)]:
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops_per * b * v / FP32_FLOPS
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations",
+                         max_abs_err=err, shape=[b, v], dtype=str(z.dtype))
+        print(f"vt_kl_loss_{kind} {label} [B={b}, V={v}, {z.dtype}]: "
+              f"max_abs_err={err:g} kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, F.cross_entropy(label_smoothing) "
+              f"{'backward ' if kind == 'bwd' else ''}{lib_ms:.4f} ms, bound "
+              f"{out[kind]['bound_ms']:.4f} ms ({out[kind]['bound_by']}), "
+              f"kernel at {100 * out[kind]['bound_ms'] / ms:.1f}% of bound")
+    print(f"  mean KL {float(kl.mean()):.6f}, plain {float(pk.mean()):.6f}, "
+          f"cross_entropy(label_smoothing) - H(p_t) {ce_minus_h:.6f}")
+    check(fwd_ok, f"vt_kl_loss_fwd {label}: kernel and plain differ by "
+                  f"{fwd_err:g}")
+    check(bwd_ok, f"vt_kl_loss_bwd {label}: kernel and plain differ by "
+                  f"{bwd_err:g}")
+    check(tail_caught, f"vt_kl_loss_bwd {label}: the tolerance passes a "
+                       f"backward without the teacher's tail")
+    return out
 
 
 def main() -> int:
@@ -333,8 +684,8 @@ def main() -> int:
     # -- build every kernel of the port, all nvcc processes at once ------
     t0 = time.perf_counter()
     libs = _build.build(sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")))
-    check(sorted(libs) == ["gather_rows", "segment_avg"],
-          f"kernel sources {sorted(libs)}")
+    check(sorted(libs) == ["dequant_avg_rows", "gather_rows", "segment_avg",
+                           "vt_kl_loss"], f"kernel sources {sorted(libs)}")
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_DIR})")
 
@@ -361,6 +712,9 @@ def main() -> int:
     _, l_plain, ms_plain, _, _ = drive(torch, ops, exp, "path a (no transport)")
     check(l_plain["segment_neighbor_avg"] >= ROUNDS,
           f"segment_neighbor_avg launched {l_plain} in {ROUNDS} rounds")
+    vt_per_path = ROUNDS * exp.train.steps_per_round  # one per local step
+    check(l_plain["vt_kl_loss_fwd"] == l_plain["vt_kl_loss_bwd"]
+          == vt_per_path, f"path a: vt_kl_loss launches {l_plain}")
 
     # -- path b: the per-edge transport ------------------------------------
     exp_e = Experiment(world, "decdiff+vt", schedule=sched,
@@ -375,6 +729,8 @@ def main() -> int:
           f"rounds")
     check(l_edge["segment_neighbor_avg"] >= ROUNDS,
           f"segment_neighbor_avg launched {l_edge} in {ROUNDS} rounds")
+    check(l_edge["vt_kl_loss_fwd"] == l_edge["vt_kl_loss_bwd"]
+          == vt_per_path, f"path b: vt_kl_loss launches {l_edge}")
     sent_e = [t * n_dir for t in trig_e]
     check(len(sent_e) == ROUNDS and all(abs(x - round(x)) < 1e-3
                                         for x in sent_e),
@@ -393,7 +749,9 @@ def main() -> int:
     hist_n, l_node, ms_node, bytes_n, trig_n = drive(
         torch, ops, exp_n, "path c (per-node int8, always send)")
     check(l_node["segment_neighbor_avg"] >= ROUNDS and
-          l_node["gather_rows"] == 0, f"per-node launches {l_node}")
+          l_node["gather_rows"] == 0 and
+          l_node["vt_kl_loss_fwd"] == l_node["vt_kl_loss_bwd"]
+          == vt_per_path, f"per-node launches {l_node}")
     # threshold 0: every gate fires, Σ_i gate_i·outdeg_i = directed edges
     check(trig_n == [1.0] * ROUNDS and bytes_n == payload * n_dir * ROUNDS,
           f"per-node bytes {bytes_n} != {payload} x {n_dir} x {ROUNDS} "
@@ -445,37 +803,78 @@ def main() -> int:
     gather_vs_plain(torch, ops, gather_rows_plain, tbl64, tr64.flat_idx,
                     "64-node BA m=2, random rows")
     del tbl64
-    if "--profile" in sys.argv[1:]:
-        profile_round(torch, exp, "no-transport")
-        profile_round(torch, exp_e, "per-edge transport")
+    profile = "--profile" in sys.argv[1:]
+    if profile:
+        profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
+                      "no-transport (eval included)")
+        profile_round(torch, lambda: exp_e.run(rounds=1, eval_every=1),
+                      "per-edge transport (eval included)")
+    exp_beta = exp.train.beta
+    del exp, exp_e, exp_n, world, table0
 
-    by_path = {"a": l_plain, "b": l_edge, "c": l_node}
+    # -- path d: the LM DFL pod round at full width ------------------------
+    lmd = path_d(torch, ops, dev, profile)
+    small_lm_agrees(torch, dev)
+    dq = dequant_vs_plain(torch, ops, lmd["q"], lmd["scale"], lmd["wn"],
+                          "path d (real int8 payload of the 4 nodes)")
+    del lmd["q"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q8 = torch.randint(-127, 128, (8, 1_000_003), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wn8 = torch.rand((8, 8), generator=gen, device=dev)
+    wn8.fill_diagonal_(0.0)
+    wn8[3] = 0.0
+    wn8 = (wn8 / torch.clamp(wn8.sum(1, keepdim=True), min=1e-30)
+           ).contiguous()
+    dequant_vs_plain(torch, ops, q8, torch.rand(8, generator=gen,
+                                                device=dev) * 0.05, wn8,
+                     "odd D, 8 receivers, one zero row")
+    vt_main = vt_vs_plain(torch, ops, lmd["logits"], lmd["labels"],
+                          "path d (node 0's real logits)")
+    vt_vs_plain(torch, ops, lmd["logits"].float(), lmd["labels"],
+                "path d logits in fp32")
+    for b in (16 * 32, 32):  # the MLP's [N·B, 10] and one node's batch
+        z = torch.randn((b, 10), generator=gen, device=dev) * 3
+        y = torch.randint(0, 10, (b,), generator=gen, device=dev)
+        y[0], y[-1] = 0, 9
+        vt_vs_plain(torch, ops, z, y, f"MLP classes [{b}, 10]",
+                    beta=exp_beta)
+
+    by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"]}
+
     def launches(name):
         return sum(p[name] for p in by_path.values())
 
+    def entry(name, route_name, replaces, m, **extra):
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{route_name}.cu",
+                    replaces=replaces, launches=launches(name),
+                    launches_by_path={k: p[name]
+                                      for k, p in by_path.items()},
+                    max_abs_err=m["max_abs_err"], ms=m["ms"],
+                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                    bound_by=m["bound_by"], library_ms=m["library_ms"],
+                    shape=m["shape"], **extra)
+
     kernels = [
-        dict(name="segment_neighbor_avg", route="cuda",
-             source="src/repro_torch/csrc/segment_avg.cu",
-             replaces="src/repro/kernels/segment_avg.py:62",
-             launches=launches("segment_neighbor_avg"),
-             launches_by_path={k: p["segment_neighbor_avg"]
-                               for k, p in by_path.items()},
-             max_abs_err=seg["max_abs_err"], ms=seg["ms"],
-             plain_ms=seg["plain_ms"], bound_ms=seg["bound_ms"],
-             bound_by=seg["bound_by"], library_ms=seg["library_ms"],
-             shape=seg["shape"]),
-        dict(name="gather_rows", route="cuda",
-             source="src/repro_torch/csrc/gather_rows.cu",
-             replaces="src/repro/kernels/gather_rows.py:39",
-             launches=launches("gather_rows"),
-             launches_by_path={k: p["gather_rows"]
-                               for k, p in by_path.items()},
-             max_abs_err=gat["max_abs_err"], ms=gat["ms"],
-             plain_ms=gat["plain_ms"], bound_ms=gat["bound_ms"],
-             bound_by=gat["bound_by"], library_ms=gat["library_ms"],
-             every_slot_bound_ms=gat["every_slot_bound_ms"],
-             shape=gat["shape"]),
+        entry("segment_neighbor_avg", "segment_avg",
+              "src/repro/kernels/segment_avg.py:62", seg),
+        entry("gather_rows", "gather_rows",
+              "src/repro/kernels/gather_rows.py:39", gat,
+              every_slot_bound_ms=gat["every_slot_bound_ms"]),
+        entry("dequant_neighbor_avg_rows", "dequant_avg_rows",
+              "src/repro/kernels/dequant_avg.py:79", dq),
+        entry("vt_kl_loss_fwd", "vt_kl_loss",
+              "src/repro/kernels/vt_kl_loss.py:94", vt_main["fwd"],
+              also_replaces="src/repro/kernels/vt_kl_loss.py:108",
+              dtype=vt_main["fwd"]["dtype"]),
+        entry("vt_kl_loss_bwd", "vt_kl_loss",
+              "src/repro/kernels/vt_kl_loss.py:127", vt_main["bwd"],
+              dtype=vt_main["bwd"]["dtype"]),
     ]
+    print(f"path d: ms per round {lmd['ms']}, peak device memory "
+          f"{lmd['peak']} B, losses {lmd['losses']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,7 +7,12 @@ this module imports neither `jax` nor `repro`:
     `jax.tree.map(np.asarray, exp.params)` gives (leaves [N, ...]) and
     returns the port's stacked params; `params_to_numpy` is its inverse.
     Leaf order and layouts are the same in both packages (sorted keys,
-    `Linear` weights [in, out]), so a round trip is lossless.
+    `Linear` weights [in, out], an LM's layers stacked [L, ...] under
+    "layers"), so a round trip is lossless.  numpy has no bfloat16: a bf16
+    tree (LM params) crosses as float32 arrays, which hold every bf16 value
+    exactly, plus a like-structured tree of dtype names (`dtype_names`)
+    that `params_from_numpy(..., dtypes=...)` casts back.  Optimizer state
+    ({"momentum": tree}) crosses the same way.
   * `world_from_arrays(...)` builds a port World from a topology's
     adjacency and weights and the per-node data arrays.  Graph samplers
     differ between hosts (the networkx branch and the fallback draw
@@ -23,19 +28,34 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.lm.config import torch_dtype
 from repro_torch.utils.pytree import tree_map
 
 
-def params_from_numpy(tree, device: DeviceLike = None):
-    """Nested dict of numpy arrays [N, ...] -> nested dict of tensors."""
+def params_from_numpy(tree, device: DeviceLike = None, dtypes=None):
+    """Nested dict of numpy arrays [N, ...] -> nested dict of tensors;
+    `dtypes`, a like-structured tree of dtype names ("bfloat16", ...),
+    casts each leaf."""
     dev = resolve_device(device)
-    return tree_map(
+    out = tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+    if dtypes is None:
+        return out
+    return tree_map(lambda t, name: t.to(torch_dtype(name)), out, dtypes)
 
 
 def params_to_numpy(params):
-    """Inverse of `params_from_numpy`: tensors -> numpy arrays."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """Inverse of `params_from_numpy`: tensors -> numpy arrays, bf16 leaves
+    widened to float32 (exactly; `dtype_names` keeps the names)."""
+    return tree_map(
+        lambda t: t.detach().cpu().to(
+            torch.float32 if t.dtype == torch.bfloat16 else t.dtype).numpy(),
+        params)
+
+
+def dtype_names(tree):
+    """Like-structured tree of each leaf's dtype name ("float32", ...)."""
+    return tree_map(lambda t: str(t.dtype).replace("torch.", ""), tree)
 
 
 def world_from_arrays(*, model, adjacency: np.ndarray,

@@ -9,8 +9,10 @@ class c and a = (1-beta)/(V-1):
     KL(p_t || p) = -H(p_t) - [ beta * z_c + a * (Σ_y z_y - z_c) - lse(z) ]
 
 so three reductions over the class axis suffice (z_c, Σz, lse) and the
-teacher distribution is never materialized.  Autograd gives the gradient
-softmax(z) - p_t.
+teacher distribution is never materialized.  `vt_kl_loss` computes it per
+row through `repro_torch.kernels.ops.vt_kl_loss`: the fused kernel on the
+card (forward and backward, the gradient being softmax(z) - p_t), its
+plain PyTorch version on the CPU.
 
 Node batching: logits are [..., B, V] and labels [..., B]; the losses
 average over the batch axis B only, so [N, B, V] logits give one loss per
@@ -18,7 +20,11 @@ node ([N]) and [B, V] logits one scalar, as in the JAX package.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.kernels import ops
 
 DEFAULT_BETA = 0.95
 
@@ -42,17 +48,26 @@ def _true_class(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor,
-               beta: float = DEFAULT_BETA) -> torch.Tensor:
-    """Mean KL(p_t || softmax(logits)) over the batch axis — Eq. (8)."""
-    z = logits.to(torch.float32)
-    v = z.shape[-1]
-    a = (1.0 - beta) / (v - 1)
-    lse = torch.logsumexp(z, dim=-1)
-    z_sum = torch.sum(z, dim=-1)
-    z_c = _true_class(z, labels)
-    cross = beta * z_c + a * (z_sum - z_c) - lse  # Σ p_t log p
+               beta: float = DEFAULT_BETA,
+               where: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean KL(p_t || softmax(logits)) over the batch axis — Eq. (8).
+
+    logits [..., B, V] fp32 or bf16 (the fused kernel reads either and
+    computes in fp32), labels broadcastable to [..., B].  `where`, a bool
+    mask broadcastable to [..., B] (e.g. padding tokens), zeroes the masked
+    positions and excludes them from the mean, as the reference's does."""
+    v = logits.shape[-1]
+    lead = logits.shape[:-1]
+    idx = labels.to(torch.int64).expand(lead).reshape(-1)
     h = float(teacher_entropy(beta, v))  # an exact fp32 value, host-side
-    return torch.mean(-h - cross, dim=-1)
+    kl = ops.vt_kl_loss(logits.reshape(-1, v).contiguous(), idx, beta,
+                        -h).reshape(lead)
+    if where is None:
+        return torch.mean(kl, dim=-1)
+    mask = where.to(torch.bool).expand(lead)
+    kl = torch.where(mask, kl, torch.zeros_like(kl))
+    denom = torch.clamp(torch.sum(mask, dim=-1), min=1)
+    return torch.sum(kl, dim=-1) / denom
 
 
 def cross_entropy_loss(logits: torch.Tensor,

@@ -1,0 +1,121 @@
+"""Fused virtual-teacher KL loss over the class axis: the CUDA kernels'
+launchers and their plain PyTorch versions.
+
+Per row b of logits z [B, V] with label c_b and a = (1-β)/(V-1):
+
+    forward   KL_b = -H(p_t) - (β z_c + a (Σ_v z_v - z_c) - lse(z_b)),
+              with the row's max and Σ exp(z - max) kept for the backward
+    backward  dz_bv = (exp(z_bv - max_b) / Σexp_b - p_t(v)) · g_b,
+              p_t(c_b) = β and a elsewhere, in the logits' dtype
+
+The kernels are `csrc/vt_kl_loss.cu` (they replace the Pallas TPU kernels
+`row_max`, `row_stats` and `vt_backward` of `repro.kernels.vt_kl_loss`).
+The plain versions compute the same formulas with PyTorch reductions,
+which sum in another order than the kernels, so on the card the two agree
+to fp32 rounding.  Use `repro_torch.kernels.ops.vt_kl_loss`, which
+validates the inputs, picks between the two by the tensors' device and
+ties them together as one autograd function.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def teacher_tail(beta: float, vocab: int) -> float:
+    """a = (1 - β) / (V - 1), the teacher's mass on each wrong class."""
+    return (1.0 - beta) / (vocab - 1)
+
+
+def vt_forward_plain(z: torch.Tensor, labels: torch.Tensor, beta: float,
+                     neg_h: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """z [B, V] fp32/bf16, labels [B] int64, neg_h = -H(p_t) ->
+    (kl [B], max [B], Σexp(z - max) [B]), all fp32."""
+    z32 = z.to(torch.float32)
+    a = teacher_tail(beta, z.shape[-1])
+    mx = torch.amax(z32, dim=-1)
+    sumexp = torch.sum(torch.exp(z32 - mx[:, None]), dim=-1)
+    zsum = torch.sum(z32, dim=-1)
+    zc = torch.gather(z32, -1, labels[:, None])[:, 0]
+    lse = torch.log(sumexp) + mx
+    cross = beta * zc + a * (zsum - zc) - lse
+    return neg_h - cross, mx, sumexp
+
+
+def vt_backward_plain(z: torch.Tensor, labels: torch.Tensor,
+                      mx: torch.Tensor, sumexp: torch.Tensor,
+                      g: torch.Tensor, beta: float) -> torch.Tensor:
+    """(softmax(z) - p_t) · g per row, from the forward's row stats, in
+    z's dtype."""
+    a = teacher_tail(beta, z.shape[-1])
+    p = torch.exp(z.to(torch.float32) - mx[:, None]) / sumexp[:, None]
+    col = torch.arange(z.shape[-1], device=z.device)
+    pt = torch.where(col[None, :] == labels[:, None], beta, a)
+    return ((p - pt) * g[:, None]).to(z.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("vt_kl_loss")
+    # without argtypes ctypes would pass each Python int as a 32-bit int
+    # and cut the pointers
+    lib.vt_kl_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 \
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    lib.vt_kl_fwd.restype = ctypes.c_int
+    lib.vt_kl_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    lib.vt_kl_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def vt_forward_cuda(z: torch.Tensor, labels: torch.Tensor, beta: float,
+                    neg_h: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on the current stream.  The caller
+    validated the inputs: contiguous CUDA tensors on one device, z fp32 or
+    bf16 [B, V] with V >= 2, labels int64 [B]."""
+    b, v = z.shape
+    kl, mx, sumexp = (torch.empty((b,), dtype=torch.float32, device=z.device)
+                      for _ in range(3))
+    lib = _library()
+    with torch.cuda.device(z.device):
+        err = lib.vt_kl_fwd(z.data_ptr(), _DTYPE_CODE[z.dtype],
+                            labels.data_ptr(), kl.data_ptr(), mx.data_ptr(),
+                            sumexp.data_ptr(), b, v, beta,
+                            teacher_tail(beta, v), neg_h, _stream(z.device))
+    if err != 0:
+        raise RuntimeError(f"vt_kl_fwd launch failed: cudaError {err} "
+                           f"(B={b}, V={v}, {z.dtype})")
+    return kl, mx, sumexp
+
+
+def vt_backward_cuda(z: torch.Tensor, labels: torch.Tensor,
+                     mx: torch.Tensor, sumexp: torch.Tensor, g: torch.Tensor,
+                     beta: float) -> torch.Tensor:
+    """Launch the backward kernel on the current stream (inputs as the
+    forward's, plus contiguous fp32 row stats and row gradients g [B])."""
+    b, v = z.shape
+    dz = torch.empty_like(z)
+    lib = _library()
+    with torch.cuda.device(z.device):
+        err = lib.vt_kl_bwd(z.data_ptr(), _DTYPE_CODE[z.dtype],
+                            labels.data_ptr(), mx.data_ptr(),
+                            sumexp.data_ptr(), g.data_ptr(), dz.data_ptr(), b,
+                            v, beta, teacher_tail(beta, v),
+                            _stream(z.device))
+    if err != 0:
+        raise RuntimeError(f"vt_kl_bwd launch failed: cudaError {err} "
+                           f"(B={b}, V={v}, {z.dtype})")
+    return dz

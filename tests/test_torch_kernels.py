@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-pytest.importorskip("jax")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
 
 from repro.kernels.ops import segment_neighbor_avg as jax_segment_avg
 from repro_torch.kernels import ops
@@ -219,7 +220,8 @@ def test_gather_rows_cpu_path_counts_no_launch():
     empty = ops.gather_rows(torch.from_numpy(_table(6, 5)),
                             torch.zeros((0,), dtype=torch.int64))
     assert empty.shape == (0, 5)
-    assert ops.LAUNCHES == {"segment_neighbor_avg": 0, "gather_rows": 0}
+    assert set(ops.LAUNCHES) >= {"segment_neighbor_avg", "gather_rows"}
+    assert not any(ops.LAUNCHES.values())
 
 
 def test_gather_rows_ctypes_binding_declares_64_bit_arguments(monkeypatch):
@@ -244,5 +246,229 @@ def test_every_kernel_source_is_built_by_name():
     from repro_torch.kernels import _build
 
     sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["gather_rows", "segment_avg"]
-    assert sorted(ops.LAUNCHES) == ["gather_rows", "segment_neighbor_avg"]
+    assert sources == ["dequant_avg_rows", "gather_rows", "segment_avg",
+                       "vt_kl_loss"]
+    assert sorted(ops.LAUNCHES) == [
+        "dequant_neighbor_avg_rows", "gather_rows", "segment_neighbor_avg",
+        "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
+
+
+# --------------------------------------------------- dequant avg rows
+
+def _payload(n, r, d, seed=0, zero_rows=(0,)):
+    rng = np.random.default_rng([seed, n, r, d])
+    q = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    scale = rng.uniform(1e-3, 0.05, n).astype(np.float32)
+    wn = rng.uniform(0.0, 1.0, (r, n)).astype(np.float32)
+    wn[rng.random((r, n)) < 0.3] = 0.0
+    for i in zero_rows:
+        wn[i] = 0.0  # a receiver that heard from nobody
+    wn /= np.maximum(wn.sum(1, keepdims=True), 1e-30)
+    return q, scale, wn
+
+
+@pytest.mark.parametrize("n,r,d", [(4, 4, 2051), (8, 8, 4099), (5, 3, 7),
+                                   (1, 2, 2048), (4, 4, 6144)])
+def test_dequant_avg_rows_matches_jax(n, r, d):
+    """The plain version against the Pallas kernel (interpret mode) at D
+    that is and is not a multiple of its 2048-column tile, with a zero
+    weight row.  Tolerance rtol=1e-5, atol=1e-6 against Σ_n |ws·q|: the
+    reference contracts the tile with a dot, in another order."""
+    from repro.kernels.ops import dequant_neighbor_avg_rows as jdq
+
+    q, scale, wn = _payload(n, r, d)
+    want = np.asarray(jdq(q, scale, wn, interpret=True))
+    got = ops.dequant_neighbor_avg_rows(torch.from_numpy(q),
+                                        torch.from_numpy(scale),
+                                        torch.from_numpy(wn))
+    assert got.shape == (r, d) and got.dtype == torch.float32
+    ws = wn * scale[None, :]
+    bound = np.abs(ws) @ np.abs(q.astype(np.float32))
+    assert (np.abs(got.numpy() - want) <= ATOL + RTOL * bound).all()
+    assert not got[0].any()  # the zero row averages to exactly zero
+
+
+def test_dequant_avg_rows_plain_is_the_ordered_loop():
+    """The plain version is the kernel's arithmetic: ws = wn·scale, then
+    acc + ws[:, n]·q[n] in n order from +0, one rounding per operation."""
+    from repro_torch.kernels.dequant_avg import dequant_avg_rows_plain
+
+    q, scale, wn = _payload(6, 3, 257, seed=1)
+    ws = (wn * scale[None, :]).astype(np.float32)
+    ref = np.zeros((3, 257), np.float32)
+    for j in range(6):
+        ref = (ref + (ws[:, j:j + 1] * q[j].astype(np.float32)
+                      ).astype(np.float32)).astype(np.float32)
+    got = ops.dequant_neighbor_avg_rows(torch.from_numpy(q),
+                                        torch.from_numpy(scale),
+                                        torch.from_numpy(wn))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        dequant_avg_rows_plain(torch.from_numpy(q),
+                               torch.from_numpy(ws)).numpy(), ref)
+
+
+@pytest.mark.parametrize("bad", ["q-dtype", "w-dtype", "shape", "contig",
+                                 "device"])
+def test_dequant_avg_rows_wrapper_rejects_bad_inputs(bad):
+    q, scale, wn = map(torch.from_numpy, _payload(4, 2, 9))
+    if bad == "q-dtype":
+        q = q.to(torch.int16)
+    elif bad == "w-dtype":
+        wn = wn.double()
+    elif bad == "shape":
+        wn = wn[:, :3].contiguous()
+    elif bad == "contig":
+        q = q.t().contiguous().t()
+    else:
+        q, scale, wn = q.to("meta"), scale.to("meta"), wn.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        ops.dequant_neighbor_avg_rows(q, scale, wn)
+
+
+# ------------------------------------------------------------ vt kl loss
+
+def _logits(b, v, seed=0, dtype=np.float32):
+    rng = np.random.default_rng([seed, b, v])
+    z = (rng.standard_normal((b, v)) * 3).astype(np.float32)
+    y = rng.integers(0, v, b)
+    y[0], y[-1] = 0, v - 1  # labels at the first and last lanes
+    return z, y
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b", [1, 37, 130])
+@pytest.mark.parametrize("v", [10, 1000, 4099])
+def test_vt_kl_loss_matches_jax(v, b, bf16):
+    """The plain loss and its gradient against the Pallas kernels
+    (interpret mode) and the reference's closed form, at row counts that
+    are not multiples of the 128-row tile and V that is not a multiple of
+    the 512-lane tile.  Tolerances: the loss to rtol=atol=1e-5 (fp32 sums
+    over V in another order); the fp32 gradient to atol=1e-7 (its entries
+    are (p - p_t)/B, below 1/B); a bf16 gradient to one bf16 rounding of
+    the fp32 value (rtol=2^-8) plus 1e-7."""
+    from repro.core.virtual_teacher import vt_kl_loss as jvt
+    from repro.kernels.ops import vt_kl_loss_fused as jfused
+    from repro_torch.core.virtual_teacher import teacher_entropy
+
+    z, y = _logits(b, v)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jz = jnp.asarray(z).astype(jdt)
+    beta = 0.98
+    fl, fg = jax.value_and_grad(
+        lambda zz: jfused(zz, jnp.asarray(y, jnp.int32), beta, True))(jz)
+    cl, cg = jax.value_and_grad(lambda zz: jvt(zz, y, beta=beta))(jz)
+    tz = torch.from_numpy(z).to(torch.bfloat16 if bf16 else torch.float32)
+    tz.requires_grad_(True)
+    h = float(teacher_entropy(beta, v))
+    kl = ops.vt_kl_loss(tz, torch.from_numpy(y), beta, -h)
+    assert kl.shape == (b,) and kl.dtype == torch.float32
+    loss = kl.mean()
+    (g,) = torch.autograd.grad(loss, tz)
+    assert g.dtype == tz.dtype
+    g = g.float().numpy()
+    grtol = 2.0 ** -8 if bf16 else 0.0
+    for jl_, jg_ in [(fl, fg), (cl, cg)]:
+        np.testing.assert_allclose(float(loss.detach()), float(jl_),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g, np.asarray(jg_, np.float32),
+                                   rtol=grtol, atol=1e-7)
+
+
+def test_vt_kl_loss_row_gradients_and_mask():
+    """The backward scales each row by its own incoming gradient, which is
+    what a `where=` mask and a per-node mean give it."""
+    from repro.core.virtual_teacher import vt_kl_loss as jvt
+    from repro_torch.core.virtual_teacher import vt_kl_loss
+
+    z, y = _logits(12, 33, seed=5)
+    mask = np.random.default_rng(7).random(12) < 0.6
+    jl, jg = jax.value_and_grad(
+        lambda zz: jvt(zz, y, beta=0.9, where=mask))(jnp.asarray(z))
+    tz = torch.from_numpy(z).requires_grad_(True)
+    tl = vt_kl_loss(tz, torch.from_numpy(y), beta=0.9,
+                    where=torch.from_numpy(mask))
+    (tg,) = torch.autograd.grad(tl, tz)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-7)
+    assert not tg[torch.from_numpy(~mask)].any()
+
+
+def test_vt_kl_loss_plain_backward_formula():
+    """(exp(z - max)/Σexp - p_t) · g, with p_t = β on the label and
+    (1-β)/(V-1) elsewhere."""
+    from repro_torch.kernels.vt_kl_loss import (
+        vt_backward_plain,
+        vt_forward_plain,
+    )
+
+    z, y = _logits(5, 17, seed=2)
+    tz, ty = torch.from_numpy(z), torch.from_numpy(y)
+    _, mx, se = vt_forward_plain(tz, ty, 0.95, 0.0)
+    g = torch.arange(1, 6, dtype=torch.float32)
+    got = vt_backward_plain(tz, ty, mx, se, g, 0.95).numpy()
+    p = np.exp(z - z.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    pt = np.full_like(p, 0.05 / 16)
+    pt[np.arange(5), y] = 0.95
+    np.testing.assert_allclose(got, (p - pt) * g.numpy()[:, None],
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "label-dtype", "shape", "contig",
+                                 "one-class", "device"])
+def test_vt_kl_loss_wrapper_rejects_bad_inputs(bad):
+    z, y = map(torch.from_numpy, _logits(4, 9))
+    if bad == "dtype":
+        z = z.double()
+    elif bad == "label-dtype":
+        y = y.to(torch.int32)
+    elif bad == "shape":
+        y = y[:3]
+    elif bad == "contig":
+        z = torch.from_numpy(_logits(9, 4)[0]).t()
+    elif bad == "one-class":
+        z = z[:, :1].contiguous()
+    else:
+        z, y = z.to("meta"), y.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        ops.vt_kl_loss(z, y, 0.9, 0.0)
+
+
+def test_new_wrappers_count_no_launch_on_the_cpu():
+    ops.reset_launches()
+    q, scale, wn = map(torch.from_numpy, _payload(4, 2, 9))
+    ops.dequant_neighbor_avg_rows(q, scale, wn)
+    z, y = map(torch.from_numpy, _logits(4, 9))
+    z.requires_grad_(True)
+    ops.vt_kl_loss(z, y, 0.9, 0.0).sum().backward()
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("module,fn,n_ptr,n_int,n_float", [
+    ("dequant_avg", "dequant_avg_rows_f32", 3, 3, 0),
+    ("vt_kl_loss", "vt_kl_fwd", 5, 2, 3),
+    ("vt_kl_loss", "vt_kl_bwd", 6, 2, 2),
+])
+def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
+                                                     n_ptr, n_int, n_float):
+    """Every pointer and 64-bit size is declared (ctypes would pass 32-bit
+    ints otherwise), and the floats as c_float."""
+    import ctypes
+    import importlib
+    import types
+
+    from repro_torch.kernels import _build
+
+    fns = {name: types.SimpleNamespace(argtypes=None, restype=None)
+           for name in ("dequant_avg_rows_f32", "vt_kl_fwd", "vt_kl_bwd")}
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(**fns))
+    lib = importlib.import_module(f"repro_torch.kernels.{module}")._library()
+    args = getattr(lib, fn).argtypes
+    assert args.count(ctypes.c_void_p) == n_ptr + 1  # + the stream
+    assert args.count(ctypes.c_int64) == n_int
+    assert args.count(ctypes.c_float) == n_float
+    assert args[-1] is ctypes.c_void_p
+    assert getattr(lib, fn).restype is ctypes.c_int
