@@ -49,16 +49,42 @@ It imports the port only (no JAX), and:
      bound: the segment reduce and the gather bitwise at paths a and b's
      shapes and at a 64-node BA m=2 shape; `dequant_neighbor_avg_rows`
      bitwise on path d's real int8 payload [4, 463987712] and at an odd D
-     with 8 receivers and one zero row; the VT loss forward and backward
-     within a stated tolerance on path d's real logits [512, 151936] (bf16
-     and fp32) and at the MLP's [512, 10] and [32, 10];
-  7. prints one JSON line listing the kernels, then the card's name and
+     with 8 receivers and one zero row; the Eq. 5 kernels on path d's real
+     flat block [4, 463987712] and its neighbourhood average (pass B
+     bitwise for the kernel's scale, the norms within a stated tolerance);
+     the VT loss forward and backward within a stated tolerance on path
+     d's real logits [512, 151936] (bf16 and fp32) and at the MLP's
+     [512, 10] and [32, 10];
+  7. drives path e, dense serving at full width, after path d's state is
+     freed: the reference's `decode_32k` serve step (`launch/dryrun.py`)
+     with the request flow of `examples/serve_decode.py`, through
+     `launch/serve.py:generate` — `build_lm(get_config("qwen1.5-0.5b"))`
+     (463,987,712 bf16 params drawn on the card), `lm.init_cache(8, 32768)`
+     (25.8 GB of bf16 k and v; the batch cut from 128 to 8) with its ring
+     filled to a near-full 32k context (N(0, 1) k and v at positions
+     0..32719, in place of a prefill's), 16 prompt tokens per sequence
+     through `build_serve_step`, then 32 greedy decode steps, which fill
+     the last slots, with the counts set to 0 just before and read just
+     after: `decode_attention_fused` must launch 24 x 48 times.  It prints
+     ms per decode step (median of 32, min and max), tokens per second,
+     the peak device memory and the first sequence's tokens; checks finite
+     logits of shape [8, 1, 151936], the ring's slot positions (0..32767)
+     and length; and a
+     reduced decode (fp32, qwen1.5-0.5b and qwen3-32b's G = 8) on the card
+     agrees with the CPU (logits 1e-4, equal tokens) and with the port's
+     teacher-forced forward on the card (1e-4).  Then the decode kernel
+     against its plain version (a stated tolerance) on path e's real
+     layer-0 cache with a real query, a full synthetic window [8, 32768,
+     16, 64] bf16, qwen2.5-14b's GQA shape (q [8, 40, 128], k / v [8,
+     32768, 8, 128]) and an odd B = 3, W = 1000 with a sliding window;
+  8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
-With `--profile` it also traces one more round (eval included) of paths
-a and b, and one round of path d, under `torch.profiler` and prints the
-device time by kernel and the device's busy share of the round's wall
-time.
+Paths a-d also run the Eq. 5 step through the `decdiff_update` kernels:
+one launch per round each.  With `--profile` it also traces one more
+round (eval included) of paths a and b, one round of path d and one decode
+step of path e under `torch.profiler` and prints the device time by kernel
+and the device's busy share of the wall time.
 
 Any failure exits non-zero before the last line is printed.  Without a
 CUDA card, or without the port beside this script, it exits 2.
@@ -83,6 +109,8 @@ REPS = 20
 LM_ARCH = "qwen1.5-0.5b"
 LM_PARAMS = 463_987_712     # per node, bf16
 LM_NODES, LM_BATCH, LM_SEQ, LM_BETA = 4, 4, 128, 0.98
+SERVE_BATCH, SERVE_WINDOW, SERVE_PROMPT, SERVE_STEPS = 8, 32768, 16, 32
+LM_LAYERS = 24
 
 
 class SmokeFailure(Exception):
@@ -336,6 +364,10 @@ def profile_round(torch, run, label):
 LM_FAMILIES = (
     ("vt_kl_loss kernels", ("vt_fwd_kernel", "vt_bwd_kernel")),
     ("dequant_avg_rows kernel", ("dequant_avg_rows_kernel",)),
+    ("decode_attention kernels", ("decode_split_kernel",
+                                  "decode_combine_kernel")),
+    ("decdiff_update kernels", ("sumsq_rows_kernel", "scale_rows_kernel",
+                                "step_rows_kernel")),
     ("GEMM (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_",
                                "cublas", "nvjet")),
     ("reductions", ("reduce_kernel",)),
@@ -432,6 +464,9 @@ def path_d(torch, ops, dev, profile):
     check(launches["dequant_neighbor_avg_rows"] == ROUNDS,
           f"dequant_neighbor_avg_rows launched "
           f"{launches['dequant_neighbor_avg_rows']} times in {ROUNDS} rounds")
+    check(launches["decdiff_update"] == ROUNDS,
+          f"decdiff_update launched {launches['decdiff_update']} times in "
+          f"{ROUNDS} rounds")
     check(launches["vt_kl_loss_fwd"] == launches["vt_kl_loss_bwd"]
           == LM_NODES * ROUNDS,
           f"vt_kl_loss launches {launches} in {LM_NODES * ROUNDS} "
@@ -461,10 +496,10 @@ def path_d(torch, ops, dev, profile):
                                        batches[-1].items()})
     w, _ = tree_flatten_stacked(params)
     payload, _ = codec.encode(w)
-    del w
-    wn, _ = _normalized(torch.from_numpy(adj).to(dev), None)
+    wn, row = _normalized(torch.from_numpy(adj).to(dev), None)
     return dict(launches=launches, ms=ms, losses=losses, peak=peak,
                 q=payload["q"], scale=payload["scale"], wn=wn.contiguous(),
+                w=w, row=row.contiguous(),
                 logits=logits.reshape(-1, logits.shape[-1]).contiguous(),
                 labels=batches[-1]["labels"][0].reshape(-1).contiguous())
 
@@ -648,6 +683,288 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
     return out
 
 
+def eq5_vs_plain(torch, w, avg, row, label, s=1.0):
+    """Hold the Eq. 5 kernels against their plain versions on one [R, D]
+    block and time each pass.  Pass B must equal the plain step bitwise
+    for the kernel's own scale; the per-row Σ(a − x)² within rtol 1e-5 of
+    the plain sum (the kernel adds 4096-column block partials in index
+    order, the plain sum in PyTorch's order; at D ~ 4.6e8 their fp32
+    rounding differs by ~1e-7 relative).  Library: `vector_norm(a − x)`,
+    then `x + scale[:, None] * (a − x)`."""
+    from repro_torch.kernels import decdiff_update as dd
+
+    r, d = w.shape
+    scale, sq = dd.norms_cuda([w], [avg], row, s)
+    torch.cuda.synchronize()
+    sq_p = dd.sumsq_rows_plain([w], [avg])
+    norm_err = float((sq - sq_p).abs().max())
+    norm_ok = bool(((sq - sq_p).abs() <= 1e-5 * sq_p.abs()).all())
+    out = dd.step_cuda(w, avg, scale)
+    torch.cuda.synchronize()
+    ref = dd.step_rows_plain(w, avg, scale)
+    equal = bool(torch.equal(out, ref))
+    step_err = float((out - ref).abs().max())
+    gated = (row <= 0)
+    gated_ok = bool(torch.equal(out[gated], w[gated]))
+    del out, ref
+    a_ms = median_ms(torch, lambda: dd.norms_cuda([w], [avg], row, s))
+    a_plain = median_ms(torch, lambda: dd.sumsq_rows_plain([w], [avg]))
+    a_lib = median_ms(torch, lambda: torch.linalg.vector_norm(avg - w, dim=1))
+    b_ms = median_ms(torch, lambda: dd.step_cuda(w, avg, scale))
+    b_plain = median_ms(torch, lambda: dd.step_rows_plain(w, avg, scale))
+    b_lib = median_ms(torch, lambda: w + scale[:, None] * (avg - w))
+    elt = w.element_size()
+    res = {}
+    for kind, nbytes, flops, ms, plain_ms, lib_ms, err in [
+            ("sumsq", r * d * (elt + 4) + 4 * r * 3, 3 * r * d, a_ms, a_plain,
+             a_lib, norm_err),
+            ("step", r * d * (2 * elt + 4) + 4 * r, 3 * r * d, b_ms, b_plain,
+             b_lib, step_err)]:
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        res[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", max_abs_err=err, shape=[r, d],
+                         dtype=str(w.dtype))
+        print(f"decdiff_update {kind} {label} [R={r}, D={d}, {w.dtype}]: "
+              f"max_abs_err={err:g} kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{res[kind]['bound_ms']:.4f} ms ({res[kind]['bound_by']}, "
+              f"{nbytes / 1e9:.3f} GB), kernel at "
+              f"{100 * res[kind]['bound_ms'] / ms:.1f}% of bound")
+    print(f"  Σ(a-x)² per row kernel {sq.tolist()}, plain {sq_p.tolist()}; "
+          f"scale {scale.tolist()}; pass B torch.equal(kernel, plain)="
+          f"{equal}")
+    check(norm_ok, f"decdiff_update {label}: norms differ by {norm_err:g}")
+    check(equal, f"decdiff_update {label}: pass B != plain step "
+                 f"(max_abs_err {step_err:g})")
+    check(gated_ok, f"decdiff_update {label}: a gated row moved")
+    return res
+
+
+def decode_bound_ms(q, k, n_live, out_elems):
+    """Least time for one decode attention over the `n_live` slots that
+    this run's mask keeps: q, slot_pos, pos and the live slots' k and v
+    read once (a masked slot need not be read), the fp32 output written
+    once, over HBM bandwidth; or its 4·B·H·n_live·hd fp32 flops over the
+    fp32 peak."""
+    b, w, kk, hd = k.shape
+    h = q.shape[1]
+    nbytes = (q.numel() * q.element_size()
+              + 2 * b * n_live * kk * hd * k.element_size()
+              + 4 * w + 4 + 4 * out_elems)
+    flops = 4 * b * h * n_live * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def decode_vs_plain(torch, ops, q, k, v, sp, pos, label, window=0):
+    """Hold `decode_attention_fused` against its plain version and time
+    kernel, plain version and `F.scaled_dot_product_attention` (q in the
+    cache's dtype, enable_gqa, a boolean mask of the live slots).
+    Tolerance: |kernel − plain| ≤ 2e-5·|plain| + 2e-5·max|v| — the output
+    is a convex combination of v's rows, and the two sum the softmax and
+    the combine in another order."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+
+    b, h, hd = q.shape
+    w, kk = k.shape[1], k.shape[2]
+    out = ops.decode_attention_fused(q, k, v, sp, pos, window=window)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_plain(q, k, v, sp, pos, window)
+    vmax = float(v.abs().max())
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    ok = bool((diff <= 2e-5 * ref.abs() + 2e-5 * max(vmax, 1.0)).all()) \
+        and bool(torch.isfinite(out).all())
+    live = (sp >= 0) & (sp <= pos)
+    if window > 0:
+        live = live & (sp > pos - window)
+    qs = q.to(k.dtype)[:, :, None, :]
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = live[None, None, None, :]
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         enable_gqa=h != kk)
+    lib_err = float((lib[:, :, 0].float() - ref).abs().max())
+    del out, ref, diff, lib
+    ms = median_ms(torch, lambda: da.decode_attention_cuda(q, k, v, sp, pos,
+                                                           window))
+    plain_ms = median_ms(torch, lambda: da.decode_attention_plain(
+        q, k, v, sp, pos, window))
+    lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=h != kk))
+    n_live = int(live.sum())
+    bound_ms, bound_by, nbytes = decode_bound_ms(q, k, n_live, b * h * hd)
+    s, sps = da.splits(q.device, b, kk, w)
+    print(f"decode_attention {label} [B={b}, H={h}, W={w}, K={kk}, hd={hd}, "
+          f"q {q.dtype}, k/v {k.dtype}, {n_live} live slots, "
+          f"{s} splits of {sps}]: max_abs_err={err:g} (max|v| {vmax:g}) "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms (|sdpa - plain| {lib_err:.3g}), bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes / 1e9:.3f} GB), kernel at "
+          f"{100 * bound_ms / ms:.1f}% of bound")
+    check(ok, f"decode_attention {label}: kernel and plain differ by {err:g}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=[b, h, w, kk, hd], dtype=str(k.dtype))
+
+
+def path_e(torch, ops, dev, profile):
+    """Dense serving at full qwen1.5-0.5b width (see the module docstring).
+    Returns the launches, the step times, the peak memory and the kernel
+    check's real inputs (layer 0's cache and a real query)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.lm import build_lm
+    from repro_torch.models.lm.layers import _project_qkv, apply_norm, embed
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = build_lm(get_config(LM_ARCH))
+    cfg = lm.cfg
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    n = sum(t.numel() for t in tree_leaves(params))
+    check(n == LM_PARAMS and cfg.n_layers == LM_LAYERS,
+          f"{LM_ARCH} has {n} params, {cfg.n_layers} layers")
+    check(all(t.dtype == torch.bfloat16 and t.device == dev
+              for t in tree_leaves(params)), "serving params not bf16 on card")
+    cache = lm.init_cache(SERVE_BATCH, SERVE_WINDOW)
+    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    check(tuple(cache["k"].shape) == (LM_LAYERS, SERVE_BATCH, SERVE_WINDOW,
+                                      cfg.n_kv_heads, cfg.head_dim)
+          and cache["k"].dtype == torch.bfloat16 and cache["k"].device == dev,
+          f"cache {tuple(cache['k'].shape)} {cache['k'].dtype}")
+    # a near-full 32k context, as decode_32k means: positions 0..F-1 hold
+    # N(0, 1) k and v (a stand-in for a prefill's, as the weights are
+    # random too), so the prompt and the decode steps fill the last slots
+    fill = SERVE_WINDOW - SERVE_PROMPT - SERVE_STEPS
+    g = torch.Generator(device=dev).manual_seed(1)
+    for name in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            cache[name][layer, :, :fill].normal_(generator=g)
+    cache["slot_pos"][:, :fill] = torch.arange(fill, dtype=torch.int32,
+                                               device=dev)
+    cache["length"].fill_(fill)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    step = build_serve_step(lm)
+    torch.cuda.synchronize()
+    print(f"path e set-up in {time.perf_counter() - t0:.1f} s: {LM_ARCH} "
+          f"full width ({n} bf16 params, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, hd "
+          f"{cfg.head_dim}), cache batch {SERVE_BATCH} x {SERVE_WINDOW} slots "
+          f"= {kv_bytes} B of bf16 k and v, positions 0..{fill - 1} "
+          f"filled")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits, cache, secs = generate(step, params, cache, prompts,
+                                           SERVE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ms = [1e3 * x for x in secs]
+    tok_s = SERVE_BATCH * SERVE_STEPS / sum(secs)
+    n_steps = SERVE_PROMPT + SERVE_STEPS
+    print(f"path e (dense serving, decode_32k at batch {SERVE_BATCH}, "
+          f"context {fill}..{SERVE_WINDOW - 1}): "
+          f"{SERVE_PROMPT} prompt + {SERVE_STEPS} decode steps in "
+          f"{wall:.3f} s; ms per decode step median "
+          f"{statistics.median(ms):.3f} (min {min(ms):.3f}, max "
+          f"{max(ms):.3f}; all {', '.join(f'{x:.3f}' for x in ms)}); "
+          f"{tok_s:.1f} tokens per second; peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B); kernel launches {launches}")
+    print(f"path e first sequence's tokens: {tokens[0].tolist()}")
+    check(launches["decode_attention_fused"] == LM_LAYERS * n_steps,
+          f"decode_attention_fused launched "
+          f"{launches['decode_attention_fused']} times, not "
+          f"{LM_LAYERS} x {n_steps}")
+    check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"path e logits {tuple(logits.shape)} not finite")
+    check(tuple(tokens.shape) == (SERVE_BATCH, SERVE_STEPS + 1) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab)).all()), "path e tokens")
+    check(int(cache["length"]) == SERVE_WINDOW,
+          f"length {int(cache['length'])}")
+    want_sp = torch.arange(SERVE_WINDOW, dtype=torch.int32, device=dev)
+    check(bool((cache["slot_pos"] == want_sp).all()), "path e slot_pos")
+    if profile:
+        box = [cache, tokens[:, -1:]]
+
+        def one_step():
+            out, box[0] = step(params, box[0], box[1])
+            box[1] = torch.argmax(out[:, -1:], dim=-1)
+
+        by_name, _ = profile_round(torch, one_step, "path e decode step")
+        print_families(by_name, "path e")
+    # a real query for layer 0 at the last written position
+    pos = cache["length"] - 1
+    lp = tree_map(lambda t: t[0], params["layers"])
+    with torch.inference_mode():
+        x = apply_norm(cfg, embed(cfg, params["embed"], tokens[:, -2:-1]),
+                       lp["ln1"])
+        q, _, _ = _project_qkv(cfg, lp["attn"], x, pos.reshape(1))
+    return dict(launches=launches, ms=ms, tok_s=tok_s, peak=peak,
+                q=q[:, 0].clone(), k=cache["k"][0], v=cache["v"][0],
+                sp=cache["slot_pos"][0], pos=pos.clone(),
+                tokens=tokens[0].tolist())
+
+
+def small_serve_agrees(torch, dev):
+    """8 tokens of qwen1.5-0.5b and qwen3-32b (G = 8, hd 128) reduced, fp32,
+    decoded on the card and on the CPU (the plain versions, which the CPU
+    tests hold against the JAX reference): logits within 1e-4, equal
+    greedy tokens; and the card's decode logits within 1e-4 of its own
+    teacher-forced forward."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.models.lm import build_lm
+    from repro_torch.utils.pytree import tree_map
+
+    for arch, over in [("qwen1.5-0.5b", dict(n_kv_heads=4)),
+                       ("qwen3-32b", dict(n_heads=16, n_kv_heads=2,
+                                          head_dim=128))]:
+        lm = build_lm(get_config(arch).reduced(**over))
+        p0 = lm.init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, lm.cfg.vocab, (3, 8)))
+        step = build_serve_step(lm)
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            params = tree_map(lambda t: t.to(where), p0)
+            cache = lm.init_cache(3, 8, device=where)
+            got = []
+            for t in range(8):
+                out, cache = step(params, cache, tokens[:, t:t + 1].to(where))
+                got.append(out[:, 0])
+            runs.append((torch.stack(got, 1), params))
+        (lc, pc), (lh, _) = runs
+        with torch.no_grad():
+            full, _ = lm.forward(pc, {"tokens": tokens.to(dev)})
+        err = float((lc.cpu() - lh).abs().max())
+        ferr = float((lc - full).abs().max())
+        same = bool(torch.equal(lc.argmax(-1).cpu(), lh.argmax(-1)))
+        print(f"small decode ({arch} reduced: {lm.cfg.n_layers} layers, "
+              f"{lm.cfg.n_heads} heads / {lm.cfg.n_kv_heads} KV heads, hd "
+              f"{lm.cfg.head_dim}, fp32; 3 x 8 tokens) card vs cpu max "
+              f"|logit diff| {err:.3g}, greedy tokens equal {same}; card "
+              f"decode vs card teacher-forced forward {ferr:.3g}")
+        check(err <= 1e-4 and same, f"small decode {arch}: card and cpu "
+                                    f"differ by {err}")
+        check(ferr <= 1e-4, f"small decode {arch}: decode and forward differ "
+                            f"by {ferr}")
+
+
 def main() -> int:
     try:
         import torch
@@ -684,7 +1001,8 @@ def main() -> int:
     # -- build every kernel of the port, all nvcc processes at once ------
     t0 = time.perf_counter()
     libs = _build.build(sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")))
-    check(sorted(libs) == ["dequant_avg_rows", "gather_rows", "segment_avg",
+    check(sorted(libs) == ["decdiff_update", "decode_attention",
+                           "dequant_avg_rows", "gather_rows", "segment_avg",
                            "vt_kl_loss"], f"kernel sources {sorted(libs)}")
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_DIR})")
@@ -715,6 +1033,8 @@ def main() -> int:
     vt_per_path = ROUNDS * exp.train.steps_per_round  # one per local step
     check(l_plain["vt_kl_loss_fwd"] == l_plain["vt_kl_loss_bwd"]
           == vt_per_path, f"path a: vt_kl_loss launches {l_plain}")
+    check(l_plain["decdiff_update"] == ROUNDS,
+          f"path a: decdiff_update launches {l_plain}")
 
     # -- path b: the per-edge transport ------------------------------------
     exp_e = Experiment(world, "decdiff+vt", schedule=sched,
@@ -731,6 +1051,8 @@ def main() -> int:
           f"segment_neighbor_avg launched {l_edge} in {ROUNDS} rounds")
     check(l_edge["vt_kl_loss_fwd"] == l_edge["vt_kl_loss_bwd"]
           == vt_per_path, f"path b: vt_kl_loss launches {l_edge}")
+    check(l_edge["decdiff_update"] == ROUNDS,
+          f"path b: decdiff_update launches {l_edge}")
     sent_e = [t * n_dir for t in trig_e]
     check(len(sent_e) == ROUNDS and all(abs(x - round(x)) < 1e-3
                                         for x in sent_e),
@@ -751,7 +1073,8 @@ def main() -> int:
     check(l_node["segment_neighbor_avg"] >= ROUNDS and
           l_node["gather_rows"] == 0 and
           l_node["vt_kl_loss_fwd"] == l_node["vt_kl_loss_bwd"]
-          == vt_per_path, f"per-node launches {l_node}")
+          == vt_per_path and l_node["decdiff_update"] == ROUNDS,
+          f"per-node launches {l_node}")
     # threshold 0: every gate fires, Σ_i gate_i·outdeg_i = directed edges
     check(trig_n == [1.0] * ROUNDS and bytes_n == payload * n_dir * ROUNDS,
           f"per-node bytes {bytes_n} != {payload} x {n_dir} x {ROUNDS} "
@@ -817,7 +1140,10 @@ def main() -> int:
     small_lm_agrees(torch, dev)
     dq = dequant_vs_plain(torch, ops, lmd["q"], lmd["scale"], lmd["wn"],
                           "path d (real int8 payload of the 4 nodes)")
-    del lmd["q"]
+    avg = ops.dequant_neighbor_avg_rows(lmd.pop("q"), lmd["scale"], lmd["wn"])
+    eq5 = eq5_vs_plain(torch, lmd.pop("w"), avg, lmd["row"],
+                       "path d (real flat block and its average)")
+    del avg
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(1)
     q8 = torch.randint(-127, 128, (8, 1_000_003), generator=gen, device=dev,
@@ -841,16 +1167,46 @@ def main() -> int:
         vt_vs_plain(torch, ops, z, y, f"MLP classes [{b}, 10]",
                     beta=exp_beta)
 
-    by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"]}
+    # -- path e: dense serving at full width, after path d's state is gone
+    torch.cuda.empty_cache()
+    lme = path_e(torch, ops, dev, profile)
+    small_serve_agrees(torch, dev)
+    da_main = decode_vs_plain(torch, ops, lme.pop("q"), lme.pop("k"),
+                              lme.pop("v"), lme.pop("sp"), lme.pop("pos"),
+                              "path e (real layer-0 cache, real query)")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for label, (b, h, w, kk, hd), filled, window in [
+            ("full synthetic window", (8, 16, SERVE_WINDOW, 16, 64),
+             SERVE_WINDOW, 0),
+            ("qwen2.5-14b GQA", (8, 40, SERVE_WINDOW, 8, 128), SERVE_WINDOW,
+             0),
+            ("odd B and W, sliding window 700", (3, 16, 1000, 16, 64), 997,
+             700)]:
+        q = torch.randn((b, h, hd), generator=gen, device=dev)
+        k = torch.randn((b, w, kk, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((b, w, kk, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        sp = torch.arange(w, dtype=torch.int32, device=dev)
+        sp[filled:] = -1
+        pos = torch.tensor(filled - 1, dtype=torch.int32, device=dev)
+        decode_vs_plain(torch, ops, q, k, v, sp, pos, label, window)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
+               "e": lme["launches"]}
 
     def launches(name):
         return sum(p[name] for p in by_path.values())
 
-    def entry(name, route_name, replaces, m, **extra):
+    def entry(name, route_name, replaces, m, counter=None, **extra):
+        counter = counter or name
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{route_name}.cu",
-                    replaces=replaces, launches=launches(name),
-                    launches_by_path={k: p[name]
+                    replaces=replaces, launches=launches(counter),
+                    launches_by_path={k: p[counter]
                                       for k, p in by_path.items()},
                     max_abs_err=m["max_abs_err"], ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -872,9 +1228,23 @@ def main() -> int:
         entry("vt_kl_loss_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127", vt_main["bwd"],
               dtype=vt_main["bwd"]["dtype"]),
+        entry("decdiff_update_sumsq", "decdiff_update",
+              "src/repro/kernels/decdiff_update.py:42", eq5["sumsq"],
+              counter="decdiff_update", dtype=eq5["sumsq"]["dtype"]),
+        entry("decdiff_update_step", "decdiff_update",
+              "src/repro/kernels/decdiff_update.py:60", eq5["step"],
+              counter="decdiff_update", dtype=eq5["step"]["dtype"]),
+        entry("decode_attention_fused", "decode_attention",
+              "src/repro/kernels/decode_attention.py:92", da_main,
+              dtype=da_main["dtype"]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
+    print(f"path e: ms per decode step median "
+          f"{statistics.median(lme['ms']):.3f} (min {min(lme['ms']):.3f}, "
+          f"max {max(lme['ms']):.3f}), {lme['tok_s']:.1f} tokens per second, "
+          f"peak device memory {lme['peak']} B, decode_attention_fused "
+          f"launches {lme['launches']['decode_attention_fused']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,6 +13,11 @@ this module imports neither `jax` nor `repro`:
     exactly, plus a like-structured tree of dtype names (`dtype_names`)
     that `params_from_numpy(..., dtypes=...)` casts back.  Optimizer state
     ({"momentum": tree}) crosses the same way.
+  * `cache_from_numpy(tree, device, kv_dtype)` takes a reference decode
+    cache as numpy (k, v [L, B, W, K, hd] as float32, which holds bf16
+    exactly; slot_pos [L, W] and a 0-d length, int32) and returns the
+    port's cache; `params_to_numpy` is its inverse, so both packages
+    decode from the same state.
   * `world_from_arrays(...)` builds a port World from a topology's
     adjacency and weights and the per-node data arrays.  Graph samplers
     differ between hosts (the networkx branch and the fallback draw
@@ -51,6 +56,23 @@ def params_to_numpy(params):
         lambda t: t.detach().cpu().to(
             torch.float32 if t.dtype == torch.bfloat16 else t.dtype).numpy(),
         params)
+
+
+def cache_from_numpy(tree, device: DeviceLike = None,
+                     kv_dtype: str = "float32"):
+    """A decode cache as numpy -> the port's cache on `device`, k and v cast
+    to `kv_dtype` ("bfloat16" for a bf16 reference cache)."""
+    dev = resolve_device(device)
+
+    def tensor(name, dtype):
+        arr = np.array(tree[name], dtype=np.float32 if dtype.is_floating_point
+                       else np.int32, copy=True)
+        return torch.from_numpy(arr).to(dev).to(dtype)
+
+    kv = torch_dtype(kv_dtype)
+    return {"k": tensor("k", kv), "v": tensor("v", kv),
+            "slot_pos": tensor("slot_pos", torch.int32),
+            "length": tensor("length", torch.int32).reshape(())}
 
 
 def dtype_names(tree):

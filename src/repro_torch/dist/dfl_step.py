@@ -28,7 +28,10 @@ the round function overwrites the `params` and `opt_state` it is given and
 returns the gossiped params as new tensors.  A round's two phases run
 under `torch.profiler.record_function` ranges, "dfl_round.local_steps"
 and "dfl_round.gossip", which a profiler trace reads (`chip_smoke.py
---profile`).  `build_serve_step` (serving) raises: ROADMAP A.11.
+--profile`).  Every form's Eq. 5 step goes through `ops.decdiff_rows`
+(the `decdiff_update` kernels on the card: one norm per node, no [N, D]
+difference or square in device memory).  `build_serve_step` is one decode
+step against the ring KV cache, under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
@@ -65,17 +68,12 @@ def _decdiff_step_from_avg(local, avg, row, s):
     like-structured neighbourhood averages (fp32), `row` [R] the
     pre-normalization weight-row sums (0: the node heard from nobody and
     keeps its local model).  The single home of the gating and dtype rules:
-    every form of the round goes through it."""
-    diff = tree_map(lambda a, x: a - x.to(torch.float32), avg, local)
-    sq = sum(torch.sum(torch.square(d), dim=tuple(range(1, d.dim())))
-             for d in tree_leaves(diff))
-    scale = torch.where(row > 0, 1.0 / (torch.sqrt(sq) + s), 0.0)
-
-    def step_leaf(x, d):
-        sc = scale.reshape(scale.shape + (1,) * (d.dim() - 1))
-        return (x.to(torch.float32) + sc * d).to(x.dtype)
-
-    return tree_map(step_leaf, local, diff)
+    every form of the round goes through it, and through the
+    `decdiff_update` kernels on the card."""
+    leaves = ops.decdiff_rows(
+        [x.contiguous() for x in tree_leaves(local)],
+        [a.contiguous() for a in tree_leaves(avg)], row.contiguous(), s)
+    return tree_unflatten_like(local, leaves)
 
 
 def _decdiff_apply(local, full, wn, row, s):
@@ -141,10 +139,15 @@ def build_prefill_step(lm):
 
 
 def build_serve_step(lm):
-    """One decode step against the KV cache: LM serving is ROADMAP A.11."""
-    raise NotImplementedError(
-        "build_serve_step: LM serving (the ring KV cache and decode step) is "
-        "ROADMAP A.11, not ported yet")
+    """(params, cache, tokens [B, 1]) -> (logits [B, 1, V], cache): one
+    decode step against the ring KV cache, under `torch.inference_mode()`.
+    The cache is updated in place and returned."""
+
+    def serve_step(params, cache, tokens):
+        with torch.inference_mode():
+            return lm.decode_step(params, cache, tokens)
+
+    return serve_step
 
 
 def _as_device(x, dev) -> Optional[torch.Tensor]:

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.utils.pytree import tree_map
 
 KINDS = ("gossip", "server", "none")
@@ -177,11 +178,9 @@ class DecDiffStrategy(AggregationStrategy):
         sums, tot = nb.reduce()
         safe = torch.where(tot > 0, tot, torch.ones_like(tot))
         avg = sums / safe[:, None]
-        diff = avg - nb.local()
-        d = torch.sqrt(torch.sum(diff * diff, dim=1))
-        scale = torch.where(tot > 0, 1.0 / (d + exp.train.s),
-                            torch.zeros_like(d))
-        out = nb.local() + scale[:, None] * diff
+        # Eq. 5 with one norm per receiver, gated on tot > 0 (a node that
+        # heard from nobody keeps its model): the decdiff_update kernels
+        (out,) = ops.decdiff_rows([nb.local()], [avg], tot, exp.train.s)
         return nb.unflatten(out)
 
 

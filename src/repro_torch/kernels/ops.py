@@ -9,20 +9,28 @@ main path went through the kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import decdiff_update as _dd
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dequant_avg as _dq
 from repro_torch.kernels import gather_rows as _gr
 from repro_torch.kernels import segment_avg as _sa
 from repro_torch.kernels import vt_kl_loss as _vt
+from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 
 #: kernel launches per wrapper since the last `reset_launches()`
-#: (`vt_kl_loss` counts its forward and backward kernels apart)
+#: (`vt_kl_loss` counts its forward and backward kernels apart;
+#: `decode_attention_fused` counts its split kernel and merge as one, and
+#: `decdiff_update` one per Eq. 5 update: pass A over every leaf, the
+#: scale kernel and pass B over every leaf)
 LAUNCHES: Dict[str, int] = {"segment_neighbor_avg": 0, "gather_rows": 0,
                             "dequant_neighbor_avg_rows": 0,
-                            "vt_kl_loss_fwd": 0, "vt_kl_loss_bwd": 0}
+                            "vt_kl_loss_fwd": 0, "vt_kl_loss_bwd": 0,
+                            "decode_attention_fused": 0,
+                            "decdiff_update": 0}
 
 
 def reset_launches() -> None:
@@ -188,3 +196,129 @@ def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor, beta: float,
         raise ValueError("vt_kl_loss wants contiguous tensors")
     _device_kind(logits, "vt_kl_loss")
     return _VTKLLoss.apply(logits, labels, float(beta), float(neg_h))
+
+
+def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           slot_pos: torch.Tensor, pos: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
+    """One-token GQA attention over a ring KV cache: score, mask, softmax
+    and combine, fused.
+
+    q [B, H, hd] and k / v [B, W, K, hd] in bfloat16 or float32 (k and v
+    alike), slot_pos [W] int32 absolute positions (−1: empty), pos a 0-d
+    int32 tensor (the new token's position, read on the device) -> [B, H,
+    hd] fp32.  A slot takes part iff 0 ≤ slot_pos ≤ pos, and slot_pos >
+    pos − window when `window` > 0; H must be a multiple of K.  Any B and
+    W, no padding (see `repro_torch.kernels.decode_attention`)."""
+    if q.dim() != 3 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape) \
+            or slot_pos.dim() != 1 or pos.dim() != 0:
+        raise ValueError(f"decode_attention_fused wants q [B, H, hd], k / v "
+                         f"[B, W, K, hd], slot_pos [W] and a 0-d pos; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(slot_pos.shape)} and "
+                         f"{tuple(pos.shape)}")
+    b, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd or k.shape[1] == 0 \
+            or slot_pos.shape[0] != k.shape[1] or k.shape[2] == 0 \
+            or h % k.shape[2]:
+        raise ValueError(f"decode_attention_fused: q {tuple(q.shape)} does "
+                         f"not fit k {tuple(k.shape)} and slot_pos "
+                         f"{tuple(slot_pos.shape)}")
+    floats = (torch.float32, torch.bfloat16)
+    if q.dtype not in floats or k.dtype not in floats or v.dtype != k.dtype \
+            or slot_pos.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"decode_attention_fused wants float32 or bfloat16 q "
+                        f"and k / v (alike) and int32 slot_pos and pos; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {slot_pos.dtype} "
+                        f"and {pos.dtype}")
+    if not (q.device == k.device == v.device == slot_pos.device
+            == pos.device):
+        raise ValueError(f"decode_attention_fused: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}, slot_pos on "
+                         f"{slot_pos.device}, pos on {pos.device}")
+    if not all(t.is_contiguous() for t in (q, k, v, slot_pos)):
+        raise ValueError("decode_attention_fused wants contiguous tensors")
+    window = int(window or 0)
+    if _device_kind(q, "decode_attention_fused") == "cpu":
+        return _da.decode_attention_plain(q, k, v, slot_pos, pos, window)
+    if hd not in _da.HEAD_DIMS or h // k.shape[2] > _da.MAX_GROUP:
+        raise ValueError(f"decode_attention_fused: the kernel takes hd in "
+                         f"{_da.HEAD_DIMS} and at most {_da.MAX_GROUP} query "
+                         f"heads per KV head; got hd={hd}, H={h}, "
+                         f"K={k.shape[2]}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention_fused: the kernel wants k and v "
+                         "16-byte aligned")
+    out = _da.decode_attention_cuda(q, k, v, slot_pos, pos, window)
+    LAUNCHES["decode_attention_fused"] += 1
+    return out
+
+
+def decdiff_rows(xs: Sequence[torch.Tensor], avgs: Sequence[torch.Tensor],
+                 gate: Optional[torch.Tensor], s: float) -> List[torch.Tensor]:
+    """The paper's Eq. 5 for a block of R nodes over a list of leaves.
+
+    xs: leaves [R, ...] (float32 or bfloat16; row r = node r's model),
+    avgs: like-shaped float32 neighbourhood averages, gate: [R] float32 or
+    None (a row whose gate is not > 0 keeps its model: scale 0), s: the
+    damping.  One distance per row over all its leaves ->
+    x + (a − x) / (‖a − x‖ + s) per leaf, as new tensors in the leaves'
+    dtypes (see `repro_torch.kernels.decdiff_update`)."""
+    xs, avgs = list(xs), list(avgs)
+    if not xs or len(xs) != len(avgs):
+        raise ValueError(f"decdiff_rows wants as many averages as leaves "
+                         f"(at least one); got {len(xs)} and {len(avgs)}")
+    r = xs[0].shape[0] if xs[0].dim() else None
+    for x, a in zip(xs, avgs):
+        if x.dim() == 0 or tuple(x.shape) != tuple(a.shape) \
+                or x.shape[0] != r:
+            raise ValueError(f"decdiff_rows wants leaves [R, ...] with R = "
+                             f"{r} and averages of the same shape; got "
+                             f"{tuple(x.shape)} and {tuple(a.shape)}")
+        if x.dtype not in (torch.float32, torch.bfloat16) \
+                or a.dtype != torch.float32:
+            raise TypeError(f"decdiff_rows wants float32 or bfloat16 leaves "
+                            f"and float32 averages; got {x.dtype} and "
+                            f"{a.dtype}")
+        if not (x.is_contiguous() and a.is_contiguous()):
+            raise ValueError("decdiff_rows wants contiguous tensors")
+    if gate is not None and (tuple(gate.shape) != (r,)
+                             or gate.dtype != torch.float32
+                             or not gate.is_contiguous()):
+        raise ValueError(f"decdiff_rows wants a contiguous float32 gate [{r}]; "
+                         f"got {gate.dtype} {tuple(gate.shape)}")
+    dev = xs[0].device
+    if any(t.device != dev for t in xs + avgs) or (
+            gate is not None and gate.device != dev):
+        raise ValueError("decdiff_rows: the leaves, averages and gate are on "
+                         "more than one device")
+    if _device_kind(xs[0], "decdiff_rows") == "cpu":
+        return _dd.decdiff_rows_plain(xs, avgs, gate, s)
+    out = _dd.decdiff_rows_cuda(xs, avgs, gate, s)
+    LAUNCHES["decdiff_update"] += 1
+    return out
+
+
+def decdiff_update(w_flat: torch.Tensor, wbar_flat: torch.Tensor,
+                   s: float = 1.0) -> torch.Tensor:
+    """Eq. 5 on one flat model: w + (w̄ − w) / (‖w̄ − w‖ + s) in w's dtype
+    (the reference wrapper's form; w̄ is read as float32)."""
+    if w_flat.dim() != 1 or tuple(wbar_flat.shape) != tuple(w_flat.shape):
+        raise ValueError(f"decdiff_update wants two flat vectors of one "
+                         f"length; got {tuple(w_flat.shape)} and "
+                         f"{tuple(wbar_flat.shape)}")
+    a = wbar_flat.to(torch.float32).contiguous()[None]
+    (out,) = decdiff_rows([w_flat.contiguous()[None]], [a], None, s)
+    return out[0]
+
+
+def decdiff_update_tree(params, avg_params, s: float = 1.0):
+    """Eq. 5 on one model given as a tree: one distance over every leaf,
+    each leaf updated in its own dtype (the reference wrapper's form)."""
+    leaves = tree_leaves(params)
+    xs = [t.contiguous().reshape(1, -1) for t in leaves]
+    avgs = [t.to(torch.float32).contiguous().reshape(1, -1)
+            for t in tree_leaves(avg_params)]
+    outs = decdiff_rows(xs, avgs, None, s)
+    return tree_unflatten_like(
+        params, [o.reshape(t.shape) for o, t in zip(outs, leaves)])

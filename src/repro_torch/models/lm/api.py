@@ -4,20 +4,24 @@
     params = lm.init(generator)                 # one node's params, on the card
     logits, aux = lm.forward(params, batch)     # batch: {"tokens", "labels"}
     loss, metrics = lm.loss(params, batch)      # VT-KL or CE next-token
+    cache = lm.init_cache(batch_size, seq_len)  # ring KV cache, on the card
+    logits, cache = lm.decode_step(params, cache, tokens)   # tokens [B, 1]
 
 The PyTorch counterpart of the JAX package's `repro.models.lm.api`.  The
 training loss is the paper's Virtual Teacher KL (Eq. 8) applied to
 next-token prediction over the whole vocabulary, through the fused
 `vt_kl_loss` kernel on the card; `loss_kind="ce"` is plain cross-entropy.
 The router's load-balance auxiliary enters as `router_aux_weight · aux`
-(0 for dense models).  `build_lm` builds the dense family; the MoE, SSM,
-hybrid, encdec and VLM families, and serving (`init_cache`,
-`decode_step`), are ROADMAP A.11.
+(0 for dense models).  Serving decodes one token per `decode_step`
+through the `decode_attention` kernel on the card; the port's decode step
+updates the cache it is given in place (the reference returns a new one).
+`build_lm` builds the dense family, whose `prep_decode_cache` is None;
+the MoE, SSM, hybrid, encdec and VLM families are ROADMAP A.11.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -31,6 +35,8 @@ class LM:
     cfg: ArchConfig
     init: Callable     # (torch.Generator, device=None) -> params
     forward: Callable  # (params, batch) -> (logits [B, S, V], aux)
+    #: encdec only: fill the cross-attention K/V (None for the dense family)
+    prep_decode_cache: Optional[Callable] = None
 
     def loss(self, params, batch, *, loss_kind: str = "vt",
              beta: float = 0.98):
@@ -50,15 +56,16 @@ class LM:
         total = main + self.cfg.router_aux_weight * aux
         return total, {"loss": main, "aux": aux}
 
-    def init_cache(self, batch: int, seq_len: int):
-        raise NotImplementedError(
-            "LM serving (the ring KV cache and decode step) is ROADMAP A.11, "
-            "not ported yet")
+    def init_cache(self, batch: int, seq_len: int, device=None):
+        """The decode state for `batch` sequences of up to `seq_len` tokens
+        on `device` (None: the card; raises on a host without CUDA)."""
+        return dense.init_cache_dense(self.cfg, batch, seq_len,
+                                      device=device)
 
     def decode_step(self, params, cache, tokens):
-        raise NotImplementedError(
-            "LM serving (the ring KV cache and decode step) is ROADMAP A.11, "
-            "not ported yet")
+        """(params, cache, tokens [B, 1]) -> (logits [B, 1, V], cache): one
+        token against the cache, which is updated in place."""
+        return dense.decode_step_dense(self.cfg, params, cache, tokens)
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")

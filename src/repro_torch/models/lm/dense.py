@@ -8,7 +8,11 @@ loops over them, so the flat [N, D] order of a stack of nodes is
 `jax.tree.flatten`'s (embed/table, final_norm/scale, layers/attn/wk/b, ...).
 With `cfg.remat` every layer runs under `torch.utils.checkpoint`: its
 activations are recomputed in the backward pass, which changes no number.
-Serving (`init_cache_dense`, `decode_step_dense`) is ROADMAP A.11.
+Serving: `init_cache_dense` builds the ring KV cache (the reference's
+window rule) and `decode_step_dense` runs one token through every layer
+against it.  The reference's scan returns a new cache; the port writes
+each layer's k, v and slot position into the cache it is given and
+returns the same dict, with a new `length` tensor.
 """
 from __future__ import annotations
 
@@ -18,11 +22,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.layers import (
+    CacheSpec,
     apply_norm,
     attention,
+    decode_attention,
     embed,
     init_attention,
     init_embedding,
+    init_kv_cache,
     init_linear,
     init_mlp,
     init_norm,
@@ -60,15 +67,18 @@ def layer_apply(cfg: ArchConfig, lp, x, positions):
     return x
 
 
+def _layer_params(stacked):
+    """The per-layer param trees of a stacked [L, ...] tree.  One unbind
+    per leaf: its backward stacks the L layer gradients once, where L
+    separate `leaf[l]` selects would each scatter into a full [L, ...] zero
+    tensor."""
+    per_leaf = [t.unbind(0) for t in tree_leaves(stacked)]
+    return [tree_unflatten_like(stacked, list(ls)) for ls in zip(*per_leaf)]
+
+
 def trunk(cfg: ArchConfig, params, x, positions):
     """Run the stacked layers on embedded input x [B, S, D]."""
-    stacked = params["layers"]
-    # one unbind per leaf: its backward stacks the L layer gradients once,
-    # where L separate `leaf[l]` selects would each scatter into a full
-    # [L, ...] zero tensor
-    per_leaf = [t.unbind(0) for t in tree_leaves(stacked)]
-    for layer in range(cfg.n_layers):
-        lp = tree_unflatten_like(stacked, [u[layer] for u in per_leaf])
+    for lp in _layer_params(params["layers"]):
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(layer_apply, cfg, lp, x, positions,
                            use_reentrant=False)
@@ -85,3 +95,36 @@ def forward_dense(cfg: ArchConfig, params, tokens, positions=None):
                                  device=tokens.device)
     x = trunk(cfg, params, x, positions)
     return unembed(cfg, params.get("unembed"), params["embed"], x)
+
+
+def init_cache_dense(cfg: ArchConfig, batch: int, seq_len: int, device=None):
+    """The ring KV cache for `batch` sequences of up to `seq_len` tokens:
+    W = seq_len, cut to `cfg.decode_window` and to the sliding window
+    where the config has them, in the activation dtype, on `device` (None:
+    the card)."""
+    window = seq_len if cfg.decode_window is None else min(cfg.decode_window,
+                                                           seq_len)
+    if cfg.sliding_window is not None:
+        window = min(window, cfg.sliding_window)
+    spec = CacheSpec(batch=batch, window=window, n_kv_heads=cfg.n_kv_heads,
+                     head_dim=cfg.head_dim, dtype=cfg.activation_dtype)
+    return init_kv_cache(spec, cfg.n_layers, device=device)
+
+
+def decode_step_dense(cfg: ArchConfig, params, cache, tokens):
+    """tokens [B, 1] -> (logits [B, 1, V], cache).  Updates the cache's k,
+    v and slot_pos IN PLACE and sets `cache["length"]` to a new 0-d tensor
+    length + 1; the returned cache is the dict it was given."""
+    x = embed(cfg, params["embed"], tokens)
+    length = cache["length"]
+    for layer, lp in enumerate(_layer_params(params["layers"])):
+        lc = {"k": cache["k"][layer], "v": cache["v"][layer],
+              "slot_pos": cache["slot_pos"][layer]}
+        a, _ = decode_attention(cfg, lp["attn"],
+                                apply_norm(cfg, x, lp["ln1"]), lc, length)
+        x = x + a
+        x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
+    x = apply_norm(cfg, x, params["final_norm"])
+    logits = unembed(cfg, params.get("unembed"), params["embed"], x)
+    cache["length"] = length + 1
+    return logits, cache

@@ -14,22 +14,29 @@ params across with `repro_torch.convert`.
 Attention supports MHA/GQA, RoPE, qk-norm (qwen3), QKV bias (qwen1.5/2.5)
 and causal / sliding-window masks, over a materialized [Sq, Sk] score
 block up to `cfg.full_attn_max_seq` and flash-style chunks with an online
-softmax above it (the reduced presets set that limit to 64 tokens).  Not
-ported yet: cross-attention K/V (encdec) and the ring-buffer decode cache
-— each raises NotImplementedError naming its ROADMAP item.
+softmax above it (the reduced presets set that limit to 64 tokens).
+
+Serving: `CacheSpec` / `init_kv_cache` build the ring KV cache (k, v
+[L, B, W, K, hd], slot_pos [L, W] = −1, a 0-d int32 `length`), and
+`decode_attention` runs one token against one layer's ring through
+`ops.decode_attention_fused` (the `decode_attention` CUDA kernel on the
+card).  Unlike the reference, which returns a new cache, it writes the new
+token's k, v and slot position INTO the cache it is given.  Not ported
+yet: cross-attention K/V (encdec), which raises NotImplementedError naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.lm.config import ArchConfig
-
-_SERVING = ("the dense serving path (ring KV cache, decode attention) is "
-            "ROADMAP A.11, not ported yet")
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.lm.config import ArchConfig, torch_dtype
 
 # ---------------------------------------------------------------- norms
 
@@ -254,12 +261,57 @@ def cross_kv(cfg: ArchConfig, p, enc_out):
         "not ported yet")
 
 
-def init_kv_cache(spec, n_layers: int):
-    raise NotImplementedError(_SERVING)
+# ------------------------------------------------- decode (ring KV cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    batch: int
+    window: int  # number of cache slots (= seq_len, or the SWA window)
+    n_kv_heads: int
+    head_dim: int
+    dtype: str = "bfloat16"
+
+
+def init_kv_cache(spec: CacheSpec, n_layers: int, device=None):
+    """Zero k / v [L, B, W, K, hd] in the spec's dtype, slot_pos [L, W]
+    int32 = −1 (empty), `length` a 0-d int32 (the next token's absolute
+    position), all on `device`: None means the card and raises on a host
+    without CUDA."""
+    dev = resolve_device(device)
+    shape = (n_layers, spec.batch, spec.window, spec.n_kv_heads,
+             spec.head_dim)
+    dtype = torch_dtype(spec.dtype)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "slot_pos": torch.full((n_layers, spec.window), -1,
+                               dtype=torch.int32, device=dev),
+        "length": torch.zeros((), dtype=torch.int32, device=dev),
+    }
 
 
 def decode_attention(cfg: ArchConfig, p, x, layer_cache, length):
-    raise NotImplementedError(_SERVING)
+    """One-token attention against a ring-buffer cache.
+
+    x [B, 1, D]; layer_cache: dict(k, v [B, W, K, hd], slot_pos [W]);
+    length: 0-d int32, the new token's absolute position.  Writes the new
+    k, v into slot length % W and sets slot_pos there IN PLACE (no value is
+    read back to the host), then attends over the ring.  Returns (out
+    [B, 1, D] in x's dtype, the same layer_cache)."""
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(cfg, p, x, length.reshape(1), True)
+    k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+    slot_pos = layer_cache["slot_pos"]
+    slot = torch.remainder(length, k_cache.shape[1]).reshape(1).to(
+        torch.int64)
+    k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
+    slot_pos.index_copy_(0, slot, length.reshape(1).to(torch.int32))
+    out = ops.decode_attention_fused(q[:, 0], k_cache, v_cache, slot_pos,
+                                     length, window=cfg.sliding_window or 0)
+    out = out.to(x.dtype).reshape(b, 1, cfg.q_dim)
+    return linear(out, p["wo"]), layer_cache
 
 
 # ---------------------------------------------------------------- MLP

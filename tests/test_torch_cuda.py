@@ -242,3 +242,195 @@ def test_lm_round_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(lc, lh, rtol=0, atol=1e-5)
     for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+DECODE_SHAPES = [(1, 16, 1, 1, 16), (2, 600, 2, 2, 64), (4, 1024, 8, 1, 128),
+                 (3, 512, 4, 8, 64), (3, 1000, 16, 1, 64), (5, 4099, 8, 5, 128),
+                 (1, 1, 2, 4, 32), (8, 32768, 16, 1, 64)]
+
+
+def _decode_case(card, b, w, kk, g, hd, dtype, filled=None, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, kk * g, hd), generator=gen, device=card)
+    k = torch.randn((b, w, kk, hd), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, w, kk, hd), generator=gen, device=card).to(dtype)
+    filled = max(w - 5, 1) if filled is None else filled
+    sp = torch.arange(w, dtype=torch.int32, device=card)
+    sp[filled:] = -1
+    pos = torch.tensor(filled - 1, dtype=torch.int32, device=card)
+    return q, k, v, sp, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,kk,g,hd", DECODE_SHAPES)
+def test_decode_attention_kernel_matches_plain(card, b, w, kk, g, hd, dtype):
+    """The split-W kernel against its plain version: the reference sweep,
+    odd B and W, a group of 5, one slot, and the serving path's full
+    [8, 32768, 16, 64] window.  rtol = atol = 2e-5 (the two sum in another
+    order; v ~ N(0, 1))."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    q, k, v, sp, pos = _decode_case(card, b, w, kk, g, hd, dtype)
+    before = ops.LAUNCHES["decode_attention_fused"]
+    out = ops.decode_attention_fused(q, k, v, sp, pos)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention_fused"] == before + 1
+    want = decode_attention_plain(q, k, v, sp, pos)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    qb = q.to(torch.bfloat16)  # a bf16 query reads as its fp32 value
+    torch.testing.assert_close(ops.decode_attention_fused(qb, k, v, sp, pos),
+                               decode_attention_plain(qb, k, v, sp, pos),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [1, 37, 700])
+def test_decode_attention_kernel_window_and_empty_splits(card, window):
+    """A sliding window, and a ring whose first 10 slots alone are filled,
+    so that every split after the first is all masked (m = -inf must merge
+    without NaN); and a ring with no slot filled at all (the uniform
+    average, as the plain softmax gives)."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    q, k, v, sp, pos = _decode_case(card, 4, 4096, 2, 4, 64, torch.bfloat16,
+                                    filled=10)
+    for win in (0, window):
+        out = ops.decode_attention_fused(q, k, v, sp, pos, window=win)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(
+            out, decode_attention_plain(q, k, v, sp, pos, win), rtol=2e-5,
+            atol=2e-5)
+    q, k, v, sp, pos = _decode_case(card, 4, 2000, 2, 4, 64, torch.float32,
+                                    filled=1500)
+    out = ops.decode_attention_fused(q, k, v, sp, pos, window=window)
+    torch.testing.assert_close(
+        out, decode_attention_plain(q, k, v, sp, pos, window), rtol=2e-5,
+        atol=2e-5)
+    empty = torch.full_like(sp, -1)
+    out = ops.decode_attention_fused(q, k, v, empty, pos)
+    torch.testing.assert_close(out, decode_attention_plain(q, k, v, empty,
+                                                           pos),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,widths", [(4, [1 << 20]), (16, [567434]),
+                                      (3, [7, 4099, 1]), (1, [1]),
+                                      (5, [33 * 7, 1000, 5]), (4, [8192])])
+def test_decdiff_kernels_match_plain(card, r, widths, dtype):
+    """Pass B bitwise the plain step for the kernel's own scale (4-wide and
+    scalar columns, several leaves, a gated-off row); the norms within
+    rtol 1e-5 of the plain sums (another order); one count per call."""
+    from repro_torch.kernels import decdiff_update as dd
+
+    gen = torch.Generator(device=card).manual_seed(r)
+    xs = [torch.randn((r, d), generator=gen, device=card).to(dtype)
+          for d in widths]
+    avgs = [torch.randn((r, d), generator=gen, device=card) for d in widths]
+    gate = torch.ones(r, device=card)
+    gate[r // 2] = 0.0
+    before = ops.LAUNCHES["decdiff_update"]
+    outs = ops.decdiff_rows(xs, avgs, gate, 1.0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decdiff_update"] == before + 1
+    scale, sq = dd.norms_cuda(xs, avgs, gate, 1.0)
+    torch.testing.assert_close(sq, dd.sumsq_rows_plain(xs, avgs), rtol=1e-5,
+                               atol=0)
+    torch.testing.assert_close(
+        scale, dd.scale_from_sumsq(dd.sumsq_rows_plain(xs, avgs), gate, 1.0),
+        rtol=1e-5, atol=0)
+    assert scale[r // 2] == 0
+    for out, x, a in zip(outs, xs, avgs):
+        assert out.dtype == dtype
+        assert torch.equal(out, dd.step_rows_plain(x, a, scale))
+        assert torch.equal(out[r // 2], x[r // 2])
+        if x.shape[1] > 1:  # an offset view: scalar loads
+            xo = x.reshape(-1)[1:1 + r * (x.shape[1] - 1)].reshape(r, -1)
+            ao = a.reshape(-1)[1:1 + r * (x.shape[1] - 1)].reshape(r, -1)
+            assert torch.equal(dd.step_cuda(xo, ao, scale),
+                               dd.step_rows_plain(xo, ao, scale))
+    w = xs[0][0].float()
+    torch.testing.assert_close(ops.decdiff_update(w, avgs[0][0]),
+                               dd.decdiff_rows_plain([w[None]],
+                                                     [avgs[0][0][None]],
+                                                     None, 1.0)[0][0],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_decode_step_on_the_card_matches_the_cpu(card):
+    """8 tokens of qwen1.5-0.5b and qwen3-32b reduced (fp32) through
+    `build_serve_step` on the card (the decode_attention kernel, once per
+    layer and step) and on the CPU: logits within 1e-4, greedy tokens
+    equal, caches within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.models.lm import build_lm
+    from repro_torch.utils.pytree import tree_map
+
+    for arch, over in [("qwen1.5-0.5b", dict(n_kv_heads=4)),
+                       ("qwen3-32b", dict(n_heads=16, n_kv_heads=2,
+                                          head_dim=128))]:
+        lm = build_lm(get_config(arch).reduced(**over))
+        p0 = lm.init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, 512, (3, 8)))
+        runs = []
+        for dev in (card, torch.device("cpu")):
+            params = tree_map(lambda t: t.to(dev), p0)
+            cache = lm.init_cache(3, 8, device=dev)
+            step = build_serve_step(lm)
+            ops.reset_launches()
+            logits = []
+            for t in range(8):
+                out, cache = step(params, cache, tokens[:, t:t + 1].to(dev))
+                logits.append(out[:, 0].cpu())
+            runs.append((torch.stack(logits, 1), cache,
+                         ops.LAUNCHES["decode_attention_fused"]))
+        (lc, cc, nc), (lh, ch, nh) = runs
+        assert nc == 8 * lm.cfg.n_layers and nh == 0
+        torch.testing.assert_close(lc, lh, rtol=1e-4, atol=1e-4)
+        assert torch.equal(lc.argmax(-1), lh.argmax(-1))
+        for name in ("k", "v"):
+            torch.testing.assert_close(cc[name].cpu(), ch[name], rtol=1e-5,
+                                       atol=1e-5)
+        assert torch.equal(cc["slot_pos"].cpu(), ch["slot_pos"])
+
+
+def test_engine_and_lm_round_run_eq5_through_the_kernel(card):
+    """`decdiff_update` launches once per round in the MLP engine (fused
+    and loop schedules, bitwise equal) and in the fused int8 LM round."""
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_dfl_round_shardmap
+    from repro_torch.engine import Experiment, World
+    from repro_torch.launch.train import init_nodes, make_batches, \
+        ring_adjacency
+    from repro_torch.models.lm import build_lm
+    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.optim.sgd import sgd_momentum
+
+    world = World.synthetic("synth-mnist", nodes=8, topology="barabasi_albert",
+                            m=2, scale=0.02, model=make_mlp(hidden=(64, 32)),
+                            device=card)
+    params = {}
+    for mode in ("loop", "fused"):
+        exp = Experiment(world, "decdiff+vt", steps_per_round=2,
+                         batch_size=32, device=card)
+        ops.reset_launches()
+        exp.run(rounds=3, eval_every=1, mode=mode)
+        assert ops.LAUNCHES["decdiff_update"] == 3
+        params[mode] = exp.params
+    for name in params["loop"]:
+        for leaf in params["loop"][name]:
+            assert torch.equal(params["loop"][name][leaf],
+                               params["fused"][name][leaf])
+    lm = build_lm(get_config("qwen1.5-0.5b").reduced(n_layers=2, d_model=64,
+                                                     vocab=256))
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    rnd = build_dfl_round_shardmap(lm, opt, ring_adjacency(4),
+                                   codec=Int8Codec(stochastic=False))
+    p = init_nodes(lm, 4, card)
+    state = opt.init(p)
+    ops.reset_launches()
+    for r, batch in enumerate(make_batches(lm, 4, 2, 16, 2, card)):
+        p, state, _ = rnd(p, state, r, batch)
+    assert ops.LAUNCHES["decdiff_update"] == 2

@@ -276,9 +276,9 @@ def test_multi_pod_and_unported_options_name_their_roadmap_item():
         build_dfl_round_shardmap(tlm, sgd_momentum(), _ring(), pods=2)
     with pytest.raises(NotImplementedError, match="A.11"):
         train.main(["--steps", "1", "--device", "cpu", "--ckpt-dir", "x"])
-    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="A.11"):
-        build_serve_step(tlm)
+        serve.main(["--arch", "whisper-large-v3", "--device", "cpu"])
 
 
 def test_flatten_stacked_restores_bf16_leaves_as_jax():
@@ -330,3 +330,38 @@ def test_train_entry_point_runs_reduced(mode, loss):
                          "--batch", "2", "--mode", mode, "--loss", loss,
                          "--log-every", "1"])
     assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+def test_eq5_step_is_the_old_formula_and_goes_through_the_wrapper(
+        monkeypatch):
+    """`_decdiff_step_from_avg` on an LM's bf16 leaves (a node silenced:
+    row 0) is the formula of the round before the kernel, bit for bit, and
+    reaches Eq. 5 through `ops.decdiff_rows` once per call."""
+    from repro_torch.dist import dfl_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import init_nodes
+
+    _, tlm = _lms()
+    local = tree_map(lambda t: t.to(torch.bfloat16),
+                     init_nodes(tlm, 3, "cpu"))
+    rng = np.random.default_rng(9)
+    avg = tree_map(lambda t: t.float() + torch.from_numpy(
+        rng.standard_normal(tuple(t.shape)).astype(np.float32) * 0.01),
+        local)
+    row = torch.tensor([0.0, 1.0, 0.5])
+    calls = []
+    real = ops.decdiff_rows
+    monkeypatch.setattr(ops, "decdiff_rows",
+                        lambda *a: calls.append(1) or real(*a))
+    got = dfl_step._decdiff_step_from_avg(local, avg, row, 1.0)
+    assert len(calls) == 1
+    xs, avs = tree_leaves(local), tree_leaves(avg)
+    diff = [a - x.float() for x, a in zip(xs, avs)]
+    sq = sum(torch.sum(torch.square(d), dim=tuple(range(1, d.dim())))
+             for d in diff)
+    scale = torch.where(row > 0, 1.0 / (torch.sqrt(sq) + 1.0), 0.0)
+    for g, x, d in zip(tree_leaves(got), xs, diff):
+        sc = scale.reshape(scale.shape + (1,) * (d.dim() - 1))
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, (x.float() + sc * d).to(x.dtype))
+        assert torch.equal(g[0], x[0])

@@ -246,9 +246,11 @@ def test_every_kernel_source_is_built_by_name():
     from repro_torch.kernels import _build
 
     sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["dequant_avg_rows", "gather_rows", "segment_avg",
+    assert sources == ["decdiff_update", "decode_attention",
+                       "dequant_avg_rows", "gather_rows", "segment_avg",
                        "vt_kl_loss"]
     assert sorted(ops.LAUNCHES) == [
+        "decdiff_update", "decode_attention_fused",
         "dequant_neighbor_avg_rows", "gather_rows", "segment_neighbor_avg",
         "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
 
@@ -472,3 +474,299 @@ def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
     assert args.count(ctypes.c_float) == n_float
     assert args[-1] is ctypes.c_void_p
     assert getattr(lib, fn).restype is ctypes.c_int
+
+
+# --------------------------------------------------- decode attention
+
+DECODE_SWEEP = [(1, 16, 1, 1, 16), (2, 600, 2, 2, 64), (4, 1024, 8, 1, 128),
+                (3, 512, 4, 8, 64)]
+
+
+def _decode_inputs(b, w, kk, g, hd, cache_dtype, filled=None, seed=None):
+    """The reference sweep's inputs (`tests/test_kernels.py`), as jnp and
+    as torch on the CPU; a bf16 cache crosses as its exact fp32 values."""
+    rng = np.random.default_rng(b * w + hd if seed is None else seed)
+    h = kk * g
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = jnp.asarray(rng.standard_normal((b, w, kk, hd)), cache_dtype)
+    v = jnp.asarray(rng.standard_normal((b, w, kk, hd)), cache_dtype)
+    filled = max(w - 5, 1) if filled is None else filled
+    sp = np.array([i if i < filled else -1 for i in range(w)], np.int32)
+    tdt = torch.bfloat16 if cache_dtype == jnp.bfloat16 else torch.float32
+    tk, tv = (torch.tensor(np.asarray(x.astype(jnp.float32))).to(tdt)
+              for x in (k, v))
+    return ((jnp.asarray(q), k, v, jnp.asarray(sp), jnp.int32(filled - 1)),
+            (torch.from_numpy(q), tk, tv, torch.from_numpy(sp),
+             torch.tensor(filled - 1, dtype=torch.int32)))
+
+
+@pytest.mark.parametrize("b,w,kk,g,hd", DECODE_SWEEP)
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_matches_jax(b, w, kk, g, hd, cache_dtype):
+    """The port's plain version against the reference's Pallas kernel
+    (interpreted) and its oracle `decode_attention_ref`, rtol = atol =
+    2e-5 as the reference holds its kernel to its oracle."""
+    from repro.kernels import decode_attention_fused as jfused
+    from repro.kernels.ref import decode_attention_ref
+
+    jin, tin = _decode_inputs(b, w, kk, g, hd, getattr(jnp, cache_dtype))
+    got = ops.decode_attention_fused(*tin)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, kk * g, hd)
+    for want in (jfused(*jin), decode_attention_ref(*jin)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [1, 7, 300])
+def test_decode_attention_window_is_the_layer_clause(window):
+    """`window` > 0 masks slot_pos <= pos - window, as the reference layer's
+    sliding-window clause does: the same as handing the reference's oracle
+    those slots emptied (-1)."""
+    from repro.kernels.ref import decode_attention_ref
+
+    jin, tin = _decode_inputs(2, 600, 2, 2, 64, jnp.float32)
+    q, k, v, sp, pos = jin
+    emptied = jnp.where(sp > pos - window, sp, -1)
+    got = ops.decode_attention_fused(*tin, window=window)
+    want = decode_attention_ref(q, k, v, emptied, pos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    assert not torch.allclose(got, ops.decode_attention_fused(*tin))
+
+
+def test_decode_attention_plain_of_bf16_queries_and_an_empty_ring():
+    """A bf16 query reads as its fp32 value; a row whose every slot is
+    masked gets the softmax of equal scores, the uniform average, as the
+    reference's oracle does."""
+    from repro.kernels.ref import decode_attention_ref
+
+    jin, tin = _decode_inputs(2, 64, 2, 4, 32, jnp.bfloat16)
+    q = tin[0].to(torch.bfloat16)
+    got = ops.decode_attention_fused(q, *tin[1:])
+    want = ops.decode_attention_fused(q.float(), *tin[1:])
+    assert torch.equal(got, want)
+    empty = torch.full_like(tin[3], -1)
+    got = ops.decode_attention_fused(tin[0], tin[1], tin[2], empty, tin[4])
+    want = decode_attention_ref(jin[0], jin[1], jin[2],
+                                jnp.asarray(empty.numpy()), jin[4])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(
+        got, tin[2].float().mean(1).repeat_interleave(4, dim=1), rtol=2e-5,
+        atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["q-dtype", "kv-dtypes", "pos-dtype",
+                                 "sp-dtype", "heads", "shape", "contig",
+                                 "device", "pos-shape", "empty"])
+def test_decode_attention_wrapper_rejects_bad_inputs(bad):
+    _, (q, k, v, sp, pos) = _decode_inputs(2, 16, 2, 2, 16, jnp.float32)
+    if bad == "q-dtype":
+        q = q.double()
+    elif bad == "kv-dtypes":
+        v = v.to(torch.bfloat16)
+    elif bad == "pos-dtype":
+        pos = pos.long()
+    elif bad == "sp-dtype":
+        sp = sp.long()
+    elif bad == "heads":  # H not a multiple of K
+        q = q[:, :3].contiguous()
+    elif bad == "shape":
+        sp = sp[:-1].contiguous()
+    elif bad == "contig":
+        k = k.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "device":
+        q, k, v, sp, pos = (t.to("meta") for t in (q, k, v, sp, pos))
+    elif bad == "pos-shape":
+        pos = pos.reshape(1)
+    else:
+        k, v, sp = k[:, :0], v[:, :0], sp[:0]
+    with pytest.raises((TypeError, ValueError)):
+        ops.decode_attention_fused(q, k, v, sp, pos)
+
+
+# ----------------------------------------------------- Eq. 5 (decdiff)
+
+
+def _flat_pair(n, dtype, seed=None):
+    rng = np.random.default_rng(n if seed is None else seed)
+    w = jnp.asarray(rng.standard_normal(n), dtype)
+    wb = jnp.asarray(rng.standard_normal(n), dtype)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    return (w, wb), tuple(torch.tensor(np.asarray(x.astype(jnp.float32)))
+                          .to(tdt) for x in (w, wb))
+
+
+def _close_in(dtype):
+    """fp32: rtol 1e-5.  bf16: both packages round the same fp32 formula
+    once into bf16, from norms summed in another order, so an element
+    may land one bf16 rounding (2^-8 relative, 2^-7 at most) apart."""
+    return (dict(rtol=1e-5, atol=1e-6) if dtype == jnp.float32 else
+            dict(rtol=2.0 ** -7, atol=1e-6))
+
+
+@pytest.mark.parametrize("n", [17, 1000, 32768, 100_001, 500_000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decdiff_update_matches_jax(n, dtype):
+    """`ops.decdiff_update` against the reference's wrapper (its two Pallas
+    kernels interpreted) over the reference's sweep."""
+    from repro.kernels import decdiff_update as jdd
+
+    dt = getattr(jnp, dtype)
+    (w, wb), (tw, twb) = _flat_pair(n, dt)
+    got = ops.decdiff_update(tw, twb, s=1.0)
+    assert got.dtype == tw.dtype and tuple(got.shape) == (n,)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jdd(w, wb, s=1.0).astype(
+                                   jnp.float32)), **_close_in(dt))
+
+
+@pytest.mark.parametrize("s", [1.0, 2.5])
+def test_decdiff_update_s_param_matches_jax(s):
+    from repro.kernels import decdiff_update as jdd
+
+    (w, wb), (tw, twb) = _flat_pair(5000, jnp.float32, seed=0)
+    np.testing.assert_allclose(ops.decdiff_update(tw, twb, s=s).numpy(),
+                               np.asarray(jdd(w, wb, s=s)), rtol=1e-5)
+
+
+def test_decdiff_update_tree_matches_jax():
+    """One distance over every leaf of a mixed fp32 / bf16 tree, each leaf
+    updated in its own dtype (the reference's `decdiff_update_tree`)."""
+    from repro.kernels import decdiff_update_tree as jtree
+    from repro_torch.utils.pytree import tree_leaves
+
+    rng = np.random.default_rng(3)
+    shapes = {"a": (64, 33), "b": {"w": (1000,), "z": (7, 3)}}
+    dts = {"a": jnp.float32, "b": {"w": jnp.float32, "z": jnp.bfloat16}}
+    mk = lambda: jax.tree.map(
+        lambda shp, dt: jnp.asarray(rng.standard_normal(shp), dt), shapes,
+        dts, is_leaf=lambda x: isinstance(x, tuple))
+    jw, jwb = mk(), mk()
+    to_t = lambda t: jax.tree.map(
+        lambda x: torch.tensor(np.asarray(x.astype(jnp.float32))).to(
+            torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32), t)
+    got = ops.decdiff_update_tree(to_t(jw), to_t(jwb))
+    want = jtree(jw, jwb)
+    for g, j in zip(tree_leaves(got), jax.tree.leaves(want)):
+        assert str(g.dtype).replace("torch.", "") == str(j.dtype)
+        np.testing.assert_allclose(
+            g.float().numpy(), np.asarray(j.astype(jnp.float32)),
+            **_close_in(j.dtype))
+
+
+def _old_eq5(local, avg, row, s):
+    """The port's Eq. 5 as `dist/dfl_step.py` computed it before the
+    kernel existed, kept here as the plain version's oracle."""
+    diff = [a - x.to(torch.float32) for x, a in zip(local, avg)]
+    sq = sum(torch.sum(torch.square(d), dim=tuple(range(1, d.dim())))
+             for d in diff)
+    scale = torch.where(row > 0, 1.0 / (torch.sqrt(sq) + s), 0.0)
+    return [(x.to(torch.float32) + scale.reshape(
+        scale.shape + (1,) * (d.dim() - 1)) * d).to(x.dtype)
+        for x, d in zip(local, diff)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1.0, 0.25])
+def test_decdiff_rows_is_the_old_eq5_bitwise(dtype, s):
+    """Row-batched over several leaves, with a receiver whose gate is 0:
+    the plain version is the old formula bit for bit, and the gated row
+    keeps its model exactly."""
+    rng = np.random.default_rng(5)
+    tdt = getattr(torch, dtype)
+    shapes = [(4, 33, 7), (4, 1000), (4, 5)]
+    local = [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+             .to(tdt) for shp in shapes]
+    avg = [torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+           for shp in shapes]
+    row = torch.tensor([1.0, 0.5, 0.0, 2.0])
+    got = ops.decdiff_rows(local, avg, row, s)
+    for g, want, x in zip(got, _old_eq5(local, avg, row, s), local):
+        assert g.dtype == tdt and torch.equal(g, want)
+        assert torch.equal(g[2], x[2])
+        assert not torch.equal(g[0], x[0])
+
+
+def test_decdiff_rows_plain_pieces_compose():
+    from repro_torch.kernels import decdiff_update as dd
+
+    rng = np.random.default_rng(6)
+    x = [torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32))]
+    a = [torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32))]
+    sq = dd.sumsq_rows_plain(x, a)
+    torch.testing.assert_close(sq, ((a[0] - x[0]) ** 2).sum(1))
+    scale = dd.scale_from_sumsq(sq, None, 1.0)
+    assert torch.equal(ops.decdiff_rows(x, a, None, 1.0)[0],
+                       dd.step_rows_plain(x[0], a[0], scale))
+
+
+@pytest.mark.parametrize("bad", ["x-dtype", "a-dtype", "shape", "rows",
+                                 "count", "gate", "contig", "device"])
+def test_decdiff_rows_wrapper_rejects_bad_inputs(bad):
+    x = [torch.zeros(3, 8), torch.zeros(3, 2)]
+    a = [torch.ones(3, 8), torch.ones(3, 2)]
+    gate = torch.ones(3)
+    if bad == "x-dtype":
+        x[0] = x[0].half()
+    elif bad == "a-dtype":
+        a[1] = a[1].to(torch.bfloat16)
+    elif bad == "shape":
+        a[0] = a[0][:, :7].contiguous()
+    elif bad == "rows":
+        x[1], a[1] = torch.zeros(2, 2), torch.zeros(2, 2)
+    elif bad == "count":
+        a = a[:1]
+    elif bad == "gate":
+        gate = torch.ones(4)
+    elif bad == "contig":
+        x[0] = torch.zeros(8, 3).t()
+    else:
+        gate = gate.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        ops.decdiff_rows(x, a, gate, 1.0)
+
+
+def test_serving_and_eq5_wrappers_count_no_launch_on_the_cpu():
+    ops.reset_launches()
+    _, tin = _decode_inputs(2, 16, 2, 2, 16, jnp.float32)
+    ops.decode_attention_fused(*tin)
+    ops.decdiff_rows([torch.zeros(2, 3)], [torch.ones(2, 3)], None, 1.0)
+    ops.decdiff_update(torch.zeros(5), torch.ones(5))
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("fn,n_ptr,n_int,n_i64,n_float", [
+    ("decode_attention_f32", 8, 2, 8, 1),
+    ("decdiff_sumsq_rows", 3, 1, 4, 0),
+    ("decdiff_scale_rows", 4, 0, 2, 1),
+    ("decdiff_step_rows", 4, 1, 2, 0),
+])
+def test_serving_and_eq5_ctypes_bindings_declare_their_arguments(
+        monkeypatch, fn, n_ptr, n_int, n_i64, n_float):
+    """Every pointer, flag, 64-bit size and float is declared (ctypes would
+    pass 32-bit ints and cut the pointers otherwise)."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decdiff_update as dd
+    from repro_torch.kernels import decode_attention as da
+
+    fns = {name: types.SimpleNamespace(argtypes=None, restype=None)
+           for name in ("decode_attention_f32", "decdiff_col_blocks",
+                        "decdiff_sumsq_rows", "decdiff_scale_rows",
+                        "decdiff_step_rows")}
+    monkeypatch.setattr(_build, "load",
+                        lambda name: types.SimpleNamespace(**fns))
+    lib = (da if fn.startswith("decode") else dd)._library()
+    args = getattr(lib, fn).argtypes
+    assert args.count(ctypes.c_void_p) == n_ptr + 1  # + the stream
+    assert args.count(ctypes.c_int) == n_int
+    assert args.count(ctypes.c_int64) == n_i64
+    assert args.count(ctypes.c_float) == n_float
+    assert args[-1] is ctypes.c_void_p
+    assert getattr(lib, fn).restype is ctypes.c_int
+    if fn.startswith("decdiff"):
+        assert lib.decdiff_col_blocks.argtypes == [ctypes.c_int64]
+        assert lib.decdiff_col_blocks.restype is ctypes.c_int64

@@ -344,7 +344,8 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.kernels.dequant_avg', 'repro_torch.kernels.vt_kl_loss', "
         "'repro_torch.models.lm.dense', 'repro_torch.dist.dfl_step', "
         "'repro_torch.launch.train', 'repro_torch.configs.qwen1_5_0_5b', "
-        "'repro_torch.data.tokens'):\n"
+        "'repro_torch.data.tokens', 'repro_torch.kernels.decode_attention', "
+        "'repro_torch.kernels.decdiff_update', 'repro_torch.launch.serve'):\n"
         "    assert m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules "
         "if k.startswith('repro_torch')]))\n")
