@@ -21,16 +21,26 @@ It imports the port only (no JAX), and:
        c. the per-node transport, `CommConfig(codec="int8")`, always send;
      on each, the VT loss's forward and backward kernels launch once per
      local step; a kernel of a path that was never launched fails the
-     run; then the three paths run again in turns (a, b, c, c, b, a) for
-     their ms per round;
+     run; then two paths of the paper's baselines on the same world,
+     each 3 fused rounds after one warm round, the counts set to 0 just
+     before and read just after:
+       f. `fedavg` (the FED baseline's server average): `neighbor_avg`
+          must launch once per round and the segment reduce never; every
+          node's params are bitwise equal, and its 16 accuracies equal,
+          after each round;
+       g. `cfa-ge` (Eq. 9, then the 10-slot gradient exchange): the
+          segment reduce must launch once per round and `neighbor_avg`
+          never; params and losses finite;
+     then the five paths run again in turns (a, b, c, f, g, g, f, c, b,
+     a) for their ms per round;
   4. checks what comes out: per-node accuracies of shape [16] in [0, 1],
      finite train losses and params, bytes on the wire equal to the
      payload formula (567,438 bytes per fired edge) and a triggered
      fraction in (0, 1]; and a small world run on the card that agrees
      with the same run on the CPU (the plain path, which the CPU tests
-     hold against the JAX reference), without and with the per-edge
-     transport (params to 1e-4, accuracy to one test sample, bytes
-     exactly);
+     hold against the JAX reference): `decdiff+vt` without and with the
+     per-edge transport, `fedavg` and `cfa-ge` (params to 1e-4, accuracy
+     to one test sample, bytes exactly);
   5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
      its one-pod form with the fused int8 gossip
      (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
@@ -47,7 +57,11 @@ It imports the port only (no JAX), and:
      the main paths' shapes (and more), and times kernel, plain version and
      one PyTorch library call with CUDA events (median of 20) beside the
      bound: the segment reduce and the gather bitwise at paths a and b's
-     shapes and at a 64-node BA m=2 shape; `dequant_neighbor_avg_rows`
+     shapes and at a 64-node BA m=2 shape; `neighbor_avg` bitwise on path
+     f's real stack [16, 567434] with its |D_i| weights, on path d's flat
+     block [4, 463987712] with receiver 0's ring weights and at an odd
+     N = 10, D = 1,000,003 with one zero weight (`torch.mv` beside it);
+     `dequant_neighbor_avg_rows`
      bitwise on path d's real int8 payload [4, 463987712] and at an odd D
      with 8 receivers and one zero row; the Eq. 5 kernels on path d's real
      flat block [4, 463987712] and its neighbourhood average (pass B
@@ -82,15 +96,16 @@ It imports the port only (no JAX), and:
 
 Paths a-d also run the Eq. 5 step through the `decdiff_update` kernels:
 one launch per round each.  With `--profile` it also traces one more
-round (eval included) of paths a and b, one round of path d and one decode
-step of path e under `torch.profiler` and prints the device time by kernel
-and the device's busy share of the wall time.
+round (eval included) of paths a, b and g, one round of path d and one
+decode step of path e under `torch.profiler` and prints the device time by
+kernel and the device's busy share of the wall time.
 
 Any failure exits non-zero before the last line is printed.  Without a
 CUDA card, or without the port beside this script, it exits 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -180,6 +195,43 @@ def kernel_vs_plain(torch, ops, plain, vals, w, label):
                 shape=[b, k, d])
 
 
+def navg_vs_plain(torch, ops, x, weights, label):
+    """Hold `neighbor_avg` against its plain version (bitwise) on x [N, D]
+    with the weights normalized as the wrapper does, and time the kernel,
+    the plain version and `torch.mv(x.t(), wn)` (the port never calls
+    it).  Bound: x and w read once, the [D] average written once, over HBM
+    bandwidth; or 2·N·D fp32 flops over the fp32 peak."""
+    from repro_torch.kernels import neighbor_avg as na
+
+    n, d = x.shape
+    out = ops.neighbor_avg(x, weights)
+    torch.cuda.synchronize()
+    wn = (weights.to(torch.float32) / torch.sum(weights.to(torch.float32))
+          ).contiguous()
+    ref = na.neighbor_avg_plain(x, wn)
+    equal = bool(torch.equal(out, ref))
+    err = float((out - ref).abs().max())
+    zeros = int((wn == 0).sum())
+    del out, ref
+    ms = median_ms(torch, lambda: na.neighbor_avg_cuda(x, wn))
+    plain_ms = median_ms(torch, lambda: na.neighbor_avg_plain(x, wn))
+    lib_ms = median_ms(torch, lambda: torch.mv(x.t(), wn))
+    nbytes = 4 * ((n + 1) * d + n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n * d / FP32_FLOPS
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"neighbor_avg {label} [N={n}, D={d}, {zeros} zero weights]: "
+          f"torch.equal(kernel, plain)={equal} max_abs_err={err:g} kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mv {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.4f} GB), "
+          f"kernel at {100 * bound_ms / ms:.1f}% of bound")
+    check(equal, f"neighbor_avg {label}: kernel != plain (max_abs_err "
+                 f"{err:g})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=[n, d])
+
+
 def gather_bound_ms(tbl_rows, idx, d):
     """Least time for the gather: the distinct rows the index names read
     once, every output row written once, the indices read once, over HBM
@@ -220,7 +272,8 @@ def gather_vs_plain(torch, ops, plain, tbl, idx, label):
                 every_slot_bound_ms=every_ms, shape=[m, int(idx.numel()), d])
 
 
-def small_world_agrees(torch, dev, comm=None, label="no transport"):
+def small_world_agrees(torch, dev, comm=None, label="no transport",
+                       method="decdiff+vt"):
     """The same small run on the card and on the CPU (same world, same
     init, no random draws in the rounds) must agree; with a transport the
     bytes on the wire must be equal."""
@@ -234,7 +287,7 @@ def small_world_agrees(torch, dev, comm=None, label="no transport"):
                                 topology="barabasi_albert", m=2, scale=0.03,
                                 model=make_mlp(hidden=(64, 32)),
                                 device=where)
-        exp = Experiment(world, "decdiff+vt", steps_per_round=2,
+        exp = Experiment(world, method, steps_per_round=2,
                          batch_size=32, device=where, comm=comm)
         hist = exp.run(rounds=3, eval_every=1)
         runs.append((hist, [p.cpu() for p in tree_leaves(exp.params)],
@@ -246,7 +299,8 @@ def small_world_agrees(torch, dev, comm=None, label="no transport"):
                for a, b in zip(hc, hh))
     bytes_c = [m.bytes_on_wire for m in hc]
     bytes_h = [m.bytes_on_wire for m in hh]
-    print(f"small world (16 nodes, MLP 784-64-32-10, 3 rounds, {label}) "
+    print(f"small world (16 nodes, MLP 784-64-32-10, 3 rounds, {method}, "
+          f"{label}) "
           f"card vs cpu: max |param diff| {perr:.3g}, max accuracy diff "
           f"{aerr:.3g} test samples, bytes on the wire card {bytes_c} cpu "
           f"{bytes_h}, triggered card {tc} cpu {th}")
@@ -989,7 +1043,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.gather_rows import gather_rows_plain
     from repro_torch.kernels.segment_avg import segment_avg_plain
-    from repro_torch.utils.pytree import tree_flatten_stacked
+    from repro_torch.utils.pytree import tree_flatten_stacked, tree_leaves
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1002,8 +1056,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")))
     check(sorted(libs) == ["decdiff_update", "decode_attention",
-                           "dequant_avg_rows", "gather_rows", "segment_avg",
-                           "vt_kl_loss"], f"kernel sources {sorted(libs)}")
+                           "dequant_avg_rows", "gather_rows", "neighbor_avg",
+                           "segment_avg", "vt_kl_loss"],
+          f"kernel sources {sorted(libs)}")
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_DIR})")
 
@@ -1080,18 +1135,49 @@ def main() -> int:
           f"per-node bytes {bytes_n} != {payload} x {n_dir} x {ROUNDS} "
           f"(triggered {trig_n})")
     check(all(m.triggered_frac == 1.0 for m in hist_n), "per-node trigger")
+
+    # -- path f: the FedAvg server (the paper's FED baseline) -------------
+    exp_f = Experiment(world, "fedavg", schedule=sched)
+    hist_f, l_fed, ms_fed, _, _ = drive(torch, ops, exp_f,
+                                        "path f (fedavg, server average)")
+    check(l_fed["neighbor_avg"] == ROUNDS
+          and l_fed["segment_neighbor_avg"] == 0,
+          f"path f: launches {l_fed}")
+
+    def one_model(e, m):
+        """Every node's params bitwise equal, and so its 16 accuracies."""
+        return all(bool((t == t[:1]).all()) for t in tree_leaves(e.params)) \
+            and bool((m.acc_per_node == m.acc_per_node[0]).all())
+
+    check(one_model(exp_f, hist_f[-1]) and all(
+        (m.acc_per_node == m.acc_per_node[0]).all() for m in hist_f),
+        "path f: the nodes' models or accuracies differ")
+    for _ in range(ROUNDS):  # and after each round, one round at a time
+        m = exp_f.run(rounds=1, eval_every=1)[0]
+        check(one_model(exp_f, m), "path f: the nodes' models differ after "
+                                   "a round")
+    print(f"path f: every node's params bitwise equal after each round; "
+          f"accuracy {hist_f[-1].acc_per_node[0]:.4f} on every node")
+
+    # -- path g: CFA-GE, Eq. 9 then the gradient exchange ---------------
+    exp_g = Experiment(world, "cfa-ge", schedule=sched)
+    _, l_ge, ms_ge, _, _ = drive(torch, ops, exp_g,
+                                 "path g (cfa-ge, gradient exchange)")
+    check(l_ge["segment_neighbor_avg"] == ROUNDS and l_ge["neighbor_avg"] == 0,
+          f"path g: launches {l_ge}")
     print(f"ms per round: no transport {ms_plain:.2f}, per-edge "
-          f"{ms_edge:.2f}, per-node {ms_node:.2f}")
+          f"{ms_edge:.2f}, per-node {ms_node:.2f}, fedavg {ms_fed:.2f}, "
+          f"cfa-ge {ms_ge:.2f}")
     # the host's load moves a round's wall time from call to call: compare
-    # the paths in turns (a, b, c, c, b, a) within this call
-    turns = {"a": [], "b": [], "c": []}
-    for key in "abccba":
-        e = {"a": exp, "b": exp_e, "c": exp_n}[key]
+    # the paths in turns (a, b, c, f, g, g, f, c, b, a) within this call
+    turns = {"a": [], "b": [], "c": [], "f": [], "g": []}
+    for key in "abcfggfcba":
+        e = {"a": exp, "b": exp_e, "c": exp_n, "f": exp_f, "g": exp_g}[key]
         t0 = time.perf_counter()
         e.run(rounds=ROUNDS, eval_every=1)
         torch.cuda.synchronize()
         turns[key].append(1e3 * (time.perf_counter() - t0) / ROUNDS)
-    print("ms per round in turns a, b, c, c, b, a: " + ", ".join(
+    print("ms per round in turns a, b, c, f, g, g, f, c, b, a: " + ", ".join(
         f"{k} {statistics.median(v):.2f} ({', '.join(f'{x:.2f}' for x in v)})"
         for k, v in turns.items()))
 
@@ -1100,6 +1186,8 @@ def main() -> int:
     small_world_agrees(torch, dev, CommConfig(
         codec="int8", policy="adaptive", target_trigger=0.95,
         stochastic=False), "per-edge int8 adaptive 0.95, deterministic")
+    small_world_agrees(torch, dev, method="fedavg")
+    small_world_agrees(torch, dev, method="cfa-ge")
 
     # -- each kernel against its plain version, at the main path's shapes
     seg = kernel_vs_plain(torch, ops, segment_avg_plain, vals_main, w_main,
@@ -1126,20 +1214,31 @@ def main() -> int:
     gather_vs_plain(torch, ops, gather_rows_plain, tbl64, tr64.flat_idx,
                     "64-node BA m=2, random rows")
     del tbl64
+    nav_f = navg_vs_plain(torch, ops, tree_flatten_stacked(exp_f.params)[0],
+                          exp_f.agg_state["counts"],
+                          "path f (real stack after the last round, |D_i| "
+                          "weights)")
     profile = "--profile" in sys.argv[1:]
     if profile:
         profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
                       "no-transport (eval included)")
         profile_round(torch, lambda: exp_e.run(rounds=1, eval_every=1),
                       "per-edge transport (eval included)")
+        profile_round(torch, lambda: exp_g.run(rounds=1, eval_every=1),
+                      "path g cfa-ge (eval included)")
     exp_beta = exp.train.beta
-    del exp, exp_e, exp_n, world, table0
+    # an Experiment's round closure refers back to it, so only the cycle
+    # collector frees the MLP paths' data and models before path d
+    del exp, exp_e, exp_n, exp_f, exp_g, e, world, table0
+    gc.collect()
 
     # -- path d: the LM DFL pod round at full width ------------------------
     lmd = path_d(torch, ops, dev, profile)
     small_lm_agrees(torch, dev)
     dq = dequant_vs_plain(torch, ops, lmd["q"], lmd["scale"], lmd["wn"],
                           "path d (real int8 payload of the 4 nodes)")
+    nav_lm = navg_vs_plain(torch, ops, lmd["w"], lmd["wn"][0],
+                           "path d's flat block, receiver 0's ring weights")
     avg = ops.dequant_neighbor_avg_rows(lmd.pop("q"), lmd["scale"], lmd["wn"])
     eq5 = eq5_vs_plain(torch, lmd.pop("w"), avg, lmd["row"],
                        "path d (real flat block and its average)")
@@ -1156,6 +1255,13 @@ def main() -> int:
     dequant_vs_plain(torch, ops, q8, torch.rand(8, generator=gen,
                                                 device=dev) * 0.05, wn8,
                      "odd D, 8 receivers, one zero row")
+    del q8
+    x10 = torch.randn((10, 1_000_003), generator=gen, device=dev)
+    w10 = torch.rand(10, generator=gen, device=dev)
+    w10[4] = 0.0
+    nav_odd = navg_vs_plain(torch, ops, x10, w10,
+                            "odd N = 10, odd D, one zero weight")
+    del x10
     vt_main = vt_vs_plain(torch, ops, lmd["logits"], lmd["labels"],
                           "path d (node 0's real logits)")
     vt_vs_plain(torch, ops, lmd["logits"].float(), lmd["labels"],
@@ -1196,7 +1302,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
-               "e": lme["launches"]}
+               "e": lme["launches"], "f": l_fed, "g": l_ge}
 
     def launches(name):
         return sum(p[name] for p in by_path.values())
@@ -1237,6 +1343,9 @@ def main() -> int:
         entry("decode_attention_fused", "decode_attention",
               "src/repro/kernels/decode_attention.py:92", da_main,
               dtype=da_main["dtype"]),
+        entry("neighbor_avg", "neighbor_avg",
+              "src/repro/kernels/neighbor_avg.py:32", nav_f,
+              other_shapes=[nav_lm, nav_odd]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -1245,6 +1354,10 @@ def main() -> int:
           f"max {max(lme['ms']):.3f}), {lme['tok_s']:.1f} tokens per second, "
           f"peak device memory {lme['peak']} B, decode_attention_fused "
           f"launches {lme['launches']['decode_attention_fused']}")
+    print(f"paths f / g: ms per round {ms_fed:.2f} / {ms_ge:.2f}, "
+          f"neighbor_avg launches {l_fed['neighbor_avg']} / "
+          f"{l_ge['neighbor_avg']}, segment_neighbor_avg launches "
+          f"{l_fed['segment_neighbor_avg']} / {l_ge['segment_neighbor_avg']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

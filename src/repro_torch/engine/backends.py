@@ -4,7 +4,10 @@ One round is (local SGD steps -> neighbour exchange -> aggregation) over
 every node at once, on the experiment's device, with no host
 synchronisation.  This is the JAX package's round body on its dense
 context, with or without the `repro_torch.comm` gossip transport, and with
-no dynamics, no event clock and no telemetry:
+no dynamics, no event clock and no telemetry.  By the strategy's declared
+kind: gossip aggregates over the delivered neighbours (then, for CFA-GE,
+walks the neighbour slots for the gradient exchange); "server" (FedAvg)
+averages the full stack; "none" keeps the local models:
 
     round_fn(params, opt, comm_state, round_idx)
         -> (params, opt, comm_state, train_loss, sent_edges, trig)
@@ -20,8 +23,9 @@ Random draws come from the experiment's `torch.Generator`, never from the
 global RNG, in the reference's order: heterogeneous step budgets, the
 participation mask, then the codec's uniforms — each only when it is
 used (`hetero_steps_min > 0`, `participation < 1`, a stochastic int8
-codec), so the defaults and `CommConfig()` draw nothing.  The `shard_map`
-backend is ROADMAP A.10.
+codec), so the defaults and `CommConfig()` draw nothing.  Every kind draws
+the link mask, so the later draws do not depend on the method.  The
+`shard_map` backend is ROADMAP A.10.
 """
 from __future__ import annotations
 
@@ -94,6 +98,54 @@ def _make_delivery_mask(exp):
     return delivery_mask
 
 
+def _make_gradient_exchange(exp):
+    """CFA-GE's second phase: each neighbour j evaluates the gradient of
+    its local loss F_j at OUR aggregated model on one minibatch of ITS
+    data, and we descend along their ω·|D|·mask-weighted mean.
+
+    The walk goes over the slots d = 0..max_deg-1 in order; slot d's
+    minibatch of neighbour j is the Batcher's step `round_idx·max_deg + d`
+    (int32 arithmetic, modulo max(|D_j|, 1)).  The gradient accumulators
+    and the totals start at +0 and add in slot order, so a padded slot
+    (neighbour 0, weight 0) adds exactly +0.  A node whose total is 0
+    keeps its model."""
+    cfg, n = exp.train, exp.n
+    batcher, counts = exp.batcher, exp.counts
+    nbr_idx, nbr_weight = exp.nbr_idx, exp.nbr_weight
+    x_pad, y_pad = exp.x_pad, exp.y_pad
+    max_deg = int(nbr_idx.shape[1])
+    grad_fn = exp._grad_fn
+    lr_ge = cfg.ge_lr if cfg.ge_lr is not None else cfg.lr
+
+    def gradient_exchange(params, mask, round_idx: int):
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        tot = torch.zeros((n,), dtype=torch.float32, device=exp.device)
+        for d in range(max_deg):
+            j = nbr_idx[:, d]  # [N] neighbour ids in slot d
+            bidx = batcher.indices(counts[j], round_idx * max_deg + d)
+            g = grad_fn(params, x_pad[j[:, None], bidx],
+                        y_pad[j[:, None], bidx])  # grad of F_j at w_i
+            w_d = nbr_weight[:, d] * mask[:, d]
+
+            def add(a, gi):
+                wb = w_d.reshape((n,) + (1,) * (gi.dim() - 1))
+                return a + wb * gi.to(torch.float32)
+
+            acc = tree_map(add, acc, g)
+            tot = tot + w_d
+        safe = torch.clamp(tot, min=1e-9)
+        step = lr_ge * (tot > 0).to(torch.float32) * (1.0 / safe)
+
+        def apply(p, a):
+            sb = step.reshape((n,) + (1,) * (a.dim() - 1))
+            return (p.to(torch.float32) - sb * a).to(p.dtype)
+
+        return tree_map(apply, params, acc)
+
+    return gradient_exchange
+
+
 def build_round(exp):
     """Lower `exp` to its `vmap`-backend round function (module docstring);
     `Experiment` refuses the other backends before it gets here."""
@@ -121,6 +173,8 @@ def build_round(exp):
                 and strategy.flat_aggregate is not None)
     local_training = _make_local_training(exp)
     delivery_mask = _make_delivery_mask(exp)
+    gradient_exchange = (_make_gradient_exchange(exp)
+                         if caps.grad_exchange else None)
 
     def over_table(params, table_mat, mask):
         """Aggregate over a full [N, D] table of sender models, slot
@@ -151,11 +205,18 @@ def build_round(exp):
         sent_edges = trig = None
         with torch.no_grad():
             if transport is None:
-                if caps.kind == "gossip":
+                if caps.kind == "server":
+                    # the server averages the full stack, every client
+                    # weighted by |D_i| (no dynamics: all are live)
+                    params = strategy.aggregate(exp, agg_state, params,
+                                                params, None)
+                elif caps.kind == "gossip":
                     # every sender broadcasts: the delivered weights are
                     # ω·|D| times the link mask
                     table = tree_flatten_stacked(params)[0]
                     params = over_table(params, table, link)
+                    if gradient_exchange is not None:
+                        params = gradient_exchange(params, link, round_idx)
                 # kind == "none": isolation — no communication at all.
             elif per_edge:
                 # per-EDGE transport: the link mask feeds the exchange

@@ -8,11 +8,12 @@ evaluation — behind one object, as the JAX package's `repro.engine` does.
 The port runs the dense node-axis layout on the `vmap` backend, with or
 without the gossip transport (`comm=CommConfig(...)`: codecs, event
 triggers, per-node or per-edge state, exact bytes on the wire; `wire=`
-names what the pod backend would gather).  Options that are not ported yet
-raise NotImplementedError naming the ROADMAP item that ports them:
-`layout="sparse"` and its transport (A.6), `dynamics=` (A.7), `timing=`
-and `Schedule(deadline=)` (A.8), `telemetry=` (A.9), `backend="shard_map"`
-(A.10), the CNN (A.2), and the `fedavg` / `cfa-ge` methods (A.3).
+names what the pod backend would gather).  Every method of the roster
+runs, the FedAvg server and CFA-GE's gradient exchange included.  Options
+that are not ported yet raise NotImplementedError naming the ROADMAP item
+that ports them: `layout="sparse"` and its transport (A.6), `dynamics=`
+(A.7), `timing=` and `Schedule(deadline=)` (A.8), `telemetry=` (A.9),
+`backend="shard_map"` (A.10) and the CNN (A.2).
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
@@ -48,7 +49,8 @@ from repro_torch.engine import backends
 from repro_torch.engine.strategies import (MethodSpec, available_methods,
                                            get_method)
 from repro_torch.fl.metrics import RoundMetrics
-from repro_torch.fl.trainer import make_eval_fn, make_train_step
+from repro_torch.fl.trainer import (make_eval_fn, make_grad_fn,
+                                    make_train_step)
 from repro_torch.graphs.topology import Topology
 from repro_torch.models.api import SmallModel
 from repro_torch.optim.sgd import sgd_momentum
@@ -79,6 +81,7 @@ class TrainConfig:
     # per-node local steps per round drawn from [min, steps_per_round];
     # 0 disables (homogeneous)
     hetero_steps_min: int = 0
+    ge_lr: Optional[float] = None  # CFA-GE gradient-apply LR (default: lr)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,8 +212,6 @@ class Experiment:
                     f"comm transport models neighbour model-gossip only; "
                     f"method {method!r} is unsupported "
                     f"(transport-capable methods: {roster})")
-        if self.strategy.pending is not None:
-            raise _not_ported(f"method {method!r}", self.strategy.pending)
         self.world = world
         self.backend = backend
         self.wire = wire
@@ -257,6 +258,7 @@ class Experiment:
         self.batcher = Batcher(batch_size=train.batch_size)
         self._train_step = make_train_step(model, self.optimizer,
                                            self.loss_fn)
+        self._grad_fn = make_grad_fn(model, self.loss_fn)
         self._eval = make_eval_fn(
             model, batch_size=min(train.eval_batch, len(world.x_test)))
 

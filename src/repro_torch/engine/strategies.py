@@ -4,34 +4,41 @@ An :class:`AggregationStrategy` is what a *method* does at the
 communication step of Algorithm 1; local SGD, delivery masks and the
 neighbour reduce are the engine's.  Each strategy carries ONE frozen
 :class:`Capabilities` record (``kind``: "gossip" | "server" | "none";
-``grad_exchange``: the CFA-GE second phase; ``layouts``) and two hooks:
+``grad_exchange``: the CFA-GE second phase; ``layouts``) and these hooks:
 
   * ``init_state(exp)`` — the static per-node tensors it aggregates with;
-  * ``flat_aggregate(exp, state, nb)`` — the update over a
+  * ``flat_aggregate(exp, state, nb)`` — the gossip update over a
     :class:`~repro_torch.engine.neighborhood.DenseNeighborhood`: one
     weighted neighbour reduce, then per-row scalar normalization on the
-    flattened [R, D] model matrix.  A strategy without it supplies the
-    padded-gather pair ``exchange`` / ``aggregate`` instead.
+    flattened [R, D] model matrix.  Every built-in gossip method has it,
+    and the engine lowers to it whenever it exists;
+  * ``exchange`` / ``aggregate`` — the padded-gather form: the per-slot
+    neighbour views [R, max_deg, ...], then the update batched over the
+    receivers (the weights normalized first, then one contraction through
+    the segment reduce), as the reference's vmapped `core/aggregation.py`
+    forms compute it.  A gossip strategy without a flat form runs this
+    one; a "server" strategy (FedAvg) gets the full [N, ...] stack.
 
 ``Capabilities.transport`` (plain model gossip) says whether the method
-may run over the `repro_torch.comm` transport.
+may run over the `repro_torch.comm` transport; CFA-GE's gradient legs and
+FedAvg's star may not.
 
 A *method* (what users name in ``Experiment(method=...)``) is a
 :class:`MethodSpec`: a strategy plus the loss ("ce" | "vt") and the init
-coordination flag.  The registry holds the JAX package's roster.  `fedavg`
-(server kind) and `cfa-ge` (gradient exchange) are registered so that
-their names resolve, and `Experiment` raises NotImplementedError for them
-until ROADMAP A.3 ports them (``pending`` names the item).
+coordination flag.  The registry holds the JAX package's roster, every
+method runnable.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.aggregation import fedavg_aggregate
 from repro_torch.kernels import ops
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import (tree_flatten_stacked, tree_leaves,
+                                      tree_map)
 
 KINDS = ("gossip", "server", "none")
 LAYOUTS = ("dense", "sparse")
@@ -72,15 +79,14 @@ class Capabilities:
 class AggregationStrategy:
     """Base strategy: stateless; per-experiment tensors live in `state`.
 
-    A gossip strategy implements ``flat_aggregate`` (the form every ported
-    method has).  One without it (``flat_aggregate = None``) implements
-    ``aggregate`` over the padded per-slot views that ``exchange`` gathers
-    instead, which the engine then takes for its dense rounds."""
+    A gossip strategy implements ``flat_aggregate`` (the form every
+    built-in one has) and may implement ``aggregate`` over the padded
+    per-slot views that ``exchange`` gathers; one without a flat form
+    (``flat_aggregate = None``) must implement ``aggregate``, which the
+    engine then takes for its dense rounds."""
 
     name: str = "base"
     capabilities: Capabilities = Capabilities()
-    #: the ROADMAP item that ports this strategy, while it is not ported
-    pending: Optional[str] = None
 
     #: ``flat_aggregate(exp, state, nb)`` — the update over a
     #: DenseNeighborhood view; None means the padded-gather form only.
@@ -106,13 +112,33 @@ class AggregationStrategy:
         return tree_map(lambda p: p[nbr_idx], params)
 
     def aggregate(self, exp, state, params, gathered, mask):
-        """Padded-gather form: new models from `params` [N, ...],
-        `gathered` [N, max_deg, ...] and `mask` [N, max_deg] {0,1}
-        delivered this round."""
+        """Padded-gather form: new models from `params` [R, ...],
+        `gathered` [R, max_deg, ...] and `mask` [R, max_deg] {0,1}
+        delivered this round (for a "server" strategy: `gathered` the full
+        [N, ...] stack and `mask` None or the [N] live clients)."""
         raise NotImplementedError
 
     def __repr__(self):  # pragma: no cover - debugging nicety
         return f"{type(self).__name__}(name={self.name!r}, kind={self.kind!r})"
+
+
+def _padded(params, gathered):
+    """(local [R, D], slot values [R, K, D], unflatten) in fp32, the flat
+    order of `tree_flatten_stacked`."""
+    local, unflatten = tree_flatten_stacked(params)
+    r, d = local.shape
+    leaves = tree_leaves(gathered)
+    k = leaves[0].shape[1]
+    vals = torch.cat([t.reshape(r, k, -1).to(torch.float32)
+                      for t in leaves], dim=2)
+    if vals.shape[2] != d:
+        raise ValueError(f"gathered slots hold {vals.shape[2]} params per "
+                         f"model, the local models {d}")
+    return local, vals, unflatten
+
+
+def _safe(total):
+    return torch.where(total > 0, total, torch.ones_like(total))
 
 
 class IsolationStrategy(AggregationStrategy):
@@ -121,13 +147,29 @@ class IsolationStrategy(AggregationStrategy):
     name = "isol"
     capabilities = Capabilities(kind="none")
 
+    def aggregate(self, exp, state, params, gathered, mask):
+        del state, gathered, mask
+        return params
+
 
 class FedAvgStrategy(AggregationStrategy):
-    """Server-side FedAvg over all clients (not ported yet)."""
+    """Server-side FedAvg over ALL clients (the partially-decentralized FED
+    baseline): the |D_i|-weighted average through the `neighbor_avg`
+    kernel, written into every node's row.  `mask` is None, or the [N]
+    {0,1} live clients (ROADMAP A.7), whose zero weight keeps a churned-out
+    client's frozen params out of the average."""
 
     name = "fedavg"
     capabilities = Capabilities(kind="server")
-    pending = "A.3"
+
+    def aggregate(self, exp, state, params, gathered, mask):
+        counts = state["counts"] if mask is None else state["counts"] * mask
+        avg = fedavg_aggregate(gathered, counts)
+        # one materialized copy per node row: an expanded view would make
+        # every node one storage, and the in-place SGD of the next local
+        # step would then write all of them at once
+        return tree_map(lambda a, p: torch.empty_like(p).copy_(a.to(p.dtype)),
+                        avg, params)
 
 
 class DecAvgStrategy(AggregationStrategy):
@@ -135,6 +177,15 @@ class DecAvgStrategy(AggregationStrategy):
     the local model weighted ω_ii·|D_i|."""
 
     name = "decavg"
+
+    def aggregate(self, exp, state, params, gathered, mask):
+        local, vals, unflatten = _padded(params, gathered)
+        w = state["weights"] * mask
+        sw = state["counts"]
+        total = torch.sum(w, dim=1) + sw
+        neigh, _ = ops.segment_neighbor_avg(
+            vals, (w / total[:, None]).contiguous())
+        return unflatten((sw / total)[:, None] * local + neigh)
 
     def flat_aggregate(self, exp, state, nb):
         sums, tot = nb.reduce()
@@ -149,10 +200,23 @@ class CFAStrategy(AggregationStrategy):
 
     name = "cfa"
 
+    def aggregate(self, exp, state, params, gathered, mask):
+        local, vals, unflatten = _padded(params, gathered)
+        w = state["weights"] * mask
+        total = torch.sum(w, dim=1)
+        p = (w / _safe(total)[:, None]).contiguous()
+        na = torch.sum((w > 0).to(torch.float32), dim=1)
+        eps = torch.where(na > 0, 1.0 / torch.clamp(na, min=1.0),
+                          torch.zeros_like(na))
+        gate = (total > 0).to(torch.float32)
+        delta, _ = ops.segment_neighbor_avg(
+            (vals - local[:, None, :]).contiguous(), p)
+        return unflatten(local + (gate * eps)[:, None] * delta)
+
     def flat_aggregate(self, exp, state, nb):
         sums, tot = nb.reduce_delta()
         na = nb.n_active()
-        safe = torch.where(tot > 0, tot, torch.ones_like(tot))
+        safe = _safe(tot)
         eps = torch.where(na > 0, 1.0 / torch.clamp(na, min=1.0),
                           torch.zeros_like(na))
         gate = (tot > 0).to(torch.float32)
@@ -161,11 +225,13 @@ class CFAStrategy(AggregationStrategy):
 
 
 class CFAGEStrategy(CFAStrategy):
-    """CFA + gradient exchange (the second phase is not ported yet)."""
+    """CFA + gradient exchange: the engine runs the second phase
+    (neighbour gradients of OUR aggregated model on THEIR data) when this
+    capability is set — doubling communication twice over, the paper's
+    efficiency foil."""
 
-    name = "cfa"
+    name = "cfa"  # the aggregation IS Eq. 9; the exchange capability differs
     capabilities = Capabilities(grad_exchange=True)
-    pending = "A.3"
 
 
 class DecDiffStrategy(AggregationStrategy):
@@ -174,10 +240,18 @@ class DecDiffStrategy(AggregationStrategy):
 
     name = "decdiff"
 
+    def aggregate(self, exp, state, params, gathered, mask):
+        local, vals, unflatten = _padded(params, gathered)
+        w = state["weights"] * mask
+        total = torch.sum(w, dim=1)
+        avg, _ = ops.segment_neighbor_avg(
+            vals, (w / _safe(total)[:, None]).contiguous())
+        (out,) = ops.decdiff_rows([local], [avg], total, exp.train.s)
+        return unflatten(out)
+
     def flat_aggregate(self, exp, state, nb):
         sums, tot = nb.reduce()
-        safe = torch.where(tot > 0, tot, torch.ones_like(tot))
-        avg = sums / safe[:, None]
+        avg = sums / _safe(tot)[:, None]
         # Eq. 5 with one norm per receiver, gated on tot > 0 (a node that
         # heard from nobody keeps its model): the decdiff_update kernels
         (out,) = ops.decdiff_rows([nb.local()], [avg], tot, exp.train.s)

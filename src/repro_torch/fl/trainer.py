@@ -2,7 +2,8 @@
 
 `make_train_step` gives one autograd SGD step for all N nodes at once:
 each node's loss depends only on its own parameters, so the gradient of
-the summed per-node losses is every node's own gradient.  `make_eval_fn`
+the summed per-node losses is every node's own gradient; `make_grad_fn`
+gives those gradients alone (CFA-GE's exchange).  `make_eval_fn`
 evaluates every node on the shared test set in fixed-size chunks and, as
 the JAX package does, drops the remainder (`n_batches = n // batch_size`).
 """
@@ -18,22 +19,39 @@ from repro_torch.optim.sgd import Optimizer
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 
 
+def _loss_and_grads(model: SmallModel, loss_fn: Callable, params, x, y):
+    """(per-node losses [N], the gradient tree of their sum: each node's
+    own gradient, leaves [N, ...])."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(model.apply(tree_unflatten_like(params, leaves), x), y)
+        grads = torch.autograd.grad(loss.sum(), leaves)
+    return loss.detach(), tree_unflatten_like(params, list(grads))
+
+
 def make_train_step(model: SmallModel, optimizer: Optimizer,
                     loss_fn: Callable):
     """step(params, opt_state, x [N, B, ...], y [N, B]) -> (params, opt,
     loss [N]).  Params and optimizer state are updated in place."""
 
     def step(params, opt_state, x, y):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = loss_fn(model.apply(tree_unflatten_like(params, leaves), x),
-                           y)
-            grads = torch.autograd.grad(loss.sum(), leaves)
-        params, opt_state = optimizer.update(
-            tree_unflatten_like(params, list(grads)), opt_state, params)
-        return params, opt_state, loss.detach()
+        loss, grads = _loss_and_grads(model, loss_fn, params, x, y)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, loss
 
     return step
+
+
+def make_grad_fn(model: SmallModel, loss_fn: Callable):
+    """grad(params, x [N, B, ...], y [N, B]) -> the gradient tree of every
+    node's local loss at its own params, leaves [N, ...] (CFA-GE's
+    exchange evaluates it at the receivers' models on their neighbours'
+    data)."""
+
+    def grad(params, x, y):
+        return _loss_and_grads(model, loss_fn, params, x, y)[1]
+
+    return grad
 
 
 def make_eval_fn(model: SmallModel, batch_size: int = 512):

@@ -17,6 +17,7 @@ from repro_torch.kernels import decdiff_update as _dd
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dequant_avg as _dq
 from repro_torch.kernels import gather_rows as _gr
+from repro_torch.kernels import neighbor_avg as _na
 from repro_torch.kernels import segment_avg as _sa
 from repro_torch.kernels import vt_kl_loss as _vt
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
@@ -30,7 +31,7 @@ LAUNCHES: Dict[str, int] = {"segment_neighbor_avg": 0, "gather_rows": 0,
                             "dequant_neighbor_avg_rows": 0,
                             "vt_kl_loss_fwd": 0, "vt_kl_loss_bwd": 0,
                             "decode_attention_fused": 0,
-                            "decdiff_update": 0}
+                            "decdiff_update": 0, "neighbor_avg": 0}
 
 
 def reset_launches() -> None:
@@ -102,6 +103,37 @@ def _device_kind(t: torch.Tensor, name: str) -> str:
         raise ValueError(f"{name} runs on cpu (plain) or cuda (kernel); got "
                          f"{t.device}")
     return t.device.type
+
+
+def neighbor_avg_normalized(stacked: torch.Tensor,
+                            wn: torch.Tensor) -> torch.Tensor:
+    """Σ_n wn[n] · stacked[n, :] for weights the caller already normalized
+    (the gated forms divide by a safe total, so that a receiver that heard
+    from nobody gets 0, not NaN): stacked [N, D] fp32, wn [N] fp32 -> [D]
+    fp32 (see `repro_torch.kernels.neighbor_avg`)."""
+    if stacked.dim() != 2 or tuple(wn.shape) != (stacked.shape[0],):
+        raise ValueError(f"neighbor_avg wants stacked [N, D] and weights [N]; "
+                         f"got {tuple(stacked.shape)} and {tuple(wn.shape)}")
+    if stacked.dtype != torch.float32 or wn.dtype != torch.float32:
+        raise TypeError(f"neighbor_avg wants float32; got {stacked.dtype} and "
+                        f"{wn.dtype}")
+    if stacked.device != wn.device:
+        raise ValueError(f"stacked on {stacked.device} but weights on "
+                         f"{wn.device}")
+    if not (stacked.is_contiguous() and wn.is_contiguous()):
+        raise ValueError("neighbor_avg wants contiguous tensors")
+    if _device_kind(stacked, "neighbor_avg") == "cpu":
+        return _na.neighbor_avg_plain(stacked, wn)
+    out = _na.neighbor_avg_cuda(stacked, wn)
+    LAUNCHES["neighbor_avg"] += 1
+    return out
+
+
+def neighbor_avg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Eq. 6: the (w / Σw)-weighted average of the stacked [N, D] fp32 rows,
+    as the reference's wrapper normalizes -> [D] fp32."""
+    w = weights.to(torch.float32)
+    return neighbor_avg_normalized(stacked, (w / torch.sum(w)).contiguous())
 
 
 def dequant_neighbor_avg_rows(q: torch.Tensor, scale: torch.Tensor,

@@ -434,3 +434,68 @@ def test_engine_and_lm_round_run_eq5_through_the_kernel(card):
     for r, batch in enumerate(make_batches(lm, 4, 2, 16, 2, card)):
         p, state, _ = rnd(p, state, r, batch)
     assert ops.LAUNCHES["decdiff_update"] == 2
+
+
+@pytest.mark.parametrize("n,d,zero", [(16, 567434, False),
+                                      (4, 463_987_712, False),
+                                      (10, 1_000_003, True), (1, 1, False),
+                                      (1, 5000, False), (3, 7, True),
+                                      (1100, 96, True)])
+def test_neighbor_avg_matches_plain_bitwise(card, n, d, zero):
+    """float4 (D = 0 mod 4), float2 (D = 2 mod 4) and scalar (odd D)
+    columns, path f's stack, the LM's 2^31-passing [4, 463987712], more
+    than one 1024-sender chunk of weights in shared memory, a zero
+    weight."""
+    from repro_torch.kernels.neighbor_avg import neighbor_avg_plain
+
+    gen = torch.Generator(device=card).manual_seed(n * 7 + d)
+    x = torch.randn((n, d), generator=gen, device=card)
+    w = torch.rand((n,), generator=gen, device=card) + 0.1
+    if zero:
+        w[n // 2] = 0.0
+    before = ops.LAUNCHES["neighbor_avg"]
+    out = ops.neighbor_avg(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["neighbor_avg"] == before + 1
+    wn = (w / torch.sum(w)).contiguous()
+    assert torch.equal(out, neighbor_avg_plain(x, wn))
+    if d > 1:  # rows one float off their allocation: narrower loads
+        xo = x.reshape(-1)[1:1 + n * (d - 1)].reshape(n, d - 1)
+        assert torch.equal(ops.neighbor_avg_normalized(xo, wn),
+                           neighbor_avg_plain(xo, wn))
+    del x
+
+
+def test_fedavg_and_cfa_ge_run_through_their_kernels(card):
+    """FedAvg's server average launches `neighbor_avg` once per round and
+    leaves every node's params bitwise equal; CFA-GE's Eq. 9 launches the
+    segment reduce once per round; fused and loop schedules are bitwise
+    equal."""
+    from repro_torch.engine import Experiment, World
+    from repro_torch.models.mlp_cnn import make_mlp
+
+    world = World.synthetic("synth-mnist", nodes=8, topology="barabasi_albert",
+                            m=2, scale=0.02, model=make_mlp(hidden=(64, 32)),
+                            device=card)
+    for method, counter, other in [("fedavg", "neighbor_avg",
+                                    "segment_neighbor_avg"),
+                                   ("cfa-ge", "segment_neighbor_avg",
+                                    "neighbor_avg")]:
+        params = {}
+        for mode in ("loop", "fused"):
+            exp = Experiment(world, method, steps_per_round=2, batch_size=32,
+                             device=card)
+            ops.reset_launches()
+            exp.run(rounds=3, eval_every=1, mode=mode)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES[counter] == 3 and ops.LAUNCHES[other] == 0
+            params[mode] = exp.params
+            for name in exp.params:
+                for leaf in exp.params[name].values():
+                    assert bool(torch.isfinite(leaf).all())
+                    if method == "fedavg":
+                        assert bool((leaf == leaf[:1]).all())
+        for name in params["loop"]:
+            for leaf in params["loop"][name]:
+                assert torch.equal(params["loop"][name][leaf],
+                                   params["fused"][name][leaf])

@@ -153,7 +153,7 @@ def test_run_continues_from_current_state(reference):
 
 
 @pytest.mark.parametrize("method", ["isol", "decavg", "dechetero+vt",
-                                    "cfa", "decdiff"])
+                                    "cfa", "decdiff", "fedavg", "cfa-ge"])
 def test_other_methods_run_finite(reference, method):
     jw, _, _, _ = reference
     exp = Experiment(_carried_world(jw), method, device="cpu", **TRAIN)
@@ -178,8 +178,7 @@ def test_device_none_raises_without_cuda(reference):
 @pytest.mark.parametrize("case,item", [
     ("comm", "A.6"), ("sparse", "A.6"), ("dynamics", "A.7"),
     ("timing", "A.8"), ("deadline", "A.8"), ("telemetry", "A.9"),
-    ("shard_map", "A.10"), ("cnn", "A.2"), ("fedavg", "A.3"),
-    ("cfa-ge", "A.3")])
+    ("shard_map", "A.10"), ("cnn", "A.2")])
 def test_unported_options_name_their_roadmap_item(reference, case, item):
     jw, _, _, _ = reference
     world = _carried_world(jw)
@@ -201,8 +200,6 @@ def test_unported_options_name_their_roadmap_item(reference, case, item):
                                         device="cpu"),
         "cnn": lambda: World.synthetic("synth-fashion", nodes=4, scale=0.005,
                                        device="cpu"),
-        "fedavg": lambda: Experiment(world, "fedavg", device="cpu"),
-        "cfa-ge": lambda: Experiment(world, "cfa-ge", device="cpu"),
     }
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         calls[case]()

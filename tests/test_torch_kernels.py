@@ -247,12 +247,12 @@ def test_every_kernel_source_is_built_by_name():
 
     sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert sources == ["decdiff_update", "decode_attention",
-                       "dequant_avg_rows", "gather_rows", "segment_avg",
-                       "vt_kl_loss"]
+                       "dequant_avg_rows", "gather_rows", "neighbor_avg",
+                       "segment_avg", "vt_kl_loss"]
     assert sorted(ops.LAUNCHES) == [
         "decdiff_update", "decode_attention_fused",
-        "dequant_neighbor_avg_rows", "gather_rows", "segment_neighbor_avg",
-        "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
+        "dequant_neighbor_avg_rows", "gather_rows", "neighbor_avg",
+        "segment_neighbor_avg", "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
 
 
 # --------------------------------------------------- dequant avg rows
