@@ -28,19 +28,51 @@ It imports the port only (no JAX), and:
           must launch once per round and the segment reduce never; every
           node's params are bitwise equal, and its 16 accuracies equal,
           after each round;
-       g. `cfa-ge` (Eq. 9, then the 10-slot gradient exchange): the
-          segment reduce must launch once per round and `neighbor_avg`
-          never; params and losses finite;
+       g. `cfa-ge` (Eq. 9, then the gradient exchange over the directed
+          edges): the segment reduce must launch once per round and
+          `neighbor_avg` never; params and losses finite;
      then the five paths run again in turns (a, b, c, f, g, g, f, c, b,
-     a) for their ms per round;
+     a) for their ms per round; then paths a, b, c and g again with
+     `layout="sparse"` (the CSR edge list in width buckets of 8 and 16
+     against the dense layout's 10 slots), from the same seed and call
+     pattern, whose params, accuracies, train losses, bytes and trigger
+     history must be bitwise equal to the dense runs' (the segment reduce
+     launches once per bucket and round, `gather_rows` never); and path g
+     once more on both layouts with CFA-GE's gradient walk cut into calls
+     of 16 edges (the last one padded), bitwise equal too;
   4. checks what comes out: per-node accuracies of shape [16] in [0, 1],
      finite train losses and params, bytes on the wire equal to the
      payload formula (567,438 bytes per fired edge) and a triggered
      fraction in (0, 1]; and a small world run on the card that agrees
      with the same run on the CPU (the plain path, which the CPU tests
      hold against the JAX reference): `decdiff+vt` without and with the
-     per-edge transport, `fedavg` and `cfa-ge` (params to 1e-4, accuracy
-     to one test sample, bytes exactly);
+     per-edge transport, `fedavg`, `cfa-ge` and `decdiff+vt` on the
+     sparse layout (params to 1e-4, accuracy to one test sample, bytes
+     exactly);
+  4b. drives path h, the sparse layout at the MLP's full width:
+     `World.synthetic("synth-mnist", nodes=256, topology="barabasi_albert",
+     m=2, scale=1.0)` (1,016 directed edges, widths 8-64), `decdiff+vt`
+     with `layout="sparse"`, the schedule of paths a-c, three runs (no
+     transport; the per-edge int8 adaptive 0.95 transport; the per-node
+     int8 transport), each with its ms per round, peak device memory,
+     launches (the segment reduce once per bucket and round, `gather_rows`
+     never, Eq. 5 and the VT kernels as on a-c) and bytes (567,438 B per
+     fired edge); a fourth run, `cfa-ge` on the same world and layout,
+     with its ms per round, peak memory and the gradient walk's
+     row-gradients per round; then the int8 route of one round through the reference's
+     entry point `dequant_segment_neighbor_avg`, one call per width bucket
+     of the round's [256, 567434] int8 payload (counts set to 0 just
+     before, read just after), each bucket against its plain version
+     (bitwise) and the fp32 route; and path i, node scale:
+     `benchmarks/bench_scale.py:tiny_world` at 10,000 nodes
+     (`sparse_barabasi_albert(n=10000, m=2, seed=0)`, 39,964 directed
+     edges, max degree 204; MLP 16-32-10), `decdiff` at its engine tier
+     (1 local step of batch 4, lr 0.1, loop mode, a warm run then 3
+     rounds), without a transport and with the per-edge int8 adaptive 0.6
+     transport: rounds per second, triggered fraction, bytes; and
+     `cfa-ge` without a transport on the same world and schedule: rounds
+     per second and the walk's row-gradients; the dense layout is refused
+     at that size;
   5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
      its one-pod form with the fused int8 gossip
      (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
@@ -63,7 +95,13 @@ It imports the port only (no JAX), and:
      N = 10, D = 1,000,003 with one zero weight (`torch.mv` beside it);
      `dequant_neighbor_avg_rows`
      bitwise on path d's real int8 payload [4, 463987712] and at an odd D
-     with 8 receivers and one zero row; the Eq. 5 kernels on path d's real
+     with 8 receivers and one zero row; `dequant_segment_neighbor_avg`
+     bitwise at path c's per-node panel [16, 10, 567434] of the round's
+     int8 payloads; `dequant_neighbor_avg` bitwise on path d's int8 block
+     with receiver 0's weights (and equal to row 0 of
+     `dequant_neighbor_avg_rows`), after the int8 route of path d's
+     gossip one receiver at a time through it (4 launches, counted);
+     the Eq. 5 kernels on path d's real
      flat block [4, 463987712] and its neighbourhood average (pass B
      bitwise for the kernel's scale, the norms within a stated tolerance);
      the VT loss forward and backward within a stated tolerance on path
@@ -94,11 +132,12 @@ It imports the port only (no JAX), and:
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
-Paths a-d also run the Eq. 5 step through the `decdiff_update` kernels:
-one launch per round each.  With `--profile` it also traces one more
-round (eval included) of paths a, b and g, one round of path d and one
-decode step of path e under `torch.profiler` and prints the device time by
-kernel and the device's busy share of the wall time.
+Paths a-d, h and i also run the Eq. 5 step through the `decdiff_update`
+kernels: one launch per round each.  With `--profile` it also traces one
+more round (eval included) of paths a, b, g, h (without a transport and
+per-edge, and cfa-ge) and i (every run), one round of path d and one decode step of
+path e under `torch.profiler` and prints the device time by kernel and the
+device's busy share of the wall time.
 
 Any failure exits non-zero before the last line is printed.  Without a
 CUDA card, or without the port beside this script, it exits 2.
@@ -126,6 +165,8 @@ LM_PARAMS = 463_987_712     # per node, bf16
 LM_NODES, LM_BATCH, LM_SEQ, LM_BETA = 4, 4, 128, 0.98
 SERVE_BATCH, SERVE_WINDOW, SERVE_PROMPT, SERVE_STEPS = 8, 32768, 16, 32
 LM_LAYERS = 24
+H_NODES = 256               # path h: the sparse layout at full MLP width
+I_NODES = 10_000            # path i: bench_scale.py's tiny world
 
 
 class SmokeFailure(Exception):
@@ -273,7 +314,7 @@ def gather_vs_plain(torch, ops, plain, tbl, idx, label):
 
 
 def small_world_agrees(torch, dev, comm=None, label="no transport",
-                       method="decdiff+vt"):
+                       method="decdiff+vt", layout=None):
     """The same small run on the card and on the CPU (same world, same
     init, no random draws in the rounds) must agree; with a transport the
     bytes on the wire must be equal."""
@@ -288,7 +329,8 @@ def small_world_agrees(torch, dev, comm=None, label="no transport",
                                 model=make_mlp(hidden=(64, 32)),
                                 device=where)
         exp = Experiment(world, method, steps_per_round=2,
-                         batch_size=32, device=where, comm=comm)
+                         batch_size=32, device=where, comm=comm,
+                         layout=layout)
         hist = exp.run(rounds=3, eval_every=1)
         runs.append((hist, [p.cpu() for p in tree_leaves(exp.params)],
                      len(world.x_test), list(exp.trig_history)))
@@ -300,7 +342,7 @@ def small_world_agrees(torch, dev, comm=None, label="no transport",
     bytes_c = [m.bytes_on_wire for m in hc]
     bytes_h = [m.bytes_on_wire for m in hh]
     print(f"small world (16 nodes, MLP 784-64-32-10, 3 rounds, {method}, "
-          f"{label}) "
+          f"{label}, {exp.layout} layout) "
           f"card vs cpu: max |param diff| {perr:.3g}, max accuracy diff "
           f"{aerr:.3g} test samples, bytes on the wire card {bytes_c} cpu "
           f"{bytes_h}, triggered card {tc} cpu {th}")
@@ -318,7 +360,7 @@ def check_history(torch, exp, history, losses, label):
     check([m.round for m in history] == list(range(ROUNDS)),
           f"{label}: eval rounds {[m.round for m in history]}")
     for m in history:
-        check(m.acc_per_node.shape == (16,), f"{label}: acc shape")
+        check(m.acc_per_node.shape == (exp.n,), f"{label}: acc shape")
         check(((m.acc_per_node >= 0) & (m.acc_per_node <= 1)).all(),
               f"{label}: accuracy outside [0, 1]")
         check(all(math.isfinite(x) for x in m.loss_per_node),
@@ -358,6 +400,159 @@ def drive(torch, ops, exp, label):
     check_history(torch, exp, history, losses, label)
     return (history, launches, ms_round, exp.comm_bytes_total - bytes0,
             exp.trig_history[ntrig:])
+
+
+def snapshot(torch, exp, history):
+    """What the dense-against-sparse check compares, taken right after a
+    path's measured rounds: params, accuracies, bytes, trigger history."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    return dict(params=[p.clone() for p in tree_leaves(exp.params)],
+                acc=[m.acc_per_node.copy() for m in history],
+                bytes=exp.comm_bytes_total, trig=list(exp.trig_history),
+                losses=list(exp.train_loss_history))
+
+
+def sparse_equals_dense(torch, ops, world, dense, label, method, comm, sched,
+                        launch_checks):
+    """Run `label`'s experiment again with layout="sparse" (same seed, same
+    call pattern as `drive`) and require params, accuracies, bytes and the
+    trigger history bitwise equal to the dense run's snapshot."""
+    from repro_torch.engine import Experiment
+    from repro_torch.utils.pytree import tree_leaves
+
+    exp = Experiment(world, method, schedule=sched, comm=comm,
+                     layout="sparse")
+    hist, launches, ms, _, _ = drive(torch, ops, exp,
+                                     f"{label}, sparse layout")
+    widths = exp.sparse_plan.widths
+    same = (all(torch.equal(a, b) for a, b in
+                zip(tree_leaves(exp.params), dense["params"]))
+            and all((m.acc_per_node == a).all()
+                    for m, a in zip(hist, dense["acc"]))
+            and exp.comm_bytes_total == dense["bytes"]
+            and exp.trig_history == dense["trig"]
+            and exp.train_loss_history == dense["losses"])
+    print(f"{label}: sparse layout (widths {list(widths)}) against dense: "
+          f"params, accuracies, train losses, bytes and trigger history "
+          f"bitwise equal = {same}; bytes {exp.comm_bytes_total:.0f} / "
+          f"{dense['bytes']:.0f}")
+    check(same, f"{label}: the sparse layout differs from the dense one")
+    check(launches["segment_neighbor_avg"] == ROUNDS * len(widths)
+          and launches["gather_rows"] == 0,
+          f"{label}, sparse: launches {launches} (widths {widths})")
+    for name, want in launch_checks.items():
+        check(launches[name] == want,
+              f"{label}, sparse: {name} launched {launches[name]} times, "
+              f"not {want}")
+    del exp
+    gc.collect()
+    return launches, ms
+
+
+def dqseg_vs_plain(torch, ops, q, scales, w, label, time_it=True):
+    """Hold `dequant_segment_neighbor_avg` against its plain version
+    (bitwise) and against the fp32 route, the segment reduce over the
+    decoded rows (within 1e-6 + 1e-5·Σ|w·s·q|: (w·s)·q associates
+    differently from w·(s·q)); time the kernel, the plain version and
+    `torch.einsum("bk,bkd->bd", ws, q.float())`.  Bound: q, scales and w
+    read once, the [B, D] sums written once."""
+    from repro_torch.kernels import segment_avg as sa
+
+    b, k, d = q.shape
+    out = ops.dequant_segment_neighbor_avg(q, scales, w)
+    torch.cuda.synchronize()
+    ws = (w * scales).contiguous()
+    ref = sa.dequant_segment_avg_plain(q, ws)
+    equal = bool(torch.equal(out, ref))
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    del ref
+    route, _ = ops.segment_neighbor_avg(
+        (q.float() * scales[:, :, None]).contiguous(), w)
+    terms = torch.einsum("bk,bkd->bd", ws.abs(), q.float().abs())
+    route_err = float((out - route).abs().max())
+    route_ok = bool(((out - route).abs() <= 1e-6 + 1e-5 * terms).all())
+    del route, terms, out
+    res = dict(max_abs_err=err, fp32_route_err=route_err, shape=[b, k, d])
+    if time_it:
+        ms = median_ms(torch, lambda: sa.dequant_segment_avg_cuda(q, ws))
+        plain_ms = median_ms(torch,
+                             lambda: sa.dequant_segment_avg_plain(q, ws))
+        lib_ms = median_ms(torch, lambda: torch.einsum("bk,bkd->bd", ws,
+                                                       q.float()))
+        nbytes = b * k * d + 4 * (2 * b * k + b * d)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * b * k * d / FP32_FLOPS
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        timing = (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum "
+                  f"{lib_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+                  f"({res['bound_by']}, {nbytes / 1e6:.1f} MB), kernel at "
+                  f"{100 * res['bound_ms'] / ms:.1f}% of bound")
+    else:
+        timing = ""
+    print(f"dequant_segment_neighbor_avg {label} [B={b}, K={k}, D={d}]: "
+          f"torch.equal(kernel, plain)={equal} max_abs_err={err:g}; "
+          f"|kernel - fp32 route| {route_err:.3g} within 1e-6 + "
+          f"1e-5·Σ|w·s·q| = {route_ok};{timing}")
+    check(equal, f"dequant_segment_neighbor_avg {label}: kernel != plain "
+                 f"(max_abs_err {err:g})")
+    check(route_ok, f"dequant_segment_neighbor_avg {label}: the fp32 route "
+                    f"differs by {route_err:g}")
+    return res
+
+
+def dqavg_vs_plain(torch, ops, q, scale, weights, label):
+    """Hold `dequant_neighbor_avg` against its plain version and against
+    row 0 of `dequant_neighbor_avg_rows` given the same normalized row
+    (both bitwise), and against the oracle `dequant_neighbor_avg_ref`
+    (rtol 1e-5, atol 1e-6); time the kernel, the plain version and
+    `torch.mv(q.float().t(), ws)`.  Bound: q, the scales and the weights
+    read once, the [D] average written once."""
+    from repro_torch.kernels import dequant_avg as dq
+    from repro_torch.kernels.ref import dequant_neighbor_avg_ref
+
+    n, d = q.shape
+    out = ops.dequant_neighbor_avg(q, scale, weights)
+    torch.cuda.synchronize()
+    wn = weights / torch.sum(weights)
+    ws = (wn * scale).contiguous()
+    ref = dq.dequant_avg_plain(q, ws)
+    equal = bool(torch.equal(out, ref))
+    err = float((out - ref).abs().max())
+    del ref
+    row = dq.dequant_avg_rows_cuda(q, ws[None, :].contiguous())[0]
+    row_equal = bool(torch.equal(out, row))
+    del row
+    oracle = dequant_neighbor_avg_ref(q, scale, weights)
+    oracle_err = float((out - oracle).abs().max())
+    oracle_ok = bool(((out - oracle).abs()
+                      <= 1e-6 + 1e-5 * oracle.abs()).all())
+    del oracle, out
+    ms = median_ms(torch, lambda: dq.dequant_avg_cuda(q, ws))
+    plain_ms = median_ms(torch, lambda: dq.dequant_avg_plain(q, ws))
+    lib_ms = median_ms(torch, lambda: torch.mv(q.float().t(), ws))
+    nbytes = n * d + 4 * (2 * n + d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n * d / FP32_FLOPS
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"dequant_neighbor_avg {label} [N={n}, D={d}]: torch.equal(kernel, "
+          f"plain)={equal} max_abs_err={err:g}; bitwise row 0 of "
+          f"dequant_neighbor_avg_rows = {row_equal}; |kernel - "
+          f"dequant_neighbor_avg_ref| {oracle_err:.3g} (rtol 1e-5, atol "
+          f"1e-6: {oracle_ok}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.mv(q.float().t(), ws) {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), kernel at "
+          f"{100 * bound_ms / ms:.1f}% of bound")
+    check(equal, f"dequant_neighbor_avg {label}: kernel != plain "
+                 f"(max_abs_err {err:g})")
+    check(row_equal, f"dequant_neighbor_avg {label}: not row 0 of "
+                     f"dequant_neighbor_avg_rows")
+    check(oracle_ok, f"dequant_neighbor_avg {label}: the oracle differs by "
+                     f"{oracle_err:g}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=[n, d])
 
 
 def profile_round(torch, run, label):
@@ -556,6 +751,263 @@ def path_d(torch, ops, dev, profile):
                 w=w, row=row.contiguous(),
                 logits=logits.reshape(-1, logits.shape[-1]).contiguous(),
                 labels=batches[-1]["labels"][0].reshape(-1).contiguous())
+
+
+def ge_walk_rows(exp):
+    """CFA-GE's gradient walk on `exp`: its row-gradients and calls per
+    round, beside what the reference's walks evaluate (the dense slot walk
+    N·max_deg rows, the sparse bucket walk Σ B·width), as one line."""
+    from repro_torch.engine import backends
+    from repro_torch.engine.neighborhood import _bucket_width
+
+    e = int(exp._total_directed)
+    chunk = min(e, backends.GE_CHUNK)
+    calls = -(-e // chunk)
+    degrees = (exp.sparse_plan.degrees if exp.layout == "sparse"
+               else exp.nbr_valid.sum(dim=1))
+    buckets = sum(_bucket_width(int(d)) for d in degrees.tolist())
+    return (f"gradient walk {calls * chunk} row-gradients per round in "
+            f"{calls} calls of {chunk} (E = {e}; the reference's sparse "
+            f"bucket walk {buckets}, its dense slot walk "
+            f"{exp.n * int(exp.topo.max_degree)})")
+
+
+def path_h(torch, ops, dev, profile):
+    """The sparse layout at the paper MLP's full width (see the module
+    docstring).  Returns each run's launches, ms per round and peak memory,
+    the int8 route's launches, and the B.5 checks on the round's real
+    int8 payloads."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.engine import Experiment, Schedule, World
+    from repro_torch.utils.pytree import tree_flatten_stacked
+
+    t0 = time.perf_counter()
+    world = World.synthetic("synth-mnist", nodes=H_NODES,
+                            topology="barabasi_albert", m=2, scale=1.0)
+    sched = Schedule(rounds=ROUNDS, eval_every=1)
+    print(f"path h world built in {time.perf_counter() - t0:.1f} s: "
+          f"{H_NODES} nodes, max degree {world.topo.max_degree}, "
+          f"{int(world.topo.neighbor_mask.sum())} directed edges")
+    out = {}
+    payload = plan = None
+    for key, label, comm in [
+            ("h0", "no transport", None),
+            ("h1", "per-edge int8 adaptive 0.95",
+             CommConfig(codec="int8", policy="adaptive",
+                        target_trigger=0.95)),
+            ("h2", "per-node int8, always send", CommConfig(codec="int8"))]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        exp = Experiment(world, "decdiff+vt", schedule=sched, comm=comm,
+                         layout="sparse")
+        n_params = tree_flatten_stacked(exp.params)[0].shape[1]
+        n_dir, widths = exp.sparse_plan.num_directed, exp.sparse_plan.widths
+        check(n_params == 567434 and exp.layout == "sparse",
+              f"path h: {n_params} params, layout {exp.layout}")
+        hist, launches, ms, bytes_d, trig = drive(
+            torch, ops, exp, f"path h ({H_NODES} nodes, sparse, {label})")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"path h ({label}): {ms:.2f} ms per round, peak device memory "
+              f"{peak / 2**30:.2f} GiB ({peak} B), bucket widths "
+              f"{list(widths)}, {n_dir} directed edges")
+        check(launches["segment_neighbor_avg"] == ROUNDS * len(widths)
+              and launches["gather_rows"] == 0
+              and launches["decdiff_update"] == ROUNDS
+              and launches["vt_kl_loss_fwd"] == launches["vt_kl_loss_bwd"]
+              == ROUNDS * exp.train.steps_per_round,
+              f"path h ({label}): launches {launches}")
+        fired = None
+        if comm is not None:
+            payload_b = exp.transport.payload_bytes
+            check(payload_b == n_params + 4, f"int8 payload {payload_b} B")
+            sent = [t * n_dir for t in trig]
+            check(all(abs(x - round(x)) < 1e-3 for x in sent),
+                  f"path h: fired edges per round {sent}")
+            fired = sum(round(x) for x in sent)
+            print(f"path h ({label}): fired edges per round "
+                  f"{[round(x) for x in sent]}, bytes on the wire "
+                  f"{bytes_d:.0f} = {payload_b} x {fired}")
+            check(bytes_d == payload_b * fired
+                  and fired <= n_dir * ROUNDS and fired > 0,
+                  f"path h bytes {bytes_d} != {payload_b} x {fired}")
+            if key == "h2":
+                check(trig == [1.0] * ROUNDS, f"path h per-node trig {trig}")
+        if profile and key in ("h0", "h1"):
+            profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
+                          f"path h {label} (eval included)")
+        out[key] = dict(launches=launches, ms=ms, peak=peak, bytes=bytes_d,
+                        fired=fired)
+        if key == "h0":
+            # the round's int8 payloads, as a user's codec encodes them
+            payload, _ = Int8Codec(stochastic=False).encode(
+                tree_flatten_stacked(exp.params)[0])
+            plan = exp.sparse_plan
+        del exp, hist
+
+    # CFA-GE on the same world and layout: Eq. 9 over the buckets, then
+    # the gradient walk over the directed edges
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    exp = Experiment(world, "cfa-ge", schedule=sched, layout="sparse")
+    hist, launches, ms, _, _ = drive(
+        torch, ops, exp, f"path h ({H_NODES} nodes, sparse, cfa-ge)")
+    peak = torch.cuda.max_memory_allocated()
+    walk = ge_walk_rows(exp)
+    print(f"path h (cfa-ge): {ms:.2f} ms per round, peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B); {walk}")
+    check(launches["segment_neighbor_avg"] == ROUNDS * len(widths)
+          and launches["gather_rows"] == 0 and launches["neighbor_avg"] == 0
+          and launches["decdiff_update"] == 0,
+          f"path h (cfa-ge): launches {launches}")
+    if profile:
+        profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
+                      "path h cfa-ge (eval included)")
+    out["h3"] = dict(launches=launches, ms=ms, peak=peak, bytes=0.0,
+                     fired=None, walk=walk)
+    del exp, hist, world
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 route of one sparse round through the reference's entry
+    # point, `dequant_segment_neighbor_avg`, one call per width bucket
+    q, scale = payload["q"], payload["scale"]
+    panels = [(wd, plan.buckets[wd].src[0], plan.buckets[wd].wgt[0])
+              for wd in plan.widths]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _, src, wgt in panels:
+        sums = ops.dequant_segment_neighbor_avg(q[src], scale[src], wgt)
+        del sums
+    torch.cuda.synchronize()
+    route_ms = 1e3 * (time.perf_counter() - t0)
+    out["hq"] = dict(launches=dict(ops.LAUNCHES), ms=route_ms)
+    print(f"path h int8 route (dequant_segment_neighbor_avg over the "
+          f"{len(panels)} buckets of the round's [{H_NODES}, "
+          f"{q.shape[1]}] int8 payload): {route_ms:.2f} ms, kernel launches "
+          f"{out['hq']['launches']}")
+    check(out["hq"]["launches"]["dequant_segment_neighbor_avg"]
+          == len(panels), f"path h int8 route launches {out['hq']}")
+    biggest = max(panels, key=lambda p: p[1].numel())[0]
+    out["bucket_checks"] = []
+    for wd, src, wgt in panels:
+        out["bucket_checks"].append(dqseg_vs_plain(
+            torch, ops, q[src], scale[src].contiguous(), wgt,
+            f"path h width-{wd} bucket (real int8 payloads)",
+            time_it=wd == biggest))
+    del q, scale, payload, panels
+    return out
+
+
+def path_i(torch, ops, dev, profile):
+    """Node scale: `benchmarks/bench_scale.py:tiny_world` at 10,000 nodes
+    on the sparse layout, its engine tier (see the module docstring).
+    Returns each run's launches, rounds per second and bytes."""
+    import numpy as np
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.engine import Experiment, Schedule, World
+    from repro_torch.graphs.sparse import sparse_barabasi_albert
+    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.utils.pytree import tree_flatten_stacked
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    dim, per_node, classes = 16, 4, 10
+    xs = [rng.normal(size=(per_node, dim)).astype(np.float32)
+          for _ in range(I_NODES)]
+    ys = [rng.integers(0, classes, size=per_node).astype(np.int32)
+          for _ in range(I_NODES)]
+    x_test = rng.normal(size=(64, dim)).astype(np.float32)
+    y_test = rng.integers(0, classes, size=64).astype(np.int32)
+    st = sparse_barabasi_albert(n=I_NODES, m=2, seed=0)
+    check(st.num_directed == 39964 and st.max_degree == 204,
+          f"path i graph: {st.num_directed} directed edges, max degree "
+          f"{st.max_degree}")
+    world = World(model=make_mlp(num_classes=classes, input_dim=dim,
+                                 hidden=(32,)),
+                  topo=st, xs=xs, ys=ys, x_test=x_test, y_test=y_test)
+    try:
+        Experiment(world, "decdiff", layout="dense")
+        refused = False
+    except ValueError as e:
+        refused = "refusing to densify" in str(e)
+    check(refused, "path i: the dense layout was not refused at 10^4 nodes")
+    print(f"path i world built in {time.perf_counter() - t0:.1f} s: "
+          f"{I_NODES} nodes, {st.num_directed} directed edges, max degree "
+          f"{st.max_degree}; the dense layout is refused at this size")
+    out = {}
+    for key, method, label, comm in [
+            ("i0", "decdiff", "no transport", None),
+            ("i1", "decdiff", "per-edge int8 adaptive 0.6",
+             CommConfig(codec="int8", policy="adaptive", target_trigger=0.6,
+                        per_edge=True)),
+            ("i2", "cfa-ge", "no transport", None)]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        exp = Experiment(world, method, comm=comm,
+                         schedule=Schedule(rounds=ROUNDS, eval_every=ROUNDS,
+                                           mode="loop"),
+                         steps_per_round=1, batch_size=4, eval_batch=64,
+                         lr=0.1, seed=0)
+        setup = time.perf_counter() - t0
+        n_params = tree_flatten_stacked(exp.params)[0].shape[1]
+        widths = exp.sparse_plan.widths
+        check(exp.layout == "sparse" and n_params == 874,
+              f"path i: layout {exp.layout}, {n_params} params")
+        exp.run()  # warm run
+        torch.cuda.synchronize()
+        bytes0, ntrig = exp.comm_bytes_total, len(exp.trig_history)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = exp.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        rps = ROUNDS / wall
+        trig = exp.trig_history[ntrig:]
+        bytes_d = exp.comm_bytes_total - bytes0
+        print(f"path i ({I_NODES} nodes, sparse, {method}, {label}): "
+              f"set-up {setup:.1f} s; {ROUNDS} rounds (loop) in {wall:.3f} s "
+              f"= {rps:.2f} rounds per second; mean acc "
+              f"{hist[-1].acc_mean:.4f}; triggered {trig}; bytes on the "
+              f"wire {bytes_d:.0f}; peak device memory "
+              f"{peak / 2**30:.3f} GiB ({peak} B); widths {list(widths)}; "
+              f"kernel launches {launches}")
+        check(hist[-1].acc_per_node.shape == (I_NODES,)
+              and bool(np.isfinite(hist[-1].loss_per_node).all()),
+              f"path i ({label}): eval")
+        check(launches["segment_neighbor_avg"] == ROUNDS * len(widths)
+              and launches["gather_rows"] == 0
+              and launches["decdiff_update"] == (
+                  ROUNDS if method == "decdiff" else 0)
+              and launches["vt_kl_loss_fwd"] == 0,
+              f"path i ({method}, {label}): launches {launches}")
+        walk = None
+        if method == "cfa-ge":
+            walk = ge_walk_rows(exp)
+            print(f"path i (cfa-ge): {walk}")
+        if comm is not None:
+            sent = [t * st.num_directed for t in trig]
+            fired = sum(round(x) for x in sent)
+            check(all(abs(x - round(x)) < 1e-2 for x in sent)
+                  and bytes_d == exp.transport.payload_bytes * fired
+                  and 0 < fired <= st.num_directed * ROUNDS,
+                  f"path i bytes {bytes_d}, fired {sent}")
+        out[key] = dict(launches=launches, rps=rps, wall=wall, trig=trig,
+                        bytes=bytes_d, peak=peak, walk=walk)
+        if profile:
+            profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
+                          f"path i {method} {label} (eval included)")
+        del exp, hist
+    del world
+    gc.collect()
+    return out
 
 
 def small_lm_agrees(torch, dev):
@@ -1056,8 +1508,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")))
     check(sorted(libs) == ["decdiff_update", "decode_attention",
-                           "dequant_avg_rows", "gather_rows", "neighbor_avg",
-                           "segment_avg", "vt_kl_loss"],
+                           "dequant_avg", "dequant_avg_rows",
+                           "dequant_segment_avg", "gather_rows",
+                           "neighbor_avg", "segment_avg", "vt_kl_loss"],
           f"kernel sources {sorted(libs)}")
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_DIR})")
@@ -1082,7 +1535,9 @@ def main() -> int:
     w_main = (exp.nbr_weight * exp.nbr_valid).contiguous()
 
     # -- path a: no transport ----------------------------------------------
-    _, l_plain, ms_plain, _, _ = drive(torch, ops, exp, "path a (no transport)")
+    hist_a, l_plain, ms_plain, _, _ = drive(torch, ops, exp,
+                                            "path a (no transport)")
+    snaps = {"a": snapshot(torch, exp, hist_a)}
     check(l_plain["segment_neighbor_avg"] >= ROUNDS,
           f"segment_neighbor_avg launched {l_plain} in {ROUNDS} rounds")
     vt_per_path = ROUNDS * exp.train.steps_per_round  # one per local step
@@ -1099,6 +1554,7 @@ def main() -> int:
     check(payload == n_params + 4, f"int8 payload {payload} bytes")
     hist_e, l_edge, ms_edge, bytes_e, trig_e = drive(
         torch, ops, exp_e, "path b (per-edge int8 adaptive 0.95)")
+    snaps["b"] = snapshot(torch, exp_e, hist_e)
     check(l_edge["gather_rows"] == ROUNDS,
           f"gather_rows launched {l_edge['gather_rows']} times in {ROUNDS} "
           f"rounds")
@@ -1125,6 +1581,7 @@ def main() -> int:
                        comm=CommConfig(codec="int8"))
     hist_n, l_node, ms_node, bytes_n, trig_n = drive(
         torch, ops, exp_n, "path c (per-node int8, always send)")
+    snaps["c"] = snapshot(torch, exp_n, hist_n)
     check(l_node["segment_neighbor_avg"] >= ROUNDS and
           l_node["gather_rows"] == 0 and
           l_node["vt_kl_loss_fwd"] == l_node["vt_kl_loss_bwd"]
@@ -1161,8 +1618,9 @@ def main() -> int:
 
     # -- path g: CFA-GE, Eq. 9 then the gradient exchange ---------------
     exp_g = Experiment(world, "cfa-ge", schedule=sched)
-    _, l_ge, ms_ge, _, _ = drive(torch, ops, exp_g,
-                                 "path g (cfa-ge, gradient exchange)")
+    hist_g, l_ge, ms_ge, _, _ = drive(torch, ops, exp_g,
+                                      "path g (cfa-ge, gradient exchange)")
+    snaps["g"] = snapshot(torch, exp_g, hist_g)
     check(l_ge["segment_neighbor_avg"] == ROUNDS and l_ge["neighbor_avg"] == 0,
           f"path g: launches {l_ge}")
     print(f"ms per round: no transport {ms_plain:.2f}, per-edge "
@@ -1188,6 +1646,54 @@ def main() -> int:
         stochastic=False), "per-edge int8 adaptive 0.95, deterministic")
     small_world_agrees(torch, dev, method="fedavg")
     small_world_agrees(torch, dev, method="cfa-ge")
+    small_world_agrees(torch, dev, label="no transport", layout="sparse")
+
+    # -- paths a, b, c and g again on the sparse layout: bitwise equal ------
+    vt_checks = dict(vt_kl_loss_fwd=vt_per_path, vt_kl_loss_bwd=vt_per_path,
+                     decdiff_update=ROUNDS)
+    sparse_launches = {}
+    for key, label, method, comm, want in [
+            ("a", "path a", "decdiff+vt", None, vt_checks),
+            ("b", "path b", "decdiff+vt",
+             CommConfig(codec="int8", policy="adaptive", target_trigger=0.95),
+             vt_checks),
+            ("c", "path c", "decdiff+vt", CommConfig(codec="int8"),
+             vt_checks),
+            ("g", "path g", "cfa-ge", None, dict(neighbor_avg=0))]:
+        sparse_launches[f"{key}_s"], _ = sparse_equals_dense(
+            torch, ops, world, snaps[key], label, method, comm, sched, want)
+    del snaps
+    # CFA-GE's gradient walk cut into calls of 16 edges (the last one
+    # padded): both layouts make the same calls, so they stay bitwise equal
+    from repro_torch.engine import backends
+
+    ge_chunk, backends.GE_CHUNK = backends.GE_CHUNK, 16
+    try:
+        exp_g16 = Experiment(world, "cfa-ge", schedule=sched)
+        hist_g16, sparse_launches["g16"], _, _, _ = drive(
+            torch, ops, exp_g16, "path g, gradient walk in calls of 16 edges")
+        print(f"path g (calls of 16 edges): {ge_walk_rows(exp_g16)}")
+        snap_g16 = snapshot(torch, exp_g16, hist_g16)
+        del exp_g16, hist_g16
+        gc.collect()
+        sparse_launches["g16_s"], _ = sparse_equals_dense(
+            torch, ops, world, snap_g16, "path g (calls of 16 edges)",
+            "cfa-ge", None, sched, dict(neighbor_avg=0))
+        del snap_g16
+    finally:
+        backends.GE_CHUNK = ge_chunk
+
+    # -- B.5 at path c's per-node shape: the round's int8 payloads ---------
+    from repro_torch.comm.codecs import Int8Codec
+
+    pay_c, _ = Int8Codec(stochastic=False).encode(
+        tree_flatten_stacked(exp_n.params)[0])
+    dqs_main = dqseg_vs_plain(
+        torch, ops, pay_c["q"][exp_n.nbr_idx],
+        pay_c["scale"][exp_n.nbr_idx].contiguous(),
+        (exp_n.nbr_weight * exp_n.nbr_valid).contiguous(),
+        "path c (real int8 payloads of the 16 nodes, per-node panel)")
+    del pay_c
 
     # -- each kernel against its plain version, at the main path's shapes
     seg = kernel_vs_plain(torch, ops, segment_avg_plain, vals_main, w_main,
@@ -1232,11 +1738,34 @@ def main() -> int:
     del exp, exp_e, exp_n, exp_f, exp_g, e, world, table0
     gc.collect()
 
+    # -- path h: the sparse layout at full MLP width; path i: 10^4 nodes ---
+    lmh = path_h(torch, ops, dev, profile)
+    lmi = path_i(torch, ops, dev, profile)
+    torch.cuda.empty_cache()
+
     # -- path d: the LM DFL pod round at full width ------------------------
     lmd = path_d(torch, ops, dev, profile)
     small_lm_agrees(torch, dev)
     dq = dequant_vs_plain(torch, ops, lmd["q"], lmd["scale"], lmd["wn"],
                           "path d (real int8 payload of the 4 nodes)")
+    # the int8 route of path d's gossip, one receiver at a time, through
+    # the reference's entry point `dequant_neighbor_avg`
+    ops.reset_launches()
+    for r in range(LM_NODES):
+        avg_r = ops.dequant_neighbor_avg(lmd["q"], lmd["scale"],
+                                         lmd["wn"][r].contiguous())
+        del avg_r
+    torch.cuda.synchronize()
+    l_dq1 = dict(ops.LAUNCHES)
+    print(f"path d int8 route, one receiver at a time "
+          f"(dequant_neighbor_avg x {LM_NODES}): kernel launches {l_dq1}")
+    check(l_dq1["dequant_neighbor_avg"] == LM_NODES,
+          f"dequant_neighbor_avg launched {l_dq1} times for {LM_NODES} "
+          f"receivers")
+    dqa_main = dqavg_vs_plain(torch, ops, lmd["q"], lmd["scale"],
+                              lmd["wn"][0].contiguous(),
+                              "path d (real int8 block, receiver 0's ring "
+                              "weights)")
     nav_lm = navg_vs_plain(torch, ops, lmd["w"], lmd["wn"][0],
                            "path d's flat block, receiver 0's ring weights")
     avg = ops.dequant_neighbor_avg_rows(lmd.pop("q"), lmd["scale"], lmd["wn"])
@@ -1302,7 +1831,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
-               "e": lme["launches"], "f": l_fed, "g": l_ge}
+               "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
+               "g": l_ge, **sparse_launches,
+               "h": {k: sum(lmh[r]["launches"][k]
+                            for r in ("h0", "h1", "h2", "h3"))
+                     for k in ops.LAUNCHES},
+               "h_int8_route": lmh["hq"]["launches"],
+               "i": {k: sum(lmi[r]["launches"][k] for r in ("i0", "i1", "i2"))
+                     for k in ops.LAUNCHES}}
 
     def launches(name):
         return sum(p[name] for p in by_path.values())
@@ -1346,6 +1882,12 @@ def main() -> int:
         entry("neighbor_avg", "neighbor_avg",
               "src/repro/kernels/neighbor_avg.py:32", nav_f,
               other_shapes=[nav_lm, nav_odd]),
+        entry("dequant_segment_neighbor_avg", "dequant_segment_avg",
+              "src/repro/kernels/segment_avg.py:81", dqs_main,
+              fp32_route_err=dqs_main["fp32_route_err"],
+              other_shapes=lmh["bucket_checks"]),
+        entry("dequant_neighbor_avg", "dequant_avg",
+              "src/repro/kernels/dequant_avg.py:42", dqa_main),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -1358,6 +1900,14 @@ def main() -> int:
           f"neighbor_avg launches {l_fed['neighbor_avg']} / "
           f"{l_ge['neighbor_avg']}, segment_neighbor_avg launches "
           f"{l_fed['segment_neighbor_avg']} / {l_ge['segment_neighbor_avg']}")
+    print("path h (256 nodes, sparse, full MLP width): " + "; ".join(
+        f"{k} {lmh[k]['ms']:.2f} ms per round, peak "
+        f"{lmh[k]['peak'] / 2**30:.2f} GiB"
+        for k in ("h0", "h1", "h2", "h3")))
+    print("path i (10,000 nodes, sparse): " + "; ".join(
+        f"{k} {lmi[k]['rps']:.2f} rounds per second, bytes "
+        f"{lmi[k]['bytes']:.0f}, triggered {lmi[k]['trig']}"
+        for k in ("i0", "i1", "i2")))
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

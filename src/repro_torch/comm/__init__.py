@@ -6,13 +6,14 @@
   trigger   — event-triggered transmission: send only when the model has
               drifted past a threshold since the last payload, per node or
               per edge (drift-rate-adaptive per-edge thresholds);
-  transport — CommConfig + GossipTransport (per-node state) +
-              EdgeGossipTransport (per-edge `[N, max_deg, ...]` state) on
-              the dense padded-neighbour layout.
+  transport — CommConfig + GossipTransport (per-node state, either
+              layout) + EdgeGossipTransport (per-edge `[N, max_deg, ...]`
+              state, dense layout) + SparseEdgeGossipTransport (per-edge
+              `[E, ...]` state over the sparse CSR edge list).
 
 Receivers always decode before aggregating, so DecDiff's Eq. 5-6 act on
-reconstructed models; only the bytes on the wire change.  The sparse CSR
-transport (ROADMAP A.6) and the pod context (A.10) are not ported.
+reconstructed models; only the bytes on the wire change.  The pod context
+is ROADMAP A.10.
 """
 from repro_torch.comm.codecs import (  # noqa: F401
     CODECS,
@@ -31,6 +32,8 @@ from repro_torch.comm.transport import (  # noqa: F401
     EdgeCommState,
     EdgeGossipTransport,
     GossipTransport,
+    SparseEdgeCommState,
+    SparseEdgeGossipTransport,
     codec_roundtrip_stacked,
 )
 from repro_torch.comm.trigger import (  # noqa: F401

@@ -24,19 +24,24 @@ bit-identical.  Receivers read sender j's slot toward them through the
 reverse-slot map, one row gather over the flattened [N·max_deg, D] table
 (`repro_torch.kernels.ops.gather_rows`, the CUDA kernel on the card).
 
+`SparseEdgeGossipTransport` — the same per-edge state over the sparse
+layout's flat CSR edge list, `[E, ...]`: a directed edge id is both the
+sender's and the receiver's address of its link, so there is no layout
+swap and no reverse gather.  The per-node `GossipTransport` takes either
+layout for its per-edge delivery history.
+
 Every tensor lives on the device of the params the transport was built
 with; the exchange syncs nothing.  Randomness comes from the
 `torch.Generator` passed to `exchange` (only when `wants_rng`: a
 stochastic int8 codec): the per-node transport draws one uniform row per
-node, the per-edge transport one row per canonical directed edge, indexed
-by `edge_id` (the CSR enumeration the sparse transport, ROADMAP A.6, will
-share).
+node, the per-edge transports one row per canonical CSR directed edge (the
+dense one indexes those rows by `edge_id`, the sparse one by identity), so
+stochastic int8 is bitwise equal across the two layouts.
 
 `wire` ("encoded" | "decoded") is what the pod backend's all-gather
-carries.  On this single-process dense path nothing is gathered, so the two
+carries.  On this single-process path nothing is gathered, so the two
 wires are the same computation; both are accepted and validated.  The pod
-backend (`PodContext`, ROADMAP A.10) and the sparse CSR transport (A.6) are
-not ported.
+backend (`PodContext`) is ROADMAP A.10.
 
 Accounting is exact and static: `payload_bytes` is the serialized size of
 one payload (`codec.payload_bytes_for`); bytes per round = payload_bytes x
@@ -126,14 +131,15 @@ class CommConfig:
 
 class CommState(NamedTuple):
     """Per-node transport state.  `ever_recv` is the per-EDGE delivery
-    history in the receiver layout [N, max_deg] (None without an edge
-    layout): the `on_silence="stale"` mask consults it, so a receiver never
-    aggregates a cache that no payload ever filled."""
+    history in the engine's layout, [N, max_deg] padded or [E] over the CSR
+    edge list (None without an edge layout): the `on_silence="stale"` mask
+    consults it, so a receiver never aggregates a cache that no payload
+    ever filled."""
 
     last_sent: torch.Tensor            # [N, D] last reconstruction on the wire
     residual: Optional[torch.Tensor]   # [N, ...] EF residual (None if stateless)
     ever_sent: torch.Tensor            # [N] {0,1}: has node i transmitted yet?
-    ever_recv: Optional[torch.Tensor] = None  # [N, max_deg] {0,1}
+    ever_recv: Optional[torch.Tensor] = None  # [N, max_deg] or [E] {0,1}
 
 
 class EdgeCommState(NamedTuple):
@@ -181,13 +187,13 @@ def reverse_slot_map(nbr_idx: np.ndarray) -> np.ndarray:
 class GossipTransport:
     """Flatten -> trigger -> encode -> decode, with per-node state.
 
-    Pass `nbr_idx` / `nbr_valid` (the padded [N, max_deg] panels) to give
-    the transport its per-edge delivery history (`CommState.ever_recv`);
-    without them `ever_recv` stays None.  The sparse layout's edge-list
-    form is ROADMAP A.6."""
+    Pass `nbr_idx` / `nbr_valid` (the padded [N, max_deg] panels) on the
+    dense layout, or `edge_src` / `edge_dst` (the CSR directed edge list)
+    on the sparse one, to give the transport its per-edge delivery history
+    (`CommState.ever_recv`); without either `ever_recv` stays None."""
 
     def __init__(self, config: CommConfig, stacked_params, *,
-                 nbr_idx=None, nbr_valid=None):
+                 nbr_idx=None, nbr_valid=None, edge_src=None, edge_dst=None):
         self.config = config
         self.codec = config.make_codec()
         mat, _ = tree_flatten_stacked(stacked_params)
@@ -196,19 +202,27 @@ class GossipTransport:
         # exact serialized payload size for ONE node's transmission
         self.payload_bytes = self.codec.payload_bytes_for(self.d)
         self.wants_rng = _wants_rng(self.codec)
+        self._recv_idx = self._recv_valid = None
+        self._edge_src = self._edge_dst = None
+        self._recv_shape = None
         if nbr_idx is not None:
             idx = np.maximum(np.asarray(nbr_idx, np.int64), 0)
             self._recv_idx = torch.from_numpy(idx).to(self.device)
             self._recv_valid = torch.from_numpy(
                 np.asarray(nbr_valid, np.float32)).to(self.device)
-        else:
-            self._recv_idx = self._recv_valid = None
+            self._recv_shape = tuple(idx.shape)
+        elif edge_src is not None:
+            self._edge_src = torch.from_numpy(
+                np.asarray(edge_src, np.int64)).to(self.device)
+            self._edge_dst = torch.from_numpy(
+                np.asarray(edge_dst, np.int64)).to(self.device)
+            self._recv_shape = tuple(self._edge_src.shape)
 
     def init_state(self, stacked_params) -> CommState:
         mat, _ = tree_flatten_stacked(stacked_params)
-        ever_recv = (torch.zeros(self._recv_idx.shape, dtype=torch.float32,
+        ever_recv = (torch.zeros(self._recv_shape, dtype=torch.float32,
                                  device=self.device)
-                     if self._recv_idx is not None else None)
+                     if self._recv_shape is not None else None)
         # zero reference: the first transmission carries the full model
         # through the codec, so receivers need no out-of-band bootstrap.
         return CommState(
@@ -219,8 +233,9 @@ class GossipTransport:
             ever_recv=ever_recv)
 
     def note_delivery(self, state: CommState, delivered) -> CommState:
-        """Fold one round's realized deliveries ([N, max_deg] {0,1}: trigger
-        AND link) into the per-edge delivery history."""
+        """Fold one round's realized deliveries ([N, max_deg] or [E] {0,1}
+        in the bound layout: trigger AND link) into the per-edge delivery
+        history."""
         if state.ever_recv is None:
             return state
         return state._replace(
@@ -238,8 +253,13 @@ class GossipTransport:
             residual = torch.where(rb, 0.0, residual)
         ever_recv = state.ever_recv
         if ever_recv is not None:
-            clear = torch.maximum(reset[:, None], reset[self._recv_idx]) \
-                * self._recv_valid
+            if self._recv_idx is not None:
+                clear = torch.maximum(reset[:, None],
+                                      reset[self._recv_idx]) \
+                    * self._recv_valid
+            else:
+                clear = torch.maximum(reset[self._edge_src],
+                                      reset[self._edge_dst])
             ever_recv = torch.where(clear > 0, 0.0, ever_recv)
         return CommState(
             last_sent=torch.where(r[:, None], 0.0, state.last_sent),
@@ -464,6 +484,143 @@ class EdgeGossipTransport:
             # never delivered; exogenous failures still drop.
             agg_mask = link_mask * self._swap_layout(ever)
         return gathered, agg_mask, gate, new_state
+
+
+class SparseEdgeCommState(NamedTuple):
+    """Per-edge transport state over the flat [E] CSR edge list: entry e is
+    the directed link edge_src[e] -> edge_dst[e] of a
+    :class:`~repro_torch.graphs.SparseTopology` — the dense layout's
+    [N, max_deg] panels with the padding removed."""
+
+    last_sent: torch.Tensor            # [E, D] per-link reconstruction ref
+    residual: Optional[torch.Tensor]   # [E, ...] per-link EF residual
+    threshold: torch.Tensor            # [E] per-link trigger thresholds
+    drift_ema: torch.Tensor            # [E] per-link drift EMA (adaptive)
+    ever_delivered: torch.Tensor       # [E] {0,1}: link ever delivered?
+
+
+class SparseEdgeGossipTransport:
+    """Per-edge transport over a flat CSR edge list, with no layout swap.
+
+    The dense :class:`EdgeGossipTransport` keys state by (sender, slot) and
+    needs two index maps per round: the reverse-slot swap (sender acks
+    from the receiver-layout link mask) and the reverse-slot gather
+    (receivers read each sender's per-link reference).  In the CSR edge
+    list a directed edge id is both the sender's and the receiver's
+    address of one link: its gate, delivery, aggregation mask and
+    reconstruction all live at position e, and receiver i's neighbour
+    models are `last_sent[row_offsets[i]:row_offsets[i+1]]`, the CSR row
+    the SparseNeighborhood buckets enumerate (`WidthBucket.epos`).  The
+    dense twin's `live` and `reset` options and `reset_edges` serve churn
+    (ROADMAP A.7) and come with it.
+
+    Bitwise equal to the dense twin by construction: the same elementwise
+    gate, controller and codec per link, the uniforms drawn as the same
+    [E, D] block of canonical-edge rows, and every mask a product of exact
+    {0,1} floats."""
+
+    def __init__(self, config: CommConfig, stacked_params, st):
+        self.config = config
+        self.codec = config.make_codec()
+        mat, _ = tree_flatten_stacked(stacked_params)
+        self.d = int(mat.shape[1])
+        self.device = dev = mat.device
+        self.e_dir = int(st.num_directed)
+        self.payload_bytes = self.codec.payload_bytes_for(self.d)
+        self.wants_rng = _wants_rng(self.codec)
+        self.edge_src = torch.from_numpy(
+            st.edge_src.astype(np.int64)).to(dev)
+
+    def init_state(self, stacked_params) -> SparseEdgeCommState:
+        # the starting threshold, as EdgeGossipTransport.thr0
+        thr0 = (self.config.trigger_threshold
+                if self.config.policy == "fixed" else 0.0)
+        zeros = torch.zeros((self.e_dir, self.d), dtype=torch.float32,
+                            device=self.device)
+        vec = torch.zeros((self.e_dir,), dtype=torch.float32,
+                          device=self.device)
+        return SparseEdgeCommState(
+            last_sent=zeros,
+            residual=self.codec.init_residual(zeros),
+            threshold=torch.full((self.e_dir,), thr0,
+                                 dtype=torch.float32, device=self.device),
+            drift_ema=vec, ever_delivered=vec.clone())
+
+    def exchange(self, stacked_params, state: SparseEdgeCommState, link_mask,
+                 rng: Optional[torch.Generator] = None, *,
+                 wire: str = "encoded"):
+        """One per-edge transport round over the flat edge list.
+
+        link_mask: [E] {0,1} per-directed-edge link mask (the engine folds
+        the participation draws into it).  rng: the generator the codec
+        draws from (iff `wants_rng`): one uniform row per canonical edge,
+        the rows the dense per-edge transport indexes by `edge_id`.
+
+        Returns (edge_table [E, D], agg_mask [E], gate [E], new_state):
+        entry e of the table is what edge e's receiver holds for its sender
+        (fresh if delivered this round, the per-link cache otherwise) —
+        feed it to SparseNeighborhood(edge_table=...) —, the receiver's
+        aggregation mask per `on_silence`, the fired edges, and the
+        threaded state."""
+        _check_wire(wire)
+        codec, cfg = self.codec, self.config
+        w, _ = tree_flatten_stacked(stacked_params)
+        valid = torch.ones((self.e_dir,), dtype=torch.float32,
+                           device=self.device)
+        last = state.last_sent
+        # each [E, D] temporary below is freed as soon as it is used: at
+        # full width one is 2.3 GB (1,016 edges x 567,434 params)
+        x = w[self.edge_src]  # [E, D] each edge's sender row, a new tensor
+        # the dense layout's elementwise gate, on [E, 1] panels
+        g2, d2 = edge_drift_gate(x, last[:, None, :],
+                                 state.threshold[:, None], valid[:, None])
+        gate, drift = g2[:, 0], d2[:, 0]
+        # link-layer ack: the edge id is the sender's address too, so the
+        # dense layout's reverse-slot swap is the identity here
+        delivered = gate * link_mask
+        if codec.is_delta:
+            x.sub_(last)
+        if self.wants_rng:
+            if rng is None:
+                raise ValueError(
+                    f"codec {codec.name!r} needs a torch.Generator")
+            u = torch.rand((max(self.e_dir, 1), self.d), generator=rng,
+                           device=self.device)[:self.e_dir]
+        else:
+            u = None
+        payload, enc_res = codec.encode(x, rng=u, residual=state.residual)
+        del x, u
+        dec = codec.decode(payload, out_size=self.d)
+        del payload
+        recon = last + dec if codec.is_delta else dec
+        del dec
+        new_last = torch.where(delivered[:, None] > 0, recon, last)
+        del recon
+        if codec.has_residual:
+            # the EF residual tracks DELIVERED information only
+            keep = delivered.reshape(
+                (self.e_dir,) + (1,) * (enc_res.dim() - 1)) > 0
+            new_res = torch.where(keep, enc_res, state.residual)
+        else:
+            new_res = None
+        del enc_res
+
+        if cfg.policy == "adaptive":
+            new_thr, new_ema = adaptive_threshold_update(
+                state.threshold, state.drift_ema, drift, gate, valid,
+                target=cfg.target_trigger, ema_beta=cfg.drift_ema_beta,
+                rate=cfg.threshold_rate)
+        else:
+            new_thr, new_ema = state.threshold, state.drift_ema
+        ever = torch.maximum(state.ever_delivered, delivered)
+        new_state = SparseEdgeCommState(
+            last_sent=new_last, residual=new_res, threshold=new_thr,
+            drift_ema=new_ema, ever_delivered=ever)
+        if cfg.on_silence == "drop":
+            agg_mask = link_mask * gate
+        else:
+            agg_mask = link_mask * ever
+        return new_last, agg_mask, gate, new_state
 
 
 def codec_roundtrip_stacked(codec: Codec, stacked,

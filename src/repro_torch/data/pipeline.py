@@ -29,15 +29,19 @@ class Batcher:
     batch_size: int
     stride: int = 7919  # prime
 
-    def indices(self, counts: torch.Tensor, step: int) -> torch.Tensor:
-        """[N, bs] int64 sample indices for every node at `step`."""
+    def indices(self, counts: torch.Tensor, step) -> torch.Tensor:
+        """[N, bs] int64 sample indices for every node at `step`: an int,
+        or an [N] int64 tensor of per-row steps."""
         bs = self.batch_size
-        base = (step * bs + 2 ** 31) % 2 ** 32 - 2 ** 31  # int32 step*bs
         ar = torch.arange(bs, dtype=torch.int64, device=counts.device)
+        if isinstance(step, torch.Tensor):
+            base = wrap_int32(step.to(torch.int64) * bs)[:, None]
+        else:
+            base = (step * bs + 2 ** 31) % 2 ** 32 - 2 ** 31  # int32 step*bs
         idx = wrap_int32(wrap_int32(base + ar) * self.stride)
         # floor-sign modulo (jnp `%` / torch.remainder), per node count
         return torch.remainder(
-            idx[None, :],
+            idx.reshape(-1, bs),
             torch.clamp(counts.to(torch.int64), min=1)[:, None])
 
     def take(self, x: torch.Tensor, y: torch.Tensor, counts: torch.Tensor,

@@ -3,11 +3,12 @@
 One round is (local SGD steps -> neighbour exchange -> aggregation) over
 every node at once, on the experiment's device, with no host
 synchronisation.  This is the JAX package's round body on its dense
-context, with or without the `repro_torch.comm` gossip transport, and with
-no dynamics, no event clock and no telemetry.  By the strategy's declared
-kind: gossip aggregates over the delivered neighbours (then, for CFA-GE,
-walks the neighbour slots for the gradient exchange); "server" (FedAvg)
-averages the full stack; "none" keeps the local models:
+context, on either node-axis layout (the padded [N, max_deg] panels or the
+sparse CSR edge list), with or without the `repro_torch.comm` gossip
+transport, and with no dynamics, no event clock and no telemetry.  By the
+strategy's declared kind: gossip aggregates over the delivered neighbours
+(then, for CFA-GE, walks the neighbour slots for the gradient exchange);
+"server" (FedAvg) averages the full stack; "none" keeps the local models:
 
     round_fn(params, opt, comm_state, round_idx)
         -> (params, opt, comm_state, train_loss, sent_edges, trig)
@@ -25,19 +26,29 @@ participation mask, then the codec's uniforms — each only when it is
 used (`hetero_steps_min > 0`, `participation < 1`, a stochastic int8
 codec), so the defaults and `CommConfig()` draw nothing.  Every kind draws
 the link mask, so the later draws do not depend on the method.  The
-`shard_map` backend is ROADMAP A.10.
+dense layout draws the [N, max_deg] panel, the sparse one one uniform per
+directed edge, so the two layouts are bitwise equal only at
+participation == 1, as in the reference.  The `shard_map` backend is
+ROADMAP A.10.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.comm.transport import EdgeGossipTransport
+from repro_torch.comm.transport import (EdgeGossipTransport,
+                                        SparseEdgeGossipTransport)
 from repro_torch.comm.trigger import edge_delivery
-from repro_torch.engine.neighborhood import DenseNeighborhood
+from repro_torch.engine.neighborhood import (DenseNeighborhood,
+                                             SparseNeighborhood)
 from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
 
 BACKENDS = ("vmap", "shard_map")
+
+#: directed edges per call of the gradient function in CFA-GE's exchange:
+#: both layouts walk the same edge list in calls of exactly
+#: min(E, GE_CHUNK) rows (see `_make_gradient_exchange`).
+GE_CHUNK = 1024
 
 
 def _make_local_training(exp):
@@ -98,50 +109,105 @@ def _make_delivery_mask(exp):
     return delivery_mask
 
 
+def _make_edge_link_mask(exp):
+    """The sparse layout's link draw: one uniform per directed edge, the
+    [E] {0,1} mask of the links that deliver (no draw at participation
+    1)."""
+    cfg, e_dir = exp.train, exp.sparse_plan.num_directed
+    every = torch.ones((e_dir,), dtype=torch.float32, device=exp.device)
+
+    def edge_link_mask():
+        if cfg.participation >= 1.0:
+            return every
+        u = torch.rand((e_dir,), generator=exp.gen, device=exp.device)
+        return (u < cfg.participation).to(torch.float32)
+
+    return edge_link_mask
+
+
 def _make_gradient_exchange(exp):
     """CFA-GE's second phase: each neighbour j evaluates the gradient of
     its local loss F_j at OUR aggregated model on one minibatch of ITS
     data, and we descend along their ω·|D|·mask-weighted mean.
 
-    The walk goes over the slots d = 0..max_deg-1 in order; slot d's
-    minibatch of neighbour j is the Batcher's step `round_idx·max_deg + d`
-    (int32 arithmetic, modulo max(|D_j|, 1)).  The gradient accumulators
-    and the totals start at +0 and add in slot order, so a padded slot
-    (neighbour 0, weight 0) adds exactly +0.  A node whose total is 0
-    keeps its model."""
-    cfg, n = exp.train, exp.n
+    Both layouts walk one list, the directed edges (receiver i, sender j,
+    i's slot k of j) ordered by (k, i): slot k of a receiver is its k-th
+    CSR in-edge, senders ascending, in the dense panel and in a sparse
+    bucket alike.  Edge (i, j, k) reads j's minibatch at the Batcher's step
+    `round_idx·max_deg + k` (int32 arithmetic, modulo max(|D_j|, 1)), and
+    i's gradient accumulator and total start at +0 and add its slots in
+    ascending k, as the reference's slot walk does; the reference's
+    padding slots (weight 0, finite gradients) add an exact +0, so they
+    are left out.  The gradients are evaluated in calls of exactly
+    min(E, GE_CHUNK) edges, the last padded with copies of edge 0 (sliced
+    away): the two layouts make the same calls on the same rows, so they
+    are bitwise equal wherever their weights are (participation == 1),
+    and a round costs E row-gradients plus the last call's padding.  A
+    node whose total is 0 keeps its model.
+
+    Returns exchange(params, link, round_idx), `link` the layout's link
+    mask: the dense [N, max_deg] panel or the sparse [E] list."""
+    cfg, n, topo, dev = exp.train, exp.n, exp.topo, exp.device
     batcher, counts = exp.batcher, exp.counts
-    nbr_idx, nbr_weight = exp.nbr_idx, exp.nbr_weight
     x_pad, y_pad = exp.x_pad, exp.y_pad
-    max_deg = int(nbr_idx.shape[1])
+    max_deg = int(topo.max_degree)
     grad_fn = exp._grad_fn
     lr_ge = cfg.ge_lr if cfg.ge_lr is not None else cfg.lr
+    sparse = exp.layout == "sparse"
+    if sparse:
+        recv = topo.edge_dst.astype(np.int64)
+        src = topo.edge_src.astype(np.int64)
+        pos = np.arange(recv.shape[0], dtype=np.int64)  # CSR position
+        slot = pos - topo.row_offsets[recv]
+        # ω_e·|D_src|, the sparse plan's weights
+        d_src = exp.counts.cpu().numpy()[topo.edge_src].astype(np.float32)
+        weight = torch.from_numpy(topo.edge_weight * d_src).to(dev)
+    else:
+        weight = exp.nbr_weight.reshape(-1)
+        recv, slot = np.nonzero(topo.neighbor_mask)
+        src = np.maximum(topo.neighbor_idx, 0)[recv, slot]
+        pos = recv * max_deg + slot  # into the flattened [N, max_deg] panel
+    order = np.lexsort((recv, slot))
+    recv, src, slot, pos = (np.asarray(a, np.int64)[order]
+                            for a in (recv, src, slot, pos))
+    e = int(recv.shape[0])
+    chunk = max(min(e, GE_CHUNK), 1)
+    recv_t, src_t, slot_t, pos_t = (torch.from_numpy(a).to(dev)
+                                    for a in (recv, src, slot, pos))
+    # per call: its receivers, senders, the senders' |D| and the slots
+    # [chunk], and its runs of one slot (rows in the call, receivers, the
+    # edges' slice of the round's weights)
+    calls = []
+    for c0 in range(0, e, chunk):
+        c1 = min(c0 + chunk, e)
+        cuts = [c0] + [q for q in range(c0 + 1, c1)
+                       if slot[q] != slot[q - 1]] + [c1]
+        ids = torch.from_numpy(np.concatenate([
+            np.arange(c0, c1), np.zeros(c0 + chunk - c1, np.int64)])).to(dev)
+        j = src_t[ids]
+        runs = [(a - c0, b - c0, recv_t[a:b], slice(a, b))
+                for a, b in zip(cuts[:-1], cuts[1:])]
+        calls.append((recv_t[ids], j, counts[j], slot_t[ids], runs))
 
-    def gradient_exchange(params, mask, round_idx: int):
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
-        tot = torch.zeros((n,), dtype=torch.float32, device=exp.device)
-        for d in range(max_deg):
-            j = nbr_idx[:, d]  # [N] neighbour ids in slot d
-            bidx = batcher.indices(counts[j], round_idx * max_deg + d)
-            g = grad_fn(params, x_pad[j[:, None], bidx],
-                        y_pad[j[:, None], bidx])  # grad of F_j at w_i
-            w_d = nbr_weight[:, d] * mask[:, d]
-
-            def add(a, gi):
-                wb = w_d.reshape((n,) + (1,) * (gi.dim() - 1))
-                return a + wb * gi.to(torch.float32)
-
-            acc = tree_map(add, acc, g)
-            tot = tot + w_d
+    def gradient_exchange(params, link, round_idx: int):
+        w_e = weight[pos_t] * link.reshape(-1)[pos_t]
+        p_mat, unflatten = tree_flatten_stacked(params)
+        acc = torch.zeros_like(p_mat)
+        tot = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for i, j, cnt, slots, runs in calls:
+            bidx = batcher.indices(cnt, round_idx * max_deg + slots)
+            # grad of F_j at w_i, one row per edge
+            g = tree_flatten_stacked(grad_fn(
+                tree_map(lambda p: p[i], params), x_pad[j[:, None], bidx],
+                y_pad[j[:, None], bidx]))[0]
+            for a, b, rows, edges in runs:  # each receiver at most once
+                w_k = w_e[edges]
+                acc[rows] = acc[rows] + w_k[:, None] * g[a:b]
+                tot[rows] = tot[rows] + w_k
+            del g
         safe = torch.clamp(tot, min=1e-9)
         step = lr_ge * (tot > 0).to(torch.float32) * (1.0 / safe)
-
-        def apply(p, a):
-            sb = step.reshape((n,) + (1,) * (a.dim() - 1))
-            return (p.to(torch.float32) - sb * a).to(p.dtype)
-
-        return tree_map(apply, params, acc)
+        return unflatten(p_mat - step[:, None] * acc)
 
     return gradient_exchange
 
@@ -152,34 +218,49 @@ def build_round(exp):
     strategy, agg_state = exp.strategy, exp.agg_state
     caps = strategy.capabilities
     transport = exp.transport
-    per_edge = isinstance(transport, EdgeGossipTransport)
+    per_edge = isinstance(transport, (EdgeGossipTransport,
+                                      SparseEdgeGossipTransport))
     wire = exp.wire
-    nbr_idx, nbr_weight = exp.nbr_idx, exp.nbr_weight
-    degrees = torch.sum(exp.nbr_valid, dim=1)
+    sparse = exp.layout == "sparse"
+    if sparse:
+        plan = exp.sparse_plan
+        degrees = plan.degrees
+        edge_src = exp.edge_src
+        link_draw = _make_edge_link_mask(exp)
+    else:
+        nbr_idx, nbr_weight = exp.nbr_idx, exp.nbr_weight
+        degrees = torch.sum(exp.nbr_valid, dim=1)
+        link_draw = _make_delivery_mask(exp)
+    n_directed = exp._total_directed
     # trig = fired / directed edges.  The reference divides by a constant,
     # which XLA folds into a multiply by the constant's float32 reciprocal;
     # the port multiplies by the same reciprocal, so the fractions agree
-    # bit for bit.
-    inv_edges = torch.tensor(
-        np.float32(1.0) / np.float32(exp.topo.neighbor_mask.sum()),
-        device=exp.device)
+    # bit for bit, in either layout.
+    inv_edges = torch.tensor(np.float32(1.0) / np.float32(n_directed),
+                             device=exp.device)
     # Gossip aggregation lowers to the strategy's flat form whenever it has
-    # one: one weighted neighbour reduce over a DenseNeighborhood, over the
-    # [N, D] table or over the per-edge transport's pre-gathered panel (the
-    # same kernel, so per-edge fp32 at threshold 0 stays bitwise equal to
-    # the per-node round).  Strategies without a flat form take the
-    # padded-gather exchange/aggregate pair.
+    # one: one weighted neighbour reduce over the layout's Neighborhood
+    # view, over the [N, D] table or over the per-edge transport's
+    # per-link reconstructions (the same kernel, so per-edge fp32 at
+    # threshold 0 stays bitwise equal to the per-node round).  Strategies
+    # without a flat form take the padded-gather exchange/aggregate pair,
+    # which exists on the dense layout only (`Experiment` refuses sparse).
     use_flat = (caps.kind == "gossip"
                 and strategy.flat_aggregate is not None)
     local_training = _make_local_training(exp)
-    delivery_mask = _make_delivery_mask(exp)
     gradient_exchange = (_make_gradient_exchange(exp)
                          if caps.grad_exchange else None)
 
     def over_table(params, table_mat, mask):
-        """Aggregate over a full [N, D] table of sender models, slot
-        weights ω·|D| times the [N, max_deg] {0,1} mask."""
+        """Aggregate over a full [N, D] table of sender models, weights
+        ω·|D| times the {0,1} `mask`: the dense [N, max_deg] panel or the
+        sparse [E] list, each an exact product of {0,1} factors, so both
+        layouts compose the same weights."""
         local_mat, unflatten = tree_flatten_stacked(params)
+        if sparse:
+            nb = SparseNeighborhood(plan, table_mat, local_mat, unflatten,
+                                    mask)
+            return strategy.flat_aggregate(exp, agg_state, nb)
         if use_flat:
             nb = DenseNeighborhood(table_mat, nbr_idx, nbr_weight * mask,
                                    local_mat, unflatten)
@@ -187,21 +268,28 @@ def build_round(exp):
         gathered = strategy.exchange(exp, unflatten(table_mat), nbr_idx)
         return strategy.aggregate(exp, agg_state, params, gathered, mask)
 
-    def over_panel(params, panel, mask):
-        """Aggregate over the per-edge transport's [N, max_deg, D] panel."""
+    def over_links(params, links, mask):
+        """Aggregate over the per-edge transport's per-link
+        reconstructions: the dense [N, max_deg, D] panel with its
+        [N, max_deg] mask, or the sparse [E, D] bank with its [E] mask."""
         local_mat, unflatten = tree_flatten_stacked(params)
+        if sparse:
+            nb = SparseNeighborhood(plan, None, local_mat, unflatten, mask,
+                                    edge_table=links)
+            return strategy.flat_aggregate(exp, agg_state, nb)
         if use_flat:
             nb = DenseNeighborhood(None, None, nbr_weight * mask, local_mat,
-                                   unflatten, panel=panel)
+                                   unflatten, panel=links)
             return strategy.flat_aggregate(exp, agg_state, nb)
-        n, e, d = panel.shape
+        n, e, d = links.shape
         gathered = tree_map(lambda l: l.reshape((n, e) + l.shape[1:]),
-                            unflatten(panel.reshape(n * e, d)))
+                            unflatten(links.reshape(n * e, d)))
         return strategy.aggregate(exp, agg_state, params, gathered, mask)
 
     def round_fn(params, opt, comm_state, round_idx: int):
         params, opt, train_loss = local_training(params, opt, round_idx)
-        link = delivery_mask()
+        # the link mask: [N, max_deg] dense, [E] sparse
+        link = link_draw()
         sent_edges = trig = None
         with torch.no_grad():
             if transport is None:
@@ -220,13 +308,16 @@ def build_round(exp):
                 # kind == "none": isolation — no communication at all.
             elif per_edge:
                 # per-EDGE transport: the link mask feeds the exchange
-                # (link-layer ack through the layout swap); it hands back
-                # the receiver-layout panel (fresh or per-link stale cache)
-                # and the aggregation mask.
+                # (link-layer ack); it hands back the receivers' per-link
+                # reconstructions (fresh or per-link stale cache) and the
+                # aggregation mask.  Sparse: an edge id is both ends'
+                # address of its link, so the [E] link mask goes in as it
+                # is and the [E, D] bank comes back, no reverse gather.
                 gen = exp.gen if transport.wants_rng else None
-                panel, mask, gate, comm_state = transport.exchange(
+                links, mask, gate, comm_state = transport.exchange(
                     params, comm_state, link, gen, wire=wire)
-                params = over_panel(params, panel, mask)
+                params = over_links(params, links, mask)
+                del links
                 # unicast accounting: one payload per FIRED edge; failed
                 # links still burn the sender's bytes.
                 sent_edges = torch.sum(gate)
@@ -239,7 +330,8 @@ def build_round(exp):
                 gen = exp.gen if transport.wants_rng else None
                 decoded, gate, comm_state = transport.exchange(
                     params, comm_state, gen, wire=wire)
-                delivered = edge_delivery(gate, link, nbr_idx)
+                delivered = (gate[edge_src] * link if sparse
+                             else edge_delivery(gate, link, nbr_idx))
                 comm_state = transport.note_delivery(comm_state, delivered)
                 if transport.config.on_silence == "drop":
                     mask = delivered
@@ -247,7 +339,8 @@ def build_round(exp):
                     mask = link * comm_state.ever_recv
                 params = over_table(params, decoded, mask)
                 # broadcast accounting: a transmitting node pays one
-                # payload per outgoing edge.
+                # payload per outgoing edge (Σ gate_i·deg_i; the graphs
+                # are symmetric, so in- and out-degree are equal).
                 sent_edges = torch.sum(gate * degrees)
                 trig = sent_edges * inv_edges
         return params, opt, comm_state, train_loss, sent_edges, trig

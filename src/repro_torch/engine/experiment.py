@@ -5,15 +5,19 @@
 packages the paper's procedure — heterogeneous per-node init, B local
 SGD(momentum) steps, neighbour exchange, method aggregation, periodic
 evaluation — behind one object, as the JAX package's `repro.engine` does.
-The port runs the dense node-axis layout on the `vmap` backend, with or
+The port runs the `vmap` backend on both node-axis layouts — the dense
+padded [N, max_deg] panels (the small-N oracle) and the sparse CSR edge
+list (O(N + E) state, past the dense layout's 4096-node guard) — with or
 without the gossip transport (`comm=CommConfig(...)`: codecs, event
 triggers, per-node or per-edge state, exact bytes on the wire; `wire=`
-names what the pod backend would gather).  Every method of the roster
-runs, the FedAvg server and CFA-GE's gradient exchange included.  Options
-that are not ported yet raise NotImplementedError naming the ROADMAP item
-that ports them: `layout="sparse"` and its transport (A.6), `dynamics=`
-(A.7), `timing=` and `Schedule(deadline=)` (A.8), `telemetry=` (A.9),
-`backend="shard_map"` (A.10) and the CNN (A.2).
+names what the pod backend would gather).  The layout follows the
+topology's type (`Topology` or `SparseTopology`) unless `layout=` says
+otherwise; the two are bitwise equal at participation 1.  Every method of
+the roster runs, the FedAvg server and CFA-GE's gradient exchange
+included.  Options that are not ported yet raise NotImplementedError
+naming the ROADMAP item that ports them: `dynamics=` (A.7), `timing=` and
+`Schedule(deadline=)` (A.8), `telemetry=` (A.9), `backend="shard_map"`
+(A.10) and the CNN (A.2).
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
@@ -40,17 +44,20 @@ import numpy as np
 import torch
 
 from repro_torch.comm.transport import (WIRES, CommConfig,
-                                        EdgeGossipTransport, GossipTransport)
+                                        EdgeGossipTransport, GossipTransport,
+                                        SparseEdgeGossipTransport)
 from repro_torch.core.virtual_teacher import make_loss_fn
 from repro_torch.data.allocation import pad_node_datasets
 from repro_torch.data.pipeline import Batcher
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import backends
+from repro_torch.engine.neighborhood import build_sparse_plan
 from repro_torch.engine.strategies import (MethodSpec, available_methods,
                                            get_method)
 from repro_torch.fl.metrics import RoundMetrics
 from repro_torch.fl.trainer import (make_eval_fn, make_grad_fn,
                                     make_train_step)
+from repro_torch.graphs.sparse import SparseTopology
 from repro_torch.graphs.topology import Topology
 from repro_torch.models.api import SmallModel
 from repro_torch.optim.sgd import sgd_momentum
@@ -111,11 +118,14 @@ class Schedule:
 class World:
     """The physical problem: who talks to whom, over what data.
 
-    The data stay host-side numpy arrays (per-node train shards and the
-    shared test set) until an Experiment moves them to `device`."""
+    `topo` is a dense `Topology` (the padded [N, max_deg] layout) or a
+    `SparseTopology` (the CSR edge list; an Experiment over it takes the
+    sparse layout).  The data stay host-side numpy arrays (per-node train
+    shards and the shared test set) until an Experiment moves them to
+    `device`."""
 
     model: SmallModel
-    topo: Topology
+    topo: "Topology | SparseTopology"
     xs: List[np.ndarray]       # per-node train inputs
     ys: List[np.ndarray]       # per-node train labels
     x_test: np.ndarray
@@ -195,8 +205,6 @@ class Experiment:
         if layout is not None and layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; "
                              f"available: {LAYOUTS}")
-        if layout == "sparse":
-            raise _not_ported("layout='sparse' (and its transport)", "A.6")
         if wire not in WIRES:
             raise ValueError(f"unknown wire {wire!r}; available: {WIRES}")
         self.method: MethodSpec = get_method(method)
@@ -215,7 +223,6 @@ class Experiment:
         self.world = world
         self.backend = backend
         self.wire = wire
-        self.layout = "dense"
         self.schedule = schedule or Schedule()
         train = train or TrainConfig()
         if train_overrides:
@@ -227,6 +234,32 @@ class Experiment:
             raise ValueError(
                 f"world has {topo.num_nodes} nodes but "
                 f"{len(world.xs)}/{len(world.ys)} data shards")
+        # --- node-axis layout: it follows the topology's type unless
+        # overridden.  Dense over a SparseTopology densifies it (refused
+        # above 4096 nodes); sparse over a Topology converts it, so one
+        # world runs both layouts.  A gossip strategy without a flat form
+        # has only the padded-gather lowering, which is dense-only.
+        if layout is None:
+            layout = "sparse" if isinstance(topo, SparseTopology) else "dense"
+        caps = self.strategy.capabilities
+        allowed = tuple(
+            lo for lo in caps.layouts
+            if not (lo == "sparse" and caps.kind == "gossip"
+                    and self.strategy.flat_aggregate is None))
+        if layout not in allowed:
+            why = ("declares no flat_aggregate form, so only the dense "
+                   "padded-gather lowering exists"
+                   if layout in caps.layouts else
+                   "declares it unsupported in its Capabilities record")
+            raise ValueError(
+                f"method {method!r}: strategy "
+                f"{type(self.strategy).__name__} {why}; supported layouts: "
+                f"{allowed}")
+        if layout == "dense" and isinstance(topo, SparseTopology):
+            topo = topo.to_topology()
+        elif layout == "sparse" and not isinstance(topo, SparseTopology):
+            topo = SparseTopology.from_topology(topo)
+        self.layout = layout
         self.model = model
         self.topo = topo
         self.n = topo.num_nodes
@@ -241,17 +274,27 @@ class Experiment:
         self.y_test = torch.from_numpy(
             world.y_test.astype(np.int64)).to(dev)
 
-        # --- graph tensors, padded dense layout ---
-        idx = topo.neighbor_idx.astype(np.int64)
-        self.nbr_idx = torch.from_numpy(np.maximum(idx, 0)).to(dev)
-        self.nbr_valid = torch.from_numpy(
-            topo.neighbor_mask.astype(np.float32)).to(dev)
-        # combined ω_ij·|D_j| weights (aggregators normalize internally,
-        # which realizes p_ij = |D_j| / Σ_{N_i} |D_j| of Eqs. 4/6/9)
-        omega = topo.neighbor_weights()
-        dj = counts[np.maximum(idx, 0)].astype(np.float32)
-        self.nbr_weight = torch.from_numpy(
-            omega * dj * topo.neighbor_mask).to(dev)
+        # --- graph tensors: the padded dense layout or the sparse plan ---
+        if layout == "sparse":
+            self.nbr_idx = self.nbr_valid = self.nbr_weight = None
+            self.sparse_plan = build_sparse_plan(topo, counts, 1, dev)
+            self.edge_src = torch.from_numpy(
+                topo.edge_src.astype(np.int64)).to(dev)
+            self._total_directed = float(topo.num_directed)
+        else:
+            self.sparse_plan = self.edge_src = None
+            idx = topo.neighbor_idx.astype(np.int64)
+            self.nbr_idx = torch.from_numpy(np.maximum(idx, 0)).to(dev)
+            self.nbr_valid = torch.from_numpy(
+                topo.neighbor_mask.astype(np.float32)).to(dev)
+            # combined ω_ij·|D_j| weights (aggregators normalize
+            # internally, which realizes p_ij = |D_j| / Σ_{N_i} |D_j| of
+            # Eqs. 4/6/9)
+            omega = topo.neighbor_weights()
+            dj = counts[np.maximum(idx, 0)].astype(np.float32)
+            self.nbr_weight = torch.from_numpy(
+                omega * dj * topo.neighbor_mask).to(dev)
+            self._total_directed = float(topo.neighbor_mask.sum())
 
         self.optimizer = sgd_momentum(lr=train.lr, momentum=train.momentum)
         self.loss_fn = make_loss_fn(self.method.loss, beta=train.beta)
@@ -286,9 +329,16 @@ class Experiment:
         self._comm_rounds = 0
         self.trig_history: List[float] = []  # per-round triggered fraction
         if comm is not None:
-            if comm.use_per_edge:
+            if comm.use_per_edge and layout == "sparse":
+                self.transport = SparseEdgeGossipTransport(
+                    comm, self.params, topo)
+            elif comm.use_per_edge:
                 self.transport = EdgeGossipTransport(
                     comm, self.params, topo.neighbor_idx, topo.neighbor_mask)
+            elif layout == "sparse":
+                self.transport = GossipTransport(
+                    comm, self.params, edge_src=topo.edge_src,
+                    edge_dst=topo.edge_dst)
             else:
                 self.transport = GossipTransport(
                     comm, self.params, nbr_idx=topo.neighbor_idx,

@@ -8,10 +8,11 @@ neighbour reduce are the engine's.  Each strategy carries ONE frozen
 
   * ``init_state(exp)`` — the static per-node tensors it aggregates with;
   * ``flat_aggregate(exp, state, nb)`` — the gossip update over a
-    :class:`~repro_torch.engine.neighborhood.DenseNeighborhood`: one
+    Neighborhood view (`engine/neighborhood.py`, either layout): one
     weighted neighbour reduce, then per-row scalar normalization on the
     flattened [R, D] model matrix.  Every built-in gossip method has it,
-    and the engine lowers to it whenever it exists;
+    and the engine lowers to it whenever it exists (the sparse layout
+    has no other lowering);
   * ``exchange`` / ``aggregate`` — the padded-gather form: the per-slot
     neighbour views [R, max_deg, ...], then the update batched over the
     receivers (the weights normalized first, then one contraction through
@@ -89,7 +90,7 @@ class AggregationStrategy:
     capabilities: Capabilities = Capabilities()
 
     #: ``flat_aggregate(exp, state, nb)`` — the update over a
-    #: DenseNeighborhood view; None means the padded-gather form only.
+    #: Neighborhood view; None means the padded-gather form only.
     flat_aggregate = None
 
     @property
@@ -101,10 +102,13 @@ class AggregationStrategy:
         return self.capabilities.transport
 
     def init_state(self, exp) -> Dict[str, torch.Tensor]:
-        """Per-node |D_i| and the combined ω_ij·|D_j| neighbour weights
-        [N, max_deg] (the flat forms take theirs from the view's w)."""
-        return {"counts": exp.counts.to(torch.float32),
-                "weights": exp.nbr_weight}
+        """Per-node |D_i| and, on the dense layout, the combined ω_ij·|D_j|
+        neighbour weights [N, max_deg] (the flat forms take theirs from the
+        view's w; the sparse plan carries the edge weights)."""
+        state = {"counts": exp.counts.to(torch.float32)}
+        if exp.nbr_weight is not None:
+            state["weights"] = exp.nbr_weight
+        return state
 
     def exchange(self, exp, params, nbr_idx):
         """Neighbour exchange for the padded-gather form: stacked models

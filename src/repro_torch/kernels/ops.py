@@ -31,7 +31,9 @@ LAUNCHES: Dict[str, int] = {"segment_neighbor_avg": 0, "gather_rows": 0,
                             "dequant_neighbor_avg_rows": 0,
                             "vt_kl_loss_fwd": 0, "vt_kl_loss_bwd": 0,
                             "decode_attention_fused": 0,
-                            "decdiff_update": 0, "neighbor_avg": 0}
+                            "decdiff_update": 0, "neighbor_avg": 0,
+                            "dequant_segment_neighbor_avg": 0,
+                            "dequant_neighbor_avg": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +68,43 @@ def segment_neighbor_avg(vals: torch.Tensor,
                          f"(kernel); got {vals.device}")
     out = _sa.segment_avg_cuda(vals, w)
     LAUNCHES["segment_neighbor_avg"] += 1
+    return out
+
+
+def dequant_segment_neighbor_avg(q: torch.Tensor, scales: torch.Tensor,
+                                 w: torch.Tensor) -> torch.Tensor:
+    """Ragged dequantize-and-reduce over int8 payload panels.
+
+    q [B, K, D] int8 slot-padded wire payloads (any int8 wherever w is 0),
+    scales [B, K] fp32 per-slot dequantization scales, w [B, K] fp32 gossip
+    weights -> sums [B, D] fp32, Σ_k (w_k·s_k)·q_k per receiver, with ws =
+    w·scales formed here as the reference's wrapper forms it.  Sums only:
+    the totals come from `segment_neighbor_avg`.  Bitwise invariant to row
+    blocking and to zero-weight K padding (see
+    `repro_torch.kernels.segment_avg`).  No engine path calls it: (w·s)·q
+    associates differently from the fp32 route's w·(s·q), so on a round it
+    would break the bitwise equality of the two wires of one exchange and
+    of the dense and sparse layouts."""
+    if q.dim() != 3 or tuple(scales.shape) != tuple(q.shape[:2]) \
+            or tuple(w.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"dequant_segment_neighbor_avg wants q [B, K, D], "
+                         f"scales and w [B, K]; got {tuple(q.shape)}, "
+                         f"{tuple(scales.shape)} and {tuple(w.shape)}")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32 \
+            or w.dtype != torch.float32:
+        raise TypeError(f"dequant_segment_neighbor_avg wants int8 q and "
+                        f"float32 scales and w; got {q.dtype}, "
+                        f"{scales.dtype} and {w.dtype}")
+    if not (q.device == scales.device == w.device):
+        raise ValueError(f"q on {q.device}, scales on {scales.device}, w on "
+                         f"{w.device}")
+    if not q.is_contiguous():
+        raise ValueError("dequant_segment_neighbor_avg wants a contiguous q")
+    ws = (w * scales).contiguous()
+    if _device_kind(q, "dequant_segment_neighbor_avg") == "cpu":
+        return _sa.dequant_segment_avg_plain(q, ws)
+    out = _sa.dequant_segment_avg_cuda(q, ws)
+    LAUNCHES["dequant_segment_neighbor_avg"] += 1
     return out
 
 
@@ -134,6 +173,37 @@ def neighbor_avg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     as the reference's wrapper normalizes -> [D] fp32."""
     w = weights.to(torch.float32)
     return neighbor_avg_normalized(stacked, (w / torch.sum(w)).contiguous())
+
+
+def dequant_neighbor_avg(q: torch.Tensor, scales: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Eq. 6 for one receiver over int8 payloads, fused: q [N, D] int8 (the
+    neighbours' wire payloads), scales [N] fp32 per-row dequantization
+    scales, weights [N] (normalized here, w / Σw, as the reference's
+    wrapper normalizes) -> [D] fp32, the average of the dequantized rows
+    without materializing them.  ws = (w / Σw)·scales, so the result is
+    bitwise row r of `dequant_neighbor_avg_rows` given the same normalized
+    row (see `repro_torch.kernels.dequant_avg`)."""
+    if q.dim() != 2 or tuple(scales.shape) != (q.shape[0],) \
+            or tuple(weights.shape) != (q.shape[0],):
+        raise ValueError(f"dequant_neighbor_avg wants q [N, D], scales and "
+                         f"weights [N]; got {tuple(q.shape)}, "
+                         f"{tuple(scales.shape)} and {tuple(weights.shape)}")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"dequant_neighbor_avg wants int8 q and float32 "
+                        f"scales; got {q.dtype} and {scales.dtype}")
+    if not (q.device == scales.device == weights.device):
+        raise ValueError(f"q on {q.device}, scales on {scales.device}, "
+                         f"weights on {weights.device}")
+    if not q.is_contiguous():
+        raise ValueError("dequant_neighbor_avg wants a contiguous q")
+    w = weights.to(torch.float32)
+    ws = ((w / torch.sum(w)) * scales).contiguous()
+    if _device_kind(q, "dequant_neighbor_avg") == "cpu":
+        return _dq.dequant_avg_plain(q, ws)
+    out = _dq.dequant_avg_cuda(q, ws)
+    LAUNCHES["dequant_neighbor_avg"] += 1
+    return out
 
 
 def dequant_neighbor_avg_rows(q: torch.Tensor, scale: torch.Tensor,

@@ -1,17 +1,21 @@
-"""Ragged segment neighbour reduce: the CUDA kernel's launcher and its plain
-PyTorch version.
+"""Ragged segment neighbour reduces: the CUDA kernels' launchers and their
+plain PyTorch versions.
 
     sums[b] = Σ_k w[b, k] · vals[b, k, :]      tot[b] = Σ_k w[b, k]
+    sums[b] = Σ_k ws[b, k] · float(q[b, k, :])      (int8 payloads)
 
-The kernel is `csrc/segment_avg.cu` (it replaces the Pallas TPU kernel
-`repro.kernels.segment_avg.segment_avg_chunk`).  The plain version loops
-over k in Python with a separate multiply and add per step, which is the
-kernel's arithmetic in the kernel's order, so on the card the two agree
-bit for bit.  Both contract every row on its own and accumulate over k in
-order from +0, which makes the result invariant to row blocking and to
-zero-weight K padding (a zero weight adds ±0, even against finite
-garbage).  Use `repro_torch.kernels.ops.segment_neighbor_avg`, which
-validates the inputs and picks between the two by the tensors' device.
+The kernels are `csrc/segment_avg.cu` and `csrc/dequant_segment_avg.cu`
+(they replace the Pallas TPU kernels `repro.kernels.segment_avg.
+segment_avg_chunk` and `dequant_segment_avg_chunk`).  Each plain version
+loops over k in Python with a separate multiply and add per step, which is
+its kernel's arithmetic in its kernel's order, so on the card the two
+agree bit for bit.  All of them contract every row on its own and
+accumulate over k in order from +0, which makes the result invariant to
+row blocking and to zero-weight K padding (a zero weight adds ±0, even
+against finite garbage).  Use `repro_torch.kernels.ops.
+segment_neighbor_avg` and `ops.dequant_segment_neighbor_avg`, which
+validate the inputs and pick between kernel and plain version by the
+tensors' device.
 """
 from __future__ import annotations
 
@@ -63,3 +67,39 @@ def segment_avg_cuda(vals: torch.Tensor,
         raise RuntimeError(f"segment_avg_f32 launch failed: cudaError {err} "
                            f"(B={b}, K={k}, D={d})")
     return sums, tot
+
+
+def dequant_segment_avg_plain(q: torch.Tensor,
+                              ws: torch.Tensor) -> torch.Tensor:
+    """q [B, K, D] int8, ws [B, K] f32 -> sums [B, D] f32."""
+    b, k, d = q.shape
+    acc = torch.zeros((b, d), dtype=torch.float32, device=q.device)
+    for j in range(k):
+        acc = acc + ws[:, j, None] * q[:, j, :].to(torch.float32)
+    return acc
+
+
+def _dequant_library() -> ctypes.CDLL:
+    lib = _build.load("dequant_segment_avg")
+    fn = lib.dequant_segment_avg_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def dequant_segment_avg_cuda(q: torch.Tensor,
+                             ws: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream.  The caller validated
+    the inputs: contiguous CUDA tensors on one device, q int8, ws fp32."""
+    b, k, d = q.shape
+    sums = torch.empty((b, d), dtype=torch.float32, device=q.device)
+    lib = _dequant_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dequant_segment_avg_f32(q.data_ptr(), ws.data_ptr(),
+                                          sums.data_ptr(), b, k, d, stream)
+    if err != 0:
+        raise RuntimeError(f"dequant_segment_avg_f32 launch failed: cudaError "
+                           f"{err} (B={b}, K={k}, D={d})")
+    return sums

@@ -499,3 +499,109 @@ def test_fedavg_and_cfa_ge_run_through_their_kernels(card):
             for leaf in params["loop"][name]:
                 assert torch.equal(params["loop"][name][leaf],
                                    params["fused"][name][leaf])
+
+
+@pytest.mark.parametrize("b,k,d,zero_slots", [(1, 1, 1, False),
+                                              (16, 10, 567434, True),
+                                              (13, 8, 2051, True),
+                                              (5, 3, 4096, False),
+                                              (3, 0, 5, False),
+                                              (300, 16, 96, True)])
+def test_dequant_segment_matches_plain_bitwise(card, b, k, d, zero_slots):
+    """char4 (D = 0 mod 4), char2 (path c's D = 567434) and scalar (odd D)
+    columns, K = 0, more rows than one grid row; zero-weight slots hold
+    int8 garbage and leave every bit alone."""
+    from repro_torch.kernels.segment_avg import dequant_segment_avg_plain
+
+    gen = torch.Generator(device=card).manual_seed(b * 31 + k * 7 + d)
+    q = torch.randint(-127, 128, (b, k, d), generator=gen, device=card,
+                      dtype=torch.int8)
+    scales = torch.rand((b, k), generator=gen, device=card) * 0.05
+    w = torch.rand((b, k), generator=gen, device=card) * 2.0
+    if zero_slots and k > 1:
+        w[:, k // 2:] = 0.0
+    before = ops.LAUNCHES["dequant_segment_neighbor_avg"]
+    out = ops.dequant_segment_neighbor_avg(q, scales, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequant_segment_neighbor_avg"] == before + 1
+    ws = (w * scales).contiguous()
+    assert torch.equal(out, dequant_segment_avg_plain(q, ws))
+    if zero_slots and k > 1:  # the zero-weight slots are cut off: no bit moves
+        assert torch.equal(out, ops.dequant_segment_neighbor_avg(
+            q[:, :k // 2].contiguous(), scales[:, :k // 2].contiguous(),
+            w[:, :k // 2].contiguous()))
+    del q
+
+
+@pytest.mark.parametrize("n,d", [(4, 463_987_712), (16, 567434),
+                                 (10, 1_000_003), (1100, 96), (3, 4100),
+                                 (1, 1)])
+def test_dequant_neighbor_avg_matches_plain_and_the_block_bitwise(card, n,
+                                                                  d):
+    """8-, 4-, 2- and 1-byte column words, path d's 2^31-passing block,
+    more than one 1024-sender chunk of weights; bitwise the plain version
+    and row 0 of `dequant_neighbor_avg_rows` given the same row."""
+    from repro_torch.kernels.dequant_avg import dequant_avg_plain
+
+    gen = torch.Generator(device=card).manual_seed(n * 13 + d)
+    q = torch.randint(-127, 128, (n, d), generator=gen, device=card,
+                      dtype=torch.int8)
+    sc = torch.rand((n,), generator=gen, device=card) * 0.02 + 1e-4
+    w = torch.rand((n,), generator=gen, device=card) + 0.1
+    before = ops.LAUNCHES["dequant_neighbor_avg"]
+    out = ops.dequant_neighbor_avg(q, sc, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequant_neighbor_avg"] == before + 1
+    wn = w / torch.sum(w)
+    assert torch.equal(out, dequant_avg_plain(q, (wn * sc).contiguous()))
+    assert torch.equal(out, ops.dequant_neighbor_avg_rows(
+        q, sc, wn[None, :].contiguous())[0])
+    del q
+
+
+@pytest.mark.parametrize("method,comm,ge_chunk", [
+    ("decdiff+vt", None, None), ("cfa-ge", None, None),
+    ("cfa-ge", None, 16),
+    ("decdiff+vt", dict(codec="int8", policy="adaptive",
+                        target_trigger=0.95), None),
+    ("decdiff+vt", dict(codec="int8"), None)],
+    ids=["decdiff+vt", "cfa-ge", "cfa-ge-calls-of-16", "per-edge-int8",
+         "per-node-int8"])
+def test_sparse_layout_equals_dense_on_the_card(card, monkeypatch, method,
+                                                comm, ge_chunk):
+    """The sparse layout's buckets (widths 8 and 16 here) against the dense
+    max_deg slots, through the kernels: params, accuracies, bytes and
+    trigger history bitwise equal; the segment reduce launches once per
+    bucket and `gather_rows` never on the sparse per-edge path.  With
+    `ge_chunk`, CFA-GE's gradient walk runs in calls of that many edges
+    (the last one padded)."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.engine import Experiment, World, backends
+    from repro_torch.models.mlp_cnn import make_mlp
+
+    if ge_chunk is not None:
+        monkeypatch.setattr(backends, "GE_CHUNK", ge_chunk)
+
+    world = World.synthetic("synth-mnist", nodes=24,
+                            topology="barabasi_albert", m=2, scale=0.03,
+                            model=make_mlp(hidden=(64, 32)), device=card)
+    runs = {}
+    for layout in ("dense", "sparse"):
+        exp = Experiment(world, method, layout=layout, steps_per_round=2,
+                         batch_size=32, device=card,
+                         comm=None if comm is None else CommConfig(**comm))
+        ops.reset_launches()
+        hist = exp.run(rounds=3, eval_every=1)
+        torch.cuda.synchronize()
+        runs[layout] = (exp, hist, dict(ops.LAUNCHES))
+    (de, dh, _), (se, sh, sl) = runs["dense"], runs["sparse"]
+    for name in de.params:
+        for leaf in de.params[name]:
+            assert torch.equal(de.params[name][leaf], se.params[name][leaf])
+    for a, b in zip(dh, sh):
+        assert np.array_equal(a.acc_per_node, b.acc_per_node)
+    assert de.comm_bytes_total == se.comm_bytes_total
+    assert de.trig_history == se.trig_history
+    widths = len(se.sparse_plan.widths)
+    assert sl["segment_neighbor_avg"] >= 3 * widths
+    assert sl["gather_rows"] == 0

@@ -175,19 +175,54 @@ def test_device_none_raises_without_cuda(reference):
         World.synthetic("synth-mnist", nodes=4, scale=0.005)
 
 
+@pytest.mark.parametrize("case", ["comm", "sparse"])
+def test_sparse_layout_constructs_and_runs(reference, case):
+    """The two calls that raised before the sparse layout was ported."""
+    jw, params0, _, _ = reference
+    world = _carried_world(jw)
+    comm = CommConfig(policy="adaptive") if case == "comm" else None
+    exp = Experiment(world, layout="sparse", comm=comm, device="cpu",
+                     **TRAIN)
+    assert exp.layout == "sparse" and exp.sparse_plan is not None
+    exp.params = convert.params_from_numpy(params0, "cpu")
+    exp.opt_state = exp.optimizer.init(exp.params)
+    if exp.transport is not None:
+        exp.comm_state = exp.transport.init_state(exp.params)
+    hist = exp.run(rounds=2, eval_every=1)
+    assert [m.round for m in hist] == [0, 1]
+    assert all(torch.isfinite(p).all() for p in tree_leaves(exp.params))
+    if comm is not None:
+        assert hist[-1].bytes_on_wire > 0
+        assert 0.0 < hist[-1].triggered_frac <= 1.0
+
+
+def test_sparse_layout_equals_dense_on_the_carried_world(reference,
+                                                          port_loop):
+    """`layout="sparse"` over the carried dense world is bitwise the dense
+    run of the same init (3 rounds, loop mode)."""
+    jw, params0, _, _ = reference
+    dense, dense_hist = port_loop
+    exp = _carried_experiment(jw, params0, layout="sparse")
+    hist = exp.run(rounds=3, eval_every=1, mode="loop")
+    for a, b in zip(tree_leaves(exp.params), tree_leaves(dense.params)):
+        assert torch.equal(a, b)
+    for a, b in zip(hist, dense_hist):
+        np.testing.assert_array_equal(a.acc_per_node, b.acc_per_node)
+
+
+def test_unknown_layout_is_refused(reference):
+    jw, _, _, _ = reference
+    with pytest.raises(ValueError, match="unknown layout"):
+        Experiment(_carried_world(jw), layout="csr", device="cpu")
+
+
 @pytest.mark.parametrize("case,item", [
-    ("comm", "A.6"), ("sparse", "A.6"), ("dynamics", "A.7"),
-    ("timing", "A.8"), ("deadline", "A.8"), ("telemetry", "A.9"),
-    ("shard_map", "A.10"), ("cnn", "A.2")])
+    ("dynamics", "A.7"), ("timing", "A.8"), ("deadline", "A.8"),
+    ("telemetry", "A.9"), ("shard_map", "A.10"), ("cnn", "A.2")])
 def test_unported_options_name_their_roadmap_item(reference, case, item):
     jw, _, _, _ = reference
     world = _carried_world(jw)
     calls = {
-        # the dense transport is ported; the sparse layout's is not
-        "comm": lambda: Experiment(world, layout="sparse",
-                                   comm=CommConfig(policy="adaptive"),
-                                   device="cpu"),
-        "sparse": lambda: Experiment(world, layout="sparse", device="cpu"),
         "dynamics": lambda: World.synthetic(nodes=4, scale=0.005,
                                             dynamics=object(), device="cpu"),
         "timing": lambda: World.synthetic(nodes=4, scale=0.005,

@@ -246,13 +246,15 @@ def test_every_kernel_source_is_built_by_name():
     from repro_torch.kernels import _build
 
     sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["decdiff_update", "decode_attention",
-                       "dequant_avg_rows", "gather_rows", "neighbor_avg",
-                       "segment_avg", "vt_kl_loss"]
+    assert sources == ["decdiff_update", "decode_attention", "dequant_avg",
+                       "dequant_avg_rows", "dequant_segment_avg",
+                       "gather_rows", "neighbor_avg", "segment_avg",
+                       "vt_kl_loss"]
     assert sorted(ops.LAUNCHES) == [
-        "decdiff_update", "decode_attention_fused",
-        "dequant_neighbor_avg_rows", "gather_rows", "neighbor_avg",
-        "segment_neighbor_avg", "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
+        "decdiff_update", "decode_attention_fused", "dequant_neighbor_avg",
+        "dequant_neighbor_avg_rows", "dequant_segment_neighbor_avg",
+        "gather_rows", "neighbor_avg", "segment_neighbor_avg",
+        "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
 
 
 # --------------------------------------------------- dequant avg rows
