@@ -87,12 +87,20 @@ It imports the port only (no JAX), and:
      card agrees with the CPU (params to 1e-4, loss to 1e-5);
   6. holds each kernel against its plain PyTorch version on the card at
      the main paths' shapes (and more), and times kernel, plain version and
-     one PyTorch library call with CUDA events (median of 20) beside the
-     bound: the segment reduce and the gather bitwise at paths a and b's
-     shapes and at a 64-node BA m=2 shape; `neighbor_avg` bitwise on path
-     f's real stack [16, 567434] with its |D_i| weights, on path d's flat
-     block [4, 463987712] with receiver 0's ring weights and at an odd
-     N = 10, D = 1,000,003 with one zero weight (`torch.mv` beside it);
+     one PyTorch library call two ways beside the bound: `ms` (CUDA events
+     around one call, median of 20, the Python launcher included) and, for
+     the kernel and the library call, `kernel_ms` / `library_kernel_ms`
+     (their device kernels alone: torch.profiler over 20 calls, the sum of
+     the device events over 20); at paths a-c's and f's shapes also with
+     the L2 cold (128 MB written before each call, outside what is timed:
+     `*_cold`).  The segment reduce and the gather bitwise at paths a and
+     b's shapes and at a 64-node BA m=2 shape; `neighbor_avg` (one launch,
+     the weights' normalization inside it: one device kernel a call in the
+     profiler) bitwise on path f's real stack [16, 567434] with its |D_i|
+     weights, on path d's flat block [4, 463987712] with receiver 0's ring
+     weights and at an odd N = 10, D = 1,000,003 with one zero weight (the
+     whole call against `torch.mv(x.t(), w / w.sum())`, its device time
+     against the gemv alone);
      `dequant_neighbor_avg_rows`
      bitwise on path d's real int8 payload [4, 463987712] and at an odd D
      with 8 receivers and one zero row; `dequant_segment_neighbor_avg`
@@ -128,7 +136,10 @@ It imports the port only (no JAX), and:
      against its plain version (a stated tolerance) on path e's real
      layer-0 cache with a real query, a full synthetic window [8, 32768,
      16, 64] bf16, qwen2.5-14b's GQA shape (q [8, 40, 128], k / v [8,
-     32768, 8, 128]) and an odd B = 3, W = 1000 with a sliding window;
+     32768, 8, 128]) with fp32 and with bf16 queries, qwen3-32b's G = 8,
+     hd 128 over the full 32,768 slots, an odd B = 3, W = 1000 with a
+     sliding window, a W below one tile (40), a W one slot past a tile
+     boundary (4097) and a ring with no live slot (the uniform average);
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -186,12 +197,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, reps=REPS):
-    """Median over `reps` single calls, each bracketed by CUDA events."""
+def median_ms(torch, fn, reps=REPS, before=None):
+    """Median over `reps` single calls, each bracketed by CUDA events (the
+    call's host launcher included); `before` runs ahead of each call,
+    outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -200,6 +215,93 @@ def median_ms(torch, fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps=REPS, before=None):
+    """The device time of `fn`'s kernels alone, under torch.profiler over
+    `reps` calls (memory copies and sets, which `before` may make, left
+    out): for each kernel name, its mean duration over the events the
+    profiler recorded times its launches per call (recorded events over
+    `reps`, rounded; at least 1), summed over the names.  The profiler
+    can miss some of a long kernel's events (it recorded 14 of 20 calls of
+    a 3 ms kernel on the card), so the mean of what it saw stands in for
+    the missed ones.  Returns (ms per call, kernels per call, recorded
+    events over `reps`, their names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.name.startswith(("Memcpy", "Memset")):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    check(by_name, "the profiler saw no device kernel")
+    per_call = {n: max(1, round(len(us) / reps)) for n, us in by_name.items()}
+    total_us = sum(statistics.fmean(us) * per_call[n]
+                   for n, us in by_name.items())
+    return (total_us / 1e3, sum(per_call.values()),
+            sum(len(us) for us in by_name.values()) / reps,
+            sorted(n[:60] for n in by_name))
+
+
+def l2_flush(torch):
+    """A call that writes 128 MB (one device-to-device copy: a memcpy in the
+    profiler, apart from the kernels), so that what follows finds none of
+    its inputs in the 50 MB L2."""
+    src = torch.empty((32 << 20,), dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
+
+
+def timings(torch, kernel, plain, library, cold=False, library_device=None):
+    """Kernel, plain version and library call timed two ways.  `ms`,
+    `plain_ms`, `library_ms`: CUDA events around one call, median of
+    REPS (the host launcher included).  `kernel_ms`, `library_kernel_ms`:
+    their device kernels alone (`device_ms`; `library_device`, when given,
+    is the library call whose kernels are timed).  With `cold`, the same
+    for kernel and library with 128 MB written before each call, outside
+    what is timed (`*_cold`)."""
+    lib_dev = library if library_device is None else library_device
+    t = dict(ms=median_ms(torch, kernel), plain_ms=median_ms(torch, plain),
+             library_ms=median_ms(torch, library))
+    (t["kernel_ms"], t["kernels_per_call"], t["kernel_events_per_call"],
+     t["kernel_names"]) = device_ms(torch, kernel)
+    t["library_kernel_ms"], _, _, t["library_kernels"] = device_ms(torch,
+                                                                   lib_dev)
+    if cold:
+        flush = l2_flush(torch)
+        t["ms_cold"] = median_ms(torch, kernel, before=flush)
+        t["library_ms_cold"] = median_ms(torch, library, before=flush)
+        t["kernel_ms_cold"] = device_ms(torch, kernel, before=flush)[0]
+        t["library_kernel_ms_cold"] = device_ms(torch, lib_dev,
+                                                before=flush)[0]
+        del flush
+        torch.cuda.empty_cache()
+    return t
+
+
+def timing_text(t, lib_name, bound_ms):
+    """One line of `timings`' numbers beside the bound."""
+    text = (f"kernel {t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms device "
+            f"({t['kernels_per_call']:g} kernels a call, "
+            f"{t['kernel_events_per_call']:g} recorded), plain "
+            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms "
+            f"call / {t['library_kernel_ms']:.4f} ms device, kernel device "
+            f"time at {100 * bound_ms / t['kernel_ms']:.1f}% of bound")
+    if "kernel_ms_cold" in t:
+        text += (f"; L2 cold: kernel {t['ms_cold']:.4f} / "
+                 f"{t['kernel_ms_cold']:.4f} ms, {lib_name} "
+                 f"{t['library_ms_cold']:.4f} / "
+                 f"{t['library_kernel_ms_cold']:.4f} ms (call / device)")
+    return text
 
 
 def segment_bound_ms(b, k, d):
@@ -212,64 +314,70 @@ def segment_bound_ms(b, k, d):
                                       else "operations")
 
 
-def kernel_vs_plain(torch, ops, plain, vals, w, label):
-    """Hold the kernel against its plain version and time both."""
+def kernel_vs_plain(torch, ops, plain, vals, w, label, cold=False):
+    """Hold the kernel against its plain version and time kernel, plain
+    version and `torch.einsum("bk,bkd->bd", w, vals)` (`timings`)."""
     b, k, d = vals.shape
     sums, tot = ops.segment_neighbor_avg(vals, w)
     torch.cuda.synchronize()
     ps, pt = plain(vals, w)
     equal = bool(torch.equal(sums, ps) and torch.equal(tot, pt))
     err = max(float((sums - ps).abs().max()), float((tot - pt).abs().max()))
-    ms = median_ms(torch, lambda: ops.segment_neighbor_avg(vals, w))
-    plain_ms = median_ms(torch, lambda: plain(vals, w))
-    lib_ms = median_ms(torch, lambda: torch.einsum("bk,bkd->bd", w, vals))
+    t = timings(torch, lambda: ops.segment_neighbor_avg(vals, w),
+                lambda: plain(vals, w),
+                lambda: torch.einsum("bk,bkd->bd", w, vals), cold=cold)
     bound_ms, bound_by = segment_bound_ms(b, k, d)
     print(f"segment_neighbor_avg {label} [B={b}, K={k}, D={d}]: "
           f"torch.equal(kernel, plain)={equal} max_abs_err={err:g} "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"einsum {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"kernel at {100 * bound_ms / ms:.1f}% of bound")
+          f"{timing_text(t, 'einsum', bound_ms)}; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
     check(equal, f"segment_neighbor_avg {label}: kernel != plain "
                  f"(max_abs_err {err:g})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 shape=[b, k, d])
 
 
-def navg_vs_plain(torch, ops, x, weights, label):
-    """Hold `neighbor_avg` against its plain version (bitwise) on x [N, D]
-    with the weights normalized as the wrapper does, and time the kernel,
-    the plain version and `torch.mv(x.t(), wn)` (the port never calls
-    it).  Bound: x and w read once, the [D] average written once, over HBM
-    bandwidth; or 2·N·D fp32 flops over the fp32 peak."""
+def navg_vs_plain(torch, ops, x, weights, label, cold=False):
+    """Hold `ops.neighbor_avg` (one launch: the weights' ordered sum and
+    IEEE division inside the kernel) against its plain version (bitwise)
+    on x [N, D] with raw weights, and check that the profiler sees one
+    device kernel a call.  Times: the whole `ops.neighbor_avg` call, the
+    plain version, and `torch.mv(x.t(), w / w.sum())` as one call; device
+    time: the kernel against `torch.mv(x.t(), wn)`'s gemv alone (the port
+    never calls either).  Bound: x and w read once, the [D] average written
+    once, over HBM bandwidth; or 2·N·D fp32 flops over the fp32 peak."""
     from repro_torch.kernels import neighbor_avg as na
 
     n, d = x.shape
     out = ops.neighbor_avg(x, weights)
     torch.cuda.synchronize()
-    wn = (weights.to(torch.float32) / torch.sum(weights.to(torch.float32))
-          ).contiguous()
-    ref = na.neighbor_avg_plain(x, wn)
+    ref = na.neighbor_avg_plain(x, weights, normalize=True)
     equal = bool(torch.equal(out, ref))
     err = float((out - ref).abs().max())
-    zeros = int((wn == 0).sum())
+    zeros = int((weights == 0).sum())
     del out, ref
-    ms = median_ms(torch, lambda: na.neighbor_avg_cuda(x, wn))
-    plain_ms = median_ms(torch, lambda: na.neighbor_avg_plain(x, wn))
-    lib_ms = median_ms(torch, lambda: torch.mv(x.t(), wn))
+    wn = (weights / weights.sum()).contiguous()
+    t = timings(torch, lambda: ops.neighbor_avg(x, weights),
+                lambda: na.neighbor_avg_plain(x, weights, normalize=True),
+                lambda: torch.mv(x.t(), weights / weights.sum()), cold=cold,
+                library_device=lambda: torch.mv(x.t(), wn))
     nbytes = 4 * ((n + 1) * d + n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n * d / FP32_FLOPS
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"neighbor_avg {label} [N={n}, D={d}, {zeros} zero weights]: "
-          f"torch.equal(kernel, plain)={equal} max_abs_err={err:g} kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mv {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.4f} GB), "
-          f"kernel at {100 * bound_ms / ms:.1f}% of bound")
+          f"torch.equal(kernel, plain)={equal} max_abs_err={err:g} "
+          f"{timing_text(t, 'torch.mv', bound_ms)} (the library call with "
+          f"w / w.sum(), its device time torch.mv's alone: "
+          f"{t['library_kernels']}); bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e9:.4f} GB)")
     check(equal, f"neighbor_avg {label}: kernel != plain (max_abs_err "
                  f"{err:g})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+    check(t["kernels_per_call"] == 1 and t["kernel_events_per_call"] <= 1
+          and all("neighbor_avg_kernel" in k for k in t["kernel_names"]),
+          f"neighbor_avg {label}: {t['kernel_events_per_call']} device "
+          f"kernels a call ({t['kernel_names']}), not 1")
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 shape=[n, d])
 
 
@@ -286,9 +394,9 @@ def gather_bound_ms(tbl_rows, idx, d):
             distinct, need)
 
 
-def gather_vs_plain(torch, ops, plain, tbl, idx, label):
+def gather_vs_plain(torch, ops, plain, tbl, idx, label, cold=False):
     """Hold the gather kernel against its plain version (bitwise) and time
-    kernel, plain version and `torch.index_select`."""
+    kernel, plain version and `torch.index_select` (`timings`)."""
     m, d = tbl.shape
     out = ops.gather_rows(tbl, idx)
     torch.cuda.synchronize()
@@ -296,20 +404,18 @@ def gather_vs_plain(torch, ops, plain, tbl, idx, label):
     equal = bool(torch.equal(out, ref))
     err = float((out - ref).abs().max()) if out.numel() else 0.0
     del out, ref
-    ms = median_ms(torch, lambda: ops.gather_rows(tbl, idx))
-    plain_ms = median_ms(torch, lambda: plain(tbl, idx))
-    lib_ms = median_ms(torch, lambda: torch.index_select(tbl, 0, idx))
+    t = timings(torch, lambda: ops.gather_rows(tbl, idx),
+                lambda: plain(tbl, idx),
+                lambda: torch.index_select(tbl, 0, idx), cold=cold)
     bound_ms, every_ms, distinct, need = gather_bound_ms(m, idx, d)
     print(f"gather_rows {label} [M={m}, K={idx.numel()}, D={d}, "
           f"{distinct} distinct rows]: torch.equal(kernel, plain)={equal} "
-          f"max_abs_err={err:g} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_select {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
-          f"{need / 1e6:.1f} MB; kernel at {100 * bound_ms / ms:.1f}%), "
-          f"every-slot bound {every_ms:.4f} ms (kernel at "
-          f"{100 * every_ms / ms:.1f}%)")
+          f"max_abs_err={err:g} {timing_text(t, 'index_select', bound_ms)}; "
+          f"bound {bound_ms:.4f} ms (bytes, {need / 1e6:.1f} MB), every-slot "
+          f"bound {every_ms:.4f} ms (kernel device time at "
+          f"{100 * every_ms / t['kernel_ms']:.1f}%)")
     check(equal, f"gather_rows {label}: kernel != plain (max_abs_err {err:g})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by="bytes", max_abs_err=err,
+    return dict(t, bound_ms=bound_ms, bound_by="bytes", max_abs_err=err,
                 every_slot_bound_ms=every_ms, shape=[m, int(idx.numel()), d])
 
 
@@ -450,7 +556,8 @@ def sparse_equals_dense(torch, ops, world, dense, label, method, comm, sched,
     return launches, ms
 
 
-def dqseg_vs_plain(torch, ops, q, scales, w, label, time_it=True):
+def dqseg_vs_plain(torch, ops, q, scales, w, label, time_it=True,
+                   cold=False):
     """Hold `dequant_segment_neighbor_avg` against its plain version
     (bitwise) and against the fp32 route, the segment reduce over the
     decoded rows (within 1e-6 + 1e-5·Σ|w·s·q|: (w·s)·q associates
@@ -475,20 +582,17 @@ def dqseg_vs_plain(torch, ops, q, scales, w, label, time_it=True):
     del route, terms, out
     res = dict(max_abs_err=err, fp32_route_err=route_err, shape=[b, k, d])
     if time_it:
-        ms = median_ms(torch, lambda: sa.dequant_segment_avg_cuda(q, ws))
-        plain_ms = median_ms(torch,
-                             lambda: sa.dequant_segment_avg_plain(q, ws))
-        lib_ms = median_ms(torch, lambda: torch.einsum("bk,bkd->bd", ws,
-                                                       q.float()))
+        res.update(timings(
+            torch, lambda: sa.dequant_segment_avg_cuda(q, ws),
+            lambda: sa.dequant_segment_avg_plain(q, ws),
+            lambda: torch.einsum("bk,bkd->bd", ws, q.float()), cold=cold))
         nbytes = b * k * d + 4 * (2 * b * k + b * d)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * b * k * d / FP32_FLOPS
-        res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=1e3 * max(t_bytes, t_ops),
+        res.update(bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-        timing = (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum "
-                  f"{lib_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-                  f"({res['bound_by']}, {nbytes / 1e6:.1f} MB), kernel at "
-                  f"{100 * res['bound_ms'] / ms:.1f}% of bound")
+        timing = (f" {timing_text(res, 'einsum', res['bound_ms'])}; bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}, "
+                  f"{nbytes / 1e6:.1f} MB)")
     else:
         timing = ""
     print(f"dequant_segment_neighbor_avg {label} [B={b}, K={k}, D={d}]: "
@@ -529,9 +633,9 @@ def dqavg_vs_plain(torch, ops, q, scale, weights, label):
     oracle_ok = bool(((out - oracle).abs()
                       <= 1e-6 + 1e-5 * oracle.abs()).all())
     del oracle, out
-    ms = median_ms(torch, lambda: dq.dequant_avg_cuda(q, ws))
-    plain_ms = median_ms(torch, lambda: dq.dequant_avg_plain(q, ws))
-    lib_ms = median_ms(torch, lambda: torch.mv(q.float().t(), ws))
+    t = timings(torch, lambda: dq.dequant_avg_cuda(q, ws),
+                lambda: dq.dequant_avg_plain(q, ws),
+                lambda: torch.mv(q.float().t(), ws))
     nbytes = n * d + 4 * (2 * n + d)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n * d / FP32_FLOPS
     bound_ms = 1e3 * max(t_bytes, t_ops)
@@ -540,18 +644,16 @@ def dqavg_vs_plain(torch, ops, q, scale, weights, label):
           f"plain)={equal} max_abs_err={err:g}; bitwise row 0 of "
           f"dequant_neighbor_avg_rows = {row_equal}; |kernel - "
           f"dequant_neighbor_avg_ref| {oracle_err:.3g} (rtol 1e-5, atol "
-          f"1e-6: {oracle_ok}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.mv(q.float().t(), ws) {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), kernel at "
-          f"{100 * bound_ms / ms:.1f}% of bound")
+          f"1e-6: {oracle_ok}); "
+          f"{timing_text(t, 'torch.mv(q.float().t(), ws)', bound_ms)}; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB)")
     check(equal, f"dequant_neighbor_avg {label}: kernel != plain "
                  f"(max_abs_err {err:g})")
     check(row_equal, f"dequant_neighbor_avg {label}: not row 0 of "
                      f"dequant_neighbor_avg_rows")
     check(oracle_ok, f"dequant_neighbor_avg {label}: the oracle differs by "
                      f"{oracle_err:g}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 shape=[n, d])
 
 
@@ -613,7 +715,7 @@ def profile_round(torch, run, label):
 LM_FAMILIES = (
     ("vt_kl_loss kernels", ("vt_fwd_kernel", "vt_bwd_kernel")),
     ("dequant_avg_rows kernel", ("dequant_avg_rows_kernel",)),
-    ("decode_attention kernels", ("decode_split_kernel",
+    ("decode_attention kernels", ("decode_tma_kernel",
                                   "decode_combine_kernel")),
     ("decdiff_update kernels", ("sumsq_rows_kernel", "scale_rows_kernel",
                                 "step_rows_kernel")),
@@ -1072,9 +1174,9 @@ def dequant_vs_plain(torch, ops, q, scale, wn, label):
     zero_rows = int((wn.abs().sum(1) == 0).sum())
     zeros_ok = bool((out[wn.abs().sum(1) == 0] == 0).all())
     del out, ref
-    ms = median_ms(torch, lambda: dq.dequant_avg_rows_cuda(q, ws))
-    plain_ms = median_ms(torch, lambda: dq.dequant_avg_rows_plain(q, ws))
-    lib_ms = median_ms(torch, lambda: ws @ q.float())
+    t = timings(torch, lambda: dq.dequant_avg_rows_cuda(q, ws),
+                lambda: dq.dequant_avg_rows_plain(q, ws),
+                lambda: ws @ q.float())
     nbytes = n * d + 4 * (r * n + r * d)
     flops = 2 * r * n * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
@@ -1082,16 +1184,14 @@ def dequant_vs_plain(torch, ops, q, scale, wn, label):
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"dequant_neighbor_avg_rows {label} [N={n}, R={r}, D={d}, "
           f"{zero_rows} zero weight rows]: torch.equal(kernel, plain)="
-          f"{equal} max_abs_err={err:g} kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, ws @ q.float() {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), kernel at "
-          f"{100 * bound_ms / ms:.1f}% of bound")
+          f"{equal} max_abs_err={err:g} "
+          f"{timing_text(t, 'ws @ q.float()', bound_ms)}; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB)")
     check(equal, f"dequant_neighbor_avg_rows {label}: kernel != plain "
                  f"(max_abs_err {err:g})")
     check(zeros_ok, f"dequant_neighbor_avg_rows {label}: a zero weight row "
                     f"did not average to zero")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 shape=[n, r, d])
 
 
@@ -1144,40 +1244,34 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
     ce_minus_h = float(F.cross_entropy(z, y, label_smoothing=eps)) - h
     del dz, pdz, diff
     km, ks = vt.vt_forward_cuda(z, y, beta, -h)[1:]
-    fwd_ms = median_ms(torch, lambda: vt.vt_forward_cuda(z, y, beta, -h))
-    bwd_ms = median_ms(torch, lambda: vt.vt_backward_cuda(z, y, km, ks, g,
-                                                          beta))
-    fwd_plain = median_ms(torch, lambda: vt.vt_forward_plain(z, y, beta, -h))
-    bwd_plain = median_ms(torch, lambda: vt.vt_backward_plain(z, y, pm, ps,
-                                                              g, beta))
-    fwd_lib = median_ms(torch, lambda: F.cross_entropy(
-        z, y, label_smoothing=eps))
+    t_fwd = timings(torch, lambda: vt.vt_forward_cuda(z, y, beta, -h),
+                    lambda: vt.vt_forward_plain(z, y, beta, -h),
+                    lambda: F.cross_entropy(z, y, label_smoothing=eps))
     zl = z.detach().clone().requires_grad_(True)
     lib_loss = F.cross_entropy(zl, y, label_smoothing=eps)
-    bwd_lib = median_ms(torch, lambda: torch.autograd.grad(
-        lib_loss, zl, retain_graph=True))
+    t_bwd = timings(torch, lambda: vt.vt_backward_cuda(z, y, km, ks, g, beta),
+                    lambda: vt.vt_backward_plain(z, y, pm, ps, g, beta),
+                    lambda: torch.autograd.grad(lib_loss, zl,
+                                                retain_graph=True))
     del zl, lib_loss
     elt = z.element_size()
     small = 8 * b + 12 * b  # labels in, three fp32 row stats out / in
     out = {}
-    for kind, nbytes, ops_per, ms, plain_ms, lib_ms, err in [
-            ("fwd", b * v * elt + small, 4, fwd_ms, fwd_plain, fwd_lib,
-             fwd_err),
-            ("bwd", 2 * b * v * elt + small + 4 * b, 5, bwd_ms, bwd_plain,
-             bwd_lib, bwd_err)]:
+    for kind, nbytes, ops_per, t, err in [
+            ("fwd", b * v * elt + small, 4, t_fwd, fwd_err),
+            ("bwd", 2 * b * v * elt + small + 4 * b, 5, t_bwd, bwd_err)]:
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = ops_per * b * v / FP32_FLOPS
-        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=1e3 * max(t_bytes, t_ops),
+        out[kind] = dict(t, bound_ms=1e3 * max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations",
                          max_abs_err=err, shape=[b, v], dtype=str(z.dtype))
+        lib = ("F.cross_entropy(label_smoothing)"
+               + (" backward" if kind == "bwd" else ""))
         print(f"vt_kl_loss_{kind} {label} [B={b}, V={v}, {z.dtype}]: "
-              f"max_abs_err={err:g} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.cross_entropy(label_smoothing) "
-              f"{'backward ' if kind == 'bwd' else ''}{lib_ms:.4f} ms, bound "
-              f"{out[kind]['bound_ms']:.4f} ms ({out[kind]['bound_by']}), "
-              f"kernel at {100 * out[kind]['bound_ms'] / ms:.1f}% of bound")
+              f"max_abs_err={err:g} "
+              f"{timing_text(t, lib, out[kind]['bound_ms'])}; bound "
+              f"{out[kind]['bound_ms']:.4f} ms ({out[kind]['bound_by']})")
     print(f"  mean KL {float(kl.mean()):.6f}, plain {float(pk.mean()):.6f}, "
           f"cross_entropy(label_smoothing) - H(p_t) {ce_minus_h:.6f}")
     check(fwd_ok, f"vt_kl_loss_fwd {label}: kernel and plain differ by "
@@ -1213,31 +1307,29 @@ def eq5_vs_plain(torch, w, avg, row, label, s=1.0):
     gated = (row <= 0)
     gated_ok = bool(torch.equal(out[gated], w[gated]))
     del out, ref
-    a_ms = median_ms(torch, lambda: dd.norms_cuda([w], [avg], row, s))
-    a_plain = median_ms(torch, lambda: dd.sumsq_rows_plain([w], [avg]))
-    a_lib = median_ms(torch, lambda: torch.linalg.vector_norm(avg - w, dim=1))
-    b_ms = median_ms(torch, lambda: dd.step_cuda(w, avg, scale))
-    b_plain = median_ms(torch, lambda: dd.step_rows_plain(w, avg, scale))
-    b_lib = median_ms(torch, lambda: w + scale[:, None] * (avg - w))
+    t_a = timings(torch, lambda: dd.norms_cuda([w], [avg], row, s),
+                  lambda: dd.sumsq_rows_plain([w], [avg]),
+                  lambda: torch.linalg.vector_norm(avg - w, dim=1))
+    t_b = timings(torch, lambda: dd.step_cuda(w, avg, scale),
+                  lambda: dd.step_rows_plain(w, avg, scale),
+                  lambda: w + scale[:, None] * (avg - w))
     elt = w.element_size()
     res = {}
-    for kind, nbytes, flops, ms, plain_ms, lib_ms, err in [
-            ("sumsq", r * d * (elt + 4) + 4 * r * 3, 3 * r * d, a_ms, a_plain,
-             a_lib, norm_err),
-            ("step", r * d * (2 * elt + 4) + 4 * r, 3 * r * d, b_ms, b_plain,
-             b_lib, step_err)]:
+    for kind, nbytes, flops, t, err in [
+            ("sumsq", r * d * (elt + 4) + 4 * r * 3, 3 * r * d, t_a,
+             norm_err),
+            ("step", r * d * (2 * elt + 4) + 4 * r, 3 * r * d, t_b,
+             step_err)]:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-        res[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=1e3 * max(t_bytes, t_ops),
+        res[kind] = dict(t, bound_ms=1e3 * max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", max_abs_err=err, shape=[r, d],
                          dtype=str(w.dtype))
         print(f"decdiff_update {kind} {label} [R={r}, D={d}, {w.dtype}]: "
-              f"max_abs_err={err:g} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"max_abs_err={err:g} "
+              f"{timing_text(t, 'library', res[kind]['bound_ms'])}; bound "
               f"{res[kind]['bound_ms']:.4f} ms ({res[kind]['bound_by']}, "
-              f"{nbytes / 1e9:.3f} GB), kernel at "
-              f"{100 * res[kind]['bound_ms'] / ms:.1f}% of bound")
+              f"{nbytes / 1e9:.3f} GB)")
     print(f"  Σ(a-x)² per row kernel {sq.tolist()}, plain {sq_p.tolist()}; "
           f"scale {scale.tolist()}; pass B torch.equal(kernel, plain)="
           f"{equal}")
@@ -1268,10 +1360,11 @@ def decode_bound_ms(q, k, n_live, out_elems):
 def decode_vs_plain(torch, ops, q, k, v, sp, pos, label, window=0):
     """Hold `decode_attention_fused` against its plain version and time
     kernel, plain version and `F.scaled_dot_product_attention` (q in the
-    cache's dtype, enable_gqa, a boolean mask of the live slots).
-    Tolerance: |kernel − plain| ≤ 2e-5·|plain| + 2e-5·max|v| — the output
-    is a convex combination of v's rows, and the two sum the softmax and
-    the combine in another order."""
+    cache's dtype, enable_gqa, a boolean mask of the live slots) with
+    `timings`.  Tolerance: |kernel − plain| ≤ 2e-5·|plain| + 2e-5·max|v| —
+    the output is a convex combination of v's rows, and the two sum the
+    softmax and the combine in another order.  A ring with no live slot
+    must give the uniform average of v over the slots (finite)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -1289,6 +1382,12 @@ def decode_vs_plain(torch, ops, q, k, v, sp, pos, label, window=0):
     live = (sp >= 0) & (sp <= pos)
     if window > 0:
         live = live & (sp > pos - window)
+    n_live = int(live.sum())
+    if n_live == 0:
+        uniform = v.float().mean(1).repeat_interleave(h // kk, dim=1)
+        uni_err = float((out - uniform).abs().max())
+        ok = ok and uni_err <= 2e-5 * max(vmax, 1.0)
+        label += f" (|kernel - mean of v| {uni_err:.3g})"
     qs = q.to(k.dtype)[:, :, None, :]
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     mask = live[None, None, None, :]
@@ -1296,26 +1395,24 @@ def decode_vs_plain(torch, ops, q, k, v, sp, pos, label, window=0):
                                          enable_gqa=h != kk)
     lib_err = float((lib[:, :, 0].float() - ref).abs().max())
     del out, ref, diff, lib
-    ms = median_ms(torch, lambda: da.decode_attention_cuda(q, k, v, sp, pos,
-                                                           window))
-    plain_ms = median_ms(torch, lambda: da.decode_attention_plain(
-        q, k, v, sp, pos, window))
-    lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=h != kk))
-    n_live = int(live.sum())
+    t = timings(torch, lambda: ops.decode_attention_fused(q, k, v, sp, pos,
+                                                          window=window),
+                lambda: da.decode_attention_plain(q, k, v, sp, pos, window),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=h != kk))
     bound_ms, bound_by, nbytes = decode_bound_ms(q, k, n_live, b * h * hd)
-    s, sps = da.splits(q.device, b, kk, w)
+    s, sps, tile = da.splits(q.device, b, kk, w, hd, h // kk,
+                             k.dtype == torch.bfloat16)
     print(f"decode_attention {label} [B={b}, H={h}, W={w}, K={kk}, hd={hd}, "
           f"q {q.dtype}, k/v {k.dtype}, {n_live} live slots, "
-          f"{s} splits of {sps}]: max_abs_err={err:g} (max|v| {vmax:g}) "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-          f"ms (|sdpa - plain| {lib_err:.3g}), bound {bound_ms:.4f} ms "
-          f"({bound_by}, {nbytes / 1e9:.3f} GB), kernel at "
-          f"{100 * bound_ms / ms:.1f}% of bound")
+          f"{s} splits of {sps} in tiles of {tile}]: max_abs_err={err:g} "
+          f"(max|v| {vmax:g}), |sdpa - plain| {lib_err:.3g}; "
+          f"{timing_text(t, 'sdpa', bound_ms)}; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes / 1e9:.3f} GB)")
     check(ok, f"decode_attention {label}: kernel and plain differ by {err:g}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                shape=[b, h, w, kk, hd], dtype=str(k.dtype))
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=[b, h, w, kk, hd], dtype=str(k.dtype),
+                q_dtype=str(q.dtype), splits=[s, sps, tile])
 
 
 def path_e(torch, ops, dev, profile):
@@ -1692,17 +1789,19 @@ def main() -> int:
         torch, ops, pay_c["q"][exp_n.nbr_idx],
         pay_c["scale"][exp_n.nbr_idx].contiguous(),
         (exp_n.nbr_weight * exp_n.nbr_valid).contiguous(),
-        "path c (real int8 payloads of the 16 nodes, per-node panel)")
+        "path c (real int8 payloads of the 16 nodes, per-node panel)",
+        cold=True)
     del pay_c
 
     # -- each kernel against its plain version, at the main path's shapes
     seg = kernel_vs_plain(torch, ops, segment_avg_plain, vals_main, w_main,
-                          "main path (16-node BA m=2, real weights)")
+                          "main path (16-node BA m=2, real weights)",
+                          cold=True)
     table_e = exp_e.comm_state.last_sent.reshape(-1, n_params)
     gat = gather_vs_plain(torch, ops, gather_rows_plain, table_e,
                           exp_e.transport.flat_idx,
                           "per-edge path (real per-link table after "
-                          f"{ROUNDS + 1} rounds)")
+                          f"{ROUNDS + 1} rounds)", cold=True)
     del vals_main, table_e
     topo64 = barabasi_albert(64, m=2, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1723,7 +1822,7 @@ def main() -> int:
     nav_f = navg_vs_plain(torch, ops, tree_flatten_stacked(exp_f.params)[0],
                           exp_f.agg_state["counts"],
                           "path f (real stack after the last round, |D_i| "
-                          "weights)")
+                          "weights)", cold=True)
     profile = "--profile" in sys.argv[1:]
     if profile:
         profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
@@ -1811,22 +1910,30 @@ def main() -> int:
                               "path e (real layer-0 cache, real query)")
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(2)
-    for label, (b, h, w, kk, hd), filled, window in [
-            ("full synthetic window", (8, 16, SERVE_WINDOW, 16, 64),
+    da_shapes = []
+    f32, bf16 = torch.float32, torch.bfloat16
+    for label, (b, h, w, kk, hd), q_dtype, filled, window in [
+            ("full synthetic window", (8, 16, SERVE_WINDOW, 16, 64), f32,
              SERVE_WINDOW, 0),
-            ("qwen2.5-14b GQA", (8, 40, SERVE_WINDOW, 8, 128), SERVE_WINDOW,
-             0),
-            ("odd B and W, sliding window 700", (3, 16, 1000, 16, 64), 997,
-             700)]:
-        q = torch.randn((b, h, hd), generator=gen, device=dev)
-        k = torch.randn((b, w, kk, hd), generator=gen, device=dev).to(
-            torch.bfloat16)
-        v = torch.randn((b, w, kk, hd), generator=gen, device=dev).to(
-            torch.bfloat16)
+            ("qwen2.5-14b GQA", (8, 40, SERVE_WINDOW, 8, 128), f32,
+             SERVE_WINDOW, 0),
+            ("qwen2.5-14b GQA, bf16 q", (8, 40, SERVE_WINDOW, 8, 128), bf16,
+             SERVE_WINDOW, 0),
+            ("qwen3-32b G = 8, hd 128", (8, 64, SERVE_WINDOW, 8, 128), bf16,
+             SERVE_WINDOW, 0),
+            ("odd B and W, sliding window 700", (3, 16, 1000, 16, 64), f32,
+             997, 700),
+            ("W below one tile", (3, 16, 40, 16, 64), bf16, 40, 0),
+            ("W one slot past a tile", (2, 16, 4097, 16, 64), bf16, 4097, 0),
+            ("all-masked ring", (2, 16, 1000, 16, 64), bf16, 0, 0)]:
+        q = torch.randn((b, h, hd), generator=gen, device=dev).to(q_dtype)
+        k = torch.randn((b, w, kk, hd), generator=gen, device=dev).to(bf16)
+        v = torch.randn((b, w, kk, hd), generator=gen, device=dev).to(bf16)
         sp = torch.arange(w, dtype=torch.int32, device=dev)
         sp[filled:] = -1
-        pos = torch.tensor(filled - 1, dtype=torch.int32, device=dev)
-        decode_vs_plain(torch, ops, q, k, v, sp, pos, label, window)
+        pos = torch.tensor(max(filled - 1, 0), dtype=torch.int32, device=dev)
+        da_shapes.append(dict(decode_vs_plain(torch, ops, q, k, v, sp, pos,
+                                              label, window), label=label))
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -1845,6 +1952,10 @@ def main() -> int:
 
     def entry(name, route_name, replaces, m, counter=None, **extra):
         counter = counter or name
+        times = {key: m[key] for key in (
+            "kernel_ms", "library_kernel_ms", "ms_cold", "kernel_ms_cold",
+            "library_ms_cold", "library_kernel_ms_cold", "kernels_per_call")
+            if key in m}
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{route_name}.cu",
                     replaces=replaces, launches=launches(counter),
@@ -1853,7 +1964,7 @@ def main() -> int:
                     max_abs_err=m["max_abs_err"], ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                     bound_by=m["bound_by"], library_ms=m["library_ms"],
-                    shape=m["shape"], **extra)
+                    shape=m["shape"], **times, **extra)
 
     kernels = [
         entry("segment_neighbor_avg", "segment_avg",
@@ -1878,7 +1989,7 @@ def main() -> int:
               counter="decdiff_update", dtype=eq5["step"]["dtype"]),
         entry("decode_attention_fused", "decode_attention",
               "src/repro/kernels/decode_attention.py:92", da_main,
-              dtype=da_main["dtype"]),
+              dtype=da_main["dtype"], other_shapes=da_shapes),
         entry("neighbor_avg", "neighbor_avg",
               "src/repro/kernels/neighbor_avg.py:32", nav_f,
               other_shapes=[nav_lm, nav_odd]),

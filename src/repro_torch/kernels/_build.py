@@ -13,7 +13,9 @@ as it is.  A build writes to a temporary name and renames it into place,
 so concurrent processes never load a half-written library.
 
 `build(names)` starts one nvcc per source, all at once, and waits for all
-of them; `load(name)` builds if needed and returns the loaded library.
+of them; `load(name)` builds if needed and returns the loaded library;
+`launch(device, fn, *args)` calls a C launcher with the device's current
+stream appended, entering the device only when it is not current.
 Nothing here runs at import time: the package imports on hosts without
 nvcc or a card.
 """
@@ -26,6 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -93,3 +97,14 @@ def load(name: str) -> ctypes.CDLL:
         path = build([name])[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launch(device: torch.device, fn, *args) -> int:
+    """`fn(*args, stream)` for a C launcher `fn`, with `stream` the raw
+    current CUDA stream of `device`; enters `device` only when it is not
+    the current one (the lean path of a per-call launcher)."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))

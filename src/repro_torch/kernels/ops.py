@@ -144,35 +144,43 @@ def _device_kind(t: torch.Tensor, name: str) -> str:
     return t.device.type
 
 
+def _neighbor_avg(stacked: torch.Tensor, w: torch.Tensor,
+                  normalize: bool) -> torch.Tensor:
+    if stacked.dim() != 2 or tuple(w.shape) != (stacked.shape[0],):
+        raise ValueError(f"neighbor_avg wants stacked [N, D] and weights [N]; "
+                         f"got {tuple(stacked.shape)} and {tuple(w.shape)}")
+    if stacked.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"neighbor_avg wants float32; got {stacked.dtype} and "
+                        f"{w.dtype}")
+    if stacked.device != w.device:
+        raise ValueError(f"stacked on {stacked.device} but weights on "
+                         f"{w.device}")
+    if not (stacked.is_contiguous() and w.is_contiguous()):
+        raise ValueError("neighbor_avg wants contiguous tensors")
+    if _device_kind(stacked, "neighbor_avg") == "cpu":
+        return _na.neighbor_avg_plain(stacked, w, normalize)
+    out = _na.neighbor_avg_cuda(stacked, w, normalize)
+    LAUNCHES["neighbor_avg"] += 1
+    return out
+
+
 def neighbor_avg_normalized(stacked: torch.Tensor,
                             wn: torch.Tensor) -> torch.Tensor:
     """Σ_n wn[n] · stacked[n, :] for weights the caller already normalized
     (the gated forms divide by a safe total, so that a receiver that heard
     from nobody gets 0, not NaN): stacked [N, D] fp32, wn [N] fp32 -> [D]
     fp32 (see `repro_torch.kernels.neighbor_avg`)."""
-    if stacked.dim() != 2 or tuple(wn.shape) != (stacked.shape[0],):
-        raise ValueError(f"neighbor_avg wants stacked [N, D] and weights [N]; "
-                         f"got {tuple(stacked.shape)} and {tuple(wn.shape)}")
-    if stacked.dtype != torch.float32 or wn.dtype != torch.float32:
-        raise TypeError(f"neighbor_avg wants float32; got {stacked.dtype} and "
-                        f"{wn.dtype}")
-    if stacked.device != wn.device:
-        raise ValueError(f"stacked on {stacked.device} but weights on "
-                         f"{wn.device}")
-    if not (stacked.is_contiguous() and wn.is_contiguous()):
-        raise ValueError("neighbor_avg wants contiguous tensors")
-    if _device_kind(stacked, "neighbor_avg") == "cpu":
-        return _na.neighbor_avg_plain(stacked, wn)
-    out = _na.neighbor_avg_cuda(stacked, wn)
-    LAUNCHES["neighbor_avg"] += 1
-    return out
+    return _neighbor_avg(stacked, wn, False)
 
 
 def neighbor_avg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Eq. 6: the (w / Σw)-weighted average of the stacked [N, D] fp32 rows,
-    as the reference's wrapper normalizes -> [D] fp32."""
-    w = weights.to(torch.float32)
-    return neighbor_avg_normalized(stacked, (w / torch.sum(w)).contiguous())
+    as the reference's wrapper normalizes -> [D] fp32.  The sum (in n
+    order) and the division happen inside the one kernel launch (see
+    `repro_torch.kernels.neighbor_avg`)."""
+    w = weights if weights.dtype == torch.float32 \
+        else weights.to(torch.float32)
+    return _neighbor_avg(stacked, w.contiguous(), True)
 
 
 def dequant_neighbor_avg(q: torch.Tensor, scales: torch.Tensor,

@@ -72,6 +72,49 @@ def test_neighbor_avg_matches_jax_kernel_and_refs(n, d):
         assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
+@pytest.mark.parametrize("n,d,zero", [(1100, 96, True), (16, 567, False),
+                                      (10, 1001, True), (2, 2048, False)])
+def test_neighbor_avg_normalizes_in_n_order_like_jax(n, d, zero):
+    """`ops.neighbor_avg` hands the raw weights to the kernel's plain
+    version, which sums them in n order from +0 and divides in IEEE (as the
+    kernel does on the card, so the two stay bitwise equal): within the
+    tolerance above of the reference's `w / jnp.sum(w)` and its Pallas
+    kernel (interpreted), also past one 1024-sender chunk and with a zero
+    weight; and bitwise the plain loop over those normalized weights."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels.neighbor_avg import neighbor_avg_plain
+
+    rng = np.random.default_rng([n, d, 7])
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.uniform(0.1, 40.0, n).astype(np.float32)
+    if zero:
+        w[n // 2] = 0.0
+    total = np.float32(0.0)
+    for wi in w:  # the ordered sum, in float32
+        total = np.float32(total + wi)
+    got = ops.neighbor_avg(torch.from_numpy(x), torch.from_numpy(w))
+    wn = torch.from_numpy(w) / torch.tensor(total)
+    assert torch.equal(got, neighbor_avg_plain(torch.from_numpy(x), wn))
+    assert torch.equal(got, ops.neighbor_avg_normalized(torch.from_numpy(x),
+                                                        wn))
+    want = np.asarray(jops.neighbor_avg(jnp.asarray(x), jnp.asarray(w)))
+    assert (np.abs(got.numpy() - want) <= _avg_tol(x, w)).all(), \
+        np.abs(got.numpy() - want).max()
+
+
+def test_neighbor_avg_zero_total_is_the_reference_division():
+    """Weights that sum to 0 give w / 0, as the reference's w / sum(w)
+    does: NaN (0 / 0) where the reference has NaN."""
+    from repro.kernels import ops as jops
+
+    x = np.random.default_rng(5).standard_normal((3, 2048)).astype(
+        np.float32)
+    w = np.zeros(3, np.float32)
+    got = ops.neighbor_avg(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jops.neighbor_avg(jnp.asarray(x), jnp.asarray(w)))
+    assert np.isnan(want).all() and np.isnan(got).all()
+
+
 def test_neighbor_avg_normalized_zero_weights_and_validation():
     x = torch.randn(4, 9)
     assert torch.equal(ops.neighbor_avg_normalized(x, torch.zeros(4)),

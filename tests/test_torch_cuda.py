@@ -246,7 +246,9 @@ def test_lm_round_on_the_card_matches_the_cpu(card):
 
 DECODE_SHAPES = [(1, 16, 1, 1, 16), (2, 600, 2, 2, 64), (4, 1024, 8, 1, 128),
                  (3, 512, 4, 8, 64), (3, 1000, 16, 1, 64), (5, 4099, 8, 5, 128),
-                 (1, 1, 2, 4, 32), (8, 32768, 16, 1, 64)]
+                 (1, 1, 2, 4, 32), (8, 32768, 16, 1, 64), (3, 40, 16, 1, 64),
+                 (2, 4097, 16, 1, 64), (2, 2049, 4, 2, 32),
+                 (8, 32768, 8, 8, 128)]
 
 
 def _decode_case(card, b, w, kk, g, hd, dtype, filled=None, seed=0):
@@ -265,9 +267,11 @@ def _decode_case(card, b, w, kk, g, hd, dtype, filled=None, seed=0):
 @pytest.mark.parametrize("b,w,kk,g,hd", DECODE_SHAPES)
 def test_decode_attention_kernel_matches_plain(card, b, w, kk, g, hd, dtype):
     """The split-W kernel against its plain version: the reference sweep,
-    odd B and W, a group of 5, one slot, and the serving path's full
-    [8, 32768, 16, 64] window.  rtol = atol = 2e-5 (the two sum in another
-    order; v ~ N(0, 1))."""
+    odd B and W, a group of 5, one slot, the serving path's full
+    [8, 32768, 16, 64] window, a W below one tile (40 slots, tiles of 64),
+    W one slot past a tile boundary (4097 = 64·64 + 1; 2049 = 128·16 + 1
+    at hd 32) and qwen3-32b's G = 8, hd = 128 over the full 32,768 slots.
+    rtol = atol = 2e-5 (the two sum in another order; v ~ N(0, 1))."""
     from repro_torch.kernels.decode_attention import decode_attention_plain
 
     q, k, v, sp, pos = _decode_case(card, b, w, kk, g, hd, dtype)
@@ -293,12 +297,13 @@ def test_decode_attention_kernel_window_and_empty_splits(card, window):
 
     q, k, v, sp, pos = _decode_case(card, 4, 4096, 2, 4, 64, torch.bfloat16,
                                     filled=10)
-    for win in (0, window):
-        out = ops.decode_attention_fused(q, k, v, sp, pos, window=win)
-        assert torch.isfinite(out).all()
-        torch.testing.assert_close(
-            out, decode_attention_plain(q, k, v, sp, pos, win), rtol=2e-5,
-            atol=2e-5)
+    for qq in (q, q.to(torch.bfloat16)):
+        for win in (0, window):
+            out = ops.decode_attention_fused(qq, k, v, sp, pos, window=win)
+            assert torch.isfinite(out).all()
+            torch.testing.assert_close(
+                out, decode_attention_plain(qq, k, v, sp, pos, win),
+                rtol=2e-5, atol=2e-5)
     q, k, v, sp, pos = _decode_case(card, 4, 2000, 2, 4, 64, torch.float32,
                                     filled=1500)
     out = ops.decode_attention_fused(q, k, v, sp, pos, window=window)
@@ -440,12 +445,15 @@ def test_engine_and_lm_round_run_eq5_through_the_kernel(card):
                                       (4, 463_987_712, False),
                                       (10, 1_000_003, True), (1, 1, False),
                                       (1, 5000, False), (3, 7, True),
-                                      (1100, 96, True)])
+                                      (1100, 96, True), (5, 4099, None)])
 def test_neighbor_avg_matches_plain_bitwise(card, n, d, zero):
-    """float4 (D = 0 mod 4), float2 (D = 2 mod 4) and scalar (odd D)
-    columns, path f's stack, the LM's 2^31-passing [4, 463987712], more
-    than one 1024-sender chunk of weights in shared memory, a zero
-    weight."""
+    """The one-launch `ops.neighbor_avg` (the weights' ordered sum and IEEE
+    division inside the kernel) bitwise its plain version: float4, float2
+    and scalar row loads, path f's stack, the LM's 2^31-passing
+    [4, 463987712], more than one 1024-sender chunk of weights in shared
+    memory, a zero weight, and all-zero weights (w / 0: NaN in both, as in
+    the reference); and `neighbor_avg_normalized` on rows one float off
+    their allocation."""
     from repro_torch.kernels.neighbor_avg import neighbor_avg_plain
 
     gen = torch.Generator(device=card).manual_seed(n * 7 + d)
@@ -453,17 +461,42 @@ def test_neighbor_avg_matches_plain_bitwise(card, n, d, zero):
     w = torch.rand((n,), generator=gen, device=card) + 0.1
     if zero:
         w[n // 2] = 0.0
+    elif zero is None:
+        w.zero_()
     before = ops.LAUNCHES["neighbor_avg"]
     out = ops.neighbor_avg(x, w)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["neighbor_avg"] == before + 1
+    assert torch.equal(out, neighbor_avg_plain(x, w, normalize=True)) or (
+        zero is None and bool(out.isnan().all()))
+    if zero is None:
+        assert bool(neighbor_avg_plain(x, w, normalize=True).isnan().all())
+        return
     wn = (w / torch.sum(w)).contiguous()
-    assert torch.equal(out, neighbor_avg_plain(x, wn))
     if d > 1:  # rows one float off their allocation: narrower loads
         xo = x.reshape(-1)[1:1 + n * (d - 1)].reshape(n, d - 1)
         assert torch.equal(ops.neighbor_avg_normalized(xo, wn),
                            neighbor_avg_plain(xo, wn))
     del x
+
+
+def test_neighbor_avg_is_one_kernel_per_call(card):
+    """`ops.neighbor_avg` normalizes inside its kernel: the profiler sees
+    one device kernel per call, no sum and no division kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn((16, 567434), device=card)
+    w = torch.rand((16,), device=card) + 0.1
+    ops.neighbor_avg(x, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.neighbor_avg(x, w)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3 and all("neighbor_avg" in k for k in kernels), \
+        kernels
 
 
 def test_fedavg_and_cfa_ge_run_through_their_kernels(card):

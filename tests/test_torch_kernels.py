@@ -454,11 +454,14 @@ def test_new_wrappers_count_no_launch_on_the_cpu():
     ("dequant_avg", "dequant_avg_rows_f32", 3, 3, 0),
     ("vt_kl_loss", "vt_kl_fwd", 5, 2, 3),
     ("vt_kl_loss", "vt_kl_bwd", 6, 2, 2),
+    ("neighbor_avg", "neighbor_avg_f32", 3, 2, 0),
 ])
 def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
                                                      n_ptr, n_int, n_float):
     """Every pointer and 64-bit size is declared (ctypes would pass 32-bit
-    ints otherwise), and the floats as c_float."""
+    ints otherwise), and the floats as c_float.  A launcher that binds once
+    (it caches the library in `_LIB`) loads and declares at its first call
+    only."""
     import ctypes
     import importlib
     import types
@@ -466,16 +469,30 @@ def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
     from repro_torch.kernels import _build
 
     fns = {name: types.SimpleNamespace(argtypes=None, restype=None)
-           for name in ("dequant_avg_rows_f32", "vt_kl_fwd", "vt_kl_bwd")}
-    monkeypatch.setattr(_build, "load",
-                        lambda name: types.SimpleNamespace(**fns))
-    lib = importlib.import_module(f"repro_torch.kernels.{module}")._library()
+           for name in ("dequant_avg_rows_f32", "vt_kl_fwd", "vt_kl_bwd",
+                        "neighbor_avg_f32")}
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return types.SimpleNamespace(**fns)
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    bound_once = hasattr(mod, "_LIB")
+    if bound_once:
+        monkeypatch.setattr(mod, "_LIB", None)
+    lib = mod._library()
     args = getattr(lib, fn).argtypes
     assert args.count(ctypes.c_void_p) == n_ptr + 1  # + the stream
     assert args.count(ctypes.c_int64) == n_int
     assert args.count(ctypes.c_float) == n_float
     assert args[-1] is ctypes.c_void_p
     assert getattr(lib, fn).restype is ctypes.c_int
+    if bound_once:
+        getattr(lib, fn).argtypes = None  # a second call must not re-bind
+        assert mod._library() is lib and loads == [module]
+        assert getattr(lib, fn).argtypes is None
 
 
 # --------------------------------------------------- decode attention
@@ -585,6 +602,64 @@ def test_decode_attention_wrapper_rejects_bad_inputs(bad):
         k, v, sp = k[:, :0], v[:, :0], sp[:0]
     with pytest.raises((TypeError, ValueError)):
         ops.decode_attention_fused(q, k, v, sp, pos)
+
+
+def _wave_fill(blocks, resident):
+    return blocks / (-(-blocks // resident) * resident)
+
+
+@pytest.mark.parametrize("sms,per_sm", [(132, 3), (132, 2), (132, 1),
+                                        (114, 3), (8, 2)])
+@pytest.mark.parametrize("b,kk,w,tile", [
+    (8, 16, 32768, 64), (8, 8, 32768, 32), (8, 8, 32768, 16),
+    (3, 16, 1000, 64), (3, 16, 40, 64), (2, 16, 4097, 64), (1, 1, 1, 256),
+    (1, 2, 1, 16), (4, 2, 4096, 64), (5, 8, 4099, 32), (64, 16, 513, 128),
+    (1000, 1, 300, 64)])
+def test_decode_split_planner(b, kk, w, tile, sms, per_sm):
+    """The split/wave planner, a pure function: whole tiles per split, no
+    empty split (S·sps ≥ W > (S − 1)·sps), and a last wave at least 90%
+    full whenever any split count gets there (checked by trying them all),
+    with the fewest splits that do; else the best fill."""
+    from repro_torch.kernels.decode_attention import (
+        MIN_WAVE_FILL,
+        plan_splits,
+    )
+
+    s, sps = plan_splits(b, kk, w, tile, sms, per_sm)
+    assert s >= 1 and sps % tile == 0
+    assert s * sps >= w > (s - 1) * sps
+    resident = sms * per_sm
+    ntiles = -(-w // tile)
+    counts = sorted({-(-ntiles // -(-ntiles // x))
+                     for x in range(1, ntiles + 1)})
+    fills = {c: _wave_fill(b * kk * c, resident) for c in counts}
+    fill = _wave_fill(b * kk * s, resident)
+    good = [c for c in counts if fills[c] >= MIN_WAVE_FILL]
+    if good:
+        assert fill >= MIN_WAVE_FILL and s == good[0]
+    else:
+        assert fill == max(fills.values())
+
+
+def test_decode_split_planner_fills_the_serving_shapes():
+    """Path e's cache and the GQA shapes the decode kernel must hold fill
+    their last wave to >= 90% at the H100's 132 SMs, at 1-3 resident
+    blocks per SM: B·K/2 block rows (two KV heads a block) in tiles of 32
+    slots at hd 64 and of 16 at hd 128, and with one head a block."""
+    from repro_torch.kernels.decode_attention import plan_splits
+
+    for per_sm in (1, 2, 3):
+        for b, kk, w, tile in [(8, 8, 32768, 32), (8, 4, 32768, 16),
+                               (8, 16, 32768, 64), (8, 8, 32768, 32)]:
+            s, sps = plan_splits(b, kk, w, tile, 132, per_sm)
+            assert _wave_fill(b * kk * s, 132 * per_sm) >= 0.9
+            assert sps >= 8 * tile  # long splits: the TMA ring fills
+
+
+def test_decode_group_width():
+    from repro_torch.kernels.decode_attention import group_width
+
+    assert [group_width(g) for g in range(1, 9)] == [1, 2, 4, 4, 8, 8, 8, 8]
 
 
 # ----------------------------------------------------- Eq. 5 (decdiff)
@@ -756,11 +831,17 @@ def test_serving_and_eq5_ctypes_bindings_declare_their_arguments(
     from repro_torch.kernels import decode_attention as da
 
     fns = {name: types.SimpleNamespace(argtypes=None, restype=None)
-           for name in ("decode_attention_f32", "decdiff_col_blocks",
-                        "decdiff_sumsq_rows", "decdiff_scale_rows",
-                        "decdiff_step_rows")}
-    monkeypatch.setattr(_build, "load",
-                        lambda name: types.SimpleNamespace(**fns))
+           for name in ("decode_attention_f32", "decode_attention_plan",
+                        "decdiff_col_blocks", "decdiff_sumsq_rows",
+                        "decdiff_scale_rows", "decdiff_step_rows")}
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return types.SimpleNamespace(**fns)
+
+    monkeypatch.setattr(_build, "load", fake_load)
+    monkeypatch.setattr(da, "_LIB", None)
     lib = (da if fn.startswith("decode") else dd)._library()
     args = getattr(lib, fn).argtypes
     assert args.count(ctypes.c_void_p) == n_ptr + 1  # + the stream
@@ -772,3 +853,11 @@ def test_serving_and_eq5_ctypes_bindings_declare_their_arguments(
     if fn.startswith("decdiff"):
         assert lib.decdiff_col_blocks.argtypes == [ctypes.c_int64]
         assert lib.decdiff_col_blocks.restype is ctypes.c_int64
+    else:  # bound once, at load: the plan query too
+        assert lib.decode_attention_plan.argtypes == [
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p]
+        assert lib.decode_attention_plan.restype is ctypes.c_int
+        lib.decode_attention_f32.argtypes = None
+        assert da._library() is lib and loads == ["decode_attention"]
+        assert lib.decode_attention_f32.argtypes is None
