@@ -73,6 +73,39 @@ It imports the port only (no JAX), and:
      `cfa-ge` without a transport on the same world and schedule: rounds
      per second and the walk's row-gradients; the dense layout is refused
      at that size;
+  4c. drives path j, the paper's Table II / IV path at the Table I CNN's
+     full width: `benchmarks/common.py`'s WorldConfig at the paper's 50
+     nodes (`World.synthetic("synth-fashion", nodes=50,
+     topology="erdos_renyi", p=0.2, seed=0, scale=1.0)`: 60,000 / 10,000
+     images, 252 undirected edges, max degree 16; the Fashion CNN,
+     1,199,882 params per node), lr 0.1, momentum 0.9, batch 32, 4 local
+     steps a round, β = 0.95, and `bench_accuracy.py`'s roster (isol,
+     fedavg, dechetero, cfa, cfa-ge, decdiff, decdiff+vt) in the default
+     fused mode, as `run_method` builds it.  Cut: 800 rounds to one warm
+     round then 3 measured rounds per method, each evaluated on all
+     10,000 test images; the counts set to 0 just before the 3 rounds and
+     read just after must be exactly the segment reduce once a round on
+     the gossip methods, Eq. 5 once a round on decdiff*, the VT loss
+     forward and backward once a local step on decdiff+vt, `neighbor_avg`
+     once a round on fedavg, and nothing else; it prints ms per round
+     (from one round's start to the next's, its evaluation included;
+     median of 3), peak device memory and the final accuracy.  Then the
+     segment reduce at the round's real [50, 16, 1199882] panel, Eq. 5 at
+     [50, 1199882] and `neighbor_avg` at fedavg's real stack, each bitwise
+     its plain version, and the VT loss within its tolerance at real
+     [1600, 10] logits, all timed as in 6; the Centralized upper bound
+     (`centralized_train` as `run_centralized` calls it: lr 0.05, batch
+     64; 1 epoch, cut from up to 20); `accuracy_table`,
+     `characteristic_time` and `comm_bytes_per_round` over the short
+     histories, printed as a 4-round smoke, not the paper's result;
+     `synth-emnist` (26 classes, 1,201,946 params, dropout) with
+     `decdiff+vt` and `cfa-ge` (keep masks inside the gradient walk) on
+     the same world shape, with the VT loss at [1600, 26]; a 6-node
+     Fashion CNN world on the card against the CPU (`decdiff+vt`,
+     `fedavg`: params to 1e-4, accuracy to one test sample); and the
+     bitwise oracles with the CNN on a 16-node world: fused equals loop
+     and the sparse layout equals dense (`decdiff+vt`, Fashion), fused
+     equals loop with dropout (EMNIST, `decdiff+vt` and `cfa-ge`);
   5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
      its one-pod form with the fused int8 gossip
      (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
@@ -146,9 +179,9 @@ It imports the port only (no JAX), and:
 Paths a-d, h and i also run the Eq. 5 step through the `decdiff_update`
 kernels: one launch per round each.  With `--profile` it also traces one
 more round (eval included) of paths a, b, g, h (without a transport and
-per-edge, and cfa-ge) and i (every run), one round of path d and one decode step of
-path e under `torch.profiler` and prints the device time by kernel and the
-device's busy share of the wall time.
+per-edge, and cfa-ge), i (every run) and j (decdiff+vt), one round of path
+d and one decode step of path e under `torch.profiler` and prints the
+device time by kernel and the device's busy share of the wall time.
 
 Any failure exits non-zero before the last line is printed.  Without a
 CUDA card, or without the port beside this script, it exits 2.
@@ -178,6 +211,14 @@ SERVE_BATCH, SERVE_WINDOW, SERVE_PROMPT, SERVE_STEPS = 8, 32768, 16, 32
 LM_LAYERS = 24
 H_NODES = 256               # path h: the sparse layout at full MLP width
 I_NODES = 10_000            # path i: bench_scale.py's tiny world
+# path j: benchmarks/common.py's WorldConfig at the paper's 50 nodes, and
+# bench_accuracy.py's Table II roster
+J_NODES = 50
+J_METHODS = ("isol", "fedavg", "dechetero", "cfa", "cfa-ge", "decdiff",
+             "decdiff+vt")
+J_TRAIN = dict(steps_per_round=4, batch_size=32, lr=0.1, momentum=0.9,
+               beta=0.95, seed=0)
+J_PARAMS = {10: 1_199_882, 26: 1_201_946}  # the Table I CNN, by classes
 
 
 class SmokeFailure(Exception):
@@ -217,6 +258,24 @@ def median_ms(torch, fn, reps=REPS, before=None):
     return statistics.median(times)
 
 
+def batch_ms(torch, fn, reps=REPS, before=None):
+    """CUDA events around `reps` back-to-back calls, over `reps` (with
+    `before`, the median of single calls instead): the device's time per
+    call wherever the device, not the launcher, is the slower side."""
+    if before is not None:
+        return median_ms(torch, fn, reps, before)
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(torch, fn, reps=REPS, before=None):
     """The device time of `fn`'s kernels alone, under torch.profiler over
     `reps` calls (memory copies and sets, which `before` may make, left
@@ -225,8 +284,10 @@ def device_ms(torch, fn, reps=REPS, before=None):
     `reps`, rounded; at least 1), summed over the names.  The profiler
     can miss some of a long kernel's events (it recorded 14 of 20 calls of
     a 3 ms kernel on the card), so the mean of what it saw stands in for
-    the missed ones.  Returns (ms per call, kernels per call, recorded
-    events over `reps`, their names)."""
+    the missed ones.  Late in a long run it recorded fewer calls per
+    session and, once, none: then the time comes from `batch_ms` (CUDA
+    events) and the kernel count and names are None.  Returns (ms per
+    call, kernels per call, recorded events over `reps`, their names)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -243,7 +304,10 @@ def device_ms(torch, fn, reps=REPS, before=None):
         if e.device_type == torch.autograd.DeviceType.CUDA \
                 and not e.name.startswith(("Memcpy", "Memset")):
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    check(by_name, "the profiler saw no device kernel")
+    if not by_name:
+        print("  (the profiler recorded no device kernel: device ms from "
+              "CUDA events around back-to-back calls)")
+        return batch_ms(torch, fn, reps, before), None, 0.0, None
     per_call = {n: max(1, round(len(us) / reps)) for n, us in by_name.items()}
     total_us = sum(statistics.fmean(us) * per_call[n]
                    for n, us in by_name.items())
@@ -290,9 +354,10 @@ def timings(torch, kernel, plain, library, cold=False, library_device=None):
 
 def timing_text(t, lib_name, bound_ms):
     """One line of `timings`' numbers beside the bound."""
+    count = ("CUDA events" if t["kernels_per_call"] is None else
+             f"{t['kernels_per_call']:g} kernels a call")
     text = (f"kernel {t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms device "
-            f"({t['kernels_per_call']:g} kernels a call, "
-            f"{t['kernel_events_per_call']:g} recorded), plain "
+            f"({count}, {t['kernel_events_per_call']:g} recorded), plain "
             f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms "
             f"call / {t['library_kernel_ms']:.4f} ms device, kernel device "
             f"time at {100 * bound_ms / t['kernel_ms']:.1f}% of bound")
@@ -373,8 +438,11 @@ def navg_vs_plain(torch, ops, x, weights, label, cold=False):
           f"{nbytes / 1e9:.4f} GB)")
     check(equal, f"neighbor_avg {label}: kernel != plain (max_abs_err "
                  f"{err:g})")
-    check(t["kernels_per_call"] == 1 and t["kernel_events_per_call"] <= 1
-          and all("neighbor_avg_kernel" in k for k in t["kernel_names"]),
+    # one device kernel a call, wherever the profiler recorded the calls
+    # (tests/test_torch_cuda.py holds it too)
+    check(t["kernels_per_call"] is None or (
+        t["kernels_per_call"] == 1 and t["kernel_events_per_call"] <= 1
+        and all("neighbor_avg_kernel" in k for k in t["kernel_names"])),
           f"neighbor_avg {label}: {t['kernel_events_per_call']} device "
           f"kernels a call ({t['kernel_names']}), not 1")
     return dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
@@ -420,20 +488,28 @@ def gather_vs_plain(torch, ops, plain, tbl, idx, label, cold=False):
 
 
 def small_world_agrees(torch, dev, comm=None, label="no transport",
-                       method="decdiff+vt", layout=None):
+                       method="decdiff+vt", layout=None, cnn=False):
     """The same small run on the card and on the CPU (same world, same
     init, no random draws in the rounds) must agree; with a transport the
-    bytes on the wire must be equal."""
+    bytes on the wire must be equal.  The world: 16 nodes of synth-mnist
+    with the MLP 784-64-32-10, or (`cnn`) 6 nodes of synth-fashion with the
+    full-width Table I CNN."""
     from repro_torch.engine import Experiment, World
     from repro_torch.models.mlp_cnn import make_mlp
     from repro_torch.utils.pytree import tree_leaves
 
     runs = []
     for where in (dev, torch.device("cpu")):
-        world = World.synthetic("synth-mnist", nodes=16,
-                                topology="barabasi_albert", m=2, scale=0.03,
-                                model=make_mlp(hidden=(64, 32)),
-                                device=where)
+        if cnn:
+            world = World.synthetic("synth-fashion", nodes=6,
+                                    topology="erdos_renyi", p=0.5,
+                                    scale=0.004, device=where)
+        else:
+            world = World.synthetic("synth-mnist", nodes=16,
+                                    topology="barabasi_albert", m=2,
+                                    scale=0.03,
+                                    model=make_mlp(hidden=(64, 32)),
+                                    device=where)
         exp = Experiment(world, method, steps_per_round=2,
                          batch_size=32, device=where, comm=comm,
                          layout=layout)
@@ -447,7 +523,9 @@ def small_world_agrees(torch, dev, comm=None, label="no transport",
                for a, b in zip(hc, hh))
     bytes_c = [m.bytes_on_wire for m in hc]
     bytes_h = [m.bytes_on_wire for m in hh]
-    print(f"small world (16 nodes, MLP 784-64-32-10, 3 rounds, {method}, "
+    what = ("6 nodes, Table I CNN" if cnn else
+            "16 nodes, MLP 784-64-32-10")
+    print(f"small world ({what}, 3 rounds, {method}, "
           f"{label}, {exp.layout} layout) "
           f"card vs cpu: max |param diff| {perr:.3g}, max accuracy diff "
           f"{aerr:.3g} test samples, bytes on the wire card {bytes_c} cpu "
@@ -1110,6 +1188,267 @@ def path_i(torch, ops, dev, profile):
     del world
     gc.collect()
     return out
+
+
+# ----------------------------------------------------------------- path j
+
+def timed_rounds(torch, ops, exp, label, rounds=ROUNDS):
+    """One warm round, then `rounds` fused rounds, each evaluated, with
+    every launch count set to 0 just before and read just after and the
+    peak device memory taken over them.  A round's time runs from its
+    start to the next round's start (its evaluation included): the round
+    function is wrapped to synchronize and read the clock as it starts.
+    Returns (history, launches, [ms per round], peak bytes)."""
+    exp.run(rounds=1, eval_every=1)  # warm round
+    torch.cuda.synchronize()
+    inner, starts = exp._round, []
+
+    def clocked(*args):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return inner(*args)
+
+    exp._round = clocked
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        history = exp.run(rounds=rounds, eval_every=1)
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+    finally:
+        exp._round = inner
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ms = [1e3 * (b - a) for a, b in zip(starts[:-1], starts[1:])]
+    losses = exp.train_loss_history[-rounds:]
+    check_history(torch, exp, history, losses, label)
+    print(f"{label}: {rounds} rounds (fused, eval every round) ms per round "
+          f"{', '.join(f'{x:.2f}' for x in ms)} (median "
+          f"{statistics.median(ms):.2f}), peak device memory "
+          f"{peak / 2**30:.2f} GiB, final accuracy mean "
+          f"{history[-1].acc_mean:.4f} std {history[-1].acc_std:.4f}, train "
+          f"losses {[round(x, 5) for x in losses]}; kernel launches "
+          f"{launches}")
+    return history, launches, ms, peak
+
+
+def j_expected_launches(ops, method, steps):
+    """The Table II roster's launches over ROUNDS rounds: the segment
+    reduce (B.1) once a round on the gossip methods, Eq. 5 (B.2) once a
+    round on decdiff*, the VT loss (B.3) forward and backward once a local
+    step on decdiff+vt, `neighbor_avg` (B.6) once a round on fedavg, and
+    nothing else."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if method in ("dechetero", "cfa", "cfa-ge", "decdiff", "decdiff+vt"):
+        want["segment_neighbor_avg"] = ROUNDS
+    if method.startswith("decdiff"):
+        want["decdiff_update"] = ROUNDS
+    if method.endswith("+vt"):
+        want["vt_kl_loss_fwd"] = want["vt_kl_loss_bwd"] = ROUNDS * steps
+    if method == "fedavg":
+        want["neighbor_avg"] = ROUNDS
+    return want
+
+
+def real_logits(torch, exp):
+    """Every node's logits on its own batch of the last round's first local
+    step, [N·B, classes], and the labels: B.3's real inputs."""
+    xb, yb = exp.batcher.take(exp.x_pad, exp.y_pad, exp.counts, 0)
+    with torch.no_grad():
+        z = exp.model.apply(exp.params, xb)
+    return z.reshape(-1, z.shape[-1]).contiguous(), yb.reshape(-1)
+
+
+def cnn_oracles(torch, dev):
+    """The port's bitwise oracles on the card with the full-width CNN, on a
+    16-node world: `decdiff+vt` (Fashion) fused equals loop and the sparse
+    layout equals dense; with dropout (EMNIST), `decdiff+vt` and `cfa-ge`
+    (keep masks drawn inside the gradient walk) fused equal loop.  Every
+    run is 3 rounds, each evaluated."""
+    from repro_torch.engine import Experiment, World
+    from repro_torch.utils.pytree import tree_leaves
+
+    def run(world, method, mode, layout=None):
+        exp = Experiment(world, method, steps_per_round=2, batch_size=32,
+                         lr=0.05, layout=layout)
+        hist = exp.run(rounds=3, eval_every=1, mode=mode)
+        return ([p.clone() for p in tree_leaves(exp.params)],
+                [m.acc_per_node.copy() for m in hist],
+                list(exp.train_loss_history))
+
+    def same(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+                and all((x == y).all() for x, y in zip(a[1], b[1]))
+                and a[2] == b[2])
+
+    for dataset, scale, cases in [
+            ("synth-fashion", 0.02, [("decdiff+vt", "fused", None),
+                                     ("decdiff+vt", "loop", "sparse")]),
+            ("synth-emnist", 0.05, [("decdiff+vt", "fused", None),
+                                    ("cfa-ge", "fused", None)])]:
+        world = World.synthetic(dataset, nodes=16, topology="erdos_renyi",
+                                p=0.3, scale=scale)
+        for method, mode, layout in cases:
+            base = run(world, method, "loop")
+            other = run(world, method, mode, layout)
+            ok = same(base, other)
+            what = (f"{layout} layout equals dense" if layout
+                    else f"{mode} equals loop")
+            print(f"CNN oracle ({dataset}, 16 nodes, {method}): {what} "
+                  f"bitwise (params, accuracies, train losses) = {ok}; "
+                  f"final mean accuracy {base[1][-1].mean():.4f}")
+            check(ok, f"CNN oracle {dataset} {method}: {what} fails")
+            del base, other
+        del world
+        gc.collect()
+
+
+def path_j(torch, ops, dev, profile):
+    """The paper's Table II / IV path at the Table I CNN's full width (see
+    the module docstring).  Returns the roster's and the EMNIST runs'
+    launches and ms per round, and the kernel checks at this path's
+    shapes."""
+    from repro_torch.data.synth import make_dataset
+    from repro_torch.engine import Experiment, Schedule, World
+    from repro_torch.fl.metrics import (accuracy_table, characteristic_time,
+                                        comm_bytes_per_round)
+    from repro_torch.fl.trainer import centralized_train
+    from repro_torch.kernels.segment_avg import segment_avg_plain
+    from repro_torch.optim.sgd import make_optimizer
+    from repro_torch.utils.pytree import (tree_bytes, tree_flatten_stacked,
+                                          tree_map)
+
+    t_start = t0 = time.perf_counter()
+    world = World.synthetic("synth-fashion", nodes=J_NODES,
+                            topology="erdos_renyi", p=0.2, seed=0, scale=1.0)
+    topo = world.topo
+    print(f"path j world built in {time.perf_counter() - t0:.1f} s: "
+          f"synth-fashion, {topo.num_nodes} nodes, ER p = 0.2, "
+          f"{topo.num_edges} undirected edges, max degree {topo.max_degree}, "
+          f"{sum(len(x) for x in world.xs)} / {len(world.x_test)} images")
+    check(topo.num_edges == 252 and topo.max_degree == 16
+          and sum(len(x) for x in world.xs) == 60000
+          and len(world.x_test) == 10000, "path j: the world is not the "
+                                          "paper's 50-node ER split")
+    sched = Schedule(rounds=ROUNDS, eval_every=1)
+    runs, keep = {}, {}
+    for method in J_METHODS:
+        exp = Experiment(world, method, schedule=sched, **J_TRAIN)
+        d = tree_flatten_stacked(exp.params)[0].shape[1]
+        check(d == J_PARAMS[10], f"path j: the CNN has {d} params, not "
+                                 f"{J_PARAMS[10]}")
+        hist, launches, ms, peak = timed_rounds(
+            torch, ops, exp, f"path j {method} (synth-fashion, 50 nodes, "
+                             f"CNN)")
+        want = j_expected_launches(ops, method, exp.train.steps_per_round)
+        check(launches == want, f"path j {method}: launches {launches}, "
+                                f"want {want}")
+        if method == "fedavg":
+            mat = tree_flatten_stacked(exp.params)[0]
+            check(bool((mat == mat[:1]).all()),
+                  "path j fedavg: the nodes' models differ")
+            del mat
+        runs[method] = dict(history=hist, launches=launches, ms=ms,
+                            peak=peak)
+        if method in ("fedavg", "decdiff+vt"):
+            keep[method] = exp
+        else:
+            del exp
+        gc.collect()
+    if profile:
+        ex = keep["decdiff+vt"]
+        profile_round(torch, lambda: ex.run(rounds=1, eval_every=1),
+                      "path j decdiff+vt (50-node CNN, eval included)")
+
+    # -- the kernels at this path's shapes --------------------------------
+    ex = keep["decdiff+vt"]
+    table = tree_flatten_stacked(ex.params)[0]
+    w_j = (ex.nbr_weight * ex.nbr_valid).contiguous()
+    vals = table[ex.nbr_idx].contiguous()
+    seg = kernel_vs_plain(torch, ops, segment_avg_plain, vals, w_j,
+                          "path j (50-node ER CNN, real panel and weights)")
+    sums, tot = ops.segment_neighbor_avg(vals, w_j)
+    del vals
+    torch.cuda.empty_cache()
+    avg = sums / torch.clamp(tot, min=1e-30)[:, None]
+    eq5 = eq5_vs_plain(torch, table, avg, tot.contiguous(),
+                       "path j (real CNN block and its average)",
+                       s=ex.train.s)
+    del avg, sums
+    z, y = real_logits(torch, ex)
+    vt = vt_vs_plain(torch, ops, z, y, "path j (real CNN logits, "
+                     "synth-fashion)", beta=ex.train.beta)
+    fed = keep["fedavg"]
+    nav = navg_vs_plain(torch, ops, tree_flatten_stacked(fed.params)[0],
+                        fed.agg_state["counts"],
+                        "path j (real 50-node CNN stack, |D_i| weights)")
+    model_bytes = tree_bytes(tree_map(lambda t: t[0], ex.params))
+    del ex, fed, keep, table
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the Centralized upper bound, then Tables II and IV ----------------
+    ds = make_dataset("synth-fashion", seed=0, scale=1.0)
+    t0 = time.perf_counter()
+    _, chist = centralized_train(
+        world.model, make_optimizer(lr=J_TRAIN["lr"] / 2,
+                                    momentum=J_TRAIN["momentum"]),
+        ds.x_train, ds.y_train, ds.x_test, ds.y_test, epochs=1,
+        batch_size=64, seed=0, eval_every=1)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    c_acc = chist[-1]["acc"]
+    print(f"path j centralized (one CNN on all 60,000 images, lr 0.05, batch "
+          f"64, 1 epoch = {len(ds.x_train) // 64} steps): {c_s:.2f} s, "
+          f"accuracy {c_acc:.4f}, loss {chist[-1]['loss']:.5f}")
+    check(0.0 < c_acc <= 1.0 and math.isfinite(chist[-1]["loss"]),
+          f"path j centralized: accuracy {c_acc}")
+    del ds
+    table2 = accuracy_table({m: r["history"] for m, r in runs.items()})
+    print(f"path j Table II, a {ROUNDS + 1}-round smoke (one warm round, "
+          f"{ROUNDS} measured; not the paper's result, which runs 800 "
+          f"rounds), centralized accuracy {c_acc:.4f}:")
+    for m, row in table2.items():
+        ct = characteristic_time(runs[m]["history"], c_acc)
+        cb = comm_bytes_per_round(m, topo, model_bytes)
+        print(f"  {m:11s} acc {row['acc_mean']:.4f} ± {row['acc_std']:.4f} "
+              f"loss {row['loss_mean']:.4f} (round {row['round']}); Table IV "
+              f"rounds to 50/80/90/95% of centralized {list(ct.values())}; "
+              f"{cb} bytes per round ({model_bytes} B a model)")
+    check(model_bytes == 4 * J_PARAMS[10], f"model bytes {model_bytes}")
+    check(comm_bytes_per_round("decdiff+vt", topo, model_bytes)
+          == 2 * 252 * model_bytes, "path j: comm bytes per round")
+
+    # -- EMNIST: 26 classes and dropout, in the local steps and the walk ---
+    world_e = World.synthetic("synth-emnist", nodes=J_NODES,
+                              topology="erdos_renyi", p=0.2, seed=0,
+                              scale=1.0)
+    emnist, z_e = {}, None
+    for method in ("decdiff+vt", "cfa-ge"):
+        exp = Experiment(world_e, method, schedule=sched, **J_TRAIN)
+        d = tree_flatten_stacked(exp.params)[0].shape[1]
+        check(d == J_PARAMS[26], f"path j EMNIST: the CNN has {d} params")
+        hist, launches, ms, peak = timed_rounds(
+            torch, ops, exp, f"path j {method} (synth-emnist, 50 nodes, CNN "
+                             f"with dropout)")
+        want = j_expected_launches(ops, method, exp.train.steps_per_round)
+        check(launches == want, f"path j EMNIST {method}: launches "
+                                f"{launches}, want {want}")
+        emnist[method] = dict(launches=launches, ms=ms, peak=peak,
+                              acc=hist[-1].acc_mean)
+        if method == "decdiff+vt":
+            z_e = real_logits(torch, exp)
+        del exp
+        gc.collect()
+    vt_e = vt_vs_plain(torch, ops, *z_e, "path j (real CNN logits, "
+                       "synth-emnist)", beta=J_TRAIN["beta"])
+    del z_e, world_e, world
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path j took {time.perf_counter() - t_start:.1f} s")
+    return dict(runs=runs, emnist=emnist, seg=seg, eq5=eq5, vt=vt,
+                vt_emnist=vt_e, nav=nav, central_acc=c_acc,
+                central_s=c_s)
 
 
 def small_lm_agrees(torch, dev):
@@ -1842,6 +2181,13 @@ def main() -> int:
     lmi = path_i(torch, ops, dev, profile)
     torch.cuda.empty_cache()
 
+    # -- path j: the paper's Table II / IV path at the CNN's full width ----
+    lmj = path_j(torch, ops, dev, profile)
+    small_world_agrees(torch, dev, cnn=True)
+    small_world_agrees(torch, dev, method="fedavg", cnn=True)
+    cnn_oracles(torch, dev)
+    torch.cuda.empty_cache()
+
     # -- path d: the LM DFL pod round at full width ------------------------
     lmd = path_d(torch, ops, dev, profile)
     small_lm_agrees(torch, dev)
@@ -1945,7 +2291,12 @@ def main() -> int:
                      for k in ops.LAUNCHES},
                "h_int8_route": lmh["hq"]["launches"],
                "i": {k: sum(lmi[r]["launches"][k] for r in ("i0", "i1", "i2"))
-                     for k in ops.LAUNCHES}}
+                     for k in ops.LAUNCHES},
+               "j": {k: sum(r["launches"][k] for r in lmj["runs"].values())
+                     for k in ops.LAUNCHES},
+               "j_emnist": {k: sum(r["launches"][k]
+                                   for r in lmj["emnist"].values())
+                            for k in ops.LAUNCHES}}
 
     def launches(name):
         return sum(p[name] for p in by_path.values())
@@ -1966,9 +2317,14 @@ def main() -> int:
                     bound_by=m["bound_by"], library_ms=m["library_ms"],
                     shape=m["shape"], **times, **extra)
 
+    def at_j(m):
+        """A kernel check at path j's shapes, for the kernels line."""
+        return {k: v for k, v in m.items() if k != "kernel_names"}
+
     kernels = [
         entry("segment_neighbor_avg", "segment_avg",
-              "src/repro/kernels/segment_avg.py:62", seg),
+              "src/repro/kernels/segment_avg.py:62", seg,
+              path_j=at_j(lmj["seg"])),
         entry("gather_rows", "gather_rows",
               "src/repro/kernels/gather_rows.py:39", gat,
               every_slot_bound_ms=gat["every_slot_bound_ms"]),
@@ -1977,22 +2333,26 @@ def main() -> int:
         entry("vt_kl_loss_fwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:94", vt_main["fwd"],
               also_replaces="src/repro/kernels/vt_kl_loss.py:108",
-              dtype=vt_main["fwd"]["dtype"]),
+              dtype=vt_main["fwd"]["dtype"], path_j=at_j(lmj["vt"]["fwd"]),
+              path_j_emnist=at_j(lmj["vt_emnist"]["fwd"])),
         entry("vt_kl_loss_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127", vt_main["bwd"],
-              dtype=vt_main["bwd"]["dtype"]),
+              dtype=vt_main["bwd"]["dtype"], path_j=at_j(lmj["vt"]["bwd"]),
+              path_j_emnist=at_j(lmj["vt_emnist"]["bwd"])),
         entry("decdiff_update_sumsq", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", eq5["sumsq"],
-              counter="decdiff_update", dtype=eq5["sumsq"]["dtype"]),
+              counter="decdiff_update", dtype=eq5["sumsq"]["dtype"],
+              path_j=at_j(lmj["eq5"]["sumsq"])),
         entry("decdiff_update_step", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:60", eq5["step"],
-              counter="decdiff_update", dtype=eq5["step"]["dtype"]),
+              counter="decdiff_update", dtype=eq5["step"]["dtype"],
+              path_j=at_j(lmj["eq5"]["step"])),
         entry("decode_attention_fused", "decode_attention",
               "src/repro/kernels/decode_attention.py:92", da_main,
               dtype=da_main["dtype"], other_shapes=da_shapes),
         entry("neighbor_avg", "neighbor_avg",
               "src/repro/kernels/neighbor_avg.py:32", nav_f,
-              other_shapes=[nav_lm, nav_odd]),
+              other_shapes=[nav_lm, nav_odd], path_j=at_j(lmj["nav"])),
         entry("dequant_segment_neighbor_avg", "dequant_segment_avg",
               "src/repro/kernels/segment_avg.py:81", dqs_main,
               fp32_route_err=dqs_main["fp32_route_err"],
@@ -2019,6 +2379,16 @@ def main() -> int:
         f"{k} {lmi[k]['rps']:.2f} rounds per second, bytes "
         f"{lmi[k]['bytes']:.0f}, triggered {lmi[k]['trig']}"
         for k in ("i0", "i1", "i2")))
+    print(f"path j (50 nodes, synth-fashion, Table I CNN, {card}): "
+          + "; ".join(f"{m} {statistics.median(r['ms']):.2f} ms per round, "
+                      f"peak {r['peak'] / 2**30:.2f} GiB, accuracy "
+                      f"{r['history'][-1].acc_mean:.4f}"
+                      for m, r in lmj["runs"].items())
+          + f"; centralized {lmj['central_s']:.2f} s for 1 epoch, accuracy "
+            f"{lmj['central_acc']:.4f}; synth-emnist "
+          + "; ".join(f"{m} {statistics.median(r['ms']):.2f} ms per round, "
+                      f"peak {r['peak'] / 2**30:.2f} GiB"
+                      for m, r in lmj["emnist"].items()))
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -42,6 +42,16 @@ def teacher_entropy(beta: float, num_classes: int) -> torch.Tensor:
     return t1 + t2
 
 
+def soft_labels(labels: torch.Tensor, num_classes: int,
+                beta: float) -> torch.Tensor:
+    """Materialized Eq. (7) distribution [..., V] in fp32 — O(B*V); for
+    reference and testing only (the loss never builds it)."""
+    a = (1.0 - beta) / (num_classes - 1)
+    onehot = torch.nn.functional.one_hot(labels.to(torch.int64),
+                                         num_classes).to(torch.float32)
+    return onehot * beta + (1.0 - onehot) * a
+
+
 def _true_class(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     idx = labels.to(torch.int64).expand(z.shape[:-1])
     return torch.gather(z, -1, idx[..., None])[..., 0]

@@ -1,8 +1,13 @@
-"""Deterministic stride-gather minibatching, node-batched.
+"""Minibatching: shuffled host-side minibatches and the node-batched
+stride-gather `Batcher`.
 
-The counterpart of the JAX package's `Batcher`: for node-local data padded
-to [M, ...] with `count` real samples, batch `step` takes indices
-`(step*bs + arange(bs)) * stride mod count`.  The index arithmetic is int32
+`minibatches` is the JAX package's numpy generator, copied (numpy only,
+so the same `rng` gives the same batches): the centralized baseline draws
+its batches from it.
+
+`Batcher` is the counterpart of the JAX package's `Batcher`: for
+node-local data padded to [M, ...] with `count` real samples, batch `step`
+takes indices `(step*bs + arange(bs)) * stride mod count`.  The index arithmetic is int32
 with two's-complement wrap-around, exactly as `jnp` int32 computes it: the
 product passes 2^31 near step 8474 at bs 32, and from there the indices
 come from the wrapped (negative) value under a floor-sign modulo.  The wrap
@@ -12,9 +17,23 @@ treats signed overflow.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Tuple
 
+import numpy as np
 import torch
+
+
+def minibatches(x: np.ndarray, y: np.ndarray, batch_size: int, *,
+                rng: np.random.Generator, drop_remainder: bool = True
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """One shuffled pass over (x, y) in batches of `batch_size`, the order
+    from `rng.permutation`; the remainder is dropped unless asked for."""
+    n = len(x)
+    order = rng.permutation(n)
+    end = (n // batch_size) * batch_size if drop_remainder else n
+    for s in range(0, max(end, 0), batch_size):
+        ix = order[s:s + batch_size]
+        yield x[ix], y[ix]
 
 
 def wrap_int32(v: torch.Tensor) -> torch.Tensor:

@@ -21,15 +21,18 @@ edges) are 0-d device tensors too; without one, `comm_state`, `sent_edges`
 and `trig` are None.
 
 Random draws come from the experiment's `torch.Generator`, never from the
-global RNG, in the reference's order: heterogeneous step budgets, the
-participation mask, then the codec's uniforms — each only when it is
-used (`hetero_steps_min > 0`, `participation < 1`, a stochastic int8
-codec), so the defaults and `CommConfig()` draw nothing.  Every kind draws
-the link mask, so the later draws do not depend on the method.  The
-dense layout draws the [N, max_deg] panel, the sparse one one uniform per
-directed edge, so the two layouts are bitwise equal only at
-participation == 1, as in the reference.  The `shard_map` backend is
-ROADMAP A.10.
+global RNG, in the reference's order: heterogeneous step budgets, each
+local step's dropout keep masks, the participation mask, then the codec's
+uniforms (and CFA-GE's walk draws its gradient calls' keep masks last) —
+each only when it is used (`hetero_steps_min > 0`, a model with dropout,
+`participation < 1`, a stochastic int8 codec), so the defaults, the MLP,
+the Fashion CNN and `CommConfig()` draw nothing.  Local steps and the
+gradient walk run the model with `train=True`, evaluation with
+`train=False`.  Every kind draws the link mask, so the later draws do not
+depend on the method.  The dense layout draws the [N, max_deg] panel, the
+sparse one one uniform per directed edge, so the two layouts are bitwise
+equal only at participation == 1, as in the reference.  The `shard_map`
+backend is ROADMAP A.10.
 """
 from __future__ import annotations
 
@@ -71,12 +74,12 @@ def _make_local_training(exp):
             step = round_idx * cfg.steps_per_round + b
             xb, yb = batcher.take(x, y, counts, step)
             if budgets is None:
-                params, opt, loss = train_step(params, opt, xb, yb)
+                params, opt, loss = train_step(params, opt, xb, yb, step)
             else:
                 active = (b < budgets).to(torch.float32)
                 old_params = tree_map(torch.clone, params)
                 old_opt = tree_map(torch.clone, opt)
-                params, opt, loss = train_step(params, opt, xb, yb)
+                params, opt, loss = train_step(params, opt, xb, yb, step)
                 _mix_(params, old_params, active)
                 _mix_(opt, old_opt, active)
             losses.append(torch.mean(loss))

@@ -14,10 +14,12 @@ names what the pod backend would gather).  The layout follows the
 topology's type (`Topology` or `SparseTopology`) unless `layout=` says
 otherwise; the two are bitwise equal at participation 1.  Every method of
 the roster runs, the FedAvg server and CFA-GE's gradient exchange
-included.  Options that are not ported yet raise NotImplementedError
+included, over either Table I model: the MLP (MNIST) or the CNN (Fashion,
+and EMNIST with dropout, whose keep masks come from the experiment's
+generator).  Options that are not ported yet raise NotImplementedError
 naming the ROADMAP item that ports them: `dynamics=` (A.7), `timing=` and
-`Schedule(deadline=)` (A.8), `telemetry=` (A.9), `backend="shard_map"`
-(A.10) and the CNN (A.2).
+`Schedule(deadline=)` (A.8), `telemetry=` (A.9) and `backend="shard_map"`
+(A.10).
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
@@ -38,6 +40,7 @@ restart, as in the reference).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -55,8 +58,8 @@ from repro_torch.engine.neighborhood import build_sparse_plan
 from repro_torch.engine.strategies import (MethodSpec, available_methods,
                                            get_method)
 from repro_torch.fl.metrics import RoundMetrics
-from repro_torch.fl.trainer import (make_eval_fn, make_grad_fn,
-                                    make_train_step)
+from repro_torch.fl.trainer import (generator_keep, make_eval_fn,
+                                    make_grad_fn, make_train_step)
 from repro_torch.graphs.sparse import SparseTopology
 from repro_torch.graphs.topology import Topology
 from repro_torch.models.api import SmallModel
@@ -296,12 +299,20 @@ class Experiment:
                 omega * dj * topo.neighbor_mask).to(dev)
             self._total_directed = float(topo.neighbor_mask.sum())
 
+        # the round's own draws (hetero budgets, dropout keep masks,
+        # participation masks, the codec's uniforms)
+        self.gen = torch.Generator(device=dev).manual_seed(
+            _node_seed(train.seed, 23))
         self.optimizer = sgd_momentum(lr=train.lr, momentum=train.momentum)
         self.loss_fn = make_loss_fn(self.method.loss, beta=train.beta)
         self.batcher = Batcher(batch_size=train.batch_size)
-        self._train_step = make_train_step(model, self.optimizer,
-                                           self.loss_fn)
-        self._grad_fn = make_grad_fn(model, self.loss_fn)
+        # local steps and CFA-GE's gradients train the model (dropout on):
+        # one keep-mask draw per dropout layer per call, over every row
+        keep = generator_keep(self.gen, dev)
+        self._train_step = functools.partial(
+            make_train_step(model, self.optimizer, self.loss_fn), keep=keep)
+        self._grad_fn = functools.partial(make_grad_fn(model, self.loss_fn),
+                                          keep=keep)
         self._eval = make_eval_fn(
             model, batch_size=min(train.eval_batch, len(world.x_test)))
 
@@ -316,9 +327,6 @@ class Experiment:
         self.params = tree_map(lambda *ls: torch.stack(ls).to(dev),
                                per_node[0], *per_node[1:])
         self.opt_state = self.optimizer.init(self.params)
-        # the round's own draws (hetero budgets, participation masks)
-        self.gen = torch.Generator(device=dev).manual_seed(
-            _node_seed(train.seed, 23))
 
         # --- gossip transport (capability-gated above) ---
         self.comm = comm

@@ -1,14 +1,19 @@
-"""Per-eval-round metrics of a decentralized-learning run.
+"""Metrics of a decentralized-learning run.
 
-The fields the port fills: the eval round, every node's test accuracy and
-loss, and with a transport the bytes on the wire and the triggered
-fraction.  The JAX package's dynamics, timing and telemetry fields arrive
-with those subsystems (ROADMAP A.7-A.9).
+  * `RoundMetrics`, one eval round: every node's test accuracy and loss,
+    and with a transport the bytes on the wire and the triggered fraction
+    (the JAX package's dynamics, timing and telemetry fields arrive with
+    those subsystems, ROADMAP A.7-A.9);
+  * `characteristic_time` (paper Table IV): rounds to reach a fraction of
+    the centralized benchmark's accuracy;
+  * `comm_bytes_per_round` (paper §VI-A.3): bytes moved per round per
+    method;
+  * `accuracy_table`: the final-round summary of Table II.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -35,3 +40,72 @@ class RoundMetrics:
     @property
     def loss_mean(self) -> float:
         return float(self.loss_per_node.mean())
+
+
+def characteristic_time(history: Sequence[RoundMetrics],
+                        centralized_acc: float,
+                        thresholds=(0.5, 0.8, 0.9, 0.95)
+                        ) -> Dict[float, Optional[int]]:
+    """Paper Table IV: the first round at which the node-average accuracy
+    reaches `thr * centralized_acc`, per threshold.
+
+    A threshold never reached within the history maps to None ("did not
+    converge", not 0).  `centralized_acc <= 0` raises ValueError (every
+    target would be <= 0 and round 0 would reach them all vacuously), and
+    so does an empty history (there is no round to report)."""
+    if len(history) == 0:
+        raise ValueError(
+            "characteristic_time got an empty history; run the experiment "
+            "(or pass its eval history) before computing Table IV")
+    if not centralized_acc > 0:
+        raise ValueError(
+            f"centralized_acc must be > 0 (the centralized benchmark "
+            f"accuracy the thresholds are fractions of), got "
+            f"{centralized_acc}")
+    out: Dict[float, Optional[int]] = {}
+    for thr in thresholds:
+        target = thr * centralized_acc
+        out[thr] = next((m.round for m in history if m.acc_mean >= target),
+                        None)
+    return out
+
+
+def comm_bytes_per_round(method: str, topo, model_bytes: int,
+                         live_frac: float = 1.0) -> int:
+    """Total bytes moved in the system per always-send round.
+
+    `topo` is a `Topology` or a `SparseTopology` (its node and undirected
+    edge counts); `model_bytes` the per-edge payload (with a codec, its
+    `payload_bytes`); `live_frac` the expected fraction of live links
+    (in [0, 1], else ValueError).  Model-exchange methods ship one model
+    per directed edge; CFA-GE also ships the aggregated model back out and
+    the neighbours' gradients back in (4x); FedAvg one model up and one
+    down per client; ISOL and Centralized nothing."""
+    if not 0.0 <= live_frac <= 1.0:
+        raise ValueError(f"live_frac must be in [0, 1], got {live_frac}")
+    directed_edges = 2 * topo.num_edges
+    m = method.lower()
+    if m in ("isol", "centralized", "none"):
+        return 0
+    if m in ("fed", "fedavg"):
+        return int(round(2 * topo.num_nodes * model_bytes * live_frac))
+    if m in ("cfa-ge", "cfage"):
+        return int(round(directed_edges * model_bytes * 2 * 2 * live_frac))
+    # decavg / dechetero / cfa / decdiff / decdiff+vt: parameters only
+    return int(round(directed_edges * model_bytes * live_frac))
+
+
+def accuracy_table(histories: Dict[str, List[RoundMetrics]]
+                   ) -> Dict[str, Dict[str, float]]:
+    """Final-round summary akin to the paper's Table II; a method with an
+    empty history raises ValueError."""
+    table = {}
+    for method, hist in histories.items():
+        if len(hist) == 0:
+            raise ValueError(
+                f"accuracy_table: method {method!r} has an empty history "
+                f"(no eval rounds); run it before tabulating")
+        last = hist[-1]
+        table[method] = {"acc_mean": last.acc_mean, "acc_std": last.acc_std,
+                         "loss_mean": last.loss_mean, "round": last.round}
+    return table

@@ -1,22 +1,30 @@
-"""SGD with heavy-ball momentum, the paper's optimizer, over dict trees.
+"""Optimizers over dict trees: the paper's SGD with momentum, AdamW and
+learning-rate schedules.
 
 PyTorch-convention momentum: v <- mu*v + g;  w <- w - lr*v.
 
-The momentum is fp32 whatever the parameter dtype, and the step is taken
-in fp32 and rounded once to the parameter's dtype, as the JAX package's
-`sgd_momentum` does for its bf16 LM leaves (an in-place op on a bf16
+The optimizer state is fp32 whatever the parameter dtype, and the step is
+taken in fp32 and rounded once to the parameter's dtype, as the JAX
+package's optimizers do for its bf16 LM leaves (an in-place op on a bf16
 tensor with an fp32 operand computes in fp32 and rounds the result).
 
-The update is IN PLACE: `update` overwrites the parameter and momentum
-tensors it is given and returns them.  This saves a second copy of every
-node's model and momentum per step, which the JAX package's pure update
-(new arrays each step) cannot avoid.  Callers that need the old values
-must clone them first.
+The update is IN PLACE: `update(grads, state, params, step=None)`
+overwrites the parameter and state tensors it is given and returns them.
+This saves a second copy of every node's model and state per step, which
+the JAX package's pure update (new arrays each step) cannot avoid.
+Callers that need the old values must clone them first.  `step` is the
+global step index the learning-rate schedule reads; a constant rate needs
+none.
+
+A schedule maps a step to the learning rate as a Python float holding an
+exact fp32 value, computed in fp32 as the reference computes it.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import dataclasses
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -24,11 +32,42 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 
 class Optimizer(NamedTuple):
     init: Callable    # params -> opt_state
-    update: Callable  # (grads, opt_state, params) -> (params, opt_state)
+    update: Callable  # (grads, opt_state, params, step=None) -> (params, opt_state)
 
 
-def sgd_momentum(lr: float = 1e-3, momentum: float = 0.9) -> Optimizer:
-    """Heavy-ball SGD; `update` works in place (see the module docstring)."""
+def constant_schedule(lr: float) -> Callable:
+    lr32 = float(np.float32(lr))
+    return lambda step: lr32
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int,
+                    floor: float = 0.1) -> Callable:
+    """Linear warm-up to `peak_lr` over `warmup` steps, then a cosine decay
+    to `floor * peak_lr` at `total`, in fp32."""
+    f32 = np.float32
+
+    def sched(step):
+        s = f32(step)
+        warm = f32(peak_lr) * min(s / f32(max(warmup, 1)), f32(1.0))
+        t = f32(np.clip((s - f32(warmup)) / f32(max(total - warmup, 1)),
+                        f32(0.0), f32(1.0)))
+        cos = f32(peak_lr) * (f32(floor) + f32((1 - floor) * 0.5)
+                              * (f32(1) + f32(np.cos(f32(np.pi) * t))))
+        return float(warm if s < warmup else cos)
+
+    return sched
+
+
+def _lr_at(sched: Callable, step) -> float:
+    return sched(0 if step is None else int(step))
+
+
+def sgd_momentum(lr=1e-3, momentum: float = 0.9, nesterov: bool = False,
+                 weight_decay: float = 0.0) -> Optimizer:
+    """Heavy-ball SGD (optionally Nesterov, with L2 weight decay added to
+    the gradient); `update` works in place (see the module docstring).
+    `lr` is a float or a schedule (step -> float)."""
+    sched = lr if callable(lr) else None
 
     def init(params):
         return {"momentum": tree_map(
@@ -36,11 +75,74 @@ def sgd_momentum(lr: float = 1e-3, momentum: float = 0.9) -> Optimizer:
                                   device=p.device), params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, step=None):
+        lr_t = lr if sched is None else _lr_at(sched, step)
         for g, v, p in zip(tree_leaves(grads), tree_leaves(state["momentum"]),
                            tree_leaves(params)):
-            v.mul_(momentum).add_(g.to(torch.float32))
-            p.sub_(lr * v)
+            g32 = g.to(torch.float32)
+            if weight_decay:
+                g32 = g32 + weight_decay * p.to(torch.float32)
+            v.mul_(momentum).add_(g32)
+            if nesterov:
+                p.sub_(lr_t * (g32 + momentum * v))
+            else:
+                p.sub_(lr_t * v)
         return params, state
 
     return Optimizer(init=init, update=update)
+
+
+def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1) -> Optimizer:
+    """AdamW with bias correction and decoupled weight decay, in place."""
+    sched = lr if callable(lr) else constant_schedule(lr)
+
+    def init(params):
+        def z(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": tree_map(z, params), "v": tree_map(z, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step=None):
+        lr_t = _lr_at(sched, step)
+        t = np.float32(0 if step is None else int(step)) + np.float32(1.0)
+        c1 = float(np.float32(1.0) - np.float32(b1) ** t)
+        c2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            g32 = g.to(torch.float32)
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * torch.square(g32))
+            delta = (m / c1) / (torch.sqrt(v / c2) + eps) \
+                + weight_decay * p.to(torch.float32)
+            p.sub_(lr_t * delta)
+        return params, state
+
+    return Optimizer(init=init, update=update)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "sgdm"
+    lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    warmup: int = 100
+    total_steps: int = 10_000
+    schedule: str = "constant"  # constant | cosine
+
+
+def make_optimizer(cfg: Optional[OptimizerConfig] = None,
+                   **overrides) -> Optimizer:
+    cfg = dataclasses.replace(cfg or OptimizerConfig(), **overrides)
+    lr: Callable = (
+        cosine_schedule(cfg.lr, cfg.warmup, cfg.total_steps)
+        if cfg.schedule == "cosine"
+        else constant_schedule(cfg.lr)
+    )
+    if cfg.name in ("sgd", "sgdm"):
+        return sgd_momentum(lr=lr, momentum=cfg.momentum,
+                            weight_decay=cfg.weight_decay)
+    if cfg.name == "adamw":
+        return adamw(lr=lr, weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

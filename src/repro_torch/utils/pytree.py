@@ -50,6 +50,16 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_size(tree) -> int:
+    """Total number of scalar parameters."""
+    return int(sum(t.numel() for t in tree_leaves(tree)))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of the leaves in their own dtypes."""
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
+
+
 def tree_flatten_to_vector(tree) -> Tuple[torch.Tensor, Callable]:
     """All leaves concatenated into one flat fp32 vector, and its inverse."""
     leaves = tree_leaves(tree)

@@ -26,7 +26,7 @@ def card():
 
 
 @pytest.mark.parametrize("b,k,d", [(1, 1, 1), (13, 10, 2051), (3, 0, 5),
-                                   (16, 10, 567434)])
+                                   (16, 10, 567434), (50, 16, 1_199_882)])
 def test_kernel_matches_plain_bitwise(card, b, k, d):
     rng = np.random.default_rng([b, k, d])
     vals = torch.from_numpy(
@@ -320,7 +320,8 @@ def test_decode_attention_kernel_window_and_empty_splits(card, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,widths", [(4, [1 << 20]), (16, [567434]),
                                       (3, [7, 4099, 1]), (1, [1]),
-                                      (5, [33 * 7, 1000, 5]), (4, [8192])])
+                                      (5, [33 * 7, 1000, 5]), (4, [8192]),
+                                      (50, [1_199_882])])
 def test_decdiff_kernels_match_plain(card, r, widths, dtype):
     """Pass B bitwise the plain step for the kernel's own scale (4-wide and
     scalar columns, several leaves, a gated-off row); the norms within
@@ -442,6 +443,7 @@ def test_engine_and_lm_round_run_eq5_through_the_kernel(card):
 
 
 @pytest.mark.parametrize("n,d,zero", [(16, 567434, False),
+                                      (50, 1_199_882, False),
                                       (4, 463_987_712, False),
                                       (10, 1_000_003, True), (1, 1, False),
                                       (1, 5000, False), (3, 7, True),
@@ -638,3 +640,100 @@ def test_sparse_layout_equals_dense_on_the_card(card, monkeypatch, method,
     widths = len(se.sparse_plan.widths)
     assert sl["segment_neighbor_avg"] >= 3 * widths
     assert sl["gather_rows"] == 0
+
+
+# ------------------------------------------------ the Table I CNN (path j)
+
+def _cnn_case(variant, n=4, b=8, seed=0):
+    """A CNN, its params (drawn on the CPU), a batch and, for the EMNIST
+    variant, fixed keep masks (the same on both devices)."""
+    from repro_torch.models.mlp_cnn import make_cnn
+    from repro_torch.utils.pytree import tree_map
+
+    classes, drop = (26, True) if variant == "emnist" else (10, False)
+    model = make_cnn(num_classes=classes, use_pool_dropout=drop)
+    gen = torch.Generator().manual_seed(seed)
+    nodes = [model.init(gen) for _ in range(n)]
+    params = tree_map(lambda *ls: torch.stack(ls), nodes[0], *nodes[1:])
+    x = torch.randn((n, b, 28, 28), generator=gen)
+    y = torch.randint(0, classes, (n, b), generator=gen)
+    masks = ([torch.rand((n, b, 12, 12, 64), generator=gen) < 0.75,
+              torch.rand((n, b, 128), generator=gen) < 0.5] if drop else [])
+    return model, params, x, y, masks
+
+
+def _cnn_forward_grads(model, params, x, y, masks, dev, dtype=torch.float32):
+    from repro_torch.utils.pytree import (tree_leaves, tree_map,
+                                          tree_unflatten_like)
+
+    p = tree_map(lambda t: t.to(dev, dtype), params)
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+    it = iter([m.to(dev) for m in masks])
+    logits = model.apply(tree_unflatten_like(p, leaves), x.to(dev, dtype),
+                         train=True, keep=lambda shape, q: next(it))
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.to(dev).reshape(-1))
+    grads = torch.autograd.grad(loss, leaves)
+    return [logits.detach().cpu()] + [g.cpu() for g in grads]
+
+
+@pytest.mark.parametrize("variant", ["fashion", "emnist"])
+def test_cnn_forward_and_gradient_on_the_card_match_the_cpu(card, variant,
+                                                             monkeypatch):
+    """The full-width CNN on the card against the CPU.  In float64 the
+    logits and every gradient agree to rtol 1e-9, atol 1e-13 (in fp32 a
+    ReLU whose input lies within rounding of 0 can switch on one device
+    and not the other, which moves one gradient term).  In fp32, with the
+    global cuDNN flags set to TF32 and nondeterministic algorithms, the
+    logits agree to rtol 1e-4, atol 1e-5 (a TF32 convolution misses by
+    ~1e-3), and the gradients are bitwise those of the same call with the
+    global flags at fp32 and deterministic: the convolutions' own scope
+    sets both, forward and backward, and leaves the global flags as they
+    were."""
+    case = _cnn_case(variant)
+    cpu = torch.device("cpu")
+    for a, b in zip(_cnn_forward_grads(*case, card, torch.float64),
+                    _cnn_forward_grads(*case, cpu, torch.float64)):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-13)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    scoped = _cnn_forward_grads(*case, card)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    loose = _cnn_forward_grads(*case, card)
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert torch.backends.cudnn.deterministic is False
+    torch.testing.assert_close(loose[0], _cnn_forward_grads(*case, cpu)[0],
+                               rtol=1e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(loose, scoped))
+
+
+@pytest.mark.parametrize("dataset,method", [("synth-fashion", "decdiff+vt"),
+                                            ("synth-emnist", "cfa-ge")])
+def test_cnn_rounds_are_deterministic_on_the_card(card, dataset, method,
+                                                  monkeypatch):
+    """Two runs of the same CNN experiment on the card are bitwise equal
+    (cuDNN's deterministic algorithms inside the convolutions' scope, the
+    dropout keep masks from the experiment's generator), with the global
+    flags left nondeterministic."""
+    from repro_torch.engine import Experiment, World
+    from repro_torch.utils.pytree import tree_leaves
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    world = World.synthetic(dataset, nodes=8, topology="erdos_renyi", p=0.4,
+                            scale=0.02, device=card)
+    runs = []
+    for _ in range(2):
+        exp = Experiment(world, method, steps_per_round=2, batch_size=32,
+                         lr=0.05, device=card)
+        ops.reset_launches()
+        hist = exp.run(rounds=2, eval_every=1)
+        assert ops.LAUNCHES["segment_neighbor_avg"] == 2
+        runs.append(([p.clone() for p in tree_leaves(exp.params)],
+                     [m.acc_per_node for m in hist],
+                     list(exp.train_loss_history)))
+    (p0, a0, l0), (p1, a1, l1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert all((a == b).all() for a, b in zip(a0, a1)) and l0 == l1
+    assert torch.backends.cudnn.benchmark is True

@@ -218,8 +218,10 @@ def test_unknown_layout_is_refused(reference):
 
 @pytest.mark.parametrize("case,item", [
     ("dynamics", "A.7"), ("timing", "A.8"), ("deadline", "A.8"),
-    ("telemetry", "A.9"), ("shard_map", "A.10"), ("cnn", "A.2")])
+    ("telemetry", "A.9"), ("shard_map", "A.10"), ("checkpoint", "A.11")])
 def test_unported_options_name_their_roadmap_item(reference, case, item):
+    from repro_torch.launch.train import main as train_main
+
     jw, _, _, _ = reference
     world = _carried_world(jw)
     calls = {
@@ -233,8 +235,8 @@ def test_unported_options_name_their_roadmap_item(reference, case, item):
                                              device="cpu"),
         "shard_map": lambda: Experiment(world, backend="shard_map",
                                         device="cpu"),
-        "cnn": lambda: World.synthetic("synth-fashion", nodes=4, scale=0.005,
-                                       device="cpu"),
+        "checkpoint": lambda: train_main(["--ckpt-dir", "ckpt",
+                                          "--device", "cpu"]),
     }
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         calls[case]()

@@ -347,7 +347,10 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.data.tokens', 'repro_torch.kernels.decode_attention', "
         "'repro_torch.kernels.decdiff_update', 'repro_torch.launch.serve', "
         "'repro_torch.kernels.neighbor_avg', 'repro_torch.kernels.ref', "
-        "'repro_torch.core.decdiff', 'repro_torch.core.aggregation'):\n"
+        "'repro_torch.core.decdiff', 'repro_torch.core.aggregation', "
+        "'repro_torch.models.mlp_cnn', 'repro_torch.models.api', "
+        "'repro_torch.optim.sgd', 'repro_torch.fl.metrics', "
+        "'repro_torch.fl.trainer', 'repro_torch.data.pipeline'):\n"
         "    assert m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules "
         "if k.startswith('repro_torch')]))\n")
