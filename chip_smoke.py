@@ -71,8 +71,11 @@ It imports the port only (no JAX), and:
      rounds), without a transport and with the per-edge int8 adaptive 0.6
      transport: rounds per second, triggered fraction, bytes; and
      `cfa-ge` without a transport on the same world and schedule: rounds
-     per second and the walk's row-gradients; the dense layout is refused
-     at that size;
+     per second and the walk's row-gradients; and, as `bench_scale.py`'s
+     dynamics tier (i3), `decdiff` with the per-edge int8 adaptive 0.6
+     transport under `EdgeDropout(p=0.2)`: rounds per second, the live and
+     triggered fractions and bytes = payload x fired live edges; the dense
+     layout is refused at that size;
   4c. drives path j, the paper's Table II / IV path at the Table I CNN's
      full width: `benchmarks/common.py`'s WorldConfig at the paper's 50
      nodes (`World.synthetic("synth-fashion", nodes=50,
@@ -106,6 +109,24 @@ It imports the port only (no JAX), and:
      bitwise oracles with the CNN on a 16-node world: fused equals loop
      and the sparse layout equals dense (`decdiff+vt`, Fashion), fused
      equals loop with dropout (EMNIST, `decdiff+vt` and `cfa-ge`);
+  4d. drives path k, time-varying graphs and the event clock on a-c's
+     world, model and schedule (the counts set to 0 just before the 3
+     measured rounds and read just after, checked exactly; ms per round,
+     peak device memory, live and arrived fractions and simulated seconds
+     printed for every run): k0 `StaticGraph()` with the degenerate
+     `Timing()`, bitwise equal to path a; k1 `EdgeDropout(p=0.2)` with the
+     per-edge int8 adaptive 0.95 transport on both layouts, bitwise equal,
+     bytes = payload x fired live edges; k2 `EnergyChurn(8, 4, 4)` under
+     `Timing(LognormalStep(1.0, 0.5, seed=7), LognormalLink(...))`
+     (bench_time.py's links at 1e6 B/s) for `decdiff+vt` with the per-node
+     int8 transport and for `fedavg`: someone dies and rejoins, dead rows
+     stay bitwise frozen, `reset_rows` resets the rejoined rows; k3
+     `Schedule(deadline=6.0)` with k1's transport and k2's clock: the
+     clock reads (r+1)·6 s, some payloads arrive late, fused = loop and
+     sparse = dense bitwise; k4 `GilbertElliott(0.1, 0.3)` and
+     `PeriodicRewiring(period=1, num_graphs=4)` (the union layout); then
+     a small world on the card against the CPU under `ScriptedGraph` and
+     under `EnergyChurn` with a deadline;
   5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
      its one-pod form with the fused int8 gossip
      (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
@@ -1087,7 +1108,10 @@ def path_i(torch, ops, dev, profile):
     Returns each run's launches, rounds per second and bytes."""
     import numpy as np
 
+    import dataclasses
+
     from repro_torch.comm import CommConfig
+    from repro_torch.dynamics import EdgeDropout
     from repro_torch.engine import Experiment, Schedule, World
     from repro_torch.graphs.sparse import sparse_barabasi_albert
     from repro_torch.models.mlp_cnn import make_mlp
@@ -1119,17 +1143,21 @@ def path_i(torch, ops, dev, profile):
           f"{I_NODES} nodes, {st.num_directed} directed edges, max degree "
           f"{st.max_degree}; the dense layout is refused at this size")
     out = {}
-    for key, method, label, comm in [
-            ("i0", "decdiff", "no transport", None),
-            ("i1", "decdiff", "per-edge int8 adaptive 0.6",
-             CommConfig(codec="int8", policy="adaptive", target_trigger=0.6,
-                        per_edge=True)),
-            ("i2", "cfa-ge", "no transport", None)]:
+    edge06 = CommConfig(codec="int8", policy="adaptive", target_trigger=0.6,
+                        per_edge=True)
+    for key, method, label, comm, dyn in [
+            ("i0", "decdiff", "no transport", None, None),
+            ("i1", "decdiff", "per-edge int8 adaptive 0.6", edge06, None),
+            ("i2", "cfa-ge", "no transport", None, None),
+            # bench_scale.py's dynamics tier
+            ("i3", "decdiff", "per-edge int8 adaptive 0.6, "
+             "EdgeDropout(p=0.2)", edge06, EdgeDropout(p=0.2))]:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        exp = Experiment(world, method, comm=comm,
+        exp = Experiment(dataclasses.replace(world, dynamics=dyn), method,
+                         comm=comm,
                          schedule=Schedule(rounds=ROUNDS, eval_every=ROUNDS,
                                            mode="loop"),
                          steps_per_round=1, batch_size=4, eval_batch=64,
@@ -1172,20 +1200,396 @@ def path_i(torch, ops, dev, profile):
         if method == "cfa-ge":
             walk = ge_walk_rows(exp)
             print(f"path i (cfa-ge): {walk}")
+        live = None
         if comm is not None:
-            sent = [t * st.num_directed for t in trig]
+            # under dynamics trig is fired over the round's live edges
+            lives = ([st.num_directed] * ROUNDS if dyn is None else
+                     [f * st.num_directed for f in exp.live_history[-ROUNDS:]])
+            sent = [t * lv for t, lv in zip(trig, lives)]
             fired = sum(round(x) for x in sent)
-            check(all(abs(x - round(x)) < 1e-2 for x in sent)
+            check(all(abs(x - round(x)) < 1e-2 for x in sent + lives)
                   and bytes_d == exp.transport.payload_bytes * fired
-                  and 0 < fired <= st.num_directed * ROUNDS,
-                  f"path i bytes {bytes_d}, fired {sent}")
+                  and 0 < fired <= sum(round(x) for x in lives),
+                  f"path i bytes {bytes_d}, fired {sent}, live {lives}")
+        if dyn is not None:
+            live = exp.live_history[-ROUNDS:]
+            print(f"path i ({label}): live fraction per round {live}, "
+                  f"live_edge_frac {hist[-1].live_edge_frac}, triggered "
+                  f"fraction of the live edges {trig}")
+            check(all(0.0 < f < 1.0 for f in live),
+                  f"path i3: live fractions {live}")
         out[key] = dict(launches=launches, rps=rps, wall=wall, trig=trig,
-                        bytes=bytes_d, peak=peak, walk=walk)
+                        bytes=bytes_d, peak=peak, walk=walk, live=live)
         if profile:
             profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
                           f"path i {method} {label} (eval included)")
         del exp, hist
     del world
+    gc.collect()
+    return out
+
+
+# ----------------------------------------------------------------- path k
+
+# path k's clock: bench_time.py's node model, and its links at 10x the
+# bandwidth (at 1e5 B/s the full-width payload would miss every deadline)
+K_LINK = dict(latency_median=0.05, latency_sigma=0.5, bandwidth_median=1e6,
+              bandwidth_sigma=0.5, seed=11)
+K_NODE = dict(median=1.0, sigma=0.5, seed=7)
+K_DEADLINE = 6.0
+
+
+def k_expected_launches(ops, exp, method):
+    """A path-k run's launches over ROUNDS rounds: path j's roster counts,
+    with the segment reduce once per width bucket and round on the sparse
+    layout and `gather_rows` once a round on the dense per-edge transport.
+    A dead node still runs its masked local steps, so the VT kernels launch
+    once a local step whatever the churn."""
+    want = j_expected_launches(ops, method, exp.train.steps_per_round)
+    if exp.layout == "sparse" and want["segment_neighbor_avg"]:
+        want["segment_neighbor_avg"] = ROUNDS * len(exp.sparse_plan.widths)
+    if exp.layout == "dense" and exp.comm is not None \
+            and exp.comm.use_per_edge:
+        want["gather_rows"] = ROUNDS
+    return want
+
+
+def record_alive(exp):
+    """Record each round's [N] aliveness and rejoin flags as the engine
+    realizes them, and each round's params before and after (the round
+    function wrapped)."""
+    bound, events, rounds = exp.bound_dyn, [], []
+    inner_t, inner_r = bound.transition, exp._round
+
+    def transition(*args):
+        state, ev = inner_t(*args)
+        events.append((ev.alive.clone(), ev.rejoined.clone()))
+        return state, ev
+
+    def copy(p):
+        return {k: {kk: t.clone() for kk, t in v.items()}
+                for k, v in p.items()}
+
+    def round_fn(params, *rest):
+        # both copies: the next round's local steps update params in place
+        before = copy(params)
+        out = inner_r(params, *rest)
+        rounds.append((before, copy(out[0])))
+        return out
+
+    object.__setattr__(bound, "transition", transition)
+    exp._round = round_fn
+    return events, rounds
+
+
+def drive_k(torch, ops, exp, label, method="decdiff+vt"):
+    """`drive` (one warm round, then ROUNDS fused rounds, the counts set to
+    0 just before and read just after) with the peak device memory (and
+    its rise over what was allocated before the run: the earlier paths'
+    experiments are still alive), the live-edge and arrived fractions and
+    the simulated seconds, and the launches checked exactly."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hist, launches, ms, bytes_d, trig = drive(torch, ops, exp, label)
+    peak = torch.cuda.max_memory_allocated()
+    m = hist[-1]
+    print(f"{label}: {ms:.2f} ms per round, peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B), {(peak - base) / 2**30:.2f} "
+          f"GiB above the {base} B allocated before it; live_edge_frac "
+          f"{m.live_edge_frac}, arrived_frac {m.arrived_frac}, sim_time "
+          f"{m.sim_time}; per round live {exp.live_history[-ROUNDS:]}, "
+          f"arrived {exp.arrived_history[-ROUNDS:]}, simulated seconds "
+          f"{exp.sim_time_history[-ROUNDS:]}")
+    want = k_expected_launches(ops, exp, method)
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+    return dict(hist=hist, launches=launches, ms=ms, peak=peak,
+                rise=peak - base, bytes=bytes_d, trig=trig,
+                live=list(exp.live_history),
+                arrived=list(exp.arrived_history),
+                sim=list(exp.sim_time_history),
+                live_frac=m.live_edge_frac, arrived_frac=m.arrived_frac,
+                sim_time=m.sim_time)
+
+
+def same_k(torch, a, b):
+    """Two path-k runs bitwise equal: params, accuracies, train losses,
+    bytes, trigger, live, arrived and simulated-seconds histories."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    ea, eb = a["exp"], b["exp"]
+    return (all(torch.equal(x, y) for x, y in zip(tree_leaves(ea.params),
+                                                  tree_leaves(eb.params)))
+            and all((x.acc_per_node == y.acc_per_node).all()
+                    for x, y in zip(a["hist"], b["hist"]))
+            and ea.train_loss_history == eb.train_loss_history
+            and ea.comm_bytes_total == eb.comm_bytes_total
+            and ea.trig_history == eb.trig_history
+            and ea.live_history == eb.live_history
+            and ea.arrived_history == eb.arrived_history
+            and ea.sim_time_history == eb.sim_time_history)
+
+
+def k_bytes_check(exp, run, n_dir, label):
+    """Bytes on the wire = payload x fired live edges, exactly: per round
+    fired = trig x live edges (trig is fired over live)."""
+    payload = exp.transport.payload_bytes
+    lives = [f * n_dir for f in run["live"][-ROUNDS:]]
+    sent = [t * lv for t, lv in zip(run["trig"], lives)]
+    check(all(abs(x - round(x)) < 1e-3 for x in sent + lives),
+          f"{label}: fired {sent}, live {lives}")
+    fired = sum(round(x) for x in sent)
+    print(f"{label}: live edges per round {[round(x) for x in lives]}, "
+          f"fired {[round(x) for x in sent]}, bytes on the wire "
+          f"{run['bytes']:.0f} = {payload} x {fired}")
+    check(run["bytes"] == payload * fired and 0 < fired
+          and all(round(x) <= round(lv) for x, lv in zip(sent, lives)),
+          f"{label}: bytes {run['bytes']} != {payload} x {fired}")
+
+
+def small_dyn_agrees(torch, dev, label, dynamics, timing=None,
+                     deadline=None, comm=None, method="decdiff+vt"):
+    """A small world under a deterministic process, on the card and on
+    the CPU: params to 1e-4, accuracy to one test sample, bytes, live and
+    arrived fractions and simulated seconds exactly."""
+    from repro_torch.engine import Experiment, Schedule, World
+    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.utils.pytree import tree_leaves
+
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        world = World.synthetic("synth-mnist", nodes=16,
+                                topology="barabasi_albert", m=2, scale=0.03,
+                                model=make_mlp(hidden=(64, 32)),
+                                device=where, dynamics=dynamics,
+                                timing=timing)
+        exp = Experiment(world, method, steps_per_round=2, batch_size=32,
+                         device=where, comm=comm,
+                         schedule=Schedule(rounds=3, eval_every=1,
+                                           deadline=deadline))
+        hist = exp.run()
+        runs.append((hist, [p.cpu() for p in tree_leaves(exp.params)],
+                     len(world.x_test), exp))
+    (hc, pc, n_test, ec), (hh, ph, _, eh) = runs
+    used = (n_test // min(128, n_test)) * min(128, n_test)
+    perr = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    aerr = max(float(abs(a.acc_per_node - b.acc_per_node).max()) * used
+               for a, b in zip(hc, hh))
+    fields = ("bytes_on_wire", "triggered_frac", "live_edge_frac",
+              "sim_time", "arrived_frac")
+    same = all(getattr(a, f) == getattr(b, f) for a, b in zip(hc, hh)
+               for f in fields) and ec.live_history == eh.live_history
+    print(f"small world (16 nodes, MLP 784-64-32-10, 3 rounds, {method}, "
+          f"{label}) card vs cpu: max |param diff| {perr:.3g}, max accuracy "
+          f"diff {aerr:.3g} test samples; live {ec.live_history}, simulated "
+          f"seconds {ec.sim_time_history}, arrived {ec.arrived_history}: "
+          f"bytes / live / time / arrived equal = {same}")
+    check(perr <= 1e-4 and aerr <= 1.0 + 1e-6 and same,
+          f"small world card vs cpu differ ({label})")
+    check(min(ec.live_history) < 1.0, f"small world ({label}): no edge "
+                                      f"went down")
+
+
+def path_k(torch, ops, dev, world, snap_a, profile):
+    """Time-varying graphs and the event clock on a-c's world at full width
+    (see the module docstring).  Returns each run's summary."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.dynamics import (EdgeDropout, EnergyChurn,
+                                      GilbertElliott, PeriodicRewiring,
+                                      ScriptedGraph, StaticGraph)
+    from repro_torch.engine import Experiment, Schedule
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+    from repro_torch.utils.pytree import tree_leaves
+
+    sched = Schedule(rounds=ROUNDS, eval_every=1)
+    n_dir = int(world.topo.neighbor_mask.sum())
+    edge_int8 = CommConfig(codec="int8", policy="adaptive",
+                           target_trigger=0.95)
+    clock = Timing(LognormalStep(**K_NODE), LognormalLink(**K_LINK))
+    out = {}
+
+    def run(key, label, method="decdiff+vt", dynamics=None, timing=None,
+            **kw):
+        w = dataclasses.replace(world, dynamics=dynamics, timing=timing)
+        exp = Experiment(w, method, **kw)
+        r = drive_k(torch, ops, exp, f"path {key} ({label})", method)
+        r["exp"] = exp
+        out[key] = r
+        return r
+
+    # -- k0: the identity process and the degenerate clock = path a ------
+    k0 = run("k0", "StaticGraph(), Timing(), no transport",
+             dynamics=StaticGraph(), timing=Timing(), schedule=sched)
+    e0 = k0["exp"]
+    same = (all(torch.equal(a, b) for a, b in
+                zip(tree_leaves(e0.params), snap_a["params"]))
+            and all((m.acc_per_node == a).all()
+                    for m, a in zip(k0["hist"], snap_a["acc"]))
+            and e0.train_loss_history == snap_a["losses"])
+    print(f"path k0: params, accuracies and train losses bitwise equal to "
+          f"path a = {same}")
+    check(same, "path k0 differs from path a")
+    steps = float(e0.train.steps_per_round)
+    check(e0.live_history == [1.0] * (ROUNDS + 1)
+          and e0.arrived_history == [1.0] * (ROUNDS + 1)
+          and e0.sim_time_history == [steps * (r + 1)
+                                      for r in range(ROUNDS + 1)],
+          f"path k0: live {e0.live_history}, simulated seconds "
+          f"{e0.sim_time_history}")
+    del e0, k0["exp"]
+
+    # -- k1: EdgeDropout(0.2) with the per-edge int8 transport, both layouts
+    k1 = run("k1", "EdgeDropout(p=0.2), per-edge int8 adaptive 0.95, dense",
+             dynamics=EdgeDropout(p=0.2), schedule=sched, comm=edge_int8)
+    k1s = run("k1_s", "EdgeDropout(p=0.2), per-edge int8 adaptive 0.95, "
+              "sparse", dynamics=EdgeDropout(p=0.2), schedule=sched,
+              comm=edge_int8, layout="sparse")
+    same = same_k(torch, k1, k1s)
+    print(f"path k1: sparse layout against dense bitwise equal = {same}")
+    check(same, "path k1: the sparse layout differs from the dense one")
+    check(0.0 < k1["live_frac"] < 1.0 and min(k1["live"]) > 0.0,
+          f"path k1: live fractions {k1['live']}")
+    k_bytes_check(k1["exp"], k1, n_dir, "path k1")
+    if profile:
+        profile_round(torch, lambda: k1["exp"].run(rounds=1, eval_every=1),
+                      "path k1 EdgeDropout per-edge int8 (eval included)")
+    del k1["exp"], k1s["exp"]
+
+    # -- k2: EnergyChurn under the clock, decdiff+vt per node and fedavg --
+    churn = EnergyChurn(capacity=8.0, recharge=4.0, rejoin_at=4.0)
+    for key, method, comm in [("k2", "decdiff+vt", CommConfig(codec="int8")),
+                              ("k2_fedavg", "fedavg", None)]:
+        w = dataclasses.replace(world, dynamics=churn, timing=clock)
+        exp = Experiment(w, method, schedule=sched, comm=comm)
+        exp.run(rounds=1, eval_every=1)  # the warm round of `drive`, here
+        events, rounds = record_alive(exp)
+        resets = []
+        if comm is not None:
+            inner_reset = exp.transport.reset_rows
+
+            def reset_rows(state, reset, inner=inner_reset):
+                resets.append(int((reset > 0).sum()))
+                return inner(state, reset)
+
+            exp.transport.reset_rows = reset_rows
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = exp.run(rounds=ROUNDS, eval_every=1)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        label = (f"path {key} (EnergyChurn(8, 4, 4), LognormalStep + "
+                 f"LognormalLink at 1e6 B/s, {method}"
+                 + (", per-node int8)" if comm is not None else ")"))
+        check_history(torch, exp, hist, exp.train_loss_history[-ROUNDS:],
+                      label)
+        alive = [al for al, _ in events]
+        died = int(sum(int((al == 0).sum()) for al in alive))
+        rejoined = int(sum(float(rj.sum()) for _, rj in events))
+        frozen = all(
+            torch.equal(after[k][kk][dead], before[k][kk][dead])
+            for (before, after), al in zip(rounds, alive)
+            for dead in [al == 0] for k in before for kk in before[k])
+        m = hist[-1]
+        print(f"{label}: {ROUNDS} rounds (fused, with the recording wrapper "
+              f"that clones the params each round) in {ms:.2f} ms per round, "
+              f"peak device memory {peak / 2**30:.2f} GiB ({peak} B), "
+              f"{(peak - base) / 2**30:.2f} GiB above the {base} B allocated "
+              f"before it; alive "
+              f"per round {[int(x.sum()) for x in alive]} of {exp.n}, "
+              f"node-rounds dead {died}, rejoins {rejoined}, reset_rows "
+              f"calls {len(resets)} resetting {resets} rows; dead rows "
+              f"bitwise frozen = {frozen}; live_edge_frac "
+              f"{m.live_edge_frac}, arrived_frac {m.arrived_frac}, sim_time "
+              f"{m.sim_time}; simulated seconds per round "
+              f"{exp.sim_time_history[-ROUNDS:]}; kernel launches "
+              f"{launches}")
+        want = k_expected_launches(ops, exp, method)
+        check(launches == want, f"{label}: launches {launches}, not {want}")
+        check(died > 0 and rejoined > 0 and frozen,
+              f"{label}: died {died}, rejoined {rejoined}, frozen {frozen}")
+        if comm is not None:
+            check(len(resets) == ROUNDS and sum(resets) == rejoined,
+                  f"{label}: reset_rows {resets}, rejoins {rejoined}")
+        out[key] = dict(hist=hist, launches=launches, ms=ms, peak=peak,
+                        rise=peak - base, live_frac=m.live_edge_frac,
+                        arrived_frac=m.arrived_frac, sim_time=m.sim_time,
+                        died=died, rejoined=rejoined)
+        if profile and comm is not None:
+            profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
+                          "path k2 EnergyChurn decdiff+vt per-node int8 "
+                          "(eval included)")
+        del exp, hist, rounds
+
+    # -- k3: deadline ticks, the per-edge transport and k2's clock --------
+    runs = {}
+    for layout in ("dense", "sparse"):
+        for mode in ("fused", "loop"):
+            if layout == "sparse" and mode == "loop":
+                continue
+            key = "k3" if (layout, mode) == ("dense", "fused") \
+                else f"k3_{layout}_{mode}"
+            runs[layout, mode] = run(
+                key, f"Schedule(deadline={K_DEADLINE}), per-edge int8 "
+                f"adaptive 0.95, LognormalStep + LognormalLink at 1e6 B/s, "
+                f"{layout}, {mode}", timing=clock, layout=layout,
+                comm=edge_int8,
+                schedule=Schedule(rounds=ROUNDS, eval_every=1, mode=mode,
+                                  deadline=K_DEADLINE))
+    k3 = runs["dense", "fused"]
+    ticks = [K_DEADLINE * (r + 1) for r in range(ROUNDS + 1)]
+    same = (same_k(torch, k3, runs["dense", "loop"])
+            and same_k(torch, k3, runs["sparse", "fused"]))
+    print(f"path k3: fused = loop and sparse = dense bitwise = {same}; "
+          f"simulated seconds {k3['sim']} (want {ticks}); arrived per round "
+          f"{k3['arrived']}")
+    check(same, "path k3: fused / loop / sparse runs differ")
+    check(k3["sim"] == ticks, f"path k3: simulated seconds {k3['sim']}")
+    check(all(0.0 < a < 1.0 for a in k3["arrived"]),
+          f"path k3: arrived fractions {k3['arrived']}")
+    for r in runs.values():
+        del r["exp"]
+
+    # -- k4: bursty links and the rewiring union layout, no transport -----
+    for key, label, dyn in [
+            ("k4_ge", "GilbertElliott(p_gb=0.1, p_bg=0.3)",
+             GilbertElliott(p_gb=0.1, p_bg=0.3)),
+            ("k4_rewire", "PeriodicRewiring(period=1, num_graphs=4)",
+             PeriodicRewiring(period=1, num_graphs=4))]:
+        r = run(key, label, dynamics=dyn, schedule=sched)
+        e = r["exp"]
+        print(f"path {key}: layout {e.topo.name}, max degree "
+              f"{e.topo.max_degree}, {int(e.topo.neighbor_mask.sum())} "
+              f"directed edges; stationary live fraction "
+              f"{e.bound_dyn.stationary_live_frac}")
+        check(0.0 < r["live_frac"] < 1.0 and min(r["live"]) > 0.0,
+              f"path {key}: live fractions {r['live']}")
+        del e, r["exp"]
+
+    # -- card against CPU: the deterministic processes --------------------
+    from repro_torch.graphs.topology import make_topology
+
+    m16 = int(np.triu(make_topology("barabasi_albert", n=16, m=2,
+                                    seed=0).adjacency, 1).sum())
+    small_dyn_agrees(
+        torch, dev, "ScriptedGraph, per-edge int8 adaptive 0.95",
+        ScriptedGraph(np.random.default_rng(5).integers(
+            0, 2, (3, m16)).astype(np.float32)),
+        comm=CommConfig(codec="int8", policy="adaptive", target_trigger=0.95,
+                        stochastic=False))
+    small_dyn_agrees(
+        torch, dev, "EnergyChurn(3, 4, 2), deadline 2.5",
+        EnergyChurn(capacity=3.0, recharge=4.0, rejoin_at=2.0),
+        timing=clock, deadline=2.5)
     gc.collect()
     return out
 
@@ -2098,6 +2502,13 @@ def main() -> int:
             ("g", "path g", "cfa-ge", None, dict(neighbor_avg=0))]:
         sparse_launches[f"{key}_s"], _ = sparse_equals_dense(
             torch, ops, world, snaps[key], label, method, comm, sched, want)
+
+    # -- path k: time-varying graphs and the event clock at full width ---
+    profile = "--profile" in sys.argv[1:]
+    t0 = time.perf_counter()
+    lmk = path_k(torch, ops, dev, world, snaps["a"], profile)
+    k_s = time.perf_counter() - t0
+    print(f"path k took {k_s:.1f} s")
     del snaps
     # CFA-GE's gradient walk cut into calls of 16 edges (the last one
     # padded): both layouts make the same calls, so they stay bitwise equal
@@ -2162,7 +2573,6 @@ def main() -> int:
                           exp_f.agg_state["counts"],
                           "path f (real stack after the last round, |D_i| "
                           "weights)", cold=True)
-    profile = "--profile" in sys.argv[1:]
     if profile:
         profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
                       "no-transport (eval included)")
@@ -2292,6 +2702,9 @@ def main() -> int:
                "h_int8_route": lmh["hq"]["launches"],
                "i": {k: sum(lmi[r]["launches"][k] for r in ("i0", "i1", "i2"))
                      for k in ops.LAUNCHES},
+               "i3": lmi["i3"]["launches"],
+               "k": {k: sum(r["launches"][k] for r in lmk.values())
+                     for k in ops.LAUNCHES},
                "j": {k: sum(r["launches"][k] for r in lmj["runs"].values())
                      for k in ops.LAUNCHES},
                "j_emnist": {k: sum(r["launches"][k]
@@ -2378,7 +2791,15 @@ def main() -> int:
     print("path i (10,000 nodes, sparse): " + "; ".join(
         f"{k} {lmi[k]['rps']:.2f} rounds per second, bytes "
         f"{lmi[k]['bytes']:.0f}, triggered {lmi[k]['trig']}"
-        for k in ("i0", "i1", "i2")))
+        for k in ("i0", "i1", "i2", "i3")))
+    print(f"path i3 (EdgeDropout(p=0.2)): live fraction per round "
+          f"{lmi['i3']['live']}")
+    print(f"path k (16 nodes, full-width MLP, {card}): " + "; ".join(
+        f"{k} {r['ms']:.2f} ms per round, peak {r['peak'] / 2**30:.2f} GiB "
+        f"({r['rise'] / 2**30:.2f} above the run's start), "
+        f"live_edge_frac {r['live_frac']}, arrived_frac {r['arrived_frac']}, "
+        f"sim_time {r['sim_time']}" for k, r in lmk.items())
+        + f"; path k in all {k_s:.1f} s")
     print(f"path j (50 nodes, synth-fashion, Table I CNN, {card}): "
           + "; ".join(f"{m} {statistics.median(r['ms']):.2f} ms per round, "
                       f"peak {r['peak'] / 2**30:.2f} GiB, accuracy "

@@ -510,9 +510,10 @@ class SparseEdgeGossipTransport:
     address of one link: its gate, delivery, aggregation mask and
     reconstruction all live at position e, and receiver i's neighbour
     models are `last_sent[row_offsets[i]:row_offsets[i+1]]`, the CSR row
-    the SparseNeighborhood buckets enumerate (`WidthBucket.epos`).  The
-    dense twin's `live` and `reset` options and `reset_edges` serve churn
-    (ROADMAP A.7) and come with it.
+    the SparseNeighborhood buckets enumerate (`WidthBucket.epos`).  Under
+    a dynamics process the exchange takes the dense twin's `live` and
+    `reset` options over the [E] list, and `reset_edges` returns a
+    rejoined node's links to bootstrap.
 
     Bitwise equal to the dense twin by construction: the same elementwise
     gate, controller and codec per link, the uniforms drawn as the same
@@ -530,11 +531,12 @@ class SparseEdgeGossipTransport:
         self.wants_rng = _wants_rng(self.codec)
         self.edge_src = torch.from_numpy(
             st.edge_src.astype(np.int64)).to(dev)
+        self.num_edges = float(self.e_dir)  # directed edge count
+        # the threshold an edge (re)starts from, as EdgeGossipTransport.thr0
+        self.thr0 = (config.trigger_threshold if config.policy == "fixed"
+                     else 0.0)
 
     def init_state(self, stacked_params) -> SparseEdgeCommState:
-        # the starting threshold, as EdgeGossipTransport.thr0
-        thr0 = (self.config.trigger_threshold
-                if self.config.policy == "fixed" else 0.0)
         zeros = torch.zeros((self.e_dir, self.d), dtype=torch.float32,
                             device=self.device)
         vec = torch.zeros((self.e_dir,), dtype=torch.float32,
@@ -542,19 +544,43 @@ class SparseEdgeGossipTransport:
         return SparseEdgeCommState(
             last_sent=zeros,
             residual=self.codec.init_residual(zeros),
-            threshold=torch.full((self.e_dir,), thr0,
+            threshold=torch.full((self.e_dir,), self.thr0,
                                  dtype=torch.float32, device=self.device),
             drift_ema=vec, ever_delivered=vec.clone())
 
+    def reset_edges(self, state: SparseEdgeCommState,
+                    reset) -> SparseEdgeCommState:
+        """Edges where `reset` [E] > 0 return to their init_state values
+        (reference, residual, threshold, drift EMA and delivery history),
+        as EdgeGossipTransport.reset_edges; other edges stay
+        bit-identical.  The engine raises `reset` on both directed records
+        of every link incident to a rejoined node."""
+        r = reset > 0
+        residual = state.residual
+        if residual is not None:
+            rb = r.reshape(r.shape + (1,) * (residual.dim() - 1))
+            residual = torch.where(rb, 0.0, residual)
+        return SparseEdgeCommState(
+            last_sent=torch.where(r[:, None], 0.0, state.last_sent),
+            residual=residual,
+            threshold=torch.where(r, self.thr0, state.threshold),
+            drift_ema=torch.where(r, 0.0, state.drift_ema),
+            ever_delivered=torch.where(r, 0.0, state.ever_delivered))
+
     def exchange(self, stacked_params, state: SparseEdgeCommState, link_mask,
-                 rng: Optional[torch.Generator] = None, *,
-                 wire: str = "encoded"):
+                 rng: Optional[torch.Generator] = None, live=None,
+                 reset=None, *, wire: str = "encoded"):
         """One per-edge transport round over the flat edge list.
 
         link_mask: [E] {0,1} per-directed-edge link mask (the engine folds
-        the participation draws into it).  rng: the generator the codec
-        draws from (iff `wants_rng`): one uniform row per canonical edge,
-        the rows the dense per-edge transport indexes by `edge_id`.
+        the participation draws, and under dynamics the live and arrival
+        masks, into it).  rng: the generator the codec draws from (iff
+        `wants_rng`): one uniform row per canonical edge, the rows the
+        dense per-edge transport indexes by `edge_id`.  live: optional [E]
+        {0,1} live-edge mask: a dead edge cannot fire, costs nothing and
+        freezes its controller (unlike a `link_mask` failure, which the
+        sender pays for).  reset: optional [E] {0,1} edges returned to
+        bootstrap before the drift is measured (`reset_edges`).
 
         Returns (edge_table [E, D], agg_mask [E], gate [E], new_state):
         entry e of the table is what edge e's receiver holds for its sender
@@ -565,8 +591,10 @@ class SparseEdgeGossipTransport:
         _check_wire(wire)
         codec, cfg = self.codec, self.config
         w, _ = tree_flatten_stacked(stacked_params)
-        valid = torch.ones((self.e_dir,), dtype=torch.float32,
-                           device=self.device)
+        if reset is not None:
+            state = self.reset_edges(state, reset)
+        valid = (torch.ones((self.e_dir,), dtype=torch.float32,
+                            device=self.device) if live is None else live)
         last = state.last_sent
         # each [E, D] temporary below is freed as soon as it is used: at
         # full width one is 2.3 GB (1,016 edges x 567,434 params)

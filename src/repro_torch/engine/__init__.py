@@ -1,4 +1,5 @@
-"""repro_torch.engine — the Experiment front door over method strategies."""
+"""repro_torch.engine — the Experiment front door over method strategies
+(worlds with optional dynamics and event clock; see `experiment.py`)."""
 from repro_torch.engine.backends import BACKENDS, build_round  # noqa: F401
 from repro_torch.engine.experiment import (  # noqa: F401
     Experiment,

@@ -5,26 +5,44 @@ every node at once, on the experiment's device, with no host
 synchronisation.  This is the JAX package's round body on its dense
 context, on either node-axis layout (the padded [N, max_deg] panels or the
 sparse CSR edge list), with or without the `repro_torch.comm` gossip
-transport, and with no dynamics, no event clock and no telemetry.  By the
-strategy's declared kind: gossip aggregates over the delivered neighbours
-(then, for CFA-GE, walks the neighbour slots for the gradient exchange);
-"server" (FedAvg) averages the full stack; "none" keeps the local models:
+transport, a `repro_torch.dynamics` process and a `repro_torch.timing`
+event clock (telemetry is ROADMAP A.9).  By the strategy's declared kind:
+gossip aggregates over the delivered neighbours (then, for CFA-GE, walks
+the neighbour slots for the gradient exchange); "server" (FedAvg) averages
+the full stack; "none" keeps the local models:
 
-    round_fn(params, opt, comm_state, round_idx)
-        -> (params, opt, comm_state, train_loss, sent_edges, trig)
+    round_fn(params, opt, comm_state, dyn_state, time_state, round_idx)
+        -> (params, opt, comm_state, dyn_state, time_state, train_loss,
+            extras)
 
 `train_loss` is a 0-d device tensor: the mean over local steps of the mean
-over nodes of each step's loss, as in the reference.  With a transport,
-`sent_edges` (the round's fired directed edges: Σ_i gate_i·outdeg_i per
-node, Σ_ij gate_ij per edge) and `trig` (their fraction of the directed
-edges) are 0-d device tensors too; without one, `comm_state`, `sent_edges`
-and `trig` are None.
+over nodes of each step's loss, as in the reference.  The states are None
+where the experiment has no such subsystem, and `extras` holds 0-d device
+tensors in the reference's order: (sent_edges, trig) with a transport
+(the round's fired directed edges, Σ_i gate_i·outdeg_i per node, Σ_ij
+gate_ij per edge, and their fraction of the live directed edges), then
+(live_edges,) with dynamics, then (sim_time, arrived_edges) with a clock.
+
+With dynamics the round starts by realizing its graph (one draw from the
+generator for a random process, then the process's transition): a dead
+node runs zero local steps and its params and optimizer state freeze
+(a select, so a NaN FedAvg average of an all-dead round stays out), the
+link mask is intersected with the live edges, transports fire and pay
+only on live edges, a rejoined node's per-link state is reset before the
+exchange, and FedAvg's weights are intersected with aliveness.  With a
+clock the round is priced in simulated seconds: under a deadline d node
+i trains at most floor(d / dt_i) steps, a payload on (j -> i) arrives iff
+t_cost_j + transfer_ji <= d (a late payload is a failed link whose bytes
+are still paid), and the tick is d; without one the tick is the makespan
+(the slowest node, stretched to the slowest live landing).  The clock
+draws nothing, so `Timing()` and `StaticGraph()` are bitwise no-ops.
 
 Random draws come from the experiment's `torch.Generator`, never from the
-global RNG, in the reference's order: heterogeneous step budgets, each
-local step's dropout keep masks, the participation mask, then the codec's
-uniforms (and CFA-GE's walk draws its gradient calls' keep masks last) —
-each only when it is used (`hetero_steps_min > 0`, a model with dropout,
+global RNG, in the reference's order: the dynamics process's uniforms,
+heterogeneous step budgets, each local step's dropout keep masks, the
+participation mask, then the codec's uniforms (and CFA-GE's walk draws
+its gradient calls' keep masks last) — each only when it is used (a
+random process, `hetero_steps_min > 0`, a model with dropout,
 `participation < 1`, a stochastic int8 codec), so the defaults, the MLP,
 the Fashion CNN and `CommConfig()` draw nothing.  Local steps and the
 gradient walk run the model with `train=True`, evaluation with
@@ -44,6 +62,7 @@ from repro_torch.comm.transport import (EdgeGossipTransport,
 from repro_torch.comm.trigger import edge_delivery
 from repro_torch.engine.neighborhood import (DenseNeighborhood,
                                              SparseNeighborhood)
+from repro_torch.timing import TimingState
 from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
 
 BACKENDS = ("vmap", "shard_map")
@@ -57,18 +76,30 @@ GE_CHUNK = 1024
 def _make_local_training(exp):
     """B local SGD(momentum) minibatch steps (Alg. 1 l.4-9) for every node.
     With `hetero_steps_min > 0` each node draws a budget in
-    [min, steps_per_round]; a node past its budget keeps its params and
-    momentum (the reference's masked update)."""
+    [min, steps_per_round]; `cap` ([N] int64, the event clock's deadline
+    cap floor(d / dt_i)) lowers it and `alive` ([N] {0,1}) zeroes a dead
+    node's.  A node past its budget keeps its params and momentum (the
+    reference's masked update).  Returns the realized [N] budgets too
+    (every node's `steps_per_round` when nothing limits them), from which
+    the clock prices each node's round at budget_i·dt_i seconds."""
     cfg, n = exp.train, exp.n
     x, y, counts = exp.x_pad, exp.y_pad, exp.counts
     batcher, train_step = exp.batcher, exp._train_step
 
-    def local_training(params, opt, round_idx):
+    def local_training(params, opt, round_idx, alive=None, cap=None):
         budgets = None
         if cfg.hetero_steps_min > 0:
             budgets = torch.randint(cfg.hetero_steps_min,
                                     cfg.steps_per_round + 1, (n,),
                                     generator=exp.gen, device=exp.device)
+        if cap is not None or alive is not None:
+            if budgets is None:
+                budgets = torch.full((n,), cfg.steps_per_round,
+                                     dtype=torch.int64, device=exp.device)
+            if cap is not None:
+                budgets = torch.minimum(budgets, cap)
+            if alive is not None:
+                budgets = budgets * alive.to(budgets.dtype)
         losses = []
         for b in range(cfg.steps_per_round):
             step = round_idx * cfg.steps_per_round + b
@@ -83,7 +114,10 @@ def _make_local_training(exp):
                 _mix_(params, old_params, active)
                 _mix_(opt, old_opt, active)
             losses.append(torch.mean(loss))
-        return params, opt, torch.mean(torch.stack(losses))
+        if budgets is None:
+            budgets = torch.full((n,), cfg.steps_per_round,
+                                 dtype=torch.int64, device=exp.device)
+        return params, opt, torch.mean(torch.stack(losses)), budgets
 
     return local_training
 
@@ -97,6 +131,29 @@ def _mix_(new_tree, old_tree, active):
         return nw
 
     tree_map(mix, new_tree, old_tree)
+
+
+def _freeze_dead(new_params, old_params, alive):
+    """Per-node select: rows with alive == 0 keep their old value
+    bit-exactly.  A select, not `_mix_`'s arithmetic: in a round where
+    every FedAvg client is dead the server's average is 0/0 = NaN, and
+    only a select keeps it out of the frozen rows."""
+    def sel(nw, od):
+        a = alive.reshape(alive.shape + (1,) * (nw.dim() - 1)) > 0
+        return torch.where(a, nw, od)
+
+    return tree_map(sel, new_params, old_params)
+
+
+def _and_masks(*ms):
+    """Product of the non-None {0,1} float masks (None = all ones); None
+    if every factor is absent.  Exact {0,1} products, so the order of the
+    factors cannot change a bit."""
+    out = None
+    for m in ms:
+        if m is not None:
+            out = m if out is None else out * m
+    return out
 
 
 def _make_delivery_mask(exp):
@@ -225,22 +282,36 @@ def build_round(exp):
                                       SparseEdgeGossipTransport))
     wire = exp.wire
     sparse = exp.layout == "sparse"
+    dev = exp.device
     if sparse:
         plan = exp.sparse_plan
         degrees = plan.degrees
-        edge_src = exp.edge_src
+        edge_src, edge_dst = exp.edge_src, exp.edge_dst
         link_draw = _make_edge_link_mask(exp)
     else:
         nbr_idx, nbr_weight = exp.nbr_idx, exp.nbr_weight
-        degrees = torch.sum(exp.nbr_valid, dim=1)
+        nbr_valid = exp.nbr_valid
+        degrees = torch.sum(nbr_valid, dim=1)
         link_draw = _make_delivery_mask(exp)
     n_directed = exp._total_directed
     # trig = fired / directed edges.  The reference divides by a constant,
     # which XLA folds into a multiply by the constant's float32 reciprocal;
     # the port multiplies by the same reciprocal, so the fractions agree
-    # bit for bit, in either layout.
+    # bit for bit, in either layout.  Under dynamics the divisor is the
+    # round's live-edge count, a true division in both packages — except
+    # for StaticGraph, whose live mask is a constant the reference folds
+    # the same way.
     inv_edges = torch.tensor(np.float32(1.0) / np.float32(n_directed),
-                             device=exp.device)
+                             device=dev)
+    bound_dyn, bt = exp.bound_dyn, exp.bound_timing
+    has_dyn, has_time = bound_dyn is not None, bt is not None
+    live_varies = has_dyn and bound_dyn.name != "static"
+    deadline = (torch.tensor(np.float32(exp.deadline), device=dev)
+                if exp.deadline is not None else None)
+    steps_f = torch.tensor(np.float32(exp.train.steps_per_round), device=dev)
+    # does the round exchange payloads over the graph?  The synchronous
+    # clock's tick then waits for the slowest live link's landing too.
+    exchanges = transport is not None or caps.kind == "gossip"
     # Gossip aggregation lowers to the strategy's flat form whenever it has
     # one: one weighted neighbour reduce over the layout's Neighborhood
     # view, over the [N, D] table or over the per-edge transport's
@@ -289,18 +360,64 @@ def build_round(exp):
                             unflatten(links.reshape(n * e, d)))
         return strategy.aggregate(exp, agg_state, params, gathered, mask)
 
-    def round_fn(params, opt, comm_state, round_idx: int):
-        params, opt, train_loss = local_training(params, opt, round_idx)
-        # the link mask: [N, max_deg] dense, [E] sparse
+    def fired_frac(sent, live_total):
+        if live_varies:
+            return sent / torch.clamp(live_total, min=1.0)
+        return sent * inv_edges
+
+    def round_fn(params, opt, comm_state, dyn_state, time_state,
+                 round_idx: int):
+        # -- the dynamics prelude: realize this round's graph.  A random
+        # process draws its uniforms first, before anything else in the
+        # round, as the reference splits its key first.
+        ev = alive = None
+        if has_dyn:
+            u = bound_dyn.draw(exp.gen) if bound_dyn.needs_rng else None
+            if bound_dyn.observes:
+                dyn_state, ev = bound_dyn.transition(
+                    dyn_state, round_idx, u, time_state.last_cost)
+            else:
+                dyn_state, ev = bound_dyn.transition(dyn_state, round_idx, u)
+            alive = ev.alive
+        # -- the clock prelude: per-node step times and the deadline cap
+        # floor(d / dt_i) (stragglers train fewer steps); no draws.
+        dt = cap = None
+        if has_time:
+            dt = bt.step_time(round_idx)
+            if deadline is not None:
+                cap = torch.minimum(torch.floor(deadline / dt),
+                                    steps_f).to(torch.int64)
+        # -- Alg. 1 l.4-9: local SGD (dead nodes run zero steps)
+        params, opt, train_loss, budgets = local_training(
+            params, opt, round_idx, alive=alive, cap=cap)
+        # realized per-node compute seconds (0 for a dead node)
+        t_cost = budgets.to(torch.float32) * dt if has_time else None
+        # -- the link mask ([N, max_deg] dense, [E] sparse): participation
+        # draws, the live graph and, under a deadline, arrival: a payload
+        # on edge (j -> i) lands at t_cost_j + transfer_ji and is delivered
+        # iff that is <= d.  A late payload is exactly a failed link.
         link = link_draw()
-        sent_edges = trig = None
+        live = ev.live if has_dyn else None
+        arr = None
+        if deadline is not None:
+            if sparse:
+                arr = (t_cost[edge_src] + bt.transfer_e
+                       <= deadline).to(torch.float32)
+            else:
+                arr = (t_cost[nbr_idx] + bt.transfer_panel
+                       <= deadline).to(torch.float32) * nbr_valid
+        link = _and_masks(link, live, arr)
+        live_total = torch.sum(live) if has_dyn else None
+        old_params = params
+        extras = []
         with torch.no_grad():
             if transport is None:
                 if caps.kind == "server":
                     # the server averages the full stack, every client
-                    # weighted by |D_i| (no dynamics: all are live)
+                    # weighted by |D_i| times its aliveness: an offline
+                    # client's frozen params carry zero weight
                     params = strategy.aggregate(exp, agg_state, params,
-                                                params, None)
+                                                params, alive)
                 elif caps.kind == "gossip":
                     # every sender broadcasts: the delivered weights are
                     # ω·|D| times the link mask
@@ -316,23 +433,40 @@ def build_round(exp):
                 # aggregation mask.  Sparse: an edge id is both ends'
                 # address of its link, so the [E] link mask goes in as it
                 # is and the [E, D] bank comes back, no reverse gather.
+                # Under dynamics a dead edge cannot fire, and every link
+                # incident to a rejoined node returns to bootstrap first.
+                reset = None
+                if has_dyn:
+                    rj = ev.rejoined
+                    reset = (torch.maximum(rj[edge_src], rj[edge_dst])
+                             if sparse else
+                             torch.maximum(rj[:, None], rj[nbr_idx])
+                             * nbr_valid)
                 gen = exp.gen if transport.wants_rng else None
                 links, mask, gate, comm_state = transport.exchange(
-                    params, comm_state, link, gen, wire=wire)
+                    params, comm_state, link, gen, live=live, reset=reset,
+                    wire=wire)
                 params = over_links(params, links, mask)
                 del links
                 # unicast accounting: one payload per FIRED edge; failed
-                # links still burn the sender's bytes.
-                sent_edges = torch.sum(gate)
-                trig = sent_edges * inv_edges
+                # and late links still burn the sender's bytes.
+                sent = torch.sum(gate)
+                extras += [sent, fired_frac(sent, live_total)]
             else:
                 # per-NODE transport: a node encodes once and broadcasts.
-                # "stale" aggregates a silent neighbour's cached model,
-                # masking only edges that never DELIVERED; "drop" masks
-                # every silent or undelivered edge like a failed link.
+                # A rejoined node's row returns to bootstrap first; dead
+                # senders are vetoed.  "stale" aggregates a silent
+                # neighbour's cached model, masking only edges that never
+                # DELIVERED; "drop" masks every silent or undelivered edge
+                # like a failed link.
+                send_mask = None
+                if has_dyn:
+                    comm_state = transport.reset_rows(comm_state,
+                                                      ev.rejoined)
+                    send_mask = alive
                 gen = exp.gen if transport.wants_rng else None
                 decoded, gate, comm_state = transport.exchange(
-                    params, comm_state, gen, wire=wire)
+                    params, comm_state, gen, send_mask=send_mask, wire=wire)
                 delivered = (gate[edge_src] * link if sparse
                              else edge_delivery(gate, link, nbr_idx))
                 comm_state = transport.note_delivery(comm_state, delivered)
@@ -342,10 +476,48 @@ def build_round(exp):
                     mask = link * comm_state.ever_recv
                 params = over_table(params, decoded, mask)
                 # broadcast accounting: a transmitting node pays one
-                # payload per outgoing edge (Σ gate_i·deg_i; the graphs
-                # are symmetric, so in- and out-degree are equal).
-                sent_edges = torch.sum(gate * degrees)
-                trig = sent_edges * inv_edges
-        return params, opt, comm_state, train_loss, sent_edges, trig
+                # payload per outgoing edge, its LIVE ones under dynamics
+                # (the graphs are symmetric: in- and out-degree are equal)
+                if not has_dyn:
+                    sent = torch.sum(gate * degrees)
+                elif sparse:
+                    sent = torch.sum(gate[edge_src] * live)
+                else:
+                    sent = torch.sum(gate * torch.sum(live, dim=1))
+                extras += [sent, fired_frac(sent, live_total)]
+            # -- the dynamics epilogue: freeze the dead, count the live
+            if has_dyn:
+                params = _freeze_dead(params, old_params, alive)
+                extras.append(live_total)
+        # -- the clock epilogue.  A deadline tick is exactly d; the
+        # synchronous tick is the makespan: the slowest node's compute,
+        # stretched to the slowest LIVE link's landing when the round
+        # exchanges payloads.  `t` accumulates in float32 on the device.
+        if has_time:
+            if deadline is not None:
+                tick = deadline
+            else:
+                tick = torch.max(t_cost)
+                if exchanges:
+                    if sparse:
+                        land = t_cost[edge_src] + bt.transfer_e
+                        lv = live
+                    else:
+                        land = t_cost[nbr_idx] + bt.transfer_panel
+                        lv = live if has_dyn else nbr_valid
+                    if lv is not None:
+                        land = lv * land
+                    tick = torch.maximum(tick, torch.max(land))
+            sim_t = time_state.t + tick
+            if deadline is not None:
+                arrived = torch.sum(_and_masks(arr, live))
+            elif has_dyn:
+                arrived = live_total  # every live payload arrives
+            else:
+                arrived = torch.tensor(np.float32(n_directed), device=dev)
+            time_state = TimingState(t=sim_t, last_cost=t_cost)
+            extras += [sim_t, arrived]
+        return (params, opt, comm_state, dyn_state, time_state, train_loss,
+                tuple(extras))
 
     return round_fn

@@ -16,21 +16,25 @@ otherwise; the two are bitwise equal at participation 1.  Every method of
 the roster runs, the FedAvg server and CFA-GE's gradient exchange
 included, over either Table I model: the MLP (MNIST) or the CNN (Fashion,
 and EMNIST with dropout, whose keep masks come from the experiment's
-generator).  Options that are not ported yet raise NotImplementedError
-naming the ROADMAP item that ports them: `dynamics=` (A.7), `timing=` and
-`Schedule(deadline=)` (A.8), `telemetry=` (A.9) and `backend="shard_map"`
-(A.10).
+generator).  `World(dynamics=...)` makes the graph time-varying (a
+`repro_torch.dynamics.GraphProcess`: edge dropout, bursty links, churn,
+rewiring, scripted replay, energy churn), `World(timing=...)` prices each
+round in simulated seconds (`repro_torch.timing.Timing`), and
+`Schedule(deadline=d)` turns the rounds into deadline ticks.  Options that
+are not ported yet raise NotImplementedError naming the ROADMAP item that
+ports them: `telemetry=` (A.9) and `backend="shard_map"` (A.10).
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
 its device and an Experiment runs on the same one.
 
-Schedule modes: "loop" reads each round's transport accounting and each
-eval back to the host as it happens; "fused" (the default) runs the same
-rounds and evals with every result kept on the device, stacked, and read
-back once at the end, then accounts the bytes round by round in the same
-order.  Both modes run the same operations in the same order, so they are
-bitwise equal, bytes on the wire included.
+Schedule modes: "loop" reads each round's accounting (bytes and trigger,
+live edges, simulated time and arrivals) and each eval back to the host as
+it happens; "fused" (the default) runs the same rounds and evals with every
+result kept on the device, stacked, and read back once at the end, then
+accounts them round by round in the same order.  Both modes run the same
+operations in the same order, so they are bitwise equal, bytes on the wire
+and simulated seconds included.
 
 Mutable run state (params, optimizer and transport state, the generator,
 the byte counters) lives on the instance, so `run()` can be called
@@ -53,6 +57,7 @@ from repro_torch.core.virtual_teacher import make_loss_fn
 from repro_torch.data.allocation import pad_node_datasets
 from repro_torch.data.pipeline import Batcher
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dynamics import GraphProcess
 from repro_torch.engine import backends
 from repro_torch.engine.neighborhood import build_sparse_plan
 from repro_torch.engine.strategies import (MethodSpec, available_methods,
@@ -64,7 +69,8 @@ from repro_torch.graphs.sparse import SparseTopology
 from repro_torch.graphs.topology import Topology
 from repro_torch.models.api import SmallModel
 from repro_torch.optim.sgd import sgd_momentum
-from repro_torch.utils.pytree import tree_map
+from repro_torch.timing import Timing
+from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
 
 SCHEDULE_MODES = ("fused", "loop")
 LAYOUTS = ("dense", "sparse")
@@ -96,19 +102,28 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Schedule:
-    """How many rounds, how often to eval, and how the rounds execute."""
+    """How many rounds, how often to eval, and how the rounds execute.
+
+    `deadline` (simulated seconds; requires `World(timing=...)`) turns each
+    round into a DEADLINE TICK: a node trains as many local steps as fit
+    (at most `steps_per_round`; stragglers train fewer), and a payload is
+    aggregated only if `send_time + latency + bytes / bandwidth <=
+    deadline`; late arrivals fall into the stale / drop silence paths.
+    `deadline=None` keeps the schedule synchronous: every round waits for
+    the slowest node and link, and the clock reports the makespan."""
 
     rounds: int = 100
     eval_every: int = 5
     mode: str = "fused"  # "fused" (read back once) | "loop" (per eval)
-    deadline: Optional[float] = None  # event-clock ticks: ROADMAP A.8
+    deadline: Optional[float] = None  # simulated seconds per round tick
 
     def __post_init__(self):
         if self.mode not in SCHEDULE_MODES:
             raise ValueError(f"schedule mode must be one of {SCHEDULE_MODES}, "
                              f"got {self.mode!r}")
-        if self.deadline is not None:
-            raise _not_ported("Schedule(deadline=...)", "A.8")
+        if self.deadline is not None and not self.deadline > 0:
+            raise ValueError(f"deadline must be > 0 simulated seconds, "
+                             f"got {self.deadline}")
 
     @staticmethod
     def eval_rounds(rounds: int, eval_every: int):
@@ -125,7 +140,10 @@ class World:
     `SparseTopology` (the CSR edge list; an Experiment over it takes the
     sparse layout).  The data stay host-side numpy arrays (per-node train
     shards and the shared test set) until an Experiment moves them to
-    `device`."""
+    `device`.  `dynamics` (a `GraphProcess`) makes "who talks to whom"
+    time-varying: `topo` then holds the POSSIBLE links and the process
+    decides which exist each round; `timing` (a `Timing`) prices each round
+    in simulated seconds."""
 
     model: SmallModel
     topo: "Topology | SparseTopology"
@@ -134,16 +152,14 @@ class World:
     x_test: np.ndarray
     y_test: np.ndarray
     device: DeviceLike = None
-    dynamics: object = None
-    timing: object = None
+    dynamics: Optional[GraphProcess] = None
+    timing: Optional[Timing] = None
     telemetry: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        for name, item in (("dynamics", "A.7"), ("timing", "A.8"),
-                           ("telemetry", "A.9")):
-            if getattr(self, name) is not None:
-                raise _not_ported(f"World({name}=...)", item)
+        if self.telemetry is not None:
+            raise _not_ported("World(telemetry=...)", "A.9")
 
     @classmethod
     def synthetic(cls, dataset: str = "synth-mnist", nodes: int = 16,
@@ -263,10 +279,21 @@ class Experiment:
         elif layout == "sparse" and not isinstance(topo, SparseTopology):
             topo = SparseTopology.from_topology(topo)
         self.layout = layout
+        dev = self.device
+        # --- dynamics: bind the graph process before anything derives from
+        # the topology, since rewiring replaces it with the family's union
+        self.dynamics = world.dynamics
+        self.bound_dyn = None
+        if world.dynamics is not None:
+            if not isinstance(world.dynamics, GraphProcess):
+                raise TypeError(
+                    f"World.dynamics must be a repro_torch.dynamics."
+                    f"GraphProcess, got {type(world.dynamics).__name__}")
+            self.bound_dyn = world.dynamics.bind(topo, dev)
+            topo = self.bound_dyn.topo
         self.model = model
         self.topo = topo
         self.n = topo.num_nodes
-        dev = self.device
 
         x_pad, y_pad, counts = pad_node_datasets(world.xs, world.ys)
         self.x_pad = torch.from_numpy(np.ascontiguousarray(x_pad)).to(dev)
@@ -283,9 +310,11 @@ class Experiment:
             self.sparse_plan = build_sparse_plan(topo, counts, 1, dev)
             self.edge_src = torch.from_numpy(
                 topo.edge_src.astype(np.int64)).to(dev)
+            self.edge_dst = torch.from_numpy(
+                topo.edge_dst.astype(np.int64)).to(dev)
             self._total_directed = float(topo.num_directed)
         else:
-            self.sparse_plan = self.edge_src = None
+            self.sparse_plan = self.edge_src = self.edge_dst = None
             idx = topo.neighbor_idx.astype(np.int64)
             self.nbr_idx = torch.from_numpy(np.maximum(idx, 0)).to(dev)
             self.nbr_valid = torch.from_numpy(
@@ -353,6 +382,48 @@ class Experiment:
                     nbr_valid=topo.neighbor_mask)
             self.comm_state = self.transport.init_state(self.params)
 
+        # --- dynamics state and live-edge accounting
+        self.dyn_state = (self.bound_dyn.state0
+                          if self.bound_dyn is not None else None)
+        self._live_sum = 0.0
+        self._live_rounds = 0
+        self.live_history: List[float] = []  # per-round live-edge fraction
+
+        # --- the event clock: bind the time models once, priced from the
+        # transport's exact bytes on the wire (the dense fp32 model size
+        # without one)
+        self.timing = world.timing
+        self.bound_timing = None
+        self.time_state = None
+        self.deadline = self.schedule.deadline
+        if world.timing is not None:
+            if not isinstance(world.timing, Timing):
+                raise TypeError(
+                    f"World.timing must be a repro_torch.timing.Timing, "
+                    f"got {type(world.timing).__name__}")
+            if self.transport is not None:
+                payload = float(self.transport.payload_bytes)
+            else:
+                payload = 4.0 * float(
+                    tree_flatten_stacked(self.params)[0].shape[1])
+            self.bound_timing = world.timing.bind(topo, payload, dev)
+            self.time_state = self.bound_timing.state0
+        elif self.deadline is not None:
+            raise ValueError(
+                "Schedule(deadline=...) prices rounds in simulated seconds "
+                "and needs World(timing=...) to define them")
+        if (self.bound_dyn is not None and self.bound_dyn.observes
+                and self.bound_timing is None):
+            raise ValueError(
+                f"dynamics process {self.bound_dyn.name!r} observes the "
+                f"event clock's per-node compute cost; give the world a "
+                f"repro_torch.timing.Timing (World(timing=...))")
+        self.sim_time = 0.0
+        self.sim_time_history: List[float] = []  # absolute seconds per round
+        self._arrived_sum = 0.0
+        self._arrived_rounds = 0
+        self.arrived_history: List[float] = []  # per-round arrived fraction
+
         self.agg_state = self.strategy.init_state(self)
         self._round = backends.build_round(self)
         self.train_loss_history: List[float] = []  # one entry per round
@@ -373,10 +444,51 @@ class Experiment:
         self._comm_rounds += 1
         self.trig_history.append(float(trig))
 
+    def _account_live(self, live_edges: float):
+        """The round's realized fraction of the static layout's directed
+        edges that were live."""
+        frac = float(live_edges) / max(self._total_directed, 1.0)
+        self._live_sum += frac
+        self._live_rounds += 1
+        self.live_history.append(frac)
+
+    def _account_time(self, sim_t: float, arrived_edges: float):
+        """`sim_t` is the ABSOLUTE simulated time at the end of the round;
+        `arrived_edges` counts the live directed edges whose payload made
+        the deadline (all of them in synchronous mode), as a fraction of
+        the round's live edges under a dynamics process, of the static
+        layout's otherwise."""
+        self.sim_time = float(sim_t)
+        self.sim_time_history.append(self.sim_time)
+        denom = (self.live_history[-1] * self._total_directed
+                 if self.bound_dyn is not None else self._total_directed)
+        frac = float(arrived_edges) / max(denom, 1.0)
+        self._arrived_sum += frac
+        self._arrived_rounds += 1
+        self.arrived_history.append(frac)
+
+    def _account_extras(self, extras):
+        """Route one round's extras group by group, in the reference's
+        order: (sent, trig) with a transport, (live,) with dynamics,
+        (sim_t, arrived) with an event clock."""
+        extras = list(extras)
+        if self.transport is not None:
+            self._account_comm(extras.pop(0), extras.pop(0))
+        if self.bound_dyn is not None:
+            self._account_live(extras.pop(0))
+        if self.bound_timing is not None:
+            self._account_time(extras.pop(0), extras.pop(0))
+        assert not extras
+
     def _finish_metrics(self, m: RoundMetrics) -> RoundMetrics:
         if self.transport is not None:
             m.bytes_on_wire = self.comm_bytes_total
             m.triggered_frac = self._trig_sum / max(self._comm_rounds, 1)
+        if self.bound_dyn is not None:
+            m.live_edge_frac = self._live_sum / max(self._live_rounds, 1)
+        if self.bound_timing is not None:
+            m.sim_time = self.sim_time
+            m.arrived_frac = self._arrived_sum / max(self._arrived_rounds, 1)
         return m
 
     def run(self, rounds: Optional[int] = None,
@@ -384,8 +496,11 @@ class Experiment:
             mode: Optional[str] = None) -> List[RoundMetrics]:
         """Run the schedule; returns the eval history (round 0 = after the
         first round's local training and exchange).  The per-round train
-        losses are appended to `train_loss_history`, and with a transport
-        the triggered fractions to `trig_history`."""
+        losses are appended to `train_loss_history`; with a transport the
+        triggered fractions to `trig_history`, with dynamics the live-edge
+        fractions to `live_history`, and with an event clock the simulated
+        seconds and arrived fractions to `sim_time_history` and
+        `arrived_history`."""
         rounds = self.schedule.rounds if rounds is None else rounds
         eval_every = (self.schedule.eval_every if eval_every is None
                       else eval_every)
@@ -396,17 +511,18 @@ class Experiment:
         evals = set(Schedule.eval_rounds(rounds, eval_every))
         history: List[RoundMetrics] = []
         pending = []  # fused: (round, acc, loss) kept on the device
-        losses, comm_out = [], []
+        losses, extras_out = [], []
         for r in range(rounds):
-            (self.params, self.opt_state, self.comm_state, loss, sent,
-             trig) = self._round(self.params, self.opt_state,
-                                 self.comm_state, r)
+            (self.params, self.opt_state, self.comm_state, self.dyn_state,
+             self.time_state, loss, extras) = self._round(
+                 self.params, self.opt_state, self.comm_state,
+                 self.dyn_state, self.time_state, r)
             losses.append(loss)
-            if self.transport is not None:
+            if extras:
                 if mode == "loop":
-                    self._account_comm(sent, trig)
+                    self._account_extras(extras)
                 else:
-                    comm_out.append(torch.stack([sent, trig]))
+                    extras_out.append(torch.stack(extras))
             if r in evals:
                 if mode == "loop":
                     m = self.evaluate()
@@ -419,17 +535,17 @@ class Experiment:
         if mode == "fused" and rounds:
             # one read-back of everything the rounds left on the device,
             # then the host-side accounting in round order
-            acc_r = loss_r = comm_r = None
+            acc_r = loss_r = extras_r = None
             if pending:
                 acc_r = torch.stack([a for _, a, _ in pending]).cpu().numpy()
                 loss_r = torch.stack([lo for _, _, lo in pending]
                                      ).cpu().numpy()
-            if comm_out:
-                comm_r = torch.stack(comm_out).cpu().tolist()
+            if extras_out:
+                extras_r = torch.stack(extras_out).cpu().tolist()
             at = {r: i for i, (r, _, _) in enumerate(pending)}
             for r in range(rounds):
-                if comm_r is not None:
-                    self._account_comm(*comm_r[r])
+                if extras_r is not None:
+                    self._account_extras(extras_r[r])
                 if r in at:
                     history.append(self._finish_metrics(RoundMetrics(
                         round=r, acc_per_node=acc_r[at[r]],

@@ -160,8 +160,10 @@ class FedAvgStrategy(AggregationStrategy):
     """Server-side FedAvg over ALL clients (the partially-decentralized FED
     baseline): the |D_i|-weighted average through the `neighbor_avg`
     kernel, written into every node's row.  `mask` is None, or the [N]
-    {0,1} live clients (ROADMAP A.7), whose zero weight keeps a churned-out
-    client's frozen params out of the average."""
+    {0,1} live clients under a dynamics process, whose zero weight keeps a
+    churned-out client's frozen params out of the average (the engine
+    keeps the dead rows by a select, so an all-dead round's 0/0 average
+    reaches no row)."""
 
     name = "fedavg"
     capabilities = Capabilities(kind="server")

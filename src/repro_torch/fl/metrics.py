@@ -1,9 +1,10 @@
 """Metrics of a decentralized-learning run.
 
   * `RoundMetrics`, one eval round: every node's test accuracy and loss,
-    and with a transport the bytes on the wire and the triggered fraction
-    (the JAX package's dynamics, timing and telemetry fields arrive with
-    those subsystems, ROADMAP A.7-A.9);
+    with a transport the bytes on the wire and the triggered fraction,
+    with a dynamics process the live-edge fraction, and with an event
+    clock the simulated time and the arrived fraction (the JAX package's
+    telemetry field arrives with that subsystem, ROADMAP A.9);
   * `characteristic_time` (paper Table IV): rounds to reach a fraction of
     the centralized benchmark's accuracy;
   * `comm_bytes_per_round` (paper §VI-A.3): bytes moved per round per
@@ -25,9 +26,22 @@ class RoundMetrics:
     loss_per_node: np.ndarray  # [N]
     # Transport accounting (None without a CommConfig): cumulative bytes put
     # on the wire up to and including this round, and the running mean
-    # fraction of directed edges that carried a payload per round.
+    # fraction of LIVE directed edges that carried a payload per round
+    # (without a dynamics process every edge of the static layout is live).
     bytes_on_wire: Optional[float] = None
     triggered_frac: Optional[float] = None
+    # Dynamics accounting (None without a GraphProcess): the running mean
+    # fraction of the static layout's directed edges that were LIVE per
+    # round.  Bytes are only accounted on live edges.
+    live_edge_frac: Optional[float] = None
+    # Event-clock accounting (None without a Timing): the ABSOLUTE simulated
+    # seconds at the end of this round ((round+1)·d under a deadline d, the
+    # cumulative synchronous makespan otherwise), and the running mean
+    # fraction of live directed edges whose payload ARRIVED by the deadline
+    # (1.0 in synchronous mode).  A late payload still burns the sender's
+    # bytes but is not aggregated.
+    sim_time: Optional[float] = None
+    arrived_frac: Optional[float] = None
 
     @property
     def acc_mean(self) -> float:
@@ -77,10 +91,12 @@ def comm_bytes_per_round(method: str, topo, model_bytes: int,
     `topo` is a `Topology` or a `SparseTopology` (its node and undirected
     edge counts); `model_bytes` the per-edge payload (with a codec, its
     `payload_bytes`); `live_frac` the expected fraction of live links
-    (in [0, 1], else ValueError).  Model-exchange methods ship one model
-    per directed edge; CFA-GE also ships the aggregated model back out and
-    the neighbours' gradients back in (4x); FedAvg one model up and one
-    down per client; ISOL and Centralized nothing."""
+    (in [0, 1], else ValueError; a process's `stationary_live_frac()`, or
+    for fedavg under churn the stationary aliveness).  Model-exchange
+    methods ship one model per directed edge; CFA-GE also ships the
+    aggregated model back out and the neighbours' gradients back in (4x);
+    FedAvg one model up and one down per client; ISOL and Centralized
+    nothing."""
     if not 0.0 <= live_frac <= 1.0:
         raise ValueError(f"live_frac must be in [0, 1], got {live_frac}")
     directed_edges = 2 * topo.num_edges

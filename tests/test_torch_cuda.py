@@ -737,3 +737,97 @@ def test_cnn_rounds_are_deterministic_on_the_card(card, dataset, method,
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
     assert all((a == b).all() for a, b in zip(a0, a1)) and l0 == l1
     assert torch.backends.cudnn.benchmark is True
+
+
+# ------------------------------------- dynamics and the event clock (path k)
+
+def _dyn_run(where, dynamics=None, timing=None, deadline=None, comm=None,
+             layout=None, method="decdiff+vt"):
+    from repro_torch.comm import CommConfig
+    from repro_torch.engine import Experiment, Schedule, World
+    from repro_torch.models.mlp_cnn import make_mlp
+
+    world = World.synthetic("synth-mnist", nodes=16,
+                            topology="barabasi_albert", m=2, scale=0.03,
+                            model=make_mlp(hidden=(64, 32)), device=where,
+                            dynamics=dynamics, timing=timing)
+    exp = Experiment(world, method, layout=layout, steps_per_round=2,
+                     batch_size=32, device=where,
+                     comm=None if comm is None else CommConfig(**comm),
+                     schedule=Schedule(rounds=3, eval_every=1,
+                                       deadline=deadline))
+    ops.reset_launches()
+    hist = exp.run()
+    return exp, hist, dict(ops.LAUNCHES)
+
+
+def _coins16():
+    from repro_torch.graphs.topology import make_topology
+
+    m = int(np.triu(make_topology("barabasi_albert", n=16, m=2,
+                                  seed=0).adjacency, 1).sum())
+    return np.random.default_rng(5).integers(0, 2, (3, m)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["scripted-edge-int8", "energy-deadline",
+                                  "energy-deadline-fedavg"])
+def test_dynamics_and_clock_on_the_card_match_the_cpu(card, case):
+    """A deterministic process on the card against the same run on the
+    CPU: params within 1e-4, accuracies within one test sample, bytes,
+    live and arrived fractions and simulated seconds exactly equal."""
+    from repro_torch.dynamics import EnergyChurn, ScriptedGraph
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+
+    if case == "scripted-edge-int8":
+        kw = dict(dynamics=ScriptedGraph(_coins16()),
+                  comm=dict(codec="int8", policy="adaptive",
+                            target_trigger=0.95, stochastic=False))
+    else:
+        kw = dict(dynamics=EnergyChurn(capacity=3.0, recharge=4.0,
+                                       rejoin_at=2.0),
+                  timing=Timing(LognormalStep(1.0, 0.5, seed=7),
+                                LognormalLink(0.05, 0.5, 1e6, 0.5, seed=11)),
+                  deadline=2.5,
+                  method="fedavg" if case.endswith("fedavg") else "decdiff+vt")
+    (ce, ch, cl), (he, hh, _) = (_dyn_run(card, **kw),
+                                 _dyn_run(torch.device("cpu"), **kw))
+    for name in ce.params:
+        for leaf in ce.params[name]:
+            diff = (ce.params[name][leaf].cpu() - he.params[name][leaf]).abs()
+            assert float(diff.max()) <= 1e-4
+    used = (len(ce.world.x_test) // 128) * 128
+    for a, b in zip(ch, hh):
+        assert np.abs(a.acc_per_node - b.acc_per_node).max() * used <= 1 + 1e-6
+        for f in ("bytes_on_wire", "live_edge_frac", "sim_time",
+                  "arrived_frac"):
+            assert getattr(a, f) == getattr(b, f), f
+    assert ce.live_history == he.live_history
+    assert min(ce.live_history) < 1.0
+    if case.endswith("fedavg"):
+        assert cl["neighbor_avg"] == 3
+    else:
+        assert cl["segment_neighbor_avg"] >= 3
+
+
+@pytest.mark.parametrize("comm", [None, dict(codec="int8", policy="adaptive",
+                                             target_trigger=0.95)],
+                         ids=["none", "per-edge-int8"])
+def test_sparse_equals_dense_under_edge_dropout_on_the_card(card, comm):
+    """EdgeDropout draws one uniform per undirected pair from the card's
+    generator in both layouts, so the two runs are bitwise equal."""
+    from repro_torch.dynamics import EdgeDropout
+
+    runs = [_dyn_run(card, dynamics=EdgeDropout(p=0.2), comm=comm,
+                     layout=layout) for layout in ("dense", "sparse")]
+    (de, dh, dl), (se, sh, sl) = runs
+    for name in de.params:
+        for leaf in de.params[name]:
+            assert torch.equal(de.params[name][leaf], se.params[name][leaf])
+    for a, b in zip(dh, sh):
+        assert np.array_equal(a.acc_per_node, b.acc_per_node)
+        assert a.bytes_on_wire == b.bytes_on_wire
+        assert a.live_edge_frac == b.live_edge_frac
+    assert 0.0 < min(de.live_history) < 1.0
+    assert de.trig_history == se.trig_history
+    if comm is not None:
+        assert dl["gather_rows"] == 3 and sl["gather_rows"] == 0
