@@ -127,6 +127,30 @@ It imports the port only (no JAX), and:
      `PeriodicRewiring(period=1, num_graphs=4)` (the union layout); then
      a small world on the card against the CPU under `ScriptedGraph` and
      under `EnergyChurn` with a deadline;
+  4e. drives path l, telemetry (`repro_torch.obs`), right after path k on
+     its world and clock, each run a warm round then 5 evaluated rounds
+     with the counts set to 0 just before and read just after, checked
+     exactly and equal to the same run without telemetry: l0
+     `Telemetry(channels="all", ledger=...)` with the per-edge int8
+     adaptive 0.95 transport under k3's clock and 6 s deadline, dense,
+     fused, run in turns with `telemetry=None` (off, on, off, on): params,
+     optimizer and transport state, bytes, trigger, clock and arrival
+     histories bitwise the off run's, Σ edge_bytes = bytes_on_wire and
+     node_acc = acc_per_node each round, the ledger valid (1 manifest, a
+     record per eval round, a summary per run), `export_trace`'s span
+     bytes = bytes_on_wire, `run(verbose=True)`'s lines, ms per round on
+     and off; l1 l0 on the sparse layout and in loop mode, every round's
+     detail bitwise l0's; l2 k2's `EnergyChurn(8, 4, 4)` with the per-node
+     int8 transport at a 0.8 trigger (`decdiff+vt`) and `fedavg`, bitwise
+     the off runs, a dead node's steps and compute seconds unchanged; a
+     `Telemetry(profile_dir=...)` run writing its Chrome traces with
+     results bitwise l0's; l3 (inside path h) path h's 256-node sparse
+     world with h's per-edge transport and `channels="auto"`, 2 rounds
+     each way, peak memory on and off; l4 (inside path i) i1 at 10,000
+     nodes with `channels="auto"`, without and with a ledger, rounds per
+     second in turns against telemetry=None, and a manifest without
+     `edges` (39,964 directed edges exceed MANIFEST_EDGE_CAP); files go to
+     `build/path_l/`;
   5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
      its one-pod form with the fused int8 gossip
      (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
@@ -1068,7 +1092,10 @@ def path_h(torch, ops, dev, profile):
                       "path h cfa-ge (eval included)")
     out["h3"] = dict(launches=launches, ms=ms, peak=peak, bytes=0.0,
                      fired=None, walk=walk)
-    del exp, hist, world
+    del exp, hist
+    # path l3: telemetry on this world
+    out["l3"] = path_l3(torch, ops, world)
+    del world
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1224,6 +1251,17 @@ def path_i(torch, ops, dev, profile):
             profile_round(torch, lambda: exp.run(rounds=1, eval_every=1),
                           f"path i {method} {label} (eval included)")
         del exp, hist
+
+    def make_l4(w):
+        """i1's experiment over `w` (path l4)."""
+        return Experiment(w, "decdiff", comm=edge06,
+                          schedule=Schedule(rounds=ROUNDS, eval_every=ROUNDS,
+                                            mode="loop"),
+                          steps_per_round=1, batch_size=4, eval_batch=64,
+                          lr=0.1, seed=0)
+
+    gc.collect()
+    out["l4"] = path_l4(torch, ops, world, make_l4)
     del world
     gc.collect()
     return out
@@ -1592,6 +1630,401 @@ def path_k(torch, ops, dev, world, snap_a, profile):
         timing=clock, deadline=2.5)
     gc.collect()
     return out
+
+
+# ----------------------------------------------------------------- path l
+
+L_ROUNDS = 5                          # measured rounds of l0-l2 per run
+L_DIR = ROOT / "build" / "path_l"     # path l's ledgers, traces, profiles
+
+
+def l_expected_launches(ops, exp, method, rounds):
+    """A path-l run's launches over `rounds` rounds: path j's roster
+    counts, with the segment reduce once per width bucket and round on the
+    sparse layout and `gather_rows` once a round on the dense per-edge
+    transport."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if method.startswith("decdiff"):
+        want["segment_neighbor_avg"] = rounds * (
+            len(exp.sparse_plan.widths) if exp.layout == "sparse" else 1)
+        want["decdiff_update"] = rounds
+    if method.endswith("+vt"):
+        want["vt_kl_loss_fwd"] = want["vt_kl_loss_bwd"] = \
+            rounds * exp.train.steps_per_round
+    if method == "fedavg":
+        want["neighbor_avg"] = rounds
+    if exp.layout == "dense" and exp.comm is not None \
+            and exp.comm.use_per_edge:
+        want["gather_rows"] = rounds
+    return want
+
+
+def l_run(torch, ops, exp, rounds=L_ROUNDS, mode=None, verbose=False):
+    """`rounds` rounds, each evaluated, with every launch count set to 0
+    just before and read just after: ms per round and the launches."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = exp.run(rounds=rounds, eval_every=1, mode=mode, verbose=verbose)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / rounds
+    return dict(hist=hist, ms=ms, launches=dict(ops.LAUNCHES))
+
+
+def l_state(torch, exp, hist):
+    """What path l holds two runs to, bitwise: params, optimizer and
+    transport state, bytes, every history, accuracies and detail."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    comm = ([] if exp.comm_state is None
+            else tree_leaves(exp.comm_state._asdict()))
+    return dict(
+        tensors=[t.clone() for t in tree_leaves(exp.params)
+                 + tree_leaves(exp.opt_state)],
+        comm=[t.clone() for t in comm],
+        bytes=exp.comm_bytes_total, trig=list(exp.trig_history),
+        live=list(exp.live_history), sim=list(exp.sim_time_history),
+        arrived=list(exp.arrived_history),
+        losses=list(exp.train_loss_history),
+        acc=[m.acc_per_node.copy() for m in hist],
+        detail=[m.detail for m in hist])
+
+
+def same_state(torch, a, b, detail=False, comm=True):
+    """`l_state` snapshots bitwise equal (the transport state only when
+    `comm`: its layout differs between the layouts); the detail too when
+    `detail`."""
+    import numpy as np
+
+    keys = ("tensors", "comm") if comm else ("tensors",)
+    ok = all(len(a[k]) == len(b[k]) and all(
+        torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in keys)
+    ok = ok and all(a[k] == b[k] for k in ("bytes", "trig", "live", "sim",
+                                           "arrived", "losses"))
+    ok = ok and len(a["acc"]) == len(b["acc"]) and all(
+        np.array_equal(x, y) for x, y in zip(a["acc"], b["acc"]))
+    if detail:
+        ok = ok and all(
+            list(x) == list(y) and all(np.array_equal(x[k], y[k])
+                                       for k in x)
+            for x, y in zip(a["detail"], b["detail"]))
+    return ok
+
+
+def l_detail_checks(hist, label):
+    """Per eval round: Σ edge_bytes == bytes_on_wire exactly, node_acc ==
+    acc_per_node."""
+    import numpy as np
+
+    for m in hist:
+        d = m.detail
+        if "edge_bytes" in d:
+            check(float(np.sum(d["edge_bytes"])) == m.bytes_on_wire,
+                  f"{label}: round {m.round} edge bytes "
+                  f"{float(np.sum(d['edge_bytes']))} != {m.bytes_on_wire}")
+        check(np.array_equal(d["node_acc"], m.acc_per_node),
+              f"{label}: round {m.round} node_acc != acc_per_node")
+        for k, v in d.items():
+            check(bool(np.isfinite(v).all()), f"{label}: {k} not finite")
+
+
+def path_l(torch, ops, dev, world):
+    """Telemetry on a-c's world at full width (l0-l2 and the profile
+    directory; see the module docstring).  Returns each run's summary."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.dynamics import EnergyChurn
+    from repro_torch.engine import Experiment, Schedule
+    from repro_torch.obs import (CHANNELS, Telemetry, export_trace,
+                                 format_round, read_ledger, validate_ledger)
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+
+    shutil.rmtree(L_DIR, ignore_errors=True)
+    L_DIR.mkdir(parents=True)
+    clock = Timing(LognormalStep(**K_NODE), LognormalLink(**K_LINK))
+    edge_int8 = CommConfig(codec="int8", policy="adaptive",
+                           target_trigger=0.95)
+    out = {}
+
+    def build(tele, layout=None, mode="fused", comm=edge_int8,
+              dynamics=None, method="decdiff+vt", deadline=K_DEADLINE):
+        w = dataclasses.replace(world, timing=clock, dynamics=dynamics,
+                                telemetry=tele)
+        exp = Experiment(w, method, comm=comm, layout=layout,
+                         schedule=Schedule(rounds=L_ROUNDS, eval_every=1,
+                                           mode=mode, deadline=deadline))
+        exp.run(rounds=1, eval_every=1)  # warm round
+        return exp
+
+    # -- l0: every channel, dense, fused, against telemetry=None --------
+    ledger = str(L_DIR / "l0.jsonl")
+    off = build(None)
+    on = build(Telemetry(channels="all", ledger=ledger))
+    ms = {"off": [], "on": []}
+    first = None
+    for turn, (key, exp) in enumerate([("off", off), ("on", on),
+                                       ("off", off), ("on", on)]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r = l_run(torch, ops, exp, verbose=turn == 3)
+        ms[key].append(r["ms"])
+        want = l_expected_launches(ops, exp, "decdiff+vt", L_ROUNDS)
+        check(r["launches"] == want,
+              f"path l0 ({key}): launches {r['launches']}, not {want}")
+        if turn == 1:
+            first = l_state(torch, on, r["hist"])
+            hist_on = r["hist"]
+        if turn == 3:
+            lines = buf.getvalue().splitlines()
+            check(lines == [format_round("decdiff+vt", m)
+                            for m in r["hist"]],
+                  f"path l0: verbose lines {lines}")
+            print("path l0 verbose lines (run(verbose=True)):")
+            for line in lines:
+                print(f"  {line}")
+    same = same_state(torch, l_state(torch, off, []), l_state(torch, on, []))
+    print(f"path l0 (Telemetry(channels='all'), per-edge int8 adaptive "
+          f"0.95, LognormalStep + LognormalLink at 1e6 B/s, deadline "
+          f"{K_DEADLINE} s, dense, fused; off, on, off, on, {L_ROUNDS} "
+          f"rounds each after a warm round): params, optimizer and "
+          f"transport state, bytes, trigger, simulated seconds and arrived "
+          f"histories bitwise equal to telemetry=None = {same}; launches "
+          f"equal = True; ms per round off {ms['off']}, on {ms['on']}, "
+          f"ratio on/off {sum(ms['on']) / sum(ms['off']):.4f}")
+    check(same, "path l0: telemetry changed the run")
+    check(on.bound_obs.channels == tuple(CHANNELS),
+          f"path l0 channels {on.bound_obs.channels}")
+    l_detail_checks(hist_on, "path l0")
+    d = hist_on[-1].detail
+    print(f"path l0 detail after round {hist_on[-1].round} of the first "
+          f"measured run: " + "; ".join(
+              f"{k} {v.shape} [{float(v.min()):.6g}, {float(v.max()):.6g}]"
+              for k, v in d.items()))
+    counts = validate_ledger(ledger)
+    manifest, _, summaries = read_ledger(ledger)
+    check(counts == {"manifest": 1, "round": 1 + 2 * L_ROUNDS,
+                     "summary": 3} and "jax" not in manifest["env"]
+          and manifest["env"]["device_type"] == "cuda"
+          and len(manifest["edges"]["src"]) == manifest["num_directed"],
+          f"path l0 ledger: {counts}, env {manifest['env']}")
+    print(f"path l0 ledger: {counts} (one summary per run() call: the warm "
+          f"round and two measured runs), env {manifest['env']}, summaries "
+          f"rounds per second "
+          f"{[round(s['rounds_per_sec'], 3) for s in summaries]}")
+    trace = export_trace(on, str(L_DIR / "l0_trace.json"))
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    edge = [e for e in spans if e["pid"] == 1]
+    late = sum(1 for e in edge if not e["args"]["arrived"])
+    span_bytes = sum(e["args"]["bytes"] for e in edge)
+    print(f"path l0 trace: {len(spans)} spans ({len(spans) - len(edge)} "
+          f"train, {len(edge)} transfers, {late} late), span bytes "
+          f"{span_bytes:.0f}, bytes on the wire {on.comm_bytes_total:.0f}")
+    check(span_bytes == on.comm_bytes_total and late > 0,
+          f"path l0 trace: span bytes {span_bytes} != "
+          f"{on.comm_bytes_total} or no late payload ({late})")
+    out["l0"] = dict(ms_off=ms["off"], ms_on=ms["on"],
+                     launches=r["launches"], counts=counts,
+                     late=late, spans=len(spans))
+    del off, on
+
+    # -- l1: l0 on the sparse layout, and l0 in loop mode ---------------
+    for key, layout, mode in (("l1_sparse", "sparse", "fused"),
+                              ("l1_loop", "dense", "loop")):
+        exp = build(Telemetry(channels="all"), layout=layout, mode=mode)
+        r = l_run(torch, ops, exp, mode=mode)
+        want = l_expected_launches(ops, exp, "decdiff+vt", L_ROUNDS)
+        check(r["launches"] == want,
+              f"path {key}: launches {r['launches']}, not {want}")
+        same = same_state(torch, first, l_state(torch, exp, r["hist"]),
+                          detail=True, comm=layout == "dense")
+        print(f"path {key} ({layout}, {mode}): {r['ms']:.2f} ms per round; "
+              f"params, histories and every round's detail bitwise l0's = "
+              f"{same}; launches {r['launches']}")
+        check(same, f"path {key}: differs from l0")
+        out[key] = dict(ms=r["ms"], launches=r["launches"])
+        del exp
+
+    # -- l2: per-node int8 with a trigger and fedavg under EnergyChurn ---
+    churn = EnergyChurn(capacity=8.0, recharge=4.0, rejoin_at=4.0)
+    for key, method, comm, tele in [
+            ("l2", "decdiff+vt",
+             CommConfig(codec="int8", trigger_threshold=0.8), "all"),
+            ("l2_fedavg", "fedavg", None, "auto")]:
+        pair = {}
+        for k in ("off", "on"):
+            exp = build(None if k == "off" else Telemetry(channels=tele),
+                        comm=comm, dynamics=churn, method=method,
+                        deadline=None)
+            alive = []
+            inner = exp.bound_dyn.transition
+
+            def transition(*args, inner=inner, alive=alive):
+                state, ev = inner(*args)
+                alive.append(ev.alive.cpu().numpy())
+                return state, ev
+
+            object.__setattr__(exp.bound_dyn, "transition", transition)
+            r = l_run(torch, ops, exp)
+            want = l_expected_launches(ops, exp, method, L_ROUNDS)
+            check(r["launches"] == want,
+                  f"path {key} ({k}): launches {r['launches']}, not {want}")
+            pair[k] = (exp, r, alive)
+        (eoff, roff, _), (eon, ron, alive) = pair["off"], pair["on"]
+        same = same_state(torch, l_state(torch, eoff, roff["hist"]),
+                          l_state(torch, eon, ron["hist"]))
+        l_detail_checks(ron["hist"], f"path {key}")
+        hist_obs = eon.obs_history[-len(alive) - 1:]
+        steps = np.diff(np.stack([s["node_steps"] for s in hist_obs]),
+                        axis=0)
+        secs = np.diff(np.stack([s["node_secs"] for s in hist_obs]), axis=0)
+        dead = np.stack(alive) == 0
+        frozen = bool((steps[dead] == 0).all() and (secs[dead] == 0).all())
+        print(f"path {key} (EnergyChurn(8, 4, 4), LognormalStep + "
+              f"LognormalLink at 1e6 B/s, {method}"
+              + (", per-node int8 trigger 0.8" if comm else "")
+              + f", channels={tele!r}): ms per round off {roff['ms']:.2f}, "
+              f"on {ron['ms']:.2f}; bitwise equal to telemetry=None = "
+              f"{same}; node-rounds dead {int(dead.sum())}, a dead node's "
+              f"node_steps and node_compute unchanged = {frozen}; "
+              f"triggered {eon.trig_history[-L_ROUNDS:]}")
+        check(same, f"path {key}: telemetry changed the run")
+        check(dead.any() and frozen, f"path {key}: dead {int(dead.sum())}, "
+                                     f"frozen {frozen}")
+        out[key] = dict(ms_off=roff["ms"], ms_on=ron["ms"],
+                        launches=ron["launches"], dead=int(dead.sum()))
+        del pair, eoff, eon
+
+    # -- Telemetry(profile_dir=...): a trace file, results unchanged -----
+    prof_dir = L_DIR / "profile"
+    exp = build(Telemetry(channels="all", profile_dir=str(prof_dir)))
+    r = l_run(torch, ops, exp)
+    same = same_state(torch, first, l_state(torch, exp, r["hist"]),
+                      detail=True)
+    files = sorted(p.name for p in prof_dir.iterdir())
+    size = sum((prof_dir / f).stat().st_size for f in files)
+    print(f"path l profile_dir: {len(files)} trace files ({size} B) "
+          f"{files}; results bitwise l0's = {same}; launches "
+          f"{r['launches']}")
+    check(same and len(files) == 2 and all(f.endswith(".json")
+                                           for f in files),
+          f"path l profile_dir: files {files}, same {same}")
+    out["l_profile"] = dict(launches=r["launches"], files=len(files))
+    del exp
+    gc.collect()
+    return out
+
+
+def path_l3(torch, ops, world):
+    """l3: path h's 256-node sparse world, `channels="auto"` with h's
+    per-edge transport, 2 rounds each way: peak memory on and off."""
+    import dataclasses
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.engine import Experiment, Schedule
+    from repro_torch.obs import Telemetry
+
+    runs = {}
+    for key in ("off", "on"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        exp = Experiment(
+            dataclasses.replace(world, telemetry=None if key == "off"
+                                else Telemetry(channels="auto")),
+            "decdiff+vt", layout="sparse",
+            comm=CommConfig(codec="int8", policy="adaptive",
+                            target_trigger=0.95),
+            schedule=Schedule(rounds=2, eval_every=1))
+        exp.run(rounds=1, eval_every=1)  # warm round
+        r = l_run(torch, ops, exp, rounds=2)
+        peak = torch.cuda.max_memory_allocated()
+        want = l_expected_launches(ops, exp, "decdiff+vt", 2)
+        check(r["launches"] == want,
+              f"path l3 ({key}): launches {r['launches']}, not {want}")
+        runs[key] = dict(r, exp=exp, peak=peak, rise=peak - base,
+                         state=l_state(torch, exp, r["hist"]))
+    on, off = runs["on"], runs["off"]
+    same = same_state(torch, off["state"], on["state"])
+    l_detail_checks(on["hist"], "path l3")
+    chans = on["exp"].bound_obs.channels
+    print(f"path l3 ({H_NODES} nodes, sparse, per-edge int8 adaptive 0.95, "
+          f"channels='auto' = {list(chans)}): ms per round off "
+          f"{off['ms']:.2f}, on {on['ms']:.2f}; peak device memory off "
+          f"{off['peak']} B ({off['rise']} B above the run's start), on "
+          f"{on['peak']} B ({on['rise']} B above the run's start), on - off "
+          f"rise {(on['rise'] - off['rise']) / 2**30:.3f} GiB; bitwise equal "
+          f"to telemetry=None = {same}")
+    check(same, "path l3: telemetry changed the run")
+    out = {k: dict(ms=v["ms"], peak=v["peak"], rise=v["rise"],
+                   launches=v["launches"]) for k, v in runs.items()}
+    del runs, on, off
+    gc.collect()
+    return out
+
+
+def path_l4(torch, ops, world, make_exp):
+    """l4: path i's 10^4-node world with i1's transport and
+    `channels="auto"`, without and with a ledger: rounds per second in
+    turns against telemetry=None (off, on, ledger, off, on, ledger), and
+    a manifest without edges (39,964 directed edges exceed
+    MANIFEST_EDGE_CAP)."""
+    import dataclasses
+
+    from repro_torch.obs import MANIFEST_EDGE_CAP, Telemetry, read_ledger
+
+    ledger = str(L_DIR / "l4.jsonl")
+    tele = {"off": None, "on": Telemetry(channels="auto"),
+            "ledger": Telemetry(channels="auto", ledger=ledger)}
+    exps = {}
+    for key, t in tele.items():
+        exps[key] = make_exp(dataclasses.replace(world, telemetry=t))
+        exps[key].run()  # warm run
+    rps = {key: [] for key in tele}
+    launches_on = dict.fromkeys(ops.LAUNCHES, 0)
+    for key in ("off", "on", "ledger") * 2:
+        exp = exps[key]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = exp.run()
+        torch.cuda.synchronize()
+        rps[key].append(ROUNDS / (time.perf_counter() - t0))
+        want = l_expected_launches(ops, exp, "decdiff", ROUNDS)
+        check(dict(ops.LAUNCHES) == want,
+              f"path l4 ({key}): launches {dict(ops.LAUNCHES)}, not {want}")
+        if key != "off":
+            l_detail_checks(hist, f"path l4 ({key})")
+            for k, v in ops.LAUNCHES.items():
+                launches_on[k] += v
+    off = l_state(torch, exps["off"], [])
+    same = all(same_state(torch, off, l_state(torch, exps[k], []))
+               for k in ("on", "ledger"))
+    manifest, rounds, _ = read_ledger(ledger)
+    n_dir = manifest["num_directed"]
+    print(f"path l4 ({I_NODES} nodes, sparse, decdiff, per-edge int8 "
+          f"adaptive 0.6, channels='auto' = "
+          f"{list(exps['on'].bound_obs.channels)}, loop): rounds per second "
+          f"off {rps['off']}, on {rps['on']}, on with the ledger "
+          f"{rps['ledger']}; ratios to off "
+          f"{sum(rps['on']) / sum(rps['off']):.4f} / "
+          f"{sum(rps['ledger']) / sum(rps['off']):.4f}; bitwise equal to "
+          f"telemetry=None = {same}; manifest num_directed {n_dir} > "
+          f"MANIFEST_EDGE_CAP {MANIFEST_EDGE_CAP}: edges in the manifest = "
+          f"{'edges' in manifest}; {len(rounds)} round records")
+    check(same, "path l4: telemetry changed the run")
+    check(n_dir > MANIFEST_EDGE_CAP and "edges" not in manifest,
+          f"path l4 manifest: {n_dir} edges, keys {sorted(manifest)}")
+    del exps
+    gc.collect()
+    return dict(rps_off=rps["off"], rps_on=rps["on"],
+                rps_ledger=rps["ledger"], launches=launches_on)
 
 
 # ----------------------------------------------------------------- path j
@@ -2509,6 +2942,11 @@ def main() -> int:
     lmk = path_k(torch, ops, dev, world, snaps["a"], profile)
     k_s = time.perf_counter() - t0
     print(f"path k took {k_s:.1f} s")
+    # -- path l: telemetry on the same world (l3 and l4 run in h and i) ---
+    t0 = time.perf_counter()
+    lml = path_l(torch, ops, dev, world)
+    l_s = time.perf_counter() - t0
+    print(f"path l (l0-l2 and profile_dir) took {l_s:.1f} s")
     del snaps
     # CFA-GE's gradient walk cut into calls of 16 edges (the last one
     # padded): both layouts make the same calls, so they stay bitwise equal
@@ -2705,6 +3143,10 @@ def main() -> int:
                "i3": lmi["i3"]["launches"],
                "k": {k: sum(r["launches"][k] for r in lmk.values())
                      for k in ops.LAUNCHES},
+               "l": {k: sum(r["launches"][k] for r in lml.values())
+                     for k in ops.LAUNCHES},
+               "l3": lmh["l3"]["on"]["launches"],
+               "l4": lmi["l4"]["launches"],
                "j": {k: sum(r["launches"][k] for r in lmj["runs"].values())
                      for k in ops.LAUNCHES},
                "j_emnist": {k: sum(r["launches"][k]
@@ -2800,6 +3242,20 @@ def main() -> int:
         f"live_edge_frac {r['live_frac']}, arrived_frac {r['arrived_frac']}, "
         f"sim_time {r['sim_time']}" for k, r in lmk.items())
         + f"; path k in all {k_s:.1f} s")
+    print(f"path l (telemetry, {card}): l0 ms per round off "
+          f"{lml['l0']['ms_off']}, on {lml['l0']['ms_on']} (ratio "
+          f"{sum(lml['l0']['ms_on']) / sum(lml['l0']['ms_off']):.4f}); l1 "
+          f"sparse {lml['l1_sparse']['ms']:.2f}, loop "
+          f"{lml['l1_loop']['ms']:.2f}; l2 off / on "
+          f"{lml['l2']['ms_off']:.2f} / {lml['l2']['ms_on']:.2f}, fedavg "
+          f"{lml['l2_fedavg']['ms_off']:.2f} / {lml['l2_fedavg']['ms_on']:.2f};"
+          f" l3 ms off / on {lmh['l3']['off']['ms']:.2f} / "
+          f"{lmh['l3']['on']['ms']:.2f}, peak off / on "
+          f"{lmh['l3']['off']['peak']} / {lmh['l3']['on']['peak']} B (rise "
+          f"{lmh['l3']['off']['rise']} / {lmh['l3']['on']['rise']} B); l4 "
+          f"rounds per second off {lmi['l4']['rps_off']}, on "
+          f"{lmi['l4']['rps_on']}, with the ledger "
+          f"{lmi['l4']['rps_ledger']}; l0-l2 in {l_s:.1f} s")
     print(f"path j (50 nodes, synth-fashion, Table I CNN, {card}): "
           + "; ".join(f"{m} {statistics.median(r['ms']):.2f} ms per round, "
                       f"peak {r['peak'] / 2**30:.2f} GiB, accuracy "

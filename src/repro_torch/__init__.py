@@ -9,7 +9,10 @@
 `World(dynamics=...)` takes a `repro_torch.dynamics` process (edge
 dropout, bursty links, churn, rewiring, scripted, energy churn) and
 `World(timing=...)` a `repro_torch.timing.Timing` event clock, with
-`Schedule(deadline=...)` for deadline ticks.
+`Schedule(deadline=...)` for deadline ticks, and `World(telemetry=...)` a
+`repro_torch.obs.Telemetry` (per-node / per-edge channels in
+`RoundMetrics.detail`, a JSONL run ledger, `export_trace`);
+`run(verbose=True)` logs one line per eval round.
 
 Runs on the CUDA card by default (`device=None` means "cuda" and raises on
 a host without CUDA); pass `device="cpu"` for the plain PyTorch path.  The
@@ -24,4 +27,5 @@ from repro_torch.engine import (  # noqa: F401
     TrainConfig,
     World,
 )
+from repro_torch.obs import Telemetry  # noqa: F401
 from repro_torch.timing import Timing  # noqa: F401

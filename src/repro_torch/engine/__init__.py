@@ -1,5 +1,6 @@
 """repro_torch.engine — the Experiment front door over method strategies
-(worlds with optional dynamics and event clock; see `experiment.py`)."""
+(worlds with optional dynamics, event clock and telemetry; see
+`experiment.py`)."""
 from repro_torch.engine.backends import BACKENDS, build_round  # noqa: F401
 from repro_torch.engine.experiment import (  # noqa: F401
     Experiment,
@@ -7,6 +8,7 @@ from repro_torch.engine.experiment import (  # noqa: F401
     TrainConfig,
     World,
 )
+from repro_torch.obs import Telemetry  # noqa: F401
 from repro_torch.engine.strategies import (  # noqa: F401
     AggregationStrategy,
     Capabilities,

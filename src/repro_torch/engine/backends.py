@@ -5,15 +5,17 @@ every node at once, on the experiment's device, with no host
 synchronisation.  This is the JAX package's round body on its dense
 context, on either node-axis layout (the padded [N, max_deg] panels or the
 sparse CSR edge list), with or without the `repro_torch.comm` gossip
-transport, a `repro_torch.dynamics` process and a `repro_torch.timing`
-event clock (telemetry is ROADMAP A.9).  By the strategy's declared kind:
+transport, a `repro_torch.dynamics` process, a `repro_torch.timing`
+event clock and `repro_torch.obs` telemetry.  By the strategy's declared
+kind:
 gossip aggregates over the delivered neighbours (then, for CFA-GE, walks
 the neighbour slots for the gradient exchange); "server" (FedAvg) averages
 the full stack; "none" keeps the local models:
 
-    round_fn(params, opt, comm_state, dyn_state, time_state, round_idx)
-        -> (params, opt, comm_state, dyn_state, time_state, train_loss,
-            extras)
+    round_fn(params, opt, comm_state, dyn_state, time_state, obs_state,
+             round_idx)
+        -> (params, opt, comm_state, dyn_state, time_state, obs_state,
+            train_loss, extras)
 
 `train_loss` is a 0-d device tensor: the mean over local steps of the mean
 over nodes of each step's loss, as in the reference.  The states are None
@@ -21,7 +23,13 @@ where the experiment has no such subsystem, and `extras` holds 0-d device
 tensors in the reference's order: (sent_edges, trig) with a transport
 (the round's fired directed edges, Σ_i gate_i·outdeg_i per node, Σ_ij
 gate_ij per edge, and their fraction of the live directed edges), then
-(live_edges,) with dynamics, then (sim_time, arrived_edges) with a clock.
+(live_edges,) with dynamics, then (sim_time, arrived_edges) with a clock,
+then the telemetry's channel snapshot (a dict of device tensors) last.
+Each transport branch also hands the telemetry its fired and delivered
+edge masks in the receiver orientation (the dense [N, max_deg] panel or
+the sparse [E] list): the quantities the byte accounting sums, so the
+channels agree with `sent_edges` exactly; a late payload counts as fired
+and not delivered.  The channels draw nothing and write no other state.
 
 With dynamics the round starts by realizing its graph (one draw from the
 generator for a random process, then the process's transition): a dead
@@ -303,8 +311,9 @@ def build_round(exp):
     # the same way.
     inv_edges = torch.tensor(np.float32(1.0) / np.float32(n_directed),
                              device=dev)
-    bound_dyn, bt = exp.bound_dyn, exp.bound_timing
+    bound_dyn, bt, tele = exp.bound_dyn, exp.bound_timing, exp.bound_obs
     has_dyn, has_time = bound_dyn is not None, bt is not None
+    has_obs = tele is not None
     live_varies = has_dyn and bound_dyn.name != "static"
     deadline = (torch.tensor(np.float32(exp.deadline), device=dev)
                 if exp.deadline is not None else None)
@@ -365,7 +374,7 @@ def build_round(exp):
             return sent / torch.clamp(live_total, min=1.0)
         return sent * inv_edges
 
-    def round_fn(params, opt, comm_state, dyn_state, time_state,
+    def round_fn(params, opt, comm_state, dyn_state, time_state, obs_state,
                  round_idx: int):
         # -- the dynamics prelude: realize this round's graph.  A random
         # process draws its uniforms first, before anything else in the
@@ -410,6 +419,8 @@ def build_round(exp):
         live_total = torch.sum(live) if has_dyn else None
         old_params = params
         extras = []
+        # the telemetry's receiver-side fired / delivered edge masks
+        obs_fired = obs_deliv = None
         with torch.no_grad():
             if transport is None:
                 if caps.kind == "server":
@@ -448,6 +459,11 @@ def build_round(exp):
                     wire=wire)
                 params = over_links(params, links, mask)
                 del links
+                if has_obs:
+                    # dense: the sender-layout gate seen from the receiver
+                    obs_fired = (gate if sparse
+                                 else transport.recv_layout(gate))
+                    obs_deliv = obs_fired * link
                 # unicast accounting: one payload per FIRED edge; failed
                 # and late links still burn the sender's bytes.
                 sent = torch.sum(gate)
@@ -470,6 +486,14 @@ def build_round(exp):
                 delivered = (gate[edge_src] * link if sparse
                              else edge_delivery(gate, link, nbr_idx))
                 comm_state = transport.note_delivery(comm_state, delivered)
+                if has_obs:
+                    if sparse:
+                        obs_fired = (gate[edge_src] * live if has_dyn
+                                     else gate[edge_src])
+                    else:
+                        obs_fired = gate[nbr_idx] * (live if has_dyn
+                                                     else nbr_valid)
+                    obs_deliv = delivered
                 if transport.config.on_silence == "drop":
                     mask = delivered
                 else:
@@ -517,7 +541,13 @@ def build_round(exp):
                 arrived = torch.tensor(np.float32(n_directed), device=dev)
             time_state = TimingState(t=sim_t, last_cost=t_cost)
             extras += [sim_t, arrived]
-        return (params, opt, comm_state, dyn_state, time_state, train_loss,
-                tuple(extras))
+        # -- the telemetry epilogue: channel arithmetic on the carried dict
+        if has_obs:
+            obs_state, snap = tele.step(obs_state, budgets=budgets,
+                                        t_cost=t_cost, fired=obs_fired,
+                                        delivered=obs_deliv)
+            extras.append(snap)
+        return (params, opt, comm_state, dyn_state, time_state, obs_state,
+                train_loss, tuple(extras))
 
     return round_fn

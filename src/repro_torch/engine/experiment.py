@@ -20,19 +20,25 @@ generator).  `World(dynamics=...)` makes the graph time-varying (a
 `repro_torch.dynamics.GraphProcess`: edge dropout, bursty links, churn,
 rewiring, scripted replay, energy churn), `World(timing=...)` prices each
 round in simulated seconds (`repro_torch.timing.Timing`), and
-`Schedule(deadline=d)` turns the rounds into deadline ticks.  Options that
-are not ported yet raise NotImplementedError naming the ROADMAP item that
-ports them: `telemetry=` (A.9) and `backend="shard_map"` (A.10).
+`Schedule(deadline=d)` turns the rounds into deadline ticks.
+`World(telemetry=...)` (a `repro_torch.obs.Telemetry`) records per-node and
+per-edge channels into `RoundMetrics.detail`, keeps one host snapshot per
+round in `obs_history` (what `repro_torch.obs.export_trace` reads), writes
+a JSONL run ledger, and can wrap a run in `torch.profiler`;
+`run(verbose=True)` logs one line per eval round.  The one option not
+ported yet, `backend="shard_map"`, raises NotImplementedError naming its
+ROADMAP item (A.10).
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
 its device and an Experiment runs on the same one.
 
 Schedule modes: "loop" reads each round's accounting (bytes and trigger,
-live edges, simulated time and arrivals) and each eval back to the host as
-it happens; "fused" (the default) runs the same rounds and evals with every
-result kept on the device, stacked, and read back once at the end, then
-accounts them round by round in the same order.  Both modes run the same
+live edges, simulated time and arrivals, the telemetry snapshot and, at
+eval rounds, its probes) and each eval back to the host as it happens;
+"fused" (the default) runs the same rounds and evals with every result
+kept on the device, and reads the accounting back in one copy at the end,
+then accounts it round by round in the same order.  Both modes run the same
 operations in the same order, so they are bitwise equal, bytes on the wire
 and simulated seconds included.
 
@@ -43,9 +49,12 @@ restart, as in the reference).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import List, Optional
+import os
+import time as _time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -68,6 +77,8 @@ from repro_torch.fl.trainer import (generator_keep, make_eval_fn,
 from repro_torch.graphs.sparse import SparseTopology
 from repro_torch.graphs.topology import Topology
 from repro_torch.models.api import SmallModel
+from repro_torch.obs import (RunLedger, Telemetry, log_round, round_record,
+                             run_manifest)
 from repro_torch.optim.sgd import sgd_momentum
 from repro_torch.timing import Timing
 from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
@@ -143,7 +154,8 @@ class World:
     `device`.  `dynamics` (a `GraphProcess`) makes "who talks to whom"
     time-varying: `topo` then holds the POSSIBLE links and the process
     decides which exist each round; `timing` (a `Timing`) prices each round
-    in simulated seconds."""
+    in simulated seconds; `telemetry` (a `Telemetry`) selects the channels,
+    the ledger and the profile directory of `repro_torch.obs`."""
 
     model: SmallModel
     topo: "Topology | SparseTopology"
@@ -154,12 +166,10 @@ class World:
     device: DeviceLike = None
     dynamics: Optional[GraphProcess] = None
     timing: Optional[Timing] = None
-    telemetry: object = None
+    telemetry: Optional[Telemetry] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.telemetry is not None:
-            raise _not_ported("World(telemetry=...)", "A.9")
 
     @classmethod
     def synthetic(cls, dataset: str = "synth-mnist", nodes: int = 16,
@@ -424,6 +434,29 @@ class Experiment:
         self._arrived_rounds = 0
         self.arrived_history: List[float] = []  # per-round arrived fraction
 
+        # --- telemetry: bind the channel selection once, after the clock;
+        # the accumulator dict is one more round-carried state and the
+        # per-round snapshot one more extras group.  The ledger (when
+        # configured) opens here with the run manifest.
+        self.telemetry = world.telemetry
+        self.bound_obs = None
+        self.obs_state = None
+        # host channel snapshots, one per round (every round, not only the
+        # eval rounds: the trace exporter diffs the cumulative channels)
+        self.obs_history: List[Dict[str, np.ndarray]] = []
+        self.ledger = None
+        if world.telemetry is not None:
+            if not isinstance(world.telemetry, Telemetry):
+                raise TypeError(
+                    f"World.telemetry must be a repro_torch.obs.Telemetry, "
+                    f"got {type(world.telemetry).__name__}")
+            self.bound_obs = world.telemetry.bind(self)
+            if self.bound_obs is not None:
+                self.obs_state = self.bound_obs.state0
+            if world.telemetry.ledger is not None:
+                self.ledger = RunLedger(world.telemetry.ledger)
+                self.ledger.write_manifest(run_manifest(self))
+
         self.agg_state = self.strategy.init_state(self)
         self._round = backends.build_round(self)
         self.train_loss_history: List[float] = []  # one entry per round
@@ -467,10 +500,18 @@ class Experiment:
         self._arrived_rounds += 1
         self.arrived_history.append(frac)
 
+    def _account_obs(self, snapshot):
+        """Keep the round's channel snapshot on the host (numpy, the
+        layout's own shapes): `RoundMetrics.detail` and the trace exporter
+        materialize from these."""
+        self.obs_history.append({
+            k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in snapshot.items()})
+
     def _account_extras(self, extras):
         """Route one round's extras group by group, in the reference's
         order: (sent, trig) with a transport, (live,) with dynamics,
-        (sim_t, arrived) with an event clock."""
+        (sim_t, arrived) with an event clock, (snapshot,) with telemetry."""
         extras = list(extras)
         if self.transport is not None:
             self._account_comm(extras.pop(0), extras.pop(0))
@@ -478,9 +519,22 @@ class Experiment:
             self._account_live(extras.pop(0))
         if self.bound_timing is not None:
             self._account_time(extras.pop(0), extras.pop(0))
+        if self.bound_obs is not None:
+            self._account_obs(extras.pop(0))
         assert not extras
 
-    def _finish_metrics(self, m: RoundMetrics) -> RoundMetrics:
+    def _probes(self):
+        """The telemetry's parameter probes (consensus / drift) on the
+        device, or None; called at eval rounds only."""
+        if self.bound_obs is None or not self.bound_obs.has_probes:
+            return None
+        return self.bound_obs.eval_probes(
+            tree_flatten_stacked(self.params)[0])
+
+    def _finish_metrics(self, m: RoundMetrics, history, verbose,
+                        probes=None):
+        """Fill the eval round's accounting and telemetry detail, append
+        it to `history`, write its ledger record and log its line."""
         if self.transport is not None:
             m.bytes_on_wire = self.comm_bytes_total
             m.triggered_frac = self._trig_sum / max(self._comm_rounds, 1)
@@ -489,18 +543,49 @@ class Experiment:
         if self.bound_timing is not None:
             m.sim_time = self.sim_time
             m.arrived_frac = self._arrived_sum / max(self._arrived_rounds, 1)
-        return m
+        if self.bound_obs is not None and self.obs_history:
+            m.detail = self.bound_obs.materialize(
+                self.obs_history[-1], acc_per_node=m.acc_per_node,
+                probes=probes)
+        history.append(m)
+        if self.ledger is not None:
+            self.ledger.write(round_record(m))
+        if verbose:
+            log_round(self.method.name, m)
+
+    @contextlib.contextmanager
+    def _profiled(self, out_dir: str):
+        """`Telemetry(profile_dir=...)`: torch.profiler around the run (CPU
+        activity, and CUDA on a card), its Chrome trace written into
+        `out_dir` as one new file per run."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(out_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(
+            out_dir, f"run-{os.getpid()}-{_time.time_ns()}.pt.trace.json"))
 
     def run(self, rounds: Optional[int] = None,
-            eval_every: Optional[int] = None,
+            eval_every: Optional[int] = None, verbose: bool = False,
             mode: Optional[str] = None) -> List[RoundMetrics]:
         """Run the schedule; returns the eval history (round 0 = after the
         first round's local training and exchange).  The per-round train
         losses are appended to `train_loss_history`; with a transport the
         triggered fractions to `trig_history`, with dynamics the live-edge
-        fractions to `live_history`, and with an event clock the simulated
+        fractions to `live_history`, with an event clock the simulated
         seconds and arrived fractions to `sim_time_history` and
-        `arrived_history`."""
+        `arrived_history`, and with telemetry the host channel snapshots
+        to `obs_history`.
+
+        `verbose=True` logs one line per eval round through the
+        ``repro_torch.obs.round`` logger (the reference's text); a
+        telemetry ledger gets one record per eval round and a summary
+        (wall seconds, rounds per second); `Telemetry(profile_dir=...)`
+        wraps the run in `torch.profiler`."""
         rounds = self.schedule.rounds if rounds is None else rounds
         eval_every = (self.schedule.eval_every if eval_every is None
                       else eval_every)
@@ -508,49 +593,111 @@ class Experiment:
         if mode not in SCHEDULE_MODES:
             raise ValueError(f"schedule mode must be one of {SCHEDULE_MODES}, "
                              f"got {mode!r}")
+        profile = contextlib.nullcontext()
+        if self.telemetry is not None and self.telemetry.profile_dir:
+            profile = self._profiled(self.telemetry.profile_dir)
+        t0 = _time.perf_counter()
+        with profile:
+            history = self._run(rounds, eval_every, verbose, mode)
+        if self.ledger is not None:
+            wall = _time.perf_counter() - t0
+            self.ledger.write({"kind": "summary", "mode": mode,
+                               "rounds": int(rounds), "wall_s": wall,
+                               "rounds_per_sec": rounds / max(wall, 1e-9)})
+        return history
+
+    def _run(self, rounds, eval_every, verbose, mode) -> List[RoundMetrics]:
         evals = set(Schedule.eval_rounds(rounds, eval_every))
         history: List[RoundMetrics] = []
-        pending = []  # fused: (round, acc, loss) kept on the device
+        pending = []  # fused: (round, acc, loss, probes) kept on the device
         losses, extras_out = [], []
         for r in range(rounds):
             (self.params, self.opt_state, self.comm_state, self.dyn_state,
-             self.time_state, loss, extras) = self._round(
+             self.time_state, self.obs_state, loss, extras) = self._round(
                  self.params, self.opt_state, self.comm_state,
-                 self.dyn_state, self.time_state, r)
+                 self.dyn_state, self.time_state, self.obs_state, r)
             losses.append(loss)
-            if extras:
-                if mode == "loop":
+            if mode == "loop":
+                if extras:
                     self._account_extras(extras)
-                else:
-                    extras_out.append(torch.stack(extras))
-            if r in evals:
-                if mode == "loop":
+                if r in evals:
                     m = self.evaluate()
                     m.round = r
-                    history.append(self._finish_metrics(m))
-                else:
+                    probes = self._probes()
+                    if probes is not None:
+                        probes = {k: v.cpu().numpy()
+                                  for k, v in probes.items()}
+                    self._finish_metrics(m, history, verbose, probes)
+            else:
+                if extras:
+                    extras_out.append(extras)
+                if r in evals:
                     acc, eloss = self._eval(self.params, self.x_test,
                                             self.y_test)
-                    pending.append((r, acc, eloss))
+                    pending.append((r, acc, eloss, self._probes()))
         if mode == "fused" and rounds:
-            # one read-back of everything the rounds left on the device,
-            # then the host-side accounting in round order
-            acc_r = loss_r = extras_r = None
+            # one read-back of the accounting the rounds left on the device
+            # (every round's extras, the telemetry snapshot included, and
+            # every eval round's probes), then the host-side accounting in
+            # round order
+            acc_r = loss_r = None
             if pending:
-                acc_r = torch.stack([a for _, a, _ in pending]).cpu().numpy()
-                loss_r = torch.stack([lo for _, _, lo in pending]
-                                     ).cpu().numpy()
-            if extras_out:
-                extras_r = torch.stack(extras_out).cpu().tolist()
-            at = {r: i for i, (r, _, _) in enumerate(pending)}
+                acc_r = torch.stack([p[1] for p in pending]).cpu().numpy()
+                loss_r = torch.stack([p[2] for p in pending]).cpu().numpy()
+            probes_d = [p[3] for p in pending if p[3] is not None]
+            host = iter(_read_back(extras_out + probes_d))
+            extras_r = [next(host) for _ in extras_out]
+            at = {p[0]: i for i, p in enumerate(pending)}
             for r in range(rounds):
-                if extras_r is not None:
+                if extras_r:
                     self._account_extras(extras_r[r])
                 if r in at:
-                    history.append(self._finish_metrics(RoundMetrics(
-                        round=r, acc_per_node=acc_r[at[r]],
-                        loss_per_node=loss_r[at[r]])))
+                    i = at[r]
+                    self._finish_metrics(
+                        RoundMetrics(round=r, acc_per_node=acc_r[i],
+                                     loss_per_node=loss_r[i]),
+                        history, verbose,
+                        next(host) if pending[i][3] is not None else None)
         if losses:
             self.train_loss_history.extend(
                 torch.stack(losses).cpu().tolist())
         return history
+
+
+def _read_back(groups):
+    """Copy a list of groups (each a tuple of 0-d tensors and dicts of
+    tensors, or one dict) from the device in one read-back; returns the
+    same structure on the host: python floats for the 0-d tensors, numpy
+    arrays in the dicts."""
+    flat = []
+    for g in groups:
+        for item in (g.values() if isinstance(g, dict) else g):
+            if isinstance(item, dict):
+                flat.extend(item.values())
+            else:
+                flat.append(item)
+    if not flat:  # only empty snapshots: nothing on the device
+        return list(groups)
+    buf = torch.cat([t.reshape(-1) for t in flat]).cpu().numpy()
+    pos = 0
+
+    def take(t):
+        nonlocal pos
+        n = t.numel()
+        a = buf[pos:pos + n].reshape(tuple(t.shape))
+        pos += n
+        return a
+
+    out = []
+    for g in groups:
+        if isinstance(g, dict):
+            out.append({k: take(v) for k, v in g.items()})
+            continue
+        host = []
+        for item in g:
+            if isinstance(item, dict):
+                host.append({k: take(v) for k, v in item.items()})
+            else:
+                host.append(float(take(item)))
+        out.append(host)
+    return out

@@ -3,8 +3,8 @@
   * `RoundMetrics`, one eval round: every node's test accuracy and loss,
     with a transport the bytes on the wire and the triggered fraction,
     with a dynamics process the live-edge fraction, and with an event
-    clock the simulated time and the arrived fraction (the JAX package's
-    telemetry field arrives with that subsystem, ROADMAP A.9);
+    clock the simulated time and the arrived fraction, and with telemetry
+    the selected channels (`detail`, see `repro_torch.obs`);
   * `characteristic_time` (paper Table IV): rounds to reach a fraction of
     the centralized benchmark's accuracy;
   * `comm_bytes_per_round` (paper §VI-A.3): bytes moved per round per
@@ -42,6 +42,13 @@ class RoundMetrics:
     # bytes but is not aggregated.
     sim_time: Optional[float] = None
     arrived_frac: Optional[float] = None
+    # Telemetry detail (None without a repro_torch.obs Telemetry): the
+    # selected channels materialized at this eval round — node channels as
+    # [N] arrays, edge channels as [E] arrays in the canonical
+    # (dst, src)-sorted directed-edge order shared by both layouts.
+    # Cumulative channels (steps / compute / bytes / trigger) cover every
+    # round up to and including this one, mirroring `bytes_on_wire`.
+    detail: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def acc_mean(self) -> float:

@@ -742,7 +742,7 @@ def test_cnn_rounds_are_deterministic_on_the_card(card, dataset, method,
 # ------------------------------------- dynamics and the event clock (path k)
 
 def _dyn_run(where, dynamics=None, timing=None, deadline=None, comm=None,
-             layout=None, method="decdiff+vt"):
+             layout=None, method="decdiff+vt", telemetry=None, mode="fused"):
     from repro_torch.comm import CommConfig
     from repro_torch.engine import Experiment, Schedule, World
     from repro_torch.models.mlp_cnn import make_mlp
@@ -750,12 +750,13 @@ def _dyn_run(where, dynamics=None, timing=None, deadline=None, comm=None,
     world = World.synthetic("synth-mnist", nodes=16,
                             topology="barabasi_albert", m=2, scale=0.03,
                             model=make_mlp(hidden=(64, 32)), device=where,
-                            dynamics=dynamics, timing=timing)
+                            dynamics=dynamics, timing=timing,
+                            telemetry=telemetry)
     exp = Experiment(world, method, layout=layout, steps_per_round=2,
                      batch_size=32, device=where,
                      comm=None if comm is None else CommConfig(**comm),
                      schedule=Schedule(rounds=3, eval_every=1,
-                                       deadline=deadline))
+                                       deadline=deadline, mode=mode))
     ops.reset_launches()
     hist = exp.run()
     return exp, hist, dict(ops.LAUNCHES)
@@ -831,3 +832,84 @@ def test_sparse_equals_dense_under_edge_dropout_on_the_card(card, comm):
     assert de.trig_history == se.trig_history
     if comm is not None:
         assert dl["gather_rows"] == 3 and sl["gather_rows"] == 0
+
+
+# ------------------------------------------------ telemetry (path l)
+
+TELE_CASES = {
+    "edge-int8-deadline": dict(
+        comm=dict(codec="int8", policy="adaptive", target_trigger=0.95,
+                  stochastic=False), deadline=2.5),
+    "node-int8-churn": dict(
+        comm=dict(codec="int8", stochastic=False, trigger_threshold=0.8),
+        deadline=2.5),
+    "fedavg-churn": dict(method="fedavg"),
+}
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("case", sorted(TELE_CASES))
+def test_telemetry_on_the_card_matches_the_cpu(card, case, layout):
+    """Every channel on the card: bitwise the run without telemetry, the
+    same kernel launches, and its detail against the CPU's: counts
+    exactly, seconds to 1e-6, accuracies within one test sample, the
+    probes within the parameters' 1e-4 carried through the norm."""
+    from repro_torch.dynamics import EnergyChurn
+    from repro_torch.obs import Telemetry
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+    from repro_torch.utils.pytree import tree_flatten_stacked, tree_leaves
+
+    kw = dict(TELE_CASES[case], layout=layout,
+              timing=Timing(LognormalStep(1.0, 0.5, seed=7),
+                            LognormalLink(0.05, 0.5, 1e6, 0.5, seed=11)))
+    if case.endswith("churn"):
+        kw["dynamics"] = EnergyChurn(capacity=3.0, recharge=4.0,
+                                     rejoin_at=2.0)
+    off, off_h, off_l = _dyn_run(card, **kw)
+    on, on_h, on_l = _dyn_run(card, telemetry=Telemetry(channels="all")
+                              if "comm" in kw else Telemetry(), **kw)
+    cpu, cpu_h, _ = _dyn_run(torch.device("cpu"), telemetry=Telemetry(
+        channels="all") if "comm" in kw else Telemetry(), **kw)
+    assert on_l == off_l
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(on.params),
+                                                 tree_leaves(off.params)))
+    for f in ("comm_bytes_total", "trig_history", "live_history",
+              "sim_time_history", "arrived_history"):
+        assert getattr(on, f) == getattr(off, f), f
+    d = int(tree_flatten_stacked(on.params)[0].shape[1])
+    probe_tol = 2.0 * np.sqrt(d) * 1e-4
+    used = (len(on.world.x_test) // 128) * 128
+    for a, b in zip(on_h, cpu_h):
+        assert list(a.detail) == list(b.detail)
+        for ch, got in a.detail.items():
+            ref = b.detail[ch]
+            if ch in ("node_steps", "edge_trigger", "edge_bytes",
+                      "edge_staleness"):
+                np.testing.assert_array_equal(got, ref, err_msg=ch)
+            elif ch in ("node_compute", "edge_latency"):
+                np.testing.assert_allclose(got, ref, rtol=1e-6, err_msg=ch)
+            elif ch == "node_acc":
+                assert np.abs(got - ref).max() * used <= 1 + 1e-6
+            else:
+                np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                           atol=probe_tol, err_msg=ch)
+        if "edge_bytes" in a.detail:
+            assert float(a.detail["edge_bytes"].sum()) == a.bytes_on_wire
+        np.testing.assert_array_equal(a.detail["node_acc"], a.acc_per_node)
+
+
+def test_telemetry_loop_equals_fused_on_the_card(card):
+    from repro_torch.obs import Telemetry
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+
+    kw = dict(comm=dict(codec="int8", policy="adaptive", target_trigger=0.95),
+              deadline=2.5, telemetry=Telemetry(channels="all"),
+              timing=Timing(LognormalStep(1.0, 0.5, seed=7),
+                            LognormalLink(0.05, 0.5, 1e6, 0.5, seed=11)))
+    (fe, fh, fl), (le, lh, ll) = (_dyn_run(card, mode="fused", **kw),
+                                  _dyn_run(card, mode="loop", **kw))
+    assert fl == ll
+    for a, b in zip(fh, lh):
+        assert list(a.detail) == list(b.detail)
+        for k in a.detail:
+            np.testing.assert_array_equal(a.detail[k], b.detail[k])

@@ -481,10 +481,10 @@ def test_dead_nodes_freeze_and_pay_nothing(layout, transport):
     for r in range(4):
         before = [t.clone() for t in tree_leaves(exp.params)
                   + tree_leaves(exp.opt_state)]
-        (exp.params, exp.opt_state, exp.comm_state, exp.dyn_state, _, _,
+        (exp.params, exp.opt_state, exp.comm_state, exp.dyn_state, _, _, _,
          (sent, trig, live)) = exp._round(exp.params, exp.opt_state,
                                           exp.comm_state, exp.dyn_state,
-                                          None, r)
+                                          None, None, r)
         dead = alive[-1] == 0
         dead_seen += int(dead.sum())
         for b, a in zip(before, tree_leaves(exp.params)

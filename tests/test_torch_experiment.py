@@ -221,9 +221,9 @@ def test_unknown_layout_is_refused(reference):
     ("telemetry", "A.9"), ("shard_map", "A.10"), ("checkpoint", "A.11")])
 def test_unported_options_name_their_roadmap_item(reference, case, item):
     """An option not ported yet raises NotImplementedError naming its
-    ROADMAP item.  Dynamics (A.7) and the event clock (A.8) are ported:
-    their options run, and a value of the wrong kind is refused as the
-    reference refuses it."""
+    ROADMAP item.  Dynamics (A.7), the event clock (A.8) and telemetry
+    (A.9) are ported: their options run, and a value of the wrong kind is
+    refused as the reference refuses it."""
     from repro_torch.launch.train import main as train_main
 
     jw, _, _, _ = reference
@@ -237,6 +237,10 @@ def test_unported_options_name_their_roadmap_item(reference, case, item):
                             device="cpu"), device="cpu")),
         "deadline": (ValueError, "needs World\\(timing", lambda: Experiment(
             world, schedule=Schedule(deadline=1.0), device="cpu")),
+        "telemetry": (TypeError, "repro_torch.obs.Telemetry",
+                      lambda: Experiment(World.synthetic(
+                          nodes=4, scale=0.005, telemetry=object(),
+                          device="cpu"), device="cpu")),
     }
     if case in ported:
         exc, match, call = ported[case]
@@ -244,9 +248,6 @@ def test_unported_options_name_their_roadmap_item(reference, case, item):
             call()
         return
     calls = {
-        "telemetry": lambda: World.synthetic(nodes=4, scale=0.005,
-                                             telemetry=object(),
-                                             device="cpu"),
         "shard_map": lambda: Experiment(world, backend="shard_map",
                                         device="cpu"),
         "checkpoint": lambda: train_main(["--ckpt-dir", "ckpt",

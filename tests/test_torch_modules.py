@@ -351,7 +351,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.models.mlp_cnn', 'repro_torch.models.api', "
         "'repro_torch.optim.sgd', 'repro_torch.fl.metrics', "
         "'repro_torch.fl.trainer', 'repro_torch.data.pipeline', "
-        "'repro_torch.dynamics.processes', 'repro_torch.timing.models'):\n"
+        "'repro_torch.dynamics.processes', 'repro_torch.timing.models', "
+        "'repro_torch.obs.channels', 'repro_torch.obs.ledger', "
+        "'repro_torch.obs.trace'):\n"
         "    assert m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules "
         "if k.startswith('repro_torch')]))\n")
@@ -360,4 +362,4 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 71  # every submodule imported
+    assert int(out.stdout.split()[1]) >= 75  # every submodule imported

@@ -372,8 +372,9 @@ def test_experiment_refusals():
     world.timing = tt.ConstantStep()
     with pytest.raises(TypeError, match="repro_torch.timing.Timing"):
         Experiment(world, "decdiff+vt", device="cpu", **TRAIN)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _world(telemetry=object())
+    with pytest.raises(TypeError, match="repro_torch.obs.Telemetry"):
+        Experiment(_world(telemetry=object()), "decdiff+vt", device="cpu",
+                   **TRAIN)
     with pytest.raises(NotImplementedError, match="A.10"):
         Experiment(_world(), "decdiff+vt", device="cpu",
                    backend="shard_map", **TRAIN)
