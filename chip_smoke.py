@@ -39,7 +39,7 @@ It imports the port only (no JAX), and:
      history must be bitwise equal to the dense runs' (the segment reduce
      launches once per bucket and round, `gather_rows` never); and path g
      once more on both layouts with CFA-GE's gradient walk cut into calls
-     of 16 edges (the last one padded), bitwise equal too;
+     of 16 edges (the last one holds the rest), bitwise equal too;
   4. checks what comes out: per-node accuracies of shape [16] in [0, 1],
      finite train losses and params, bytes on the wire equal to the
      payload formula (567,438 bytes per fired edge) and a triggered
@@ -151,6 +151,31 @@ It imports the port only (no JAX), and:
      second in turns against telemetry=None, and a manifest without
      `edges` (39,964 directed edges exceed MANIFEST_EDGE_CAP); files go to
      `build/path_l/`;
+  4f. drives path m, the pod backend (`Experiment(backend="shard_map")`,
+     one block of N / P nodes per `torch.distributed` rank), right after
+     path l on a-c's world under `EdgeDropout(p=0.2)`, k's clock with its
+     6 s deadline and every channel, each run a warm round then 3 fused
+     rounds with the counts set to 0 just before and read just after: m0
+     in this process over NCCL at world size 1, `decdiff+vt` with the
+     per-edge int8 adaptive 0.95 transport on both layouts, bitwise the
+     vmap run (params, optimizer and transport state, every history and
+     channel, the loss) with the same launches, ms per round beside
+     path a's and the gather's share; m1 two gloo ranks on the one card
+     (`torch.multiprocessing.spawn`, both on cuda:0, the gather staged
+     through host memory) running m0's two runs, `fedavg` and `cfa-ge`,
+     each bitwise the vmap run in this process (the loss, a mean of the
+     pods' means, within 1e-6) with each rank's launches the vmap run's,
+     ms per round and the gather's ms a round; m2 in the same two ranks,
+     path d's round (its init, batches and its 3 measured rounds, each
+     timed) at two pods of two nodes: the fused int8 gossip gathers q
+     [4, D] and the scales and runs `dequant_neighbor_avg_rows` on [2, 4]
+     weights, each node's params bitwise path d's (sha256) and the
+     losses within 1e-5; the kernels held against their plain versions at
+     the block shapes (the segment reduce on pod 0's [8, 10, 567434]
+     panel, the gather on its 80 rows, Eq. 5 on [8, 567434], the drift
+     norms on its 80 per-edge rows, the VT loss at [256, 10],
+     `dequant_neighbor_avg_rows` at [2, 4, 463987712]);
+     rendezvous files and results go to `build/path_m/`;
   5. drives path d, the LM DFL pod round: `build_dfl_round_shardmap` in
      its one-pod form with the fused int8 gossip
      (`Int8Codec(stochastic=False)`), `build_lm(get_config("qwen1.5-0.5b"))`
@@ -192,7 +217,10 @@ It imports the port only (no JAX), and:
      bitwise for the kernel's scale, the norms within a stated tolerance);
      the VT loss forward and backward within a stated tolerance on path
      d's real logits [512, 151936] (bf16 and fp32) and at the MLP's
-     [512, 10] and [32, 10];
+     [512, 10] and [32, 10]; the transports' drift norms (Eq. 5's pass A
+     and scale kernel) within a stated tolerance, and a block of rows
+     bitwise the full call's, on path b's real per-edge rows and path c's
+     per-node rows;
   7. drives path e, dense serving at full width, after path d's state is
      freed: the reference's `decode_32k` serve step (`launch/dryrun.py`)
      with the request flow of `examples/serve_decode.py`, through
@@ -222,7 +250,8 @@ It imports the port only (no JAX), and:
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
 Paths a-d, h and i also run the Eq. 5 step through the `decdiff_update`
-kernels: one launch per round each.  With `--profile` it also traces one
+kernels: one launch per round each; every run with a transport computes
+its drift through `drift_norms` once a round.  With `--profile` it also traces one
 more round (eval included) of paths a, b, g, h (without a transport and
 per-edge, and cfa-ge), i (every run) and j (decdiff+vt), one round of path
 d and one decode step of path e under `torch.profiler` and prints the
@@ -921,6 +950,8 @@ def path_d(torch, ops, dev, profile):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(loss))
+        if r == M2_ROUNDS:  # path m2's point of comparison, outside the clock
+            digests = lm_node_digests(torch, params)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     alloc1 = torch.cuda.memory_stats()
@@ -972,8 +1003,8 @@ def path_d(torch, ops, dev, profile):
     payload, _ = codec.encode(w)
     wn, row = _normalized(torch.from_numpy(adj).to(dev), None)
     return dict(launches=launches, ms=ms, losses=losses, peak=peak,
-                q=payload["q"], scale=payload["scale"], wn=wn.contiguous(),
-                w=w, row=row.contiguous(),
+                digests=digests, q=payload["q"], scale=payload["scale"],
+                wn=wn.contiguous(), w=w, row=row.contiguous(),
                 logits=logits.reshape(-1, logits.shape[-1]).contiguous(),
                 labels=batches[-1]["labels"][0].reshape(-1).contiguous())
 
@@ -991,8 +1022,8 @@ def ge_walk_rows(exp):
     degrees = (exp.sparse_plan.degrees if exp.layout == "sparse"
                else exp.nbr_valid.sum(dim=1))
     buckets = sum(_bucket_width(int(d)) for d in degrees.tolist())
-    return (f"gradient walk {calls * chunk} row-gradients per round in "
-            f"{calls} calls of {chunk} (E = {e}; the reference's sparse "
+    return (f"gradient walk {e} row-gradients per round in {calls} calls "
+            f"of at most {chunk} (E = {e}; the reference's sparse "
             f"bucket walk {buckets}, its dense slot walk "
             f"{exp.n * int(exp.topo.max_degree)})")
 
@@ -1040,6 +1071,7 @@ def path_h(torch, ops, dev, profile):
         check(launches["segment_neighbor_avg"] == ROUNDS * len(widths)
               and launches["gather_rows"] == 0
               and launches["decdiff_update"] == ROUNDS
+              and launches["drift_norms"] == (0 if comm is None else ROUNDS)
               and launches["vt_kl_loss_fwd"] == launches["vt_kl_loss_bwd"]
               == ROUNDS * exp.train.steps_per_round,
               f"path h ({label}): launches {launches}")
@@ -1221,6 +1253,7 @@ def path_i(torch, ops, dev, profile):
               and launches["gather_rows"] == 0
               and launches["decdiff_update"] == (
                   ROUNDS if method == "decdiff" else 0)
+              and launches["drift_norms"] == (0 if comm is None else ROUNDS)
               and launches["vt_kl_loss_fwd"] == 0,
               f"path i ({method}, {label}): launches {launches}")
         walk = None
@@ -1282,13 +1315,16 @@ def k_expected_launches(ops, exp, method):
     with the segment reduce once per width bucket and round on the sparse
     layout and `gather_rows` once a round on the dense per-edge transport.
     A dead node still runs its masked local steps, so the VT kernels launch
-    once a local step whatever the churn."""
+    once a local step whatever the churn.  A transport's drift norms
+    launch once a round."""
     want = j_expected_launches(ops, method, exp.train.steps_per_round)
     if exp.layout == "sparse" and want["segment_neighbor_avg"]:
         want["segment_neighbor_avg"] = ROUNDS * len(exp.sparse_plan.widths)
     if exp.layout == "dense" and exp.comm is not None \
             and exp.comm.use_per_edge:
         want["gather_rows"] = ROUNDS
+    if exp.comm is not None:
+        want["drift_norms"] = ROUNDS
     return want
 
 
@@ -1510,9 +1546,9 @@ def path_k(torch, ops, dev, world, snap_a, profile):
         if comm is not None:
             inner_reset = exp.transport.reset_rows
 
-            def reset_rows(state, reset, inner=inner_reset):
+            def reset_rows(state, reset, inner=inner_reset, **kw):
                 resets.append(int((reset > 0).sum()))
-                return inner(state, reset)
+                return inner(state, reset, **kw)
 
             exp.transport.reset_rows = reset_rows
         gc.collect()
@@ -1641,8 +1677,8 @@ L_DIR = ROOT / "build" / "path_l"     # path l's ledgers, traces, profiles
 def l_expected_launches(ops, exp, method, rounds):
     """A path-l run's launches over `rounds` rounds: path j's roster
     counts, with the segment reduce once per width bucket and round on the
-    sparse layout and `gather_rows` once a round on the dense per-edge
-    transport."""
+    sparse layout, `gather_rows` once a round on the dense per-edge
+    transport and the drift norms once a round on any transport."""
     want = dict.fromkeys(ops.LAUNCHES, 0)
     if method.startswith("decdiff"):
         want["segment_neighbor_avg"] = rounds * (
@@ -1656,6 +1692,8 @@ def l_expected_launches(ops, exp, method, rounds):
     if exp.layout == "dense" and exp.comm is not None \
             and exp.comm.use_per_edge:
         want["gather_rows"] = rounds
+    if exp.comm is not None:
+        want["drift_norms"] = rounds
     return want
 
 
@@ -2028,6 +2066,396 @@ def path_l4(torch, ops, world, make_exp):
 
 
 # ----------------------------------------------------------------- path j
+
+M_DIR = ROOT / "build" / "path_m"     # path m's rendezvous and results
+M_PODS = 2                            # m1 / m2: gloo ranks on the one card
+M2_ROUNDS = 3                         # m2's measured rounds (after a warm one)
+# path m's runs: (method, CommConfig kwargs or None, layout)
+M_RUNS = {
+    "decdiff+vt": ("decdiff+vt", dict(codec="int8", policy="adaptive",
+                                      target_trigger=0.95), "dense"),
+    "decdiff+vt_s": ("decdiff+vt", dict(codec="int8", policy="adaptive",
+                                        target_trigger=0.95), "sparse"),
+    "fedavg": ("fedavg", None, "dense"),
+    "cfa-ge": ("cfa-ge", None, "dense"),
+}
+M0_RUNS = ("decdiff+vt", "decdiff+vt_s")
+
+
+def m_experiment(world, key, backend, device=None):
+    """One run of path m on a-c's world: `EdgeDropout(0.2)`, path k's
+    clock with its 6 s deadline and every channel the run supports
+    (`Telemetry("all")` with the transport), fused, eval every round."""
+    import dataclasses
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.dynamics import EdgeDropout
+    from repro_torch.engine import Experiment, Schedule
+    from repro_torch.obs import Telemetry
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+
+    method, comm, layout = M_RUNS[key]
+    w = dataclasses.replace(
+        world, dynamics=EdgeDropout(p=0.2),
+        timing=Timing(LognormalStep(**K_NODE), LognormalLink(**K_LINK)),
+        telemetry=Telemetry("all" if comm is not None else "auto"))
+    return Experiment(w, method, backend=backend, layout=layout,
+                      comm=None if comm is None else CommConfig(**comm),
+                      schedule=Schedule(rounds=ROUNDS, eval_every=1,
+                                        deadline=K_DEADLINE), device=device)
+
+
+def m_digest(exp, hist):
+    """What path m holds two runs to, bitwise and picklable: params (kept
+    whole, for a measured gap), sha256 of the optimizer and transport
+    state and of every channel snapshot, and every history."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.utils.pytree import tree_leaves
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    comm = ([] if exp.comm_state is None
+            else [v for v in exp.comm_state if v is not None])
+    return dict(
+        params=[t.cpu().numpy() for t in tree_leaves(exp.params)],
+        opt=[sha(t.cpu().numpy()) for t in tree_leaves(exp.opt_state)],
+        comm=[sha(t.cpu().numpy()) for t in comm],
+        obs=[{k: sha(v) for k, v in o.items()} for o in exp.obs_history],
+        detail=[{k: sha(v) for k, v in m.detail.items()} for m in hist],
+        acc=[m.acc_per_node.tolist() for m in hist],
+        bytes=exp.comm_bytes_total, trig=list(exp.trig_history),
+        live=list(exp.live_history), sim=list(exp.sim_time_history),
+        arrived=list(exp.arrived_history),
+        losses=list(exp.train_loss_history))
+
+
+def m_compare(a, b):
+    """(bitwise equal, the largest |param| difference, the largest train
+    loss difference, what differs) of two `m_digest`s; a channel that
+    differs is named as "obs:<channel>" or "detail:<channel>"."""
+    import numpy as np
+
+    gap = max(float(np.max(np.abs(x - y))) for x, y in
+              zip(a["params"], b["params"]))
+    differ = [] if gap == 0.0 and all(
+        np.array_equal(x, y) for x, y in zip(a["params"], b["params"])) \
+        else ["params"]
+    for k in ("opt", "comm", "acc", "bytes", "trig", "live", "sim",
+              "arrived"):
+        if a[k] != b[k]:
+            differ.append(k)
+    for k in ("obs", "detail"):
+        if len(a[k]) != len(b[k]):
+            differ.append(k)
+            continue
+        differ += sorted({f"{k}:{c}" for x, y in zip(a[k], b[k])
+                          for c in set(x) | set(y) if x.get(c) != y.get(c)})
+    loss_gap = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    return not differ, gap, loss_gap, differ
+
+
+def m_drive(torch, ops, exp):
+    """One warm round, then ROUNDS rounds with every launch count set to 0
+    just before and read just after: the digest, ms per round, launches."""
+    exp.run(rounds=1, eval_every=1)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = exp.run(rounds=ROUNDS, eval_every=1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
+    launches = dict(ops.LAUNCHES)
+    for m in hist:
+        check(all(math.isfinite(x) for x in m.acc_per_node),
+              f"path m: accuracies {m.acc_per_node}")
+    return dict(digest=m_digest(exp, hist), ms=ms, launches=launches)
+
+
+def m_gather_ms(torch, exp):
+    """One more round with the pod context's gather timed (synchronized
+    before and after each call, so this round is not a measured one):
+    (gather ms in the round, bytes gathered by this rank, calls)."""
+    from repro_torch.engine import backends
+
+    inner, spent = exp.pod_ctx.gather, []
+
+    def gather(a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(a)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0, a.numel() * a.element_size()))
+        return out
+
+    exp.pod_ctx = exp.pod_ctx._replace(gather=gather)
+    exp._round = backends.build_round(exp)
+    exp.run(rounds=1, eval_every=1)
+    torch.cuda.synchronize()
+    exp.pod_ctx = exp.pod_ctx._replace(gather=inner)
+    return (1e3 * sum(t for t, _ in spent), sum(b for _, b in spent),
+            len(spent))
+
+
+def lm_node_digests(torch, params):
+    """sha256 of each node's params (its leaves' bytes in flat order)."""
+    import hashlib
+
+    from repro_torch.utils.pytree import tree_leaves
+
+    leaves = tree_leaves(params)
+    out = []
+    for i in range(leaves[0].shape[0]):
+        h = hashlib.sha256()
+        for t in leaves:
+            row = t[i].contiguous()
+            if row.dtype == torch.bfloat16:
+                row = row.view(torch.int16)
+            h.update(row.cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def m2_pod_round(torch, ops, dev, mesh, rank, n_pods):
+    """Path d's round at P pods: this rank's LM_NODES / P nodes of path
+    d's init and batches, one warm round and M2_ROUNDS measured ones, the
+    gathers inside them timed (the gloo gather copies through the host,
+    which synchronizes anyway).  Returns the block's node digests, losses,
+    ms per round, gather ms per round, launches and peak memory."""
+    from repro_torch.comm import transport
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_dfl_round_shardmap
+    from repro_torch.launch.train import (
+        init_nodes,
+        make_batches,
+        ring_adjacency,
+    )
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_map
+
+    r = LM_NODES // n_pods
+    rows = slice(rank * r, (rank + 1) * r)
+    lm = build_lm(get_config(LM_ARCH))
+    params = tree_map(lambda t: t[rows].clone(),
+                      init_nodes(lm, LM_NODES, dev))
+    torch.cuda.empty_cache()
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    state = opt.init(params)
+    codec = Int8Codec(stochastic=False)
+    rnd = build_dfl_round_shardmap(lm, opt, ring_adjacency(LM_NODES), mesh,
+                                   loss_kind="vt", beta=LM_BETA, codec=codec)
+    batches = [{k: v[rows] for k, v in b.items()} for b in make_batches(
+        lm, LM_NODES, LM_BATCH, LM_SEQ, 1 + M2_ROUNDS, dev)]
+    params, state, loss = rnd(params, state, 0, batches[0])
+    torch.cuda.synchronize()
+    inner, spent = transport.all_gather_rows, []
+
+    def timed_gather(a, group, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(a, group, n)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0, a.numel() * a.element_size(),
+                      tuple(out.shape)))
+        return out
+
+    transport.all_gather_rows = timed_gather
+    ops.reset_launches()
+    ms, losses, gather_ms = [], [], []
+    try:
+        for k in range(1, M2_ROUNDS + 1):
+            spent.clear()
+            t0 = time.perf_counter()
+            params, state, loss = rnd(params, state, k, batches[k])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+            gather_ms.append(1e3 * sum(t for t, _, _ in spent))
+    finally:
+        transport.all_gather_rows = inner
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check((LM_NODES, LM_PARAMS) in [shape for _, _, shape in spent],
+          f"path m2: gathered {[shape for _, _, shape in spent]}")
+    return dict(digests=lm_node_digests(torch, params), losses=losses,
+                ms=ms, launches=launches, peak=peak, gather_ms=gather_ms,
+                gather_bytes=[b for _, b, _ in spent])
+
+
+def m_worker(rank, n_pods, out_dir):
+    """One gloo rank of paths m1 and m2, on the one card (cuda:0): m1's
+    runs, then m2's LM pod round; results pickled to
+    `out_dir/rank<r>.pkl`."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.engine import World
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    store = dist.FileStore(str(Path(out_dir) / "store"), n_pods)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=n_pods)
+    try:
+        out = {"m1": {}}
+        world = World.synthetic("synth-mnist", nodes=16,
+                                topology="barabasi_albert", m=2, scale=1.0)
+        for key in M_RUNS:
+            exp = m_experiment(world, key, "shard_map")
+            check(exp.n_pods == n_pods and exp.pod == rank,
+                  f"path m1: pod {exp.pod} of {exp.n_pods}")
+            r = m_drive(torch, ops, exp)
+            r["gather"] = m_gather_ms(torch, exp)
+            out["m1"][key] = r
+            del exp
+            gc.collect()
+        del world
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = init_device_mesh("cuda", (n_pods,), mesh_dim_names=("pod",))
+        out["m2"] = m2_pod_round(torch, ops, dev, mesh, rank, n_pods)
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def path_m(torch, ops, dev, world, ms_a):
+    """The pod backend (see the module docstring): m0 in this process over
+    NCCL at world size 1, then m1 and m2 in M_PODS gloo ranks on the card.
+    Returns each run's summary; m2's check against path d's round comes
+    after path d."""
+    import pickle
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    out = {}
+    vmap = {}
+    # -- m0: shard_map on NCCL at world size 1, against vmap, both layouts
+    if M_DIR.exists():
+        shutil.rmtree(M_DIR)
+    M_DIR.mkdir(parents=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(M_DIR / "store0"), 1), rank=0,
+        world_size=1, device_id=dev)
+    try:
+        for key in M0_RUNS:
+            ref = m_drive(torch, ops, m_experiment(world, key, "vmap"))
+            vmap[key] = ref
+            exp = m_experiment(world, key, "shard_map")
+            check(exp.n_pods == 1 and dist.get_backend() == "nccl",
+                  f"path m0: {exp.n_pods} pods")
+            got = m_drive(torch, ops, exp)
+            got["gather"] = m_gather_ms(torch, exp)
+            same, gap, loss_gap, differ = m_compare(got["digest"],
+                                                    ref["digest"])
+            print(f"path m0 ({key}, shard_map on NCCL, world size 1): "
+                  f"{got['ms']:.2f} ms per round (vmap {ref['ms']:.2f}, path "
+                  f"a {ms_a:.2f}); gather {got['gather'][0]:.3f} ms, "
+                  f"{got['gather'][1]} B in {got['gather'][2]} calls a "
+                  f"round; launches {got['launches']}; bitwise vmap = "
+                  f"{same} (params gap {gap}, loss gap {loss_gap})")
+            check(same and loss_gap == 0.0,
+                  f"path m0 ({key}) differs from vmap: {differ}, params "
+                  f"gap {gap}")
+            check(got["launches"] == ref["launches"],
+                  f"path m0 ({key}): launches {got['launches']} against "
+                  f"vmap's {ref['launches']}")
+            out[f"m0_{key}"] = got
+            del exp
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    # the vmap side of m1's other runs, in this process
+    for key in M_RUNS:
+        if key not in vmap:
+            vmap[key] = m_drive(torch, ops, m_experiment(world, key, "vmap"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- m1 and m2: M_PODS gloo ranks on this card, one spawn
+    t0 = time.perf_counter()
+    mp.spawn(m_worker, args=(M_PODS, str(M_DIR)), nprocs=M_PODS, join=True)
+    ranks = []
+    for r in range(M_PODS):
+        with open(M_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    print(f"path m1 + m2: {M_PODS} gloo ranks on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for key in M_RUNS:
+        ref = vmap[key]
+        runs = [rk["m1"][key] for rk in ranks]
+        same, gap, loss_gap, differ = m_compare(runs[0]["digest"],
+                                                ref["digest"])
+        agree = all(m_compare(x["digest"], runs[0]["digest"])[0]
+                    for x in runs[1:])
+        launches = {k: sum(x["launches"][k] for x in runs)
+                    for k in ops.LAUNCHES}
+        # every launch is per call, so each rank launches as the vmap run
+        share = all(x["launches"] == ref["launches"] for x in runs)
+        print(f"path m1 ({key}, {M_PODS} pods over gloo on one card): ms per "
+              f"round {[round(x['ms'], 2) for x in runs]} (vmap "
+              f"{ref['ms']:.2f}); gather ms a round "
+              f"{[round(x['gather'][0], 3) for x in runs]} "
+              f"({runs[0]['gather'][1]} B from each rank in "
+              f"{runs[0]['gather'][2]} calls, through host memory); "
+              f"launches (both ranks) {launches}, each rank's = vmap's "
+              f"{share}; bitwise vmap = {same} (params gap {gap}, loss gap "
+              f"{loss_gap}, differ {differ}); ranks agree = {agree}")
+        check(same, f"path m1 ({key}) differs from vmap: {differ}, params "
+                    f"gap {gap}")
+        check(loss_gap <= 1e-6, f"path m1 ({key}) loss gap {loss_gap}")
+        check(agree, f"path m1 ({key}): the ranks' results differ")
+        check(share, f"path m1 ({key}): launches by rank "
+                     f"{[x['launches'] for x in runs]} against vmap's "
+                     f"{ref['launches']}")
+        out[f"m1_{key}"] = dict(ms=[x["ms"] for x in runs],
+                                gather=[x["gather"] for x in runs],
+                                launches=launches, vmap_ms=ref["ms"])
+    m2 = [rk["m2"] for rk in ranks]
+    check(m2[0]["losses"] == m2[1]["losses"],
+          f"path m2: the ranks' losses {[x['losses'] for x in m2]}")
+    out["m2"] = dict(digests=sum((x["digests"] for x in m2), []),
+                     losses=m2[0]["losses"],
+                     ms=[x["ms"] for x in m2],
+                     gather_ms=[x["gather_ms"] for x in m2],
+                     gather_bytes=m2[0]["gather_bytes"],
+                     peak=[x["peak"] for x in m2],
+                     launches={k: sum(x["launches"][k] for x in m2)
+                               for k in ops.LAUNCHES})
+    lm = out["m2"]["launches"]
+    print(f"path m2 (qwen1.5-0.5b 4-node ring, fused int8, {M_PODS} pods of "
+          f"2 nodes over gloo): ms per round {out['m2']['ms']} (median by "
+          f"rank {[statistics.median(x) for x in out['m2']['ms']]}), of which "
+          f"the gathers {out['m2']['gather_ms']} ms "
+          f"({out['m2']['gather_bytes']} B from each rank), peak "
+          f"{out['m2']['peak']} B per rank, losses {out['m2']['losses']}, "
+          f"launches (both ranks) {lm}")
+    check(lm["dequant_neighbor_avg_rows"] == M_PODS * M2_ROUNDS
+          and lm["decdiff_update"] == M_PODS * M2_ROUNDS
+          and lm["vt_kl_loss_fwd"] == lm["vt_kl_loss_bwd"]
+          == LM_NODES * M2_ROUNDS, f"path m2: launches {lm}")
+    out["launches"] = {
+        "m0": {k: sum(out[f"m0_{key}"]["launches"][k] for key in M0_RUNS)
+               for k in ops.LAUNCHES},
+        "m1": {k: sum(out[f"m1_{key}"]["launches"][k] for key in M_RUNS)
+               for k in ops.LAUNCHES},
+        "m2": lm}
+    return out
+
 
 def timed_rounds(torch, ops, exp, label, rounds=ROUNDS):
     """One warm round, then `rounds` fused rounds, each evaluated, with
@@ -2516,6 +2944,41 @@ def eq5_vs_plain(torch, w, avg, row, label, s=1.0):
     return res
 
 
+def drift_vs_plain(torch, x, ref, label):
+    """Hold the trigger's drift norms (`ops.drift_norms`: Eq. 5's pass A
+    and scale kernel, then the square root) against the plain norms on
+    one [R, D] pair: within rtol 1e-5 (another summation order), and the
+    first half of the rows bitwise the full call's (a row's sum does not
+    depend on R).  Library: `torch.pairwise_distance(x, ref, eps=0)`."""
+    from repro_torch.kernels import decdiff_update as dd
+
+    r, d = x.shape
+    got = dd.drift_norms_cuda(x, ref)
+    half = dd.drift_norms_cuda(x[:max(r // 2, 1)], ref[:max(r // 2, 1)])
+    torch.cuda.synchronize()
+    plain = dd.drift_norms_plain(x, ref)
+    err = float((got - plain).abs().max())
+    close = bool(((got - plain).abs() <= 1e-5 * plain.abs()).all())
+    blocked = bool(torch.equal(half, got[:max(r // 2, 1)]))
+    t = timings(torch, lambda: dd.drift_norms_cuda(x, ref),
+                lambda: dd.drift_norms_plain(x, ref),
+                lambda: torch.pairwise_distance(x, ref, eps=0.0))
+    nbytes, flops = 2 * 4 * r * d + 4 * r, 3 * r * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    res = dict(t, bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=err, shape=[r, d])
+    print(f"drift_norms {label} [R={r}, D={d}]: max_abs_err={err:g} "
+          f"{timing_text(t, 'pairwise_distance', res['bound_ms'])}; bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"{nbytes / 1e9:.3f} GB); half the rows bitwise the full call's "
+          f"= {blocked}")
+    check(close, f"drift_norms {label}: the norms differ by {err:g}")
+    check(blocked, f"drift_norms {label}: a block of rows differs from the "
+                   f"full call's")
+    return res
+
+
 def decode_bound_ms(q, k, n_live, out_elems):
     """Least time for one decode attention over the `n_live` slots that
     this run's mask keeps: q, slot_pos, pos and the live slots' k and v
@@ -2835,8 +3298,8 @@ def main() -> int:
           f"segment_neighbor_avg launched {l_edge} in {ROUNDS} rounds")
     check(l_edge["vt_kl_loss_fwd"] == l_edge["vt_kl_loss_bwd"]
           == vt_per_path, f"path b: vt_kl_loss launches {l_edge}")
-    check(l_edge["decdiff_update"] == ROUNDS,
-          f"path b: decdiff_update launches {l_edge}")
+    check(l_edge["decdiff_update"] == l_edge["drift_norms"] == ROUNDS,
+          f"path b: decdiff_update / drift_norms launches {l_edge}")
     sent_e = [t * n_dir for t in trig_e]
     check(len(sent_e) == ROUNDS and all(abs(x - round(x)) < 1e-3
                                         for x in sent_e),
@@ -2858,7 +3321,8 @@ def main() -> int:
     check(l_node["segment_neighbor_avg"] >= ROUNDS and
           l_node["gather_rows"] == 0 and
           l_node["vt_kl_loss_fwd"] == l_node["vt_kl_loss_bwd"]
-          == vt_per_path and l_node["decdiff_update"] == ROUNDS,
+          == vt_per_path and l_node["decdiff_update"] == ROUNDS
+          and l_node["drift_norms"] == ROUNDS,
           f"per-node launches {l_node}")
     # threshold 0: every gate fires, Σ_i gate_i·outdeg_i = directed edges
     check(trig_n == [1.0] * ROUNDS and bytes_n == payload * n_dir * ROUNDS,
@@ -2923,15 +3387,16 @@ def main() -> int:
 
     # -- paths a, b, c and g again on the sparse layout: bitwise equal ------
     vt_checks = dict(vt_kl_loss_fwd=vt_per_path, vt_kl_loss_bwd=vt_per_path,
-                     decdiff_update=ROUNDS)
+                     decdiff_update=ROUNDS, drift_norms=0)
+    comm_checks = dict(vt_checks, drift_norms=ROUNDS)
     sparse_launches = {}
     for key, label, method, comm, want in [
             ("a", "path a", "decdiff+vt", None, vt_checks),
             ("b", "path b", "decdiff+vt",
              CommConfig(codec="int8", policy="adaptive", target_trigger=0.95),
-             vt_checks),
+             comm_checks),
             ("c", "path c", "decdiff+vt", CommConfig(codec="int8"),
-             vt_checks),
+             comm_checks),
             ("g", "path g", "cfa-ge", None, dict(neighbor_avg=0))]:
         sparse_launches[f"{key}_s"], _ = sparse_equals_dense(
             torch, ops, world, snaps[key], label, method, comm, sched, want)
@@ -2947,9 +3412,14 @@ def main() -> int:
     lml = path_l(torch, ops, dev, world)
     l_s = time.perf_counter() - t0
     print(f"path l (l0-l2 and profile_dir) took {l_s:.1f} s")
+    # -- path m: the pod backend (m2 is held to path d after path d) -----
+    t0 = time.perf_counter()
+    lmm = path_m(torch, ops, dev, world, ms_plain)
+    m_s = time.perf_counter() - t0
+    print(f"path m (m0-m2) took {m_s:.1f} s")
     del snaps
-    # CFA-GE's gradient walk cut into calls of 16 edges (the last one
-    # padded): both layouts make the same calls, so they stay bitwise equal
+    # CFA-GE's gradient walk cut into calls of 16 edges (the last one holds
+    # the rest): both layouts make the same calls, so they stay bitwise equal
     from repro_torch.engine import backends
 
     ge_chunk, backends.GE_CHUNK = backends.GE_CHUNK, 16
@@ -2985,11 +3455,48 @@ def main() -> int:
     seg = kernel_vs_plain(torch, ops, segment_avg_plain, vals_main, w_main,
                           "main path (16-node BA m=2, real weights)",
                           cold=True)
+    # path m1's blocks: pod 0's 8 receivers of the 16
+    blk = exp.n // M_PODS
+    seg_m = kernel_vs_plain(torch, ops, segment_avg_plain,
+                            vals_main[:blk].contiguous(),
+                            w_main[:blk].contiguous(),
+                            f"path m1's per-pod panel (pod 0, {blk} of "
+                            f"{exp.n} receivers)", cold=True)
+    sums_m, tot_m = ops.segment_neighbor_avg(vals_main[:blk].contiguous(),
+                                             w_main[:blk].contiguous())
+    eq5_m = eq5_vs_plain(torch, table0[:blk].contiguous(),
+                         (sums_m / tot_m[:, None]).contiguous(),
+                         tot_m.contiguous(),
+                         f"path m1's block [{blk}, {n_params}] and its "
+                         f"neighbourhood average")
+    del sums_m, tot_m
     table_e = exp_e.comm_state.last_sent.reshape(-1, n_params)
     gat = gather_vs_plain(torch, ops, gather_rows_plain, table_e,
                           exp_e.transport.flat_idx,
                           "per-edge path (real per-link table after "
                           f"{ROUNDS + 1} rounds)", cold=True)
+    gat_m = gather_vs_plain(
+        torch, ops, gather_rows_plain, table_e,
+        exp_e.transport.flat_idx[:blk * exp_e.transport.e].contiguous(),
+        f"path m1's per-pod receivers ({blk} of {exp.n} rows of the "
+        f"replicated per-link table)", cold=True)
+    # the trigger's drift: path b's per-edge rows (each node's model
+    # against its per-link references), path m1's pod block of them, and
+    # path c's per-node rows
+    n_e = exp_e.transport.e
+    x_e = tree_flatten_stacked(exp_e.params)[0][:, None, :].expand(
+        exp.n, n_e, n_params).reshape(-1, n_params).contiguous()
+    drift = drift_vs_plain(torch, x_e, table_e,
+                           "path b (real per-edge rows after "
+                           f"{ROUNDS + 1} rounds)")
+    drift_m = drift_vs_plain(torch, x_e[:blk * n_e], table_e[:blk * n_e],
+                             f"path m1's block ({blk} of {exp.n} senders' "
+                             f"per-edge rows)")
+    del x_e
+    drift_c = drift_vs_plain(
+        torch, tree_flatten_stacked(exp_n.params)[0],
+        exp_n.comm_state.last_sent.to(torch.float32).contiguous(),
+        "path c (real per-node rows)")
     del vals_main, table_e
     topo64 = barabasi_albert(64, m=2, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3041,6 +3548,22 @@ def main() -> int:
     small_lm_agrees(torch, dev)
     dq = dequant_vs_plain(torch, ops, lmd["q"], lmd["scale"], lmd["wn"],
                           "path d (real int8 payload of the 4 nodes)")
+    lm_blk = LM_NODES // M_PODS
+    dq_m = dequant_vs_plain(torch, ops, lmd["q"], lmd["scale"],
+                            lmd["wn"][:lm_blk].contiguous(),
+                            f"path m2's pod block (real int8 payload of the "
+                            f"{LM_NODES} nodes, {lm_blk} receivers)")
+    # -- path m2 against path d: the same init, batches and rounds -------
+    m2 = lmm["m2"]
+    loss_gap = max(abs(a - b) for a, b in zip(m2["losses"], lmd["losses"]))
+    print(f"path m2 against path d after {1 + M2_ROUNDS} rounds: node "
+          f"digests equal = {m2['digests'] == lmd['digests']}, loss gap "
+          f"{loss_gap}; ms per round {m2['ms']} against path d's "
+          f"{lmd['ms']}")
+    check(m2["digests"] == lmd["digests"],
+          "path m2's params differ from the one-pod round's (path d)")
+    check(loss_gap <= 1e-5 * max(1.0, max(abs(x) for x in lmd["losses"])),
+          f"path m2's losses {m2['losses']} against {lmd['losses']}")
     # the int8 route of path d's gossip, one receiver at a time, through
     # the reference's entry point `dequant_neighbor_avg`
     ops.reset_launches()
@@ -3088,12 +3611,14 @@ def main() -> int:
                           "path d (node 0's real logits)")
     vt_vs_plain(torch, ops, lmd["logits"].float(), lmd["labels"],
                 "path d logits in fp32")
-    for b in (16 * 32, 32):  # the MLP's [N·B, 10] and one node's batch
+    # the MLP's [N·B, 10], path m1's block [R·B, 10], one node's batch
+    vt_mlp = {}
+    for b in (16 * 32, 8 * 32, 32):
         z = torch.randn((b, 10), generator=gen, device=dev) * 3
         y = torch.randint(0, 10, (b,), generator=gen, device=dev)
         y[0], y[-1] = 0, 9
-        vt_vs_plain(torch, ops, z, y, f"MLP classes [{b}, 10]",
-                    beta=exp_beta)
+        vt_mlp[b] = vt_vs_plain(torch, ops, z, y, f"MLP classes [{b}, 10]",
+                                beta=exp_beta)
 
     # -- path e: dense serving at full width, after path d's state is gone
     torch.cuda.empty_cache()
@@ -3151,7 +3676,8 @@ def main() -> int:
                      for k in ops.LAUNCHES},
                "j_emnist": {k: sum(r["launches"][k]
                                    for r in lmj["emnist"].values())
-                            for k in ops.LAUNCHES}}
+                            for k in ops.LAUNCHES},
+               **lmm["launches"]}
 
     def launches(name):
         return sum(p[name] for p in by_path.values())
@@ -3179,29 +3705,34 @@ def main() -> int:
     kernels = [
         entry("segment_neighbor_avg", "segment_avg",
               "src/repro/kernels/segment_avg.py:62", seg,
-              path_j=at_j(lmj["seg"])),
+              path_j=at_j(lmj["seg"]), path_m=at_j(seg_m)),
         entry("gather_rows", "gather_rows",
               "src/repro/kernels/gather_rows.py:39", gat,
-              every_slot_bound_ms=gat["every_slot_bound_ms"]),
+              every_slot_bound_ms=gat["every_slot_bound_ms"],
+              path_m=at_j(gat_m)),
         entry("dequant_neighbor_avg_rows", "dequant_avg_rows",
-              "src/repro/kernels/dequant_avg.py:79", dq),
+              "src/repro/kernels/dequant_avg.py:79", dq, path_m=at_j(dq_m)),
         entry("vt_kl_loss_fwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:94", vt_main["fwd"],
               also_replaces="src/repro/kernels/vt_kl_loss.py:108",
               dtype=vt_main["fwd"]["dtype"], path_j=at_j(lmj["vt"]["fwd"]),
-              path_j_emnist=at_j(lmj["vt_emnist"]["fwd"])),
+              path_j_emnist=at_j(lmj["vt_emnist"]["fwd"]),
+              path_m=at_j(vt_mlp[8 * 32]["fwd"])),
         entry("vt_kl_loss_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127", vt_main["bwd"],
               dtype=vt_main["bwd"]["dtype"], path_j=at_j(lmj["vt"]["bwd"]),
-              path_j_emnist=at_j(lmj["vt_emnist"]["bwd"])),
+              path_j_emnist=at_j(lmj["vt_emnist"]["bwd"]),
+              path_m=at_j(vt_mlp[8 * 32]["bwd"])),
         entry("decdiff_update_sumsq", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", eq5["sumsq"],
               counter="decdiff_update", dtype=eq5["sumsq"]["dtype"],
-              path_j=at_j(lmj["eq5"]["sumsq"])),
+              path_j=at_j(lmj["eq5"]["sumsq"]),
+              path_m=at_j(eq5_m["sumsq"])),
         entry("decdiff_update_step", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:60", eq5["step"],
               counter="decdiff_update", dtype=eq5["step"]["dtype"],
-              path_j=at_j(lmj["eq5"]["step"])),
+              path_j=at_j(lmj["eq5"]["step"]),
+              path_m=at_j(eq5_m["step"])),
         entry("decode_attention_fused", "decode_attention",
               "src/repro/kernels/decode_attention.py:92", da_main,
               dtype=da_main["dtype"], other_shapes=da_shapes),
@@ -3214,6 +3745,9 @@ def main() -> int:
               other_shapes=lmh["bucket_checks"]),
         entry("dequant_neighbor_avg", "dequant_avg",
               "src/repro/kernels/dequant_avg.py:42", dqa_main),
+        entry("drift_norms", "decdiff_update",
+              "src/repro/kernels/decdiff_update.py:42", drift,
+              other_shapes=[at_j(drift_c)], path_m=at_j(drift_m)),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -3266,6 +3800,11 @@ def main() -> int:
           + "; ".join(f"{m} {statistics.median(r['ms']):.2f} ms per round, "
                       f"peak {r['peak'] / 2**30:.2f} GiB"
                       for m, r in lmj["emnist"].items()))
+    print(f"path m (the pod backend, {card}): " + "; ".join(
+        f"{k} ms per round {v['ms'] if 'ms' in v else ''}"
+        for k, v in lmm.items() if k != "launches")
+        + f"; path a {ms_plain:.2f}, path d {lmd['ms']}; path m in all "
+          f"{m_s:.1f} s")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,8 +12,9 @@
               `[E, ...]` state over the sparse CSR edge list).
 
 Receivers always decode before aggregating, so DecDiff's Eq. 5-6 act on
-reconstructed models; only the bytes on the wire change.  The pod context
-is ROADMAP A.10.
+reconstructed models; only the bytes on the wire change.  Every exchange
+is written against a `PodContext` (a row slice and an all-gather over the
+pod backend's mesh; `DENSE_CTX` holds all N rows).
 """
 from repro_torch.comm.codecs import (  # noqa: F401
     CODECS,
@@ -26,12 +27,14 @@ from repro_torch.comm.codecs import (  # noqa: F401
     payload_nbytes,
 )
 from repro_torch.comm.transport import (  # noqa: F401
+    DENSE_CTX,
     WIRES,
     CommConfig,
     CommState,
     EdgeCommState,
     EdgeGossipTransport,
     GossipTransport,
+    PodContext,
     SparseEdgeCommState,
     SparseEdgeGossipTransport,
     codec_roundtrip_stacked,

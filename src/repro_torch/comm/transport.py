@@ -38,10 +38,19 @@ node, the per-edge transports one row per canonical CSR directed edge (the
 dense one indexes those rows by `edge_id`, the sparse one by identity), so
 stochastic int8 is bitwise equal across the two layouts.
 
-`wire` ("encoded" | "decoded") is what the pod backend's all-gather
-carries.  On this single-process path nothing is gathered, so the two
-wires are the same computation; both are accepted and validated.  The pod
-backend (`PodContext`) is ROADMAP A.10.
+Every exchange runs for the caller's block of sender rows under a
+:class:`PodContext`: `rows` slices a replicated [N, ...] quantity to the
+block, `gather` assembles the full [N, ...] axis from every pod's block
+(`DENSE_CTX`: one block of all N rows, both the identity).  Sender-private
+state (residuals, per-edge thresholds and drift EMAs) holds the block's
+rows; receiver-facing caches (`last_sent`, the ever-sent / ever-delivered
+flags) are replicated and advanced identically on every pod from the
+gathered wire (`state_specs` says which is which).  `wire` ("encoded" |
+"decoded") is what the gather carries: the codec payload, decoded after
+the gather, or the decoded rows.  Decoding is deterministic, so the two
+wires are bitwise equal.  Random draws are made over the full node (or
+edge) axis on every pod from the same generator and then sliced to the
+block, so a block draws exactly the values the dense context draws.
 
 Accounting is exact and static: `payload_bytes` is the serialized size of
 one payload (`codec.payload_bytes_for`); bytes per round = payload_bytes x
@@ -50,10 +59,11 @@ fired edges — per node Σ_i gate_i·outdeg_i, per edge Σ_ij gate_ij.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.codecs import Codec, make_codec
 from repro_torch.comm.trigger import (
@@ -66,6 +76,97 @@ from repro_torch.utils.pytree import tree_flatten_stacked
 
 POLICIES = ("fixed", "adaptive")
 WIRES = ("encoded", "decoded")
+
+
+class PodContext(NamedTuple):
+    """Where the caller's block of sender rows sits in the full node axis.
+
+    ``rows``   maps a replicated [N, ...] quantity to the caller's [R, ...]
+               block (identity when the caller holds all rows);
+    ``gather`` maps the caller's [R, ...] block to the full [N, ...] axis
+               (the pod backend's tiled all-gather over the mesh's "pod"
+               dimension; identity on the dense path);
+    ``pod``    the caller's block index along the pod dimension (None on
+               the single-block path).
+    """
+
+    rows: Callable
+    gather: Callable
+    pod: Optional[int] = None
+
+
+def _identity(a):
+    return a
+
+
+#: The dense (single-block) context: R == N, nothing moves.
+DENSE_CTX = PodContext(rows=_identity, gather=_identity)
+
+
+def _gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    # torch 2.13 renamed all_gather_into_tensor (which now warns)
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def all_gather_rows(a: torch.Tensor, group, n_pods: int) -> torch.Tensor:
+    """Tiled all-gather over the pod group: every pod's [R, ...] block,
+    concatenated in pod order -> [P·R, ...].  The block moves as bytes (a
+    uint8 view of its last dimension), so every dtype — int8 payloads,
+    bf16 casts, fp32 rows, int64 indices — takes one path.  Over gloo a
+    CUDA block is staged through host memory (the gloo lane of several
+    ranks on one card: its times are not a multi-GPU number)."""
+    if a.dim() == 0:
+        raise ValueError("all_gather_rows gathers [R, ...] blocks, not "
+                         "scalars")
+    a = a.contiguous()
+    raw = a.view(torch.uint8)
+    host = a.is_cuda and dist.get_backend(group) == "gloo"
+    src = raw.cpu() if host else raw
+    out = torch.empty((n_pods * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=torch.uint8, device=src.device)
+    _gather_into(out, src, group)
+    if host:
+        out = out.to(a.device)
+    return out.view(a.dtype).reshape((n_pods * a.shape[0],)
+                                     + tuple(a.shape[1:]))
+
+
+def pod_context(n: int, n_pods: int, pod: int, group) -> PodContext:
+    """The context of block `pod` of `n_pods` equal blocks of the n-node
+    axis: rows are a slice, the gather is `all_gather_rows` over `group`
+    (the identity for a one-pod mesh without a group)."""
+    if n % n_pods:
+        raise ValueError(f"{n} DFL nodes do not tile the {n_pods}-pod axis")
+    per_pod = n // n_pods
+    i0 = pod * per_pod
+
+    def rows(a):
+        return a[i0:i0 + per_pod]
+
+    if group is None:
+        if n_pods != 1:
+            raise ValueError(f"a {n_pods}-pod context needs a process "
+                             f"group")
+        gather = _identity
+    else:
+        def gather(a):
+            return all_gather_rows(a, group, n_pods)
+
+    return PodContext(rows=rows, gather=gather, pod=pod)
+
+
+def pod_mean(ctx: PodContext, loss: torch.Tensor) -> torch.Tensor:
+    """The mean over the pods of each pod's scalar `loss`, gathered in pod
+    order, so every rank holds the same value (the loss itself when the
+    context is one block)."""
+    return torch.mean(ctx.gather(loss.reshape(1)))
+
+
+def _gather_tree(ctx: PodContext, payload):
+    """`ctx.gather` over every leaf of a codec payload dict."""
+    return {k: ctx.gather(v) for k, v in payload.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +333,16 @@ class GossipTransport:
                                   device=self.device),
             ever_recv=ever_recv)
 
+    def state_specs(self, shard, rep) -> CommState:
+        """The layout of init_state's fields over the pod backend:
+        replicated receiver-facing caches, sharded sender-private residual
+        rows (`shard` / `rep` are the caller's markers)."""
+        return CommState(
+            last_sent=rep,
+            residual=shard if self.codec.has_residual else None,
+            ever_sent=rep,
+            ever_recv=rep if self._recv_shape is not None else None)
+
     def note_delivery(self, state: CommState, delivered) -> CommState:
         """Fold one round's realized deliveries ([N, max_deg] or [E] {0,1}
         in the bound layout: trigger AND link) into the per-edge delivery
@@ -241,15 +352,17 @@ class GossipTransport:
         return state._replace(
             ever_recv=torch.maximum(state.ever_recv, delivered))
 
-    def reset_rows(self, state: CommState, reset) -> CommState:
+    def reset_rows(self, state: CommState, reset,
+                   ctx: PodContext = DENSE_CTX) -> CommState:
         """Rows where `reset` ([N] {0,1}) > 0 return to the zero bootstrap
         (reference, residual, ever_sent cleared; every edge incident to a
         reset node loses its delivery history).  Other rows stay
-        bit-identical."""
+        bit-identical.  The residual holds the block's rows."""
         r = reset > 0
         residual = state.residual
         if residual is not None:
-            rb = r.reshape(r.shape + (1,) * (residual.dim() - 1))
+            rr = ctx.rows(reset) > 0
+            rb = rr.reshape(rr.shape + (1,) * (residual.dim() - 1))
             residual = torch.where(rb, 0.0, residual)
         ever_recv = state.ever_recv
         if ever_recv is not None:
@@ -269,45 +382,57 @@ class GossipTransport:
 
     def exchange(self, stacked_params, state: CommState,
                  rng: Optional[torch.Generator] = None, send_mask=None, *,
-                 wire: str = "encoded"):
-        """One transport round over all N sender rows.
+                 ctx: PodContext = DENSE_CTX, wire: str = "encoded"):
+        """One transport round for the caller's block of sender rows.
 
-        rng: the generator the codec draws from (required iff
-        `wants_rng`); send_mask: optional [N] {0,1} sender veto.
+        stacked_params: the block's models, leaves [R, ...]; rng: the
+        generator the codec draws from (required iff `wants_rng`; one
+        uniform row per node over the full axis, sliced to the block);
+        send_mask: optional [R] {0,1} sender veto; ctx: the block's
+        PodContext; wire: what its gather carries (module docstring).
 
-        Returns (decoded [N, D], gate [N], new_state): for each sender the
-        flat model its neighbours reconstruct this round (a silent node's
-        row holds its previous reconstruction), who transmitted, and the
-        threaded CommState (`ever_recv` is folded in afterwards by
+        Returns (decoded [N, D], gate_full [N], new_state): for each sender
+        the flat model its neighbours reconstruct this round (a silent
+        node's row holds its previous reconstruction), who transmitted,
+        and the threaded CommState (`ever_recv` is folded in afterwards by
         `note_delivery`, since only the engine knows the link mask).  The
         reference returns `decoded` as a params tree; its only caller
         flattens it again, so the port hands over the flat matrix."""
         _check_wire(wire)
         codec = self.codec
         w, _ = tree_flatten_stacked(stacked_params)
+        r = int(w.shape[0])
         if self.wants_rng and rng is None:
             raise ValueError(f"codec {codec.name!r} needs a torch.Generator")
-        last = state.last_sent
+        last_full = state.last_sent
+        last = ctx.rows(last_full)
         gate, _ = drift_gate(w, last, self.config.trigger_threshold)
         if send_mask is not None:
             gate = gate * send_mask
         x = w - last if codec.is_delta else w
-        u = (torch.rand((self.n, self.d), generator=rng, device=self.device)
+        u = (ctx.rows(torch.rand((self.n, self.d), generator=rng,
+                                 device=self.device))
              if self.wants_rng else None)
         payload, new_res = codec.encode(x, rng=u, residual=state.residual)
-        dec = codec.decode(payload, out_size=self.d)
-        recon = last + dec if codec.is_delta else dec
-        new_last = torch.where(gate[:, None] > 0, recon, last)
+        if wire == "encoded":
+            dec_full = codec.decode(_gather_tree(ctx, payload),
+                                    out_size=self.d)
+        else:
+            dec_full = ctx.gather(codec.decode(payload, out_size=self.d))
+        del payload
+        gate_full = ctx.gather(gate)
+        recon = last_full + dec_full if codec.is_delta else dec_full
+        new_last = torch.where(gate_full[:, None] > 0, recon, last_full)
         if codec.has_residual:
             # a silent node keeps accumulating: its un-flushed residual
             # stays put until the trigger fires again.
-            keep = gate.reshape((self.n,) + (1,) * (new_res.dim() - 1)) > 0
+            keep = gate.reshape((r,) + (1,) * (new_res.dim() - 1)) > 0
             new_res = torch.where(keep, new_res, state.residual)
         new_state = CommState(
             last_sent=new_last, residual=new_res,
-            ever_sent=torch.maximum(state.ever_sent, gate),
+            ever_sent=torch.maximum(state.ever_sent, gate_full),
             ever_recv=state.ever_recv)
-        return new_last, gate, new_state
+        return new_last, gate_full, new_state
 
 
 class EdgeGossipTransport:
@@ -371,20 +496,34 @@ class EdgeGossipTransport:
             ever_delivered=torch.zeros(shape, dtype=torch.float32,
                                        device=self.device))
 
-    def reset_edges(self, state: EdgeCommState, reset) -> EdgeCommState:
+    def state_specs(self, shard, rep) -> EdgeCommState:
+        """The layout of init_state's fields over the pod backend:
+        replicated receiver-facing caches (the per-link references the
+        reverse-slot gather reads, the delivery history), sharded
+        sender-private controller rows."""
+        return EdgeCommState(
+            last_sent=rep,
+            residual=shard if self.codec.has_residual else None,
+            threshold=shard,
+            drift_ema=shard,
+            ever_delivered=rep)
+
+    def reset_edges(self, state: EdgeCommState, reset,
+                    ctx: PodContext = DENSE_CTX) -> EdgeCommState:
         """Per-link state on edges where `reset` [N, E] > 0 returns to its
         init_state values (a rejoined endpoint is a fresh device); other
-        edges stay bit-identical."""
+        edges stay bit-identical.  The controller rows are the block's."""
         r = reset > 0
+        rr = ctx.rows(reset) > 0
         residual = state.residual
         if residual is not None:
-            rb = r.reshape(r.shape + (1,) * (residual.dim() - 2))
+            rb = rr.reshape(rr.shape + (1,) * (residual.dim() - 2))
             residual = torch.where(rb, 0.0, residual)
         return EdgeCommState(
             last_sent=torch.where(r[:, :, None], 0.0, state.last_sent),
             residual=residual,
-            threshold=torch.where(r, self.thr0, state.threshold),
-            drift_ema=torch.where(r, 0.0, state.drift_ema),
+            threshold=torch.where(rr, self.thr0, state.threshold),
+            drift_ema=torch.where(rr, 0.0, state.drift_ema),
             ever_delivered=torch.where(r, 0.0, state.ever_delivered))
 
     def _swap_layout(self, arr):
@@ -400,44 +539,58 @@ class EdgeGossipTransport:
         (nbr_idx[r, e] -> r)."""
         return self._swap_layout(arr) * self.nbr_valid
 
-    def _gather_receiver_rows(self, new_last):
-        """The reverse-slot gather: receiver r's slot e reads sender
-        nbr_idx[r, e]'s reference at slot rev_slot[r, e] out of the
-        flattened [N·E, D] per-link table -> [N, E, D]."""
+    def _gather_receiver_rows(self, new_last, rows):
+        """The reverse-slot gather: the block's receiver r's slot e reads
+        sender nbr_idx[r, e]'s reference at slot rev_slot[r, e] out of the
+        flattened, replicated [N·E, D] per-link table -> [R, E, D]."""
         tbl = new_last.reshape(self.n * self.e, self.d)
-        return gather_rows(tbl, self.flat_idx).reshape(self.n, self.e, self.d)
+        idx = rows(self.flat_idx.reshape(self.n, self.e))
+        r = int(idx.shape[0])
+        return gather_rows(tbl, idx.reshape(-1)).reshape(r, self.e, self.d)
 
     def exchange(self, stacked_params, state: EdgeCommState, link_mask,
                  rng: Optional[torch.Generator] = None, live=None,
-                 reset=None, *, wire: str = "encoded"):
-        """One per-edge transport round.
+                 reset=None, *, ctx: PodContext = DENSE_CTX,
+                 wire: str = "encoded"):
+        """One per-edge transport round for the caller's block of rows.
 
-        link_mask: [N, E] receiver-layout exogenous link mask (1 = the
-        (nbr_idx[r, e] -> r) link is up; validity included).  rng: the
-        generator the codec draws from (iff `wants_rng`).  live: optional
-        [N, E] symmetric live-edge mask — a dead edge cannot fire, costs
-        nothing and freezes its controller.  reset: optional [N, E] edges
-        returned to bootstrap before the drift is measured.
+        stacked_params: the block's models, leaves [R, ...].  link_mask:
+        FULL [N, E] receiver-layout exogenous link mask (1 = the
+        (nbr_idx[r, e] -> r) link is up; validity included): the
+        link-layer ack reaches the sender through the layout swap, which
+        crosses rows.  rng: the generator the codec draws from (iff
+        `wants_rng`).  live: optional FULL [N, E] symmetric live-edge mask
+        — a dead edge cannot fire, costs nothing and freezes its
+        controller.  reset: optional FULL [N, E] edges returned to
+        bootstrap before the drift is measured.  ctx / wire: see the
+        module docstring.
 
-        Returns (gathered [N, E, D], agg_mask [N, E], gate [N, E],
-        new_state): slot e of row r holds r's current reconstruction of
-        neighbour nbr_idx[r, e] (fresh if delivered this round, the
+        Returns (gathered [R, E, D], agg_mask [R, E], gate_full [N, E],
+        new_state): slot e of block row r holds r's current reconstruction
+        of neighbour nbr_idx[r, e] (fresh if delivered this round, the
         per-link cache otherwise), the receiver-layout aggregation mask per
-        `on_silence`, the sender-layout fired edges, and the threaded
-        state.  The reference returns `gathered` as a params tree with
-        leaves [N, E, ...]; the port hands over the flat panel its only
-        caller reduces."""
+        `on_silence`, the sender-layout fired edges (replicated), and the
+        threaded state.  The reference returns `gathered` as a params tree
+        with leaves [R, E, ...]; the port hands over the flat panel its
+        only caller reduces."""
         _check_wire(wire)
         codec, cfg = self.codec, self.config
+        rows = ctx.rows
         w, _ = tree_flatten_stacked(stacked_params)
+        r = int(w.shape[0])
         if reset is not None:
-            state = self.reset_edges(state, reset)
-        valid = self.nbr_valid if live is None else self.nbr_valid * live
-        last = state.last_sent
+            state = self.reset_edges(state, reset, ctx=ctx)
+        valid_full = (self.nbr_valid if live is None
+                      else self.nbr_valid * live)
+        valid = rows(valid_full)
+        last_full = state.last_sent
+        last = rows(last_full)
         gate, drift = edge_drift_gate(w, last, state.threshold, valid)
         # link-layer ack: a payload advances its edge's state only if the
-        # edge fired AND the link stayed up (sender layout).
-        delivered = gate * self._swap_layout(link_mask)
+        # edge fired AND the link stayed up (sender layout; the swap
+        # crosses rows, so it runs on the full mask).
+        sender_link_full = self._swap_layout(link_mask)
+        delivered = gate * rows(sender_link_full)
 
         x = (w[:, None, :] - last if codec.is_delta
              else w[:, None, :].expand(last.shape))
@@ -447,19 +600,31 @@ class EdgeGossipTransport:
                     f"codec {codec.name!r} needs a torch.Generator")
             # one uniform row per CANONICAL directed edge, indexed by slot
             u = torch.rand((max(self.num_directed, 1), self.d),
-                           generator=rng, device=self.device)[self.edge_id]
+                           generator=rng,
+                           device=self.device)[rows(self.edge_id)]
         else:
             u = None
         payload, enc_res = codec.encode(x, rng=u, residual=state.residual)
-        dec = codec.decode(payload, out_size=self.d)
+        del x, u
+        if wire == "encoded":
+            dec_full = codec.decode(_gather_tree(ctx, payload),
+                                    out_size=self.d)
+        else:
+            dec_full = ctx.gather(codec.decode(payload, out_size=self.d))
+        del payload
+        gate_full = ctx.gather(gate)
+        delivered_full = gate_full * sender_link_full
 
-        recon = last + dec if codec.is_delta else dec
-        new_last = torch.where(delivered[:, :, None] > 0, recon, last)
+        recon = last_full + dec_full if codec.is_delta else dec_full
+        del dec_full
+        new_last = torch.where(delivered_full[:, :, None] > 0, recon,
+                               last_full)
+        del recon
         if codec.has_residual:
             # the EF residual tracks DELIVERED information only: a dropped
             # or silent link keeps its residual bit-identical.
             keep = delivered.reshape(
-                (self.n, self.e) + (1,) * (enc_res.dim() - 2)) > 0
+                (r, self.e) + (1,) * (enc_res.dim() - 2)) > 0
             new_res = torch.where(keep, enc_res, state.residual)
         else:
             new_res = None
@@ -471,19 +636,21 @@ class EdgeGossipTransport:
                 rate=cfg.threshold_rate)
         else:
             new_thr, new_ema = state.threshold, state.drift_ema
-        ever = torch.maximum(state.ever_delivered, delivered)
+        ever = torch.maximum(state.ever_delivered, delivered_full)
         new_state = EdgeCommState(last_sent=new_last, residual=new_res,
                                   threshold=new_thr, drift_ema=new_ema,
                                   ever_delivered=ever)
 
-        gathered = self._gather_receiver_rows(new_last)
+        # receiver view: slot e of block row r is sender j's edge state
+        # toward r, the reverse-slot gather out of the replicated table
+        gathered = self._gather_receiver_rows(new_last, rows)
         if cfg.on_silence == "drop":
-            agg_mask = link_mask * self._swap_layout(gate)
+            agg_mask = rows(link_mask * self._swap_layout(gate_full))
         else:
             # stale: aggregate the per-link cache, masking only links that
             # never delivered; exogenous failures still drop.
-            agg_mask = link_mask * self._swap_layout(ever)
-        return gathered, agg_mask, gate, new_state
+            agg_mask = rows(link_mask * self._swap_layout(ever))
+        return gathered, agg_mask, gate_full, new_state
 
 
 class SparseEdgeCommState(NamedTuple):
@@ -548,6 +715,16 @@ class SparseEdgeGossipTransport:
                                  dtype=torch.float32, device=self.device),
             drift_ema=vec, ever_delivered=vec.clone())
 
+    def state_specs(self, shard, rep) -> SparseEdgeCommState:
+        """All replicated: the edge axis does not tile the node-axis pod
+        mesh, and every pod recomputes the full-edge update from the
+        gathered model rows deterministically."""
+        del shard
+        return SparseEdgeCommState(
+            last_sent=rep,
+            residual=rep if self.codec.has_residual else None,
+            threshold=rep, drift_ema=rep, ever_delivered=rep)
+
     def reset_edges(self, state: SparseEdgeCommState,
                     reset) -> SparseEdgeCommState:
         """Edges where `reset` [E] > 0 return to their init_state values
@@ -569,8 +746,15 @@ class SparseEdgeGossipTransport:
 
     def exchange(self, stacked_params, state: SparseEdgeCommState, link_mask,
                  rng: Optional[torch.Generator] = None, live=None,
-                 reset=None, *, wire: str = "encoded"):
+                 reset=None, *, ctx: PodContext = DENSE_CTX,
+                 wire: str = "encoded"):
         """One per-edge transport round over the flat edge list.
+
+        The block's model rows [R, D] are gathered to the full [N, D]
+        first (`ctx.gather`, the only movement between pods); the state is
+        replicated and every pod runs the full-edge update, so `wire` does
+        not change what crosses pods here (accepted for the dense
+        transport's signature).
 
         link_mask: [E] {0,1} per-directed-edge link mask (the engine folds
         the participation draws, and under dynamics the live and arrival
@@ -590,7 +774,7 @@ class SparseEdgeGossipTransport:
         threaded state."""
         _check_wire(wire)
         codec, cfg = self.codec, self.config
-        w, _ = tree_flatten_stacked(stacked_params)
+        w = ctx.gather(tree_flatten_stacked(stacked_params)[0])
         if reset is not None:
             state = self.reset_edges(state, reset)
         valid = (torch.ones((self.e_dir,), dtype=torch.float32,

@@ -18,10 +18,18 @@ threshold = 0 degenerates to always-send.  Per-edge thresholds can be
 per edge whose step is scaled by the edge's drift EMA, so each link's
 long-run triggered fraction converges to `target`.  Exogenous link failures
 compose multiplicatively on top (`edge_delivery`).
+
+Every drift is one row of `ops.drift_norms`, a per-row reduction whose
+sum over a row does not depend on how many rows the call holds (on the
+card, Eq. 5's sum-of-squares kernel): a pod backend's block of R nodes
+gets the norms of the full node axis, and the dense and sparse per-edge
+layouts, which hold the same edges in rows of another shape, agree.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops
 
 # Floor for the EMA-scaled adaptation step: keeps the controller live when an
 # edge's drift collapses to ~0 (converged model) without letting the
@@ -32,8 +40,8 @@ EMA_FLOOR = 1e-8
 def drift_gate(w: torch.Tensor, last_sent: torch.Tensor, threshold: float):
     """w, last_sent [N, D] flat models; threshold in global-L2 units (0 =
     always send) -> (gate [N] {0.,1.} float32, drift [N] float32)."""
-    diff = w.to(torch.float32) - last_sent.to(torch.float32)
-    drift = torch.sqrt(torch.sum(diff * diff, dim=1))
+    drift = ops.drift_norms(w.to(torch.float32).contiguous(),
+                            last_sent.to(torch.float32).contiguous())
     thr = torch.tensor(threshold, dtype=torch.float32, device=w.device)
     return (drift >= thr).to(torch.float32), drift
 
@@ -43,8 +51,12 @@ def edge_drift_gate(w: torch.Tensor, last_sent: torch.Tensor, threshold,
     """w [N, D]; last_sent [N, E, D] per-edge references; threshold [N, E]
     (or a scalar); valid [N, E] {0,1} (padding never fires) ->
     (gate [N, E] {0.,1.} float32, drift [N, E] float32)."""
-    diff = w.to(torch.float32)[:, None, :] - last_sent.to(torch.float32)
-    drift = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    ref = last_sent.to(torch.float32)
+    d = ref.shape[-1]
+    x = w.to(torch.float32)[:, None, :].expand(ref.shape)
+    drift = ops.drift_norms(x.reshape(-1, d).contiguous(),
+                            ref.reshape(-1, d).contiguous()
+                            ).reshape(ref.shape[:-1])
     gate = (drift >= threshold).to(torch.float32) * valid
     return gate, drift
 

@@ -1,2 +1,2 @@
-"""The LM-scale DFL round (the one-pod form of the pod round; the
-torch.distributed pod ring is ROADMAP A.10)."""
+"""The LM-scale DFL round (`dfl_step`: the vmap form and the pod round
+over a `torch.distributed` mesh) and the mesh axis names (`sharding`)."""

@@ -9,17 +9,19 @@ counterpart of the JAX package's `repro.dist.dfl_step`:
   * `build_dfl_round` — the local steps, then `decdiff_gossip` over every
     node at once (no exchange, a `gossip_dtype` cast, or a codec's
     encode -> decode round trip);
-  * `build_dfl_round_shardmap` in its one-pod form: one process holds all
-    N nodes, the all_gather over the pod ring is the identity and the
-    receiver block is all N rows.  With an `Int8Codec` and
-    `fuse_dequant=True` (the default) its gossip is `fused_int8_gossip`:
-    the nodes' flat models are encoded to int8 and each receiver's Eq. 6
-    average comes straight out of the int8 payload through
-    `ops.dequant_neighbor_avg_rows` (the fp32 neighbour models never
-    exist), then Eq. 5 runs on the flat [N, D] block.
-    Otherwise it is `build_dfl_round`, which is what the reference's
-    decode-then-average branch computes on one pod.  More than one pod (the
-    `torch.distributed` ring) is ROADMAP A.10.
+  * `build_dfl_round_shardmap` — the same round over the "pod" dimension
+    of a mesh: each pod (one `torch.distributed` rank) holds N / P nodes
+    and runs their local steps, and the gossip exchange is a tiled
+    all-gather of the block's post-step models over the pods (the encoded
+    payload with a codec, the cast models with `gossip_dtype`, else the
+    fp32 models); the loss is the mean over pods.  With an `Int8Codec`
+    and `fuse_dequant=True` (the default) each pod encodes its block to
+    int8, gathers q [N, D] and the scales [N], and takes its receivers'
+    Eq. 6 averages straight out of the payload through
+    `ops.dequant_neighbor_avg_rows` on [R, N] weights (the fp32 neighbour
+    models never exist), then Eq. 5 on the flat [R, D] block.  On one pod
+    (`OnePodMesh`, the default) the gather is the identity; a mesh with
+    no pod dimension gives `build_dfl_round`, as the reference does.
 
 Local steps run node by node, each through one forward and one backward
 (the `vt_kl_loss` kernels once each on the card), and the optimizer
@@ -41,8 +43,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.comm.codecs import Int8Codec
-from repro_torch.comm.transport import codec_roundtrip_stacked
+from repro_torch.comm.transport import (DENSE_CTX, codec_roundtrip_stacked,
+                                        pod_context, pod_mean)
+from repro_torch.dist.sharding import NODE_AXIS
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import OnePodMesh, pod_axis
 from repro_torch.utils.pytree import (
     tree_flatten_stacked,
     tree_leaves,
@@ -169,23 +174,10 @@ def _local_steps(node_step, params, opt_state, step, batch) -> torch.Tensor:
     return torch.mean(torch.stack(losses))
 
 
-def fused_int8_gossip(stacked, adj, s=DEFAULT_S, *, mask=None, codec):
-    """DecDiff over the nodes' int8 payload with the dequantization fused
-    into Eq. 6: flatten the models to [N, D] fp32 -> encode with the
-    `Int8Codec` (one scale per node) -> `ops.dequant_neighbor_avg_rows(q,
-    scale, wn)` -> Eq. 5 on the flat block -> unflatten (leaf dtypes
-    restored).  The local models stay exact, as in `decdiff_gossip`."""
-    wn, row = _normalized(adj, mask)
-    w_local, unflatten = tree_flatten_stacked(stacked)  # [N, D] fp32
-    payload, _ = codec.encode(w_local)  # q [N, D] int8, scale [N]
-    avg = ops.dequant_neighbor_avg_rows(payload["q"], payload["scale"], wn)
-    del payload
-    out = _decdiff_step_from_avg({"w": w_local}, {"w": avg}, row, s)
-    return unflatten(out["w"])
-
-
-def _build_round(lm, opt, adj, loss_kind, beta, built_mask, gossip):
-    """The round around `gossip(params, adj, mask) -> new params`."""
+def _build_round(lm, opt, adj, loss_kind, beta, built_mask, gossip,
+                 ctx=DENSE_CTX):
+    """The round around `gossip(params, adj, mask) -> new params` for the
+    block of nodes `ctx` holds; the loss is the pods' mean (`pod_mean`)."""
     adj = torch.as_tensor(adj, dtype=torch.float32)
     # adj moves to the device once: a blocking copy from host memory every
     # round would wait for the card
@@ -194,7 +186,8 @@ def _build_round(lm, opt, adj, loss_kind, beta, built_mask, gossip):
 
     def round_fn(params, opt_state, step, batch, mask=None):
         with record_function("dfl_round.local_steps"):
-            loss = _local_steps(node_step, params, opt_state, step, batch)
+            loss = pod_mean(ctx, _local_steps(node_step, params, opt_state,
+                                              step, batch))
         with record_function("dfl_round.gossip"):
             dev = tree_leaves(params)[0].device
             if dev not in on_device:
@@ -225,27 +218,57 @@ def build_dfl_round(lm, opt, adj, *, loss_kind: str = "vt",
     return _build_round(lm, opt, adj, loss_kind, beta, mask, gossip)
 
 
-def build_dfl_round_shardmap(lm, opt, adj, *, pods: int = 1,
+def build_dfl_round_shardmap(lm, opt, adj, mesh=None, *,
                              loss_kind: str = "vt", beta: float = 0.98,
                              s=DEFAULT_S,
                              gossip_dtype: Optional[torch.dtype] = None,
                              mask=None, codec=None,
                              fuse_dequant: bool = True):
-    """The reference's shard_map pod round in its one-pod form (see the
-    module docstring); `pods` > 1 is ROADMAP A.10.  With an `Int8Codec`
-    and `fuse_dequant=True` the gossip is `fused_int8_gossip`; the codec
-    must be deterministic (`stochastic=False`, or no random numbers given)
-    for the round to equal the reference's."""
-    if pods != 1:
-        raise NotImplementedError(
-            f"a {pods}-pod round (the torch.distributed pod ring) is ROADMAP "
-            f"A.10, not ported yet; the port runs the one-pod form")
-    if not (fuse_dequant and isinstance(codec, Int8Codec)):
+    """`build_dfl_round` over the "pod" dimension of `mesh` (module
+    docstring): (params [R, ...], opt_state [R, ...], step, batch
+    {"tokens", "labels"} [R, B, S], mask=None) -> (params [R, ...],
+    opt_state, loss), R = N / P the caller's block of nodes, mask [N, N]
+    as in `build_dfl_round`.  `mesh=None` is the one-pod mesh
+    (`repro_torch.launch.mesh.OnePodMesh`); a mesh without a pod
+    dimension gives `build_dfl_round`.  With an `Int8Codec` and
+    `fuse_dequant=True` the gossip is fused (`ops.dequant_neighbor_avg_rows`
+    on the gathered int8 payload); the codec must be deterministic
+    (`stochastic=False`, or no random numbers given) for the round to
+    equal the reference's."""
+    mesh = OnePodMesh() if mesh is None else mesh
+    if NODE_AXIS not in tuple(mesh.mesh_dim_names or ()):
         return build_dfl_round(lm, opt, adj, loss_kind=loss_kind, beta=beta,
                                s=s, gossip_dtype=gossip_dtype, mask=mask,
                                codec=codec)
+    n = int(torch.as_tensor(adj).shape[0])
+    ctx = pod_context(n, *pod_axis(mesh))
+    fused = fuse_dequant and isinstance(codec, Int8Codec)
+
+    def gather_full(params):
+        """What crosses the pods: the encoded payload (decoded after the
+        gather), the cast models, or the fp32 models -> leaves [N, ...]."""
+        if codec is not None:
+            w, unflatten = tree_flatten_stacked(params)
+            payload, _ = codec.encode(w)
+            full = {k: ctx.gather(v) for k, v in payload.items()}
+            return unflatten(codec.decode(full, out_size=int(w.shape[1])))
+        if gossip_dtype is not None:
+            return tree_map(lambda x: ctx.gather(x.to(gossip_dtype)), params)
+        return tree_map(ctx.gather, params)
 
     def gossip(params, adj_d, m):
-        return fused_int8_gossip(params, adj_d, s, mask=m, codec=codec)
+        wn, row = _normalized(adj_d, m)
+        wn_blk, row_blk = ctx.rows(wn), ctx.rows(row)
+        if not fused:
+            return _decdiff_apply(params, gather_full(params), wn_blk,
+                                  row_blk, s)
+        w_local, unflatten = tree_flatten_stacked(params)  # [R, D] fp32
+        payload, _ = codec.encode(w_local)
+        q, scale = ctx.gather(payload["q"]), ctx.gather(payload["scale"])
+        del payload
+        avg = ops.dequant_neighbor_avg_rows(q, scale, wn_blk)  # [R, D]
+        del q
+        out = _decdiff_step_from_avg({"w": w_local}, {"w": avg}, row_blk, s)
+        return unflatten(out["w"])
 
-    return _build_round(lm, opt, adj, loss_kind, beta, mask, gossip)
+    return _build_round(lm, opt, adj, loss_kind, beta, mask, gossip, ctx)

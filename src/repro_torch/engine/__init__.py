@@ -1,6 +1,7 @@
 """repro_torch.engine — the Experiment front door over method strategies
-(worlds with optional dynamics, event clock and telemetry; see
-`experiment.py`)."""
+(worlds with optional dynamics, event clock and telemetry, on the vmap or
+the pod backend; see `experiment.py`)."""
+from repro_torch.comm.transport import DENSE_CTX, PodContext  # noqa: F401
 from repro_torch.engine.backends import BACKENDS, build_round  # noqa: F401
 from repro_torch.engine.experiment import (  # noqa: F401
     Experiment,

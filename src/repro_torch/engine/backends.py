@@ -1,35 +1,52 @@
-"""`build_round(experiment)`: Algorithm 1's round for the `vmap` backend.
+"""`build_round(experiment)`: Algorithm 1's round, one body, two backends.
 
 One round is (local SGD steps -> neighbour exchange -> aggregation) over
-every node at once, on the experiment's device, with no host
-synchronisation.  This is the JAX package's round body on its dense
-context, on either node-axis layout (the padded [N, max_deg] panels or the
-sparse CSR edge list), with or without the `repro_torch.comm` gossip
-transport, a `repro_torch.dynamics` process, a `repro_torch.timing`
-event clock and `repro_torch.obs` telemetry.  By the strategy's declared
-kind:
-gossip aggregates over the delivered neighbours (then, for CFA-GE, walks
-the neighbour slots for the gradient exchange); "server" (FedAvg) averages
-the full stack; "none" keeps the local models:
+the caller's block of nodes, on the experiment's device, with no host
+synchronisation.  The body is written once against a
+`repro_torch.comm.PodContext` (a row slice and an all-gather), as the JAX
+package's is, and the two backends differ only in the context they bind:
+
+  * ``vmap``      — the dense context: one block of all N rows, both maps
+    the identity;
+  * ``shard_map`` — one block of R = N / P rows per pod of the
+    experiment's mesh (`torch.distributed`, one rank per pod): the
+    context's gather is a tiled all-gather over the mesh's "pod"
+    dimension carrying the transport's encoded payload by default
+    (`Experiment(wire=...)`), and receiver-facing transport caches are
+    replicated, so the per-edge reverse-slot gather and CFA-GE's walk read
+    them without further collectives.  The round's loss is the mean of
+    the pods' means.
+
+Either layout runs (the padded [N, max_deg] panels or the sparse CSR edge
+list, whose plan holds one slab of width buckets per pod), with or without
+the `repro_torch.comm` gossip transport, a `repro_torch.dynamics` process,
+a `repro_torch.timing` event clock and `repro_torch.obs` telemetry.  By the
+strategy's declared kind: gossip aggregates over the delivered neighbours
+(then, for CFA-GE, walks the neighbour slots for the gradient exchange);
+"server" (FedAvg) averages the gathered full stack; "none" keeps the local
+models:
 
     round_fn(params, opt, comm_state, dyn_state, time_state, obs_state,
              round_idx)
         -> (params, opt, comm_state, dyn_state, time_state, obs_state,
             train_loss, extras)
 
-`train_loss` is a 0-d device tensor: the mean over local steps of the mean
-over nodes of each step's loss, as in the reference.  The states are None
-where the experiment has no such subsystem, and `extras` holds 0-d device
-tensors in the reference's order: (sent_edges, trig) with a transport
-(the round's fired directed edges, Σ_i gate_i·outdeg_i per node, Σ_ij
-gate_ij per edge, and their fraction of the live directed edges), then
-(live_edges,) with dynamics, then (sim_time, arrived_edges) with a clock,
-then the telemetry's channel snapshot (a dict of device tensors) last.
-Each transport branch also hands the telemetry its fired and delivered
-edge masks in the receiver orientation (the dense [N, max_deg] panel or
-the sparse [E] list): the quantities the byte accounting sums, so the
-channels agree with `sent_edges` exactly; a late payload counts as fired
-and not delivered.  The channels draw nothing and write no other state.
+with params and optimizer state the block's rows and the transport state
+split by its `state_specs`.  `train_loss` is a 0-d device tensor: the mean
+over local steps of the mean over the block's nodes of each step's loss
+(averaged over pods).  The states are None where the experiment has no
+such subsystem, and `extras` holds 0-d device tensors in the reference's
+order: (sent_edges, trig) with a transport (the round's fired directed
+edges, Σ_i gate_i·outdeg_i per node, Σ_ij gate_ij per edge, and their
+fraction of the live directed edges), then (live_edges,) with dynamics,
+then (sim_time, arrived_edges) with a clock, then the telemetry's channel
+snapshot (a dict of device tensors) last.  Each transport branch also
+hands the telemetry its fired and delivered edge masks in the receiver
+orientation (the dense [N, max_deg] panel or the sparse [E] list): the
+quantities the byte accounting sums, so the channels agree with
+`sent_edges` exactly; a late payload counts as fired and not delivered.
+The channels draw nothing and write no other state.  Dynamics, timing
+and telemetry state are replicated: every pod advances them identically.
 
 With dynamics the round starts by realizing its graph (one draw from the
 generator for a random process, then the process's transition): a dead
@@ -52,21 +69,24 @@ participation mask, then the codec's uniforms (and CFA-GE's walk draws
 its gradient calls' keep masks last) — each only when it is used (a
 random process, `hetero_steps_min > 0`, a model with dropout,
 `participation < 1`, a stochastic int8 codec), so the defaults, the MLP,
-the Fashion CNN and `CommConfig()` draw nothing.  Local steps and the
-gradient walk run the model with `train=True`, evaluation with
-`train=False`.  Every kind draws the link mask, so the later draws do not
-depend on the method.  The dense layout draws the [N, max_deg] panel, the
-sparse one one uniform per directed edge, so the two layouts are bitwise
-equal only at participation == 1, as in the reference.  The `shard_map`
-backend is ROADMAP A.10.
+the Fashion CNN and `CommConfig()` draw nothing.  Every draw is made over
+the full node (or edge) axis, on every pod alike from its identically
+seeded generator, and then sliced to the block: a block draws exactly the
+values the dense context draws, which is what makes the two backends
+bitwise equal.  Local steps and the gradient walk run the model with
+`train=True`, evaluation with `train=False`.  Every kind draws the link
+mask, so the later draws do not depend on the method.  The dense layout
+draws the [N, max_deg] panel, the sparse one one uniform per directed
+edge, so the two layouts are bitwise equal only at participation == 1, as
+in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.comm.transport import (EdgeGossipTransport,
-                                        SparseEdgeGossipTransport)
+from repro_torch.comm.transport import (DENSE_CTX, EdgeGossipTransport,
+                                        SparseEdgeGossipTransport, pod_mean)
 from repro_torch.comm.trigger import edge_delivery
 from repro_torch.engine.neighborhood import (DenseNeighborhood,
                                              SparseNeighborhood)
@@ -76,38 +96,55 @@ from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
 BACKENDS = ("vmap", "shard_map")
 
 #: directed edges per call of the gradient function in CFA-GE's exchange:
-#: both layouts walk the same edge list in calls of exactly
-#: min(E, GE_CHUNK) rows (see `_make_gradient_exchange`).
+#: both layouts walk the same edge list in calls of min(E, GE_CHUNK)
+#: edges (see `_make_gradient_exchange`).
 GE_CHUNK = 1024
 
 
-def _make_local_training(exp):
-    """B local SGD(momentum) minibatch steps (Alg. 1 l.4-9) for every node.
+def rows_keep(keep, full: int, pick):
+    """A dropout keep-mask source for a call on some rows of a full call:
+    it draws the full call's masks ([full, ...], so the generator advances
+    exactly as the full call's draw does) and returns the rows `pick` (a
+    slice or an index tensor)."""
+    def sub(shape, p):
+        return keep((full,) + tuple(shape[1:]), p)[pick]
+
+    return sub
+
+
+def _make_local_training(exp, ctx=DENSE_CTX):
+    """B local SGD(momentum) minibatch steps (Alg. 1 l.4-9) for the
+    block's nodes (`exp.x_pad` / `exp.y_pad` hold the block's rows).
     With `hetero_steps_min > 0` each node draws a budget in
     [min, steps_per_round]; `cap` ([N] int64, the event clock's deadline
     cap floor(d / dt_i)) lowers it and `alive` ([N] {0,1}) zeroes a dead
     node's.  A node past its budget keeps its params and momentum (the
-    reference's masked update).  Returns the realized [N] budgets too
-    (every node's `steps_per_round` when nothing limits them), from which
-    the clock prices each node's round at budget_i·dt_i seconds."""
+    reference's masked update).  Budgets are drawn and capped over the
+    full node axis, then sliced to the block, and returned full (every
+    node's `steps_per_round` when nothing limits them), from which the
+    clock prices each node's round at budget_i·dt_i seconds."""
     cfg, n = exp.train, exp.n
-    x, y, counts = exp.x_pad, exp.y_pad, exp.counts
+    x, y, counts = exp.x_pad, exp.y_pad, ctx.rows(exp.counts)
     batcher, train_step = exp.batcher, exp._train_step
 
     def local_training(params, opt, round_idx, alive=None, cap=None):
-        budgets = None
+        budgets_full = budgets = None
         if cfg.hetero_steps_min > 0:
-            budgets = torch.randint(cfg.hetero_steps_min,
-                                    cfg.steps_per_round + 1, (n,),
-                                    generator=exp.gen, device=exp.device)
+            budgets_full = torch.randint(cfg.hetero_steps_min,
+                                         cfg.steps_per_round + 1, (n,),
+                                         generator=exp.gen,
+                                         device=exp.device)
         if cap is not None or alive is not None:
-            if budgets is None:
-                budgets = torch.full((n,), cfg.steps_per_round,
-                                     dtype=torch.int64, device=exp.device)
+            if budgets_full is None:
+                budgets_full = torch.full((n,), cfg.steps_per_round,
+                                          dtype=torch.int64,
+                                          device=exp.device)
             if cap is not None:
-                budgets = torch.minimum(budgets, cap)
+                budgets_full = torch.minimum(budgets_full, cap)
             if alive is not None:
-                budgets = budgets * alive.to(budgets.dtype)
+                budgets_full = budgets_full * alive.to(budgets_full.dtype)
+        if budgets_full is not None:
+            budgets = ctx.rows(budgets_full)
         losses = []
         for b in range(cfg.steps_per_round):
             step = round_idx * cfg.steps_per_round + b
@@ -122,10 +159,10 @@ def _make_local_training(exp):
                 _mix_(params, old_params, active)
                 _mix_(opt, old_opt, active)
             losses.append(torch.mean(loss))
-        if budgets is None:
-            budgets = torch.full((n,), cfg.steps_per_round,
-                                 dtype=torch.int64, device=exp.device)
-        return params, opt, torch.mean(torch.stack(losses)), budgets
+        if budgets_full is None:
+            budgets_full = torch.full((n,), cfg.steps_per_round,
+                                      dtype=torch.int64, device=exp.device)
+        return params, opt, torch.mean(torch.stack(losses)), budgets_full
 
     return local_training
 
@@ -193,7 +230,7 @@ def _make_edge_link_mask(exp):
     return edge_link_mask
 
 
-def _make_gradient_exchange(exp):
+def _make_gradient_exchange(exp, ctx=DENSE_CTX):
     """CFA-GE's second phase: each neighbour j evaluates the gradient of
     its local loss F_j at OUR aggregated model on one minibatch of ITS
     data, and we descend along their ω·|D|·mask-weighted mean.
@@ -206,20 +243,27 @@ def _make_gradient_exchange(exp):
     i's gradient accumulator and total start at +0 and add its slots in
     ascending k, as the reference's slot walk does; the reference's
     padding slots (weight 0, finite gradients) add an exact +0, so they
-    are left out.  The gradients are evaluated in calls of exactly
-    min(E, GE_CHUNK) edges, the last padded with copies of edge 0 (sliced
-    away): the two layouts make the same calls on the same rows, so they
-    are bitwise equal wherever their weights are (participation == 1),
-    and a round costs E row-gradients plus the last call's padding.  A
-    node whose total is 0 keeps its model.
+    are left out.  The walk runs in calls of min(E, GE_CHUNK) edges, each
+    restricted to the edges whose receiver is in the caller's block (all
+    N rows under `DENSE_CTX`; the senders' data is read from the
+    replicated full arrays, `exp.x_walk` / `exp.y_walk`): each call's
+    gradients are evaluated on those rows only and its dropout masks are
+    drawn for all `chunk` rows (`rows_keep`), so every block draws as a
+    full call does, and a call with no row in the block still draws them
+    through a one-row call whose result is dropped.  The layouts make the
+    same calls on the same rows, so they are bitwise equal wherever their
+    weights are (participation == 1).  A node whose total is 0 keeps its
+    model.
 
-    Returns exchange(params, link, round_idx), `link` the layout's link
-    mask: the dense [N, max_deg] panel or the sparse [E] list."""
+    Returns exchange(params, link, round_idx), `params` the block's
+    rows and `link` the layout's full link mask: the dense [N, max_deg]
+    panel or the sparse [E] list."""
     cfg, n, topo, dev = exp.train, exp.n, exp.topo, exp.device
     batcher, counts = exp.batcher, exp.counts
-    x_pad, y_pad = exp.x_pad, exp.y_pad
+    x_full, y_full = exp.x_walk, exp.y_walk
     max_deg = int(topo.max_degree)
     grad_fn = exp._grad_fn
+    keep = grad_fn.keywords["keep"]
     lr_ge = cfg.ge_lr if cfg.ge_lr is not None else cfg.lr
     sparse = exp.layout == "sparse"
     if sparse:
@@ -240,34 +284,42 @@ def _make_gradient_exchange(exp):
                             for a in (recv, src, slot, pos))
     e = int(recv.shape[0])
     chunk = max(min(e, GE_CHUNK), 1)
-    recv_t, src_t, slot_t, pos_t = (torch.from_numpy(a).to(dev)
-                                    for a in (recv, src, slot, pos))
-    # per call: its receivers, senders, the senders' |D| and the slots
-    # [chunk], and its runs of one slot (rows in the call, receivers, the
-    # edges' slice of the round's weights)
+    block = np.asarray(ctx.rows(np.arange(n)))
+    i0, r = int(block[0]), int(block.shape[0])
+    pos_t = torch.from_numpy(pos).to(dev)
+    # per call: its receivers (block rows), senders, the senders' |D|, the
+    # slots, its mask source, and its runs of one slot (rows in the call,
+    # receivers, the edges' ids into the round's weights)
     calls = []
     for c0 in range(0, e, chunk):
         c1 = min(c0 + chunk, e)
-        cuts = [c0] + [q for q in range(c0 + 1, c1)
-                       if slot[q] != slot[q - 1]] + [c1]
-        ids = torch.from_numpy(np.concatenate([
-            np.arange(c0, c1), np.zeros(c0 + chunk - c1, np.int64)])).to(dev)
-        j = src_t[ids]
-        runs = [(a - c0, b - c0, recv_t[a:b], slice(a, b))
-                for a, b in zip(cuts[:-1], cuts[1:])]
-        calls.append((recv_t[ids], j, counts[j], slot_t[ids], runs))
+        sel = np.nonzero((recv[c0:c1] >= i0) & (recv[c0:c1] < i0 + r))[0]
+        pick = sel if sel.size else np.zeros(1, np.int64)
+        ids = c0 + pick
+        cuts = [0] + [q for q in range(1, sel.size)
+                      if slot[ids[q]] != slot[ids[q - 1]]] + [sel.size]
+        runs = [(a, b, torch.from_numpy(recv[ids[a:b]] - i0).to(dev),
+                 torch.from_numpy(ids[a:b]).to(dev))
+                for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+        i_loc = torch.from_numpy(recv[ids] - i0 if sel.size
+                                 else np.zeros(1, np.int64)).to(dev)
+        j = torch.from_numpy(src[ids]).to(dev)
+        calls.append((i_loc, j, counts[j],
+                      torch.from_numpy(slot[ids]).to(dev),
+                      rows_keep(keep, chunk,
+                                torch.from_numpy(pick).to(dev)), runs))
 
     def gradient_exchange(params, link, round_idx: int):
         w_e = weight[pos_t] * link.reshape(-1)[pos_t]
         p_mat, unflatten = tree_flatten_stacked(params)
         acc = torch.zeros_like(p_mat)
-        tot = torch.zeros((n,), dtype=torch.float32, device=dev)
-        for i, j, cnt, slots, runs in calls:
+        tot = torch.zeros((r,), dtype=torch.float32, device=dev)
+        for i, j, cnt, slots, call_keep, runs in calls:
             bidx = batcher.indices(cnt, round_idx * max_deg + slots)
             # grad of F_j at w_i, one row per edge
-            g = tree_flatten_stacked(grad_fn(
-                tree_map(lambda p: p[i], params), x_pad[j[:, None], bidx],
-                y_pad[j[:, None], bidx]))[0]
+            g = tree_flatten_stacked(grad_fn.func(
+                tree_map(lambda p: p[i], params), x_full[j[:, None], bidx],
+                y_full[j[:, None], bidx], keep=call_keep))[0]
             for a, b, rows, edges in runs:  # each receiver at most once
                 w_k = w_e[edges]
                 acc[rows] = acc[rows] + w_k[:, None] * g[a:b]
@@ -281,9 +333,35 @@ def _make_gradient_exchange(exp):
 
 
 def build_round(exp):
-    """Lower `exp` to its `vmap`-backend round function (module docstring);
-    `Experiment` refuses the other backends before it gets here."""
-    strategy, agg_state = exp.strategy, exp.agg_state
+    """Lower `exp` to its round function (module docstring)."""
+    if exp.backend == "vmap":
+        return _build_vmap_round(exp)
+    if exp.backend == "shard_map":
+        return _build_shardmap_round(exp)
+    raise ValueError(
+        f"unknown backend {exp.backend!r}; available: {BACKENDS}")
+
+
+def _build_vmap_round(exp):
+    """The dense lowering: the round body under the identity context."""
+    return _make_round_body(exp, DENSE_CTX)
+
+
+def _build_shardmap_round(exp):
+    """The round body over the experiment's pod context (`exp.pod_ctx`,
+    one block of R = N / P rows of the mesh's "pod" dimension): each rank
+    holds its nodes' params, optimizer state, data rows and
+    sender-private transport rows, and only the exchange's gather crosses
+    pods.  The loss is the mean of the pods' means (`pod_mean`), so every
+    rank holds the same value."""
+    return _make_round_body(exp, exp.pod_ctx)
+
+
+def _make_round_body(exp, ctx):
+    """The one round body over the PodContext `ctx` (module docstring)."""
+    strategy = exp.strategy
+    rows = ctx.rows
+    pod = ctx.pod if ctx.pod is not None else 0
     caps = strategy.capabilities
     transport = exp.transport
     per_edge = isinstance(transport, (EdgeGossipTransport,
@@ -330,43 +408,52 @@ def build_round(exp):
     # which exists on the dense layout only (`Experiment` refuses sparse).
     use_flat = (caps.kind == "gossip"
                 and strategy.flat_aggregate is not None)
-    local_training = _make_local_training(exp)
-    gradient_exchange = (_make_gradient_exchange(exp)
+    local_training = _make_local_training(exp, ctx)
+    gradient_exchange = (_make_gradient_exchange(exp, ctx)
                          if caps.grad_exchange else None)
+    # a gossip strategy aggregates its block's rows of the per-node
+    # tensors; a server strategy averages the full stack
+    agg_state = (tree_map(rows, exp.agg_state) if caps.kind == "gossip"
+                 else exp.agg_state)
+    if not sparse:
+        nbr_idx_r, nbr_weight_r = rows(nbr_idx), rows(nbr_weight)
 
     def over_table(params, table_mat, mask):
-        """Aggregate over a full [N, D] table of sender models, weights
-        ω·|D| times the {0,1} `mask`: the dense [N, max_deg] panel or the
-        sparse [E] list, each an exact product of {0,1} factors, so both
-        layouts compose the same weights."""
+        """Aggregate the block over a full [N, D] table of sender models,
+        weights ω·|D| times the full {0,1} `mask`: the dense [N, max_deg]
+        panel or the sparse [E] list, each an exact product of {0,1}
+        factors, so both layouts compose the same weights."""
         local_mat, unflatten = tree_flatten_stacked(params)
         if sparse:
             nb = SparseNeighborhood(plan, table_mat, local_mat, unflatten,
-                                    mask)
+                                    mask, pod=pod)
             return strategy.flat_aggregate(exp, agg_state, nb)
         if use_flat:
-            nb = DenseNeighborhood(table_mat, nbr_idx, nbr_weight * mask,
-                                   local_mat, unflatten)
+            nb = DenseNeighborhood(table_mat, nbr_idx_r,
+                                   nbr_weight_r * rows(mask), local_mat,
+                                   unflatten)
             return strategy.flat_aggregate(exp, agg_state, nb)
-        gathered = strategy.exchange(exp, unflatten(table_mat), nbr_idx)
-        return strategy.aggregate(exp, agg_state, params, gathered, mask)
+        gathered = strategy.exchange(exp, unflatten(table_mat), nbr_idx_r)
+        return strategy.aggregate(exp, agg_state, params, gathered,
+                                  rows(mask))
 
     def over_links(params, links, mask):
         """Aggregate over the per-edge transport's per-link
-        reconstructions: the dense [N, max_deg, D] panel with its
-        [N, max_deg] mask, or the sparse [E, D] bank with its [E] mask."""
+        reconstructions: the block's dense [R, max_deg, D] panel with its
+        [R, max_deg] mask, or the full sparse [E, D] bank with its [E]
+        mask."""
         local_mat, unflatten = tree_flatten_stacked(params)
         if sparse:
             nb = SparseNeighborhood(plan, None, local_mat, unflatten, mask,
-                                    edge_table=links)
+                                    edge_table=links, pod=pod)
             return strategy.flat_aggregate(exp, agg_state, nb)
         if use_flat:
-            nb = DenseNeighborhood(None, None, nbr_weight * mask, local_mat,
-                                   unflatten, panel=links)
+            nb = DenseNeighborhood(None, None, nbr_weight_r * mask,
+                                   local_mat, unflatten, panel=links)
             return strategy.flat_aggregate(exp, agg_state, nb)
-        n, e, d = links.shape
-        gathered = tree_map(lambda l: l.reshape((n, e) + l.shape[1:]),
-                            unflatten(links.reshape(n * e, d)))
+        r, e, d = links.shape
+        gathered = tree_map(lambda l: l.reshape((r, e) + l.shape[1:]),
+                            unflatten(links.reshape(r * e, d)))
         return strategy.aggregate(exp, agg_state, params, gathered, mask)
 
     def fired_frac(sent, live_total):
@@ -399,6 +486,7 @@ def build_round(exp):
         # -- Alg. 1 l.4-9: local SGD (dead nodes run zero steps)
         params, opt, train_loss, budgets = local_training(
             params, opt, round_idx, alive=alive, cap=cap)
+        train_loss = pod_mean(ctx, train_loss)
         # realized per-node compute seconds (0 for a dead node)
         t_cost = budgets.to(torch.float32) * dt if has_time else None
         # -- the link mask ([N, max_deg] dense, [E] sparse): participation
@@ -424,16 +512,19 @@ def build_round(exp):
         with torch.no_grad():
             if transport is None:
                 if caps.kind == "server":
-                    # the server averages the full stack, every client
-                    # weighted by |D_i| times its aliveness: an offline
-                    # client's frozen params carry zero weight
+                    # the server averages the gathered full stack, every
+                    # client weighted by |D_i| times its aliveness: an
+                    # offline client's frozen params carry zero weight
+                    full = tree_map(ctx.gather, params)
                     params = strategy.aggregate(exp, agg_state, params,
-                                                params, alive)
+                                                full, alive)
+                    del full
                 elif caps.kind == "gossip":
                     # every sender broadcasts: the delivered weights are
                     # ω·|D| times the link mask
-                    table = tree_flatten_stacked(params)[0]
+                    table = ctx.gather(tree_flatten_stacked(params)[0])
                     params = over_table(params, table, link)
+                    del table
                     if gradient_exchange is not None:
                         params = gradient_exchange(params, link, round_idx)
                 # kind == "none": isolation — no communication at all.
@@ -456,7 +547,7 @@ def build_round(exp):
                 gen = exp.gen if transport.wants_rng else None
                 links, mask, gate, comm_state = transport.exchange(
                     params, comm_state, link, gen, live=live, reset=reset,
-                    wire=wire)
+                    ctx=ctx, wire=wire)
                 params = over_links(params, links, mask)
                 del links
                 if has_obs:
@@ -477,12 +568,13 @@ def build_round(exp):
                 # like a failed link.
                 send_mask = None
                 if has_dyn:
-                    comm_state = transport.reset_rows(comm_state,
-                                                      ev.rejoined)
-                    send_mask = alive
+                    comm_state = transport.reset_rows(
+                        comm_state, ev.rejoined, ctx=ctx)
+                    send_mask = rows(alive)
                 gen = exp.gen if transport.wants_rng else None
                 decoded, gate, comm_state = transport.exchange(
-                    params, comm_state, gen, send_mask=send_mask, wire=wire)
+                    params, comm_state, gen, send_mask=send_mask, ctx=ctx,
+                    wire=wire)
                 delivered = (gate[edge_src] * link if sparse
                              else edge_delivery(gate, link, nbr_idx))
                 comm_state = transport.note_delivery(comm_state, delivered)
@@ -499,6 +591,7 @@ def build_round(exp):
                 else:
                     mask = link * comm_state.ever_recv
                 params = over_table(params, decoded, mask)
+                del decoded
                 # broadcast accounting: a transmitting node pays one
                 # payload per outgoing edge, its LIVE ones under dynamics
                 # (the graphs are symmetric: in- and out-degree are equal)
@@ -511,7 +604,7 @@ def build_round(exp):
                 extras += [sent, fired_frac(sent, live_total)]
             # -- the dynamics epilogue: freeze the dead, count the live
             if has_dyn:
-                params = _freeze_dead(params, old_params, alive)
+                params = _freeze_dead(params, old_params, rows(alive))
                 extras.append(live_total)
         # -- the clock epilogue.  A deadline tick is exactly d; the
         # synchronous tick is the makespan: the slowest node's compute,

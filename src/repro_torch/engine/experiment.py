@@ -5,12 +5,16 @@
 packages the paper's procedure — heterogeneous per-node init, B local
 SGD(momentum) steps, neighbour exchange, method aggregation, periodic
 evaluation — behind one object, as the JAX package's `repro.engine` does.
-The port runs the `vmap` backend on both node-axis layouts — the dense
+Two backends run one round body: `vmap` (every node in one process) and
+`shard_map` (one block of N / P nodes per pod of a `torch.distributed`
+mesh with a "pod" dimension, `mesh=`; the default mesh is one pod per
+rank of the default process group, or one pod without a group), bitwise
+equal to each other.  Both run on both node-axis layouts — the dense
 padded [N, max_deg] panels (the small-N oracle) and the sparse CSR edge
 list (O(N + E) state, past the dense layout's 4096-node guard) — with or
 without the gossip transport (`comm=CommConfig(...)`: codecs, event
 triggers, per-node or per-edge state, exact bytes on the wire; `wire=`
-names what the pod backend would gather).  The layout follows the
+names what the pod backend's all-gather carries).  The layout follows the
 topology's type (`Topology` or `SparseTopology`) unless `layout=` says
 otherwise; the two are bitwise equal at participation 1.  Every method of
 the roster runs, the FedAvg server and CFA-GE's gradient exchange
@@ -25,9 +29,16 @@ round in simulated seconds (`repro_torch.timing.Timing`), and
 per-edge channels into `RoundMetrics.detail`, keeps one host snapshot per
 round in `obs_history` (what `repro_torch.obs.export_trace` reads), writes
 a JSONL run ledger, and can wrap a run in `torch.profiler`;
-`run(verbose=True)` logs one line per eval round.  The one option not
-ported yet, `backend="shard_map"`, raises NotImplementedError naming its
-ROADMAP item (A.10).
+`run(verbose=True)` logs one line per eval round.
+
+On the pod backend each rank holds its block's params, optimizer state,
+data rows and sender-private transport rows; `params`, `opt_state` and
+`comm_state` read as the full node axis on every rank (the blocks
+gathered: a collective, so every rank reads them together) and take the
+full node axis when set.  Histories (accuracy, bytes, trigger, live,
+simulated time, telemetry detail) are identical on every rank: evaluation
+runs on the block's rows and the [N] results are gathered.  Only rank 0
+writes the run ledger, the profiler trace and the verbose line.
 
 Devices: every entry point takes `device=None`, which means "cuda" and
 raises on a host without CUDA; tests pass `device="cpu"`.  A World records
@@ -58,14 +69,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.comm.transport import (WIRES, CommConfig,
+from repro_torch.comm.transport import (DENSE_CTX, WIRES, CommConfig,
                                         EdgeGossipTransport, GossipTransport,
-                                        SparseEdgeGossipTransport)
+                                        SparseEdgeGossipTransport,
+                                        pod_context)
 from repro_torch.core.virtual_teacher import make_loss_fn
 from repro_torch.data.allocation import pad_node_datasets
 from repro_torch.data.pipeline import Batcher
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.sharding import NODE_AXIS
 from repro_torch.dynamics import GraphProcess
 from repro_torch.engine import backends
 from repro_torch.engine.neighborhood import build_sparse_plan
@@ -76,6 +90,7 @@ from repro_torch.fl.trainer import (generator_keep, make_eval_fn,
                                     make_grad_fn, make_train_step)
 from repro_torch.graphs.sparse import SparseTopology
 from repro_torch.graphs.topology import Topology
+from repro_torch.launch.mesh import OnePodMesh, pod_axis
 from repro_torch.models.api import SmallModel
 from repro_torch.obs import (RunLedger, Telemetry, log_round, round_record,
                              run_manifest)
@@ -85,11 +100,6 @@ from repro_torch.utils.pytree import tree_flatten_stacked, tree_map
 
 SCHEDULE_MODES = ("fused", "loop")
 LAYOUTS = ("dense", "sparse")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +216,20 @@ class World:
                    timing=timing, telemetry=telemetry)
 
 
+def _default_mesh(n: int, device: torch.device):
+    """The pod mesh of the default process group, one pod per rank (N must
+    tile it); without a process group, the one-pod mesh whose gather is
+    the identity (what the JAX package's one-device mesh runs)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return OnePodMesh()
+    from torch.distributed.device_mesh import init_device_mesh
+
+    p = dist.get_world_size()
+    if n % p:
+        raise ValueError(f"{n} DFL nodes do not tile the {p}-pod axis")
+    return init_device_mesh(device.type, (p,), mesh_dim_names=(NODE_AXIS,))
+
+
 def _node_seed(*entropy: int) -> int:
     return int(np.random.SeedSequence(list(entropy)).generate_state(
         1, dtype=np.uint64)[0])
@@ -218,7 +242,7 @@ class Experiment:
                  comm: Optional[CommConfig] = None, backend: str = "vmap",
                  wire: str = "encoded",
                  schedule: Optional[Schedule] = None,
-                 train: Optional[TrainConfig] = None,
+                 train: Optional[TrainConfig] = None, mesh=None,
                  layout: Optional[str] = None, device: DeviceLike = None,
                  **train_overrides):
         self.device = resolve_device(device)
@@ -229,8 +253,6 @@ class Experiment:
         if backend not in backends.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"available: {backends.BACKENDS}")
-        if backend != "vmap":
-            raise _not_ported(f"backend={backend!r}", "A.10")
         if layout is not None and layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; "
                              f"available: {LAYOUTS}")
@@ -304,10 +326,36 @@ class Experiment:
         self.model = model
         self.topo = topo
         self.n = topo.num_nodes
+        # --- the pod backend: the mesh, this rank's pod and its context
+        # (one block of N / P rows); the vmap backend's is the dense one
+        self.mesh = (mesh if mesh is not None else
+                     _default_mesh(self.n, dev) if backend == "shard_map"
+                     else None)
+        self.n_pods, self.pod = 1, 0
+        self.pod_ctx = DENSE_CTX
+        if backend == "shard_map":
+            self.n_pods, self.pod, group = pod_axis(self.mesh)
+            self.pod_ctx = pod_context(self.n, self.n_pods, self.pod, group)
+        rows = self.pod_ctx.rows
+        self.is_writer = not (backend == "shard_map" and dist.is_available()
+                              and dist.is_initialized()
+                              and dist.get_rank() != 0)
 
+        # data: the block's rows for local training; CFA-GE's walk reads
+        # every sender's data (the full arrays, replicated)
         x_pad, y_pad, counts = pad_node_datasets(world.xs, world.ys)
-        self.x_pad = torch.from_numpy(np.ascontiguousarray(x_pad)).to(dev)
-        self.y_pad = torch.from_numpy(y_pad.astype(np.int64)).to(dev)
+        self.x_pad = torch.from_numpy(
+            np.ascontiguousarray(rows(x_pad))).to(dev)
+        self.y_pad = torch.from_numpy(rows(y_pad).astype(np.int64)).to(dev)
+        self.x_walk = self.y_walk = None
+        if self.strategy.capabilities.grad_exchange:
+            if self.n_pods == 1:
+                self.x_walk, self.y_walk = self.x_pad, self.y_pad
+            else:
+                self.x_walk = torch.from_numpy(
+                    np.ascontiguousarray(x_pad)).to(dev)
+                self.y_walk = torch.from_numpy(
+                    y_pad.astype(np.int64)).to(dev)
         self.counts = torch.from_numpy(counts.astype(np.int64)).to(dev)
         self.x_test = torch.from_numpy(
             np.ascontiguousarray(world.x_test)).to(dev)
@@ -317,7 +365,8 @@ class Experiment:
         # --- graph tensors: the padded dense layout or the sparse plan ---
         if layout == "sparse":
             self.nbr_idx = self.nbr_valid = self.nbr_weight = None
-            self.sparse_plan = build_sparse_plan(topo, counts, 1, dev)
+            self.sparse_plan = build_sparse_plan(topo, counts, self.n_pods,
+                                                 dev)
             self.edge_src = torch.from_numpy(
                 topo.edge_src.astype(np.int64)).to(dev)
             self.edge_dst = torch.from_numpy(
@@ -346,10 +395,17 @@ class Experiment:
         self.loss_fn = make_loss_fn(self.method.loss, beta=train.beta)
         self.batcher = Batcher(batch_size=train.batch_size)
         # local steps and CFA-GE's gradients train the model (dropout on):
-        # one keep-mask draw per dropout layer per call, over every row
+        # one keep-mask draw per dropout layer per call, over every row of
+        # the full node axis (the block's rows taken on the pod backend)
         keep = generator_keep(self.gen, dev)
+        step_keep = keep
+        if self.n_pods > 1:
+            block = rows(np.arange(self.n))
+            step_keep = backends.rows_keep(
+                keep, self.n, slice(int(block[0]), int(block[-1]) + 1))
         self._train_step = functools.partial(
-            make_train_step(model, self.optimizer, self.loss_fn), keep=keep)
+            make_train_step(model, self.optimizer, self.loss_fn),
+            keep=step_keep)
         self._grad_fn = functools.partial(make_grad_fn(model, self.loss_fn),
                                           keep=keep)
         self._eval = make_eval_fn(
@@ -363,14 +419,18 @@ class Experiment:
             seed = (_node_seed(train.seed + 1) if self.method.common_init
                     else _node_seed(train.seed, 17, i))
             per_node.append(model.init(torch.Generator().manual_seed(seed)))
-        self.params = tree_map(lambda *ls: torch.stack(ls).to(dev),
-                               per_node[0], *per_node[1:])
-        self.opt_state = self.optimizer.init(self.params)
+        # the full stack once (the transports size themselves from it),
+        # then the block's rows
+        params = tree_map(lambda *ls: torch.stack(ls).to(dev),
+                          per_node[0], *per_node[1:])
+        del per_node
+        self._params = self._block_nodes(params)
+        self._opt_state = self.optimizer.init(self._params)
 
         # --- gossip transport (capability-gated above) ---
         self.comm = comm
         self.transport = None
-        self.comm_state = None
+        self._comm_state = None
         self.comm_bytes_total = 0.0
         self._trig_sum = 0.0
         self._comm_rounds = 0
@@ -378,19 +438,20 @@ class Experiment:
         if comm is not None:
             if comm.use_per_edge and layout == "sparse":
                 self.transport = SparseEdgeGossipTransport(
-                    comm, self.params, topo)
+                    comm, params, topo)
             elif comm.use_per_edge:
                 self.transport = EdgeGossipTransport(
-                    comm, self.params, topo.neighbor_idx, topo.neighbor_mask)
+                    comm, params, topo.neighbor_idx, topo.neighbor_mask)
             elif layout == "sparse":
                 self.transport = GossipTransport(
-                    comm, self.params, edge_src=topo.edge_src,
+                    comm, params, edge_src=topo.edge_src,
                     edge_dst=topo.edge_dst)
             else:
                 self.transport = GossipTransport(
-                    comm, self.params, nbr_idx=topo.neighbor_idx,
+                    comm, params, nbr_idx=topo.neighbor_idx,
                     nbr_valid=topo.neighbor_mask)
-            self.comm_state = self.transport.init_state(self.params)
+            self.comm_state = self.transport.init_state(params)
+        del params
 
         # --- dynamics state and live-edge accounting
         self.dyn_state = (self.bound_dyn.state0
@@ -415,7 +476,7 @@ class Experiment:
                 payload = float(self.transport.payload_bytes)
             else:
                 payload = 4.0 * float(
-                    tree_flatten_stacked(self.params)[0].shape[1])
+                    tree_flatten_stacked(self._params)[0].shape[1])
             self.bound_timing = world.timing.bind(topo, payload, dev)
             self.time_state = self.bound_timing.state0
         elif self.deadline is not None:
@@ -453,7 +514,7 @@ class Experiment:
             self.bound_obs = world.telemetry.bind(self)
             if self.bound_obs is not None:
                 self.obs_state = self.bound_obs.state0
-            if world.telemetry.ledger is not None:
+            if world.telemetry.ledger is not None and self.is_writer:
                 self.ledger = RunLedger(world.telemetry.ledger)
                 self.ledger.write_manifest(run_manifest(self))
 
@@ -462,8 +523,66 @@ class Experiment:
         self.train_loss_history: List[float] = []  # one entry per round
 
     # ------------------------------------------------------------------
+    # the node axis: the block held here, the full axis read and written
+    def _gather_nodes(self, tree):
+        if self.n_pods == 1:
+            return tree
+        return tree_map(self.pod_ctx.gather, tree)
+
+    def _block_nodes(self, tree):
+        if self.n_pods == 1:
+            return tree
+        return tree_map(lambda t: self.pod_ctx.rows(t).clone(), tree)
+
+    def _comm_fields(self, state, fn):
+        """`fn` over the sender-private (sharded) fields of a transport
+        state, per the transport's `state_specs`."""
+        if state is None or self.n_pods == 1:
+            return state
+        specs = self.transport.state_specs("shard", "rep")
+        return type(state)(*[fn(v) if spec == "shard" else v
+                             for v, spec in zip(state, specs)])
+
+    @property
+    def params(self):
+        """Node-stacked params, leaves [N, ...] (on the pod backend the
+        pods' blocks gathered; set with the full node axis)."""
+        return self._gather_nodes(self._params)
+
+    @params.setter
+    def params(self, value):
+        self._params = self._block_nodes(value)
+
+    @property
+    def opt_state(self):
+        """The optimizer state over the full node axis (as `params`)."""
+        return self._gather_nodes(self._opt_state)
+
+    @opt_state.setter
+    def opt_state(self, value):
+        self._opt_state = self._block_nodes(value)
+
+    @property
+    def comm_state(self):
+        """The transport state over the full node axis: its sharded fields
+        gathered, its replicated ones as held (as `params`)."""
+        return self._comm_fields(self._comm_state, self.pod_ctx.gather)
+
+    @comm_state.setter
+    def comm_state(self, value):
+        self._comm_state = self._comm_fields(
+            value, lambda t: self.pod_ctx.rows(t).clone())
+
+    def _eval_nodes(self):
+        """(accuracy [N], loss [N]) on the device: the block evaluated,
+        the results gathered."""
+        acc, loss = self._eval(self._params, self.x_test, self.y_test)
+        if self.n_pods > 1:
+            acc, loss = self.pod_ctx.gather(acc), self.pod_ctx.gather(loss)
+        return acc, loss
+
     def evaluate(self) -> RoundMetrics:
-        acc, loss = self._eval(self.params, self.x_test, self.y_test)
+        acc, loss = self._eval_nodes()
         return RoundMetrics(round=-1, acc_per_node=acc.cpu().numpy(),
                             loss_per_node=loss.cpu().numpy())
 
@@ -550,7 +669,7 @@ class Experiment:
         history.append(m)
         if self.ledger is not None:
             self.ledger.write(round_record(m))
-        if verbose:
+        if verbose and self.is_writer:
             log_round(self.method.name, m)
 
     @contextlib.contextmanager
@@ -594,7 +713,8 @@ class Experiment:
             raise ValueError(f"schedule mode must be one of {SCHEDULE_MODES}, "
                              f"got {mode!r}")
         profile = contextlib.nullcontext()
-        if self.telemetry is not None and self.telemetry.profile_dir:
+        if (self.telemetry is not None and self.telemetry.profile_dir
+                and self.is_writer):
             profile = self._profiled(self.telemetry.profile_dir)
         t0 = _time.perf_counter()
         with profile:
@@ -612,9 +732,10 @@ class Experiment:
         pending = []  # fused: (round, acc, loss, probes) kept on the device
         losses, extras_out = [], []
         for r in range(rounds):
-            (self.params, self.opt_state, self.comm_state, self.dyn_state,
-             self.time_state, self.obs_state, loss, extras) = self._round(
-                 self.params, self.opt_state, self.comm_state,
+            (self._params, self._opt_state, self._comm_state,
+             self.dyn_state, self.time_state, self.obs_state, loss,
+             extras) = self._round(
+                 self._params, self._opt_state, self._comm_state,
                  self.dyn_state, self.time_state, self.obs_state, r)
             losses.append(loss)
             if mode == "loop":
@@ -632,8 +753,7 @@ class Experiment:
                 if extras:
                     extras_out.append(extras)
                 if r in evals:
-                    acc, eloss = self._eval(self.params, self.x_test,
-                                            self.y_test)
+                    acc, eloss = self._eval_nodes()
                     pending.append((r, acc, eloss, self._probes()))
         if mode == "fused" and rounds:
             # one read-back of the accounting the rounds left on the device

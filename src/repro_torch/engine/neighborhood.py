@@ -193,13 +193,20 @@ class SparseNeighborhood:
     CSR edge positions, so no reverse gather is needed).
 
     Padding slots point at edge 0 / node 0 (finite values) with wgt = 0,
-    which the reduce's contract makes bit-neutral."""
+    which the reduce's contract makes bit-neutral.
+
+    `pod` picks the caller's slab of the plan's [P, ...] tables: the pod
+    backend's block of R = N / P receivers (`local_mat` [R, D]); `table`,
+    `edge_table` and `edge_mask` stay full-axis."""
 
     def __init__(self, plan: SparsePlan, table: Optional[torch.Tensor],
                  local_mat: torch.Tensor, unflatten_fn: Callable,
                  edge_mask: torch.Tensor, *,
-                 edge_table: Optional[torch.Tensor] = None):
+                 edge_table: Optional[torch.Tensor] = None, pod: int = 0):
+        if not 0 <= pod < plan.n_pods:
+            raise ValueError(f"pod {pod} of a {plan.n_pods}-pod plan")
         self.plan = plan
+        self.pod = pod
         self.table = table
         self.local_mat = local_mat
         self._unflatten = unflatten_fn
@@ -207,10 +214,9 @@ class SparseNeighborhood:
         self.edge_table = edge_table
 
     def _bucket(self, wd: int):
-        """Pod 0's slot tables: the port's plans have one pod (the pod
-        backend is ROADMAP A.10)."""
-        bk = self.plan.buckets[wd]
-        return bk.rows_local[0], bk.src[0], bk.wgt[0], bk.epos[0]
+        """The caller's pod's slot tables of width `wd`."""
+        bk, p = self.plan.buckets[wd], self.pod
+        return bk.rows_local[p], bk.src[p], bk.wgt[p], bk.epos[p]
 
     def _weights(self, wgt, epos):
         return (wgt * self.edge_mask[epos]).contiguous()

@@ -1,5 +1,10 @@
 """Complex-network topologies (a numpy copy of the JAX package's
-builders): the dense padded layout and the sparse CSR edge list."""
+builders): the dense padded layout, the sparse CSR edge list, and the
+partition of a graph onto pods."""
+from repro_torch.graphs.partition import (  # noqa: F401
+    map_graph_to_pods,
+    pod_adjacency,
+)
 from repro_torch.graphs.sparse import (  # noqa: F401
     SPARSE_BUILDERS,
     SparseTopology,

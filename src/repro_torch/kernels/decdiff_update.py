@@ -20,6 +20,11 @@ the kernel existed, operation for operation, so the CPU path is unchanged.
 Use `repro_torch.kernels.ops.decdiff_rows` (or the reference wrappers'
 single-model forms `ops.decdiff_update` / `decdiff_update_tree`), which
 validate the inputs and pick between the two by the tensors' device.
+
+Pass A and the scale kernel also give the event trigger's drift
+‖x[r] − ref[r]‖ (`drift_norms_cuda`, through `ops.drift_norms`): each row
+is summed by the same blocks in the same order whatever the number of
+rows, so a block of R rows gets the norms the full N rows get.
 """
 from __future__ import annotations
 
@@ -58,6 +63,12 @@ def step_rows_plain(x: torch.Tensor, a: torch.Tensor,
 def decdiff_rows_plain(xs, avgs, gate, s) -> List[torch.Tensor]:
     scale = scale_from_sumsq(sumsq_rows_plain(xs, avgs), gate, s)
     return [step_rows_plain(x, a, scale) for x, a in zip(xs, avgs)]
+
+
+def drift_norms_plain(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """‖x[r] − ref[r]‖₂ per row of [R, D] fp32: [R] fp32."""
+    diff = x - ref
+    return torch.sqrt(torch.sum(diff * diff, dim=1))
 
 
 def _library() -> ctypes.CDLL:
@@ -136,3 +147,17 @@ def step_cuda(x: torch.Tensor, a: torch.Tensor,
 def decdiff_rows_cuda(xs, avgs, gate, s) -> List[torch.Tensor]:
     scale, _ = norms_cuda(xs, avgs, gate, s)
     return [step_cuda(x, a, scale) for x, a in zip(xs, avgs)]
+
+
+#: rows per pass-A launch (its grid's y dimension)
+MAX_GRID_ROWS = 65535
+
+
+def drift_norms_cuda(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """‖x[r] − ref[r]‖₂ per row: pass A and the scale kernel on [R, D]
+    fp32, MAX_GRID_ROWS rows a launch, then the square root: [R] fp32.
+    The caller validated the inputs."""
+    sq = torch.cat([norms_cuda([x[r0:r0 + MAX_GRID_ROWS]],
+                               [ref[r0:r0 + MAX_GRID_ROWS]], None, 0.0)[1]
+                    for r0 in range(0, x.shape[0], MAX_GRID_ROWS)])
+    return torch.sqrt(sq)

@@ -26,14 +26,15 @@ from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 #: (`vt_kl_loss` counts its forward and backward kernels apart;
 #: `decode_attention_fused` counts its split kernel and merge as one, and
 #: `decdiff_update` one per Eq. 5 update: pass A over every leaf, the
-#: scale kernel and pass B over every leaf)
+#: scale kernel and pass B over every leaf; `drift_norms` one per call of
+#: Eq. 5's pass A and scale kernel alone)
 LAUNCHES: Dict[str, int] = {"segment_neighbor_avg": 0, "gather_rows": 0,
                             "dequant_neighbor_avg_rows": 0,
                             "vt_kl_loss_fwd": 0, "vt_kl_loss_bwd": 0,
                             "decode_attention_fused": 0,
                             "decdiff_update": 0, "neighbor_avg": 0,
                             "dequant_segment_neighbor_avg": 0,
-                            "dequant_neighbor_avg": 0}
+                            "dequant_neighbor_avg": 0, "drift_norms": 0}
 
 
 def reset_launches() -> None:
@@ -406,6 +407,30 @@ def decdiff_rows(xs: Sequence[torch.Tensor], avgs: Sequence[torch.Tensor],
         return _dd.decdiff_rows_plain(xs, avgs, gate, s)
     out = _dd.decdiff_rows_cuda(xs, avgs, gate, s)
     LAUNCHES["decdiff_update"] += 1
+    return out
+
+
+def drift_norms(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Per-row distance ‖x[r] − ref[r]‖₂: x, ref [R, D] contiguous float32
+    -> [R] float32 (the event trigger's drift).  On the card it is Eq. 5's
+    sum of squares (pass A and the scale kernel), whose per-row sum does
+    not depend on R (see `repro_torch.kernels.decdiff_update`)."""
+    if x.dim() != 2 or tuple(x.shape) != tuple(ref.shape):
+        raise ValueError(f"drift_norms wants x and ref [R, D] of one shape; "
+                         f"got {tuple(x.shape)} and {tuple(ref.shape)}")
+    if x.dtype != torch.float32 or ref.dtype != torch.float32:
+        raise TypeError(f"drift_norms wants float32; got {x.dtype} and "
+                        f"{ref.dtype}")
+    if x.device != ref.device:
+        raise ValueError(f"x on {x.device} but ref on {ref.device}")
+    if not (x.is_contiguous() and ref.is_contiguous()):
+        raise ValueError("drift_norms wants contiguous tensors")
+    if _device_kind(x, "drift_norms") == "cpu":
+        return _dd.drift_norms_plain(x, ref)
+    if x.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    out = _dd.drift_norms_cuda(x, ref)
+    LAUNCHES["drift_norms"] += 1
     return out
 
 

@@ -124,9 +124,10 @@ def build_trace(exp) -> dict:
 
 def export_trace(exp, path: Optional[str] = None) -> dict:
     """Build the trace and (optionally) write it to `path`; returns the
-    trace dict either way."""
+    trace dict either way.  On the pod backend only rank 0 writes (every
+    rank holds the same histories)."""
     trace = build_trace(exp)
-    if path is not None:
+    if path is not None and getattr(exp, "is_writer", True):
         with open(path, "w") as f:
             json.dump(trace, f)
     return trace

@@ -362,6 +362,28 @@ def test_decdiff_kernels_match_plain(card, r, widths, dtype):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("r,d", [(1, 1), (16, 567434), (160, 567434),
+                                 (3, 4099), (70_000, 9)])
+def test_drift_norms_kernel_matches_plain(card, r, d):
+    """The trigger's drift on the card: within rtol 1e-5 of the plain
+    norms (another order), every block of rows bitwise the full call's
+    rows (a grid of more than 65,535 rows too), one count per call."""
+    from repro_torch.kernels import decdiff_update as dd
+
+    gen = torch.Generator(device=card).manual_seed(r)
+    x = torch.randn((r, d), generator=gen, device=card)
+    ref = torch.randn((r, d), generator=gen, device=card)
+    before = ops.LAUNCHES["drift_norms"]
+    got = ops.drift_norms(x, ref)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["drift_norms"] == before + 1
+    torch.testing.assert_close(got, dd.drift_norms_plain(x, ref), rtol=1e-5,
+                               atol=0)
+    for lo, hi in [(0, 1), (r // 2, r), (1, max(r - 1, 1))]:
+        assert torch.equal(ops.drift_norms(x[lo:hi], ref[lo:hi]),
+                           got[lo:hi])
+
+
 def test_decode_step_on_the_card_matches_the_cpu(card):
     """8 tokens of qwen1.5-0.5b and qwen3-32b reduced (fp32) through
     `build_serve_step` on the card (the decode_attention kernel, once per
@@ -609,7 +631,7 @@ def test_sparse_layout_equals_dense_on_the_card(card, monkeypatch, method,
     trigger history bitwise equal; the segment reduce launches once per
     bucket and `gather_rows` never on the sparse per-edge path.  With
     `ge_chunk`, CFA-GE's gradient walk runs in calls of that many edges
-    (the last one padded)."""
+    (the last one holds the rest)."""
     from repro_torch.comm import CommConfig
     from repro_torch.engine import Experiment, World, backends
     from repro_torch.models.mlp_cnn import make_mlp
@@ -913,3 +935,137 @@ def test_telemetry_loop_equals_fused_on_the_card(card):
         assert list(a.detail) == list(b.detail)
         for k in a.detail:
             np.testing.assert_array_equal(a.detail[k], b.detail[k])
+
+
+# ------------------------------------------------- the pod backend (A.10)
+
+def _pod_world(dev, **kw):
+    import dataclasses
+
+    from repro_torch.dynamics import EdgeDropout
+    from repro_torch.engine import World
+    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.obs import Telemetry
+    from repro_torch.timing import LognormalLink, LognormalStep, Timing
+
+    world = World.synthetic("synth-mnist", nodes=8,
+                            topology="barabasi_albert", m=2, scale=0.02,
+                            model=make_mlp(hidden=(64, 32)), device=dev)
+    return dataclasses.replace(
+        world, dynamics=EdgeDropout(p=0.2),
+        timing=Timing(LognormalStep(1.0, 0.5, seed=7),
+                      LognormalLink(0.05, 0.5, 1e6, 0.5, seed=11)),
+        telemetry=Telemetry(channels="all" if kw.get("comm") else "auto"))
+
+
+POD_RUNS = {
+    "decdiff+vt": ("decdiff+vt", dict(codec="int8", policy="adaptive",
+                                      target_trigger=0.95), "dense"),
+    "decdiff+vt-sparse": ("decdiff+vt", dict(codec="int8", policy="adaptive",
+                                             target_trigger=0.95), "sparse"),
+    "fedavg": ("fedavg", None, "dense"),
+    "cfa-ge": ("cfa-ge", None, "dense"),
+}
+
+
+def _pod_run(dev, key, backend):
+    """Path m's run at a small size: 3 fused rounds under EdgeDropout(0.2),
+    a lognormal clock with a 2.5 s deadline and every channel; the results
+    as host arrays (full node axis)."""
+    from repro_torch import convert
+    from repro_torch.comm import CommConfig
+    from repro_torch.engine import Experiment, Schedule
+
+    method, comm, layout = POD_RUNS[key]
+    exp = Experiment(_pod_world(dev, comm=comm), method, backend=backend,
+                     layout=layout,
+                     comm=None if comm is None else CommConfig(**comm),
+                     schedule=Schedule(rounds=3, eval_every=1,
+                                       deadline=2.5),
+                     steps_per_round=2, batch_size=32, device=dev)
+    ops.reset_launches()
+    hist = exp.run()
+    comm_state = ([] if exp.comm_state is None else
+                  [v.cpu().numpy() for v in exp.comm_state if v is not None])
+    return dict(params=convert.params_to_numpy(exp.params),
+                comm=comm_state, launches=dict(ops.LAUNCHES),
+                hist=[(m.acc_per_node, m.bytes_on_wire, m.sim_time,
+                       m.detail) for m in hist],
+                trig=exp.trig_history, live=exp.live_history,
+                loss=exp.train_loss_history, n_pods=exp.n_pods)
+
+
+def _pod_equal(a, b, loss_tol):
+    for layer in a["params"]:
+        for leaf in a["params"][layer]:
+            np.testing.assert_array_equal(a["params"][layer][leaf],
+                                          b["params"][layer][leaf])
+    assert len(a["comm"]) == len(b["comm"])
+    for x, y in zip(a["comm"], b["comm"]):
+        np.testing.assert_array_equal(x, y)
+    assert a["trig"] == b["trig"] and a["live"] == b["live"]
+    for (acc_a, by_a, t_a, d_a), (acc_b, by_b, t_b, d_b) in zip(a["hist"],
+                                                                  b["hist"]):
+        np.testing.assert_array_equal(acc_a, acc_b)
+        assert by_a == by_b and t_a == t_b and list(d_a) == list(d_b)
+        for k in d_a:
+            np.testing.assert_array_equal(d_a[k], d_b[k])
+    np.testing.assert_allclose(a["loss"], b["loss"], rtol=0, atol=loss_tol)
+
+
+@pytest.mark.parametrize("key", ["decdiff+vt", "decdiff+vt-sparse"])
+def test_pod_backend_on_nccl_at_world_size_one_is_vmap(card, key, tmp_path):
+    """Path m0 at a small size: shard_map over an NCCL group of one rank
+    (the gather a real collective) bitwise the vmap run, with the same
+    launches."""
+    import torch.distributed as dist
+
+    want = _pod_run(card, key, "vmap")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        got = _pod_run(card, key, "shard_map")
+    finally:
+        dist.destroy_process_group()
+    assert got["n_pods"] == 1
+    assert got["launches"] == want["launches"]
+    _pod_equal(got, want, loss_tol=0.0)
+
+
+def _pod_rank(rank, n_pods, tmp):
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(f"{tmp}/store", n_pods), rank=rank,
+        world_size=n_pods)
+    try:
+        dev = torch.device("cuda", 0)
+        out = {key: _pod_run(dev, key, "shard_map") for key in POD_RUNS}
+        with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_pod_backend_on_two_gloo_ranks_of_one_card_is_vmap(card, tmp_path):
+    """Path m1 at a small size: two gloo ranks on the one card (the gather
+    staged through host memory), `decdiff+vt` per-edge int8 on both
+    layouts, `fedavg` and `cfa-ge`, each bitwise the vmap run."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    mp.spawn(_pod_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    for key in POD_RUNS:
+        want = _pod_run(card, key, "vmap")
+        for rank in ranks:
+            assert rank[key]["n_pods"] == 2
+            _pod_equal(rank[key], want, loss_tol=1e-6)

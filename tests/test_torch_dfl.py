@@ -14,6 +14,8 @@ rounds (fp32 forward and backward ordered differently by XLA and PyTorch,
 and an int8 grain that may flip where a value lands on a rounding edge);
 single operations (the optimizer, one gossip) within 1e-6.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -272,8 +274,12 @@ def test_multi_pod_and_unported_options_name_their_roadmap_item():
     from repro_torch.optim.sgd import sgd_momentum
 
     _, tlm = _lms()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        build_dfl_round_shardmap(tlm, sgd_momentum(), _ring(), pods=2)
+    # the multi-pod round is ported (A.10): 4 nodes do not tile 3 pods
+    three_pods = types.SimpleNamespace(
+        mesh_dim_names=("pod",), size=lambda dim: 3,
+        get_local_rank=lambda dim: 0, get_group=lambda dim: None)
+    with pytest.raises(ValueError, match="do not tile the 3-pod axis"):
+        build_dfl_round_shardmap(tlm, sgd_momentum(), _ring(), three_pods)
     with pytest.raises(NotImplementedError, match="A.11"):
         train.main(["--steps", "1", "--device", "cpu", "--ckpt-dir", "x"])
     from repro_torch.launch import serve

@@ -221,9 +221,11 @@ def test_unknown_layout_is_refused(reference):
     ("telemetry", "A.9"), ("shard_map", "A.10"), ("checkpoint", "A.11")])
 def test_unported_options_name_their_roadmap_item(reference, case, item):
     """An option not ported yet raises NotImplementedError naming its
-    ROADMAP item.  Dynamics (A.7), the event clock (A.8) and telemetry
-    (A.9) are ported: their options run, and a value of the wrong kind is
-    refused as the reference refuses it."""
+    ROADMAP item.  Dynamics (A.7), the event clock (A.8), telemetry (A.9)
+    and the pod backend (A.10) are ported: their options run, and a value
+    of the wrong kind is refused as the reference refuses it."""
+    import types
+
     from repro_torch.launch.train import main as train_main
 
     jw, _, _, _ = reference
@@ -241,6 +243,11 @@ def test_unported_options_name_their_roadmap_item(reference, case, item):
                       lambda: Experiment(World.synthetic(
                           nodes=4, scale=0.005, telemetry=object(),
                           device="cpu"), device="cpu")),
+        "shard_map": (ValueError, "needs a mesh with a 'pod' axis",
+                      lambda: Experiment(
+                          world, backend="shard_map", device="cpu",
+                          mesh=types.SimpleNamespace(
+                              mesh_dim_names=("data",)))),
     }
     if case in ported:
         exc, match, call = ported[case]
@@ -248,8 +255,6 @@ def test_unported_options_name_their_roadmap_item(reference, case, item):
             call()
         return
     calls = {
-        "shard_map": lambda: Experiment(world, backend="shard_map",
-                                        device="cpu"),
         "checkpoint": lambda: train_main(["--ckpt-dir", "ckpt",
                                           "--device", "cpu"]),
     }

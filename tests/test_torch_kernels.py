@@ -253,7 +253,7 @@ def test_every_kernel_source_is_built_by_name():
     assert sorted(ops.LAUNCHES) == [
         "decdiff_update", "decode_attention_fused", "dequant_neighbor_avg",
         "dequant_neighbor_avg_rows", "dequant_segment_neighbor_avg",
-        "gather_rows", "neighbor_avg", "segment_neighbor_avg",
+        "drift_norms", "gather_rows", "neighbor_avg", "segment_neighbor_avg",
         "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
 
 
@@ -804,12 +804,52 @@ def test_decdiff_rows_wrapper_rejects_bad_inputs(bad):
         ops.decdiff_rows(x, a, gate, 1.0)
 
 
+# ------------------------------------------ the trigger's drift norms
+
+@pytest.mark.parametrize("r,d", [(1, 1), (6, 4099), (12, 567)])
+def test_drift_norms_match_jax_and_any_row_block(r, d):
+    """`ops.drift_norms` against the reference's `drift_gate` drift, and
+    each block of rows bitwise the full call's rows."""
+    from repro.comm import trigger as jtrig
+
+    rng = np.random.default_rng([r, d])
+    x = rng.standard_normal((r, d)).astype(np.float32)
+    ref = rng.standard_normal((r, d)).astype(np.float32)
+    got = ops.drift_norms(torch.from_numpy(x), torch.from_numpy(ref))
+    _, want = jtrig.drift_gate(jnp.asarray(x), jnp.asarray(ref), 0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=0)
+    for lo, hi in [(0, 1), (r // 2, r), (1, max(r - 1, 1))]:
+        part = ops.drift_norms(torch.from_numpy(x[lo:hi]),
+                               torch.from_numpy(ref[lo:hi]))
+        assert torch.equal(part, got[lo:hi])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "dims", "contig",
+                                 "device"])
+def test_drift_norms_wrapper_rejects_bad_inputs(bad):
+    x, ref = torch.zeros(3, 8), torch.ones(3, 8)
+    if bad == "dtype":
+        x = x.to(torch.bfloat16)
+    elif bad == "shape":
+        ref = torch.ones(3, 7)
+    elif bad == "dims":
+        x, ref = x.reshape(-1), ref.reshape(-1)
+    elif bad == "contig":
+        x = torch.zeros(8, 3).t()
+    else:
+        ref = ref.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        ops.drift_norms(x, ref)
+
+
 def test_serving_and_eq5_wrappers_count_no_launch_on_the_cpu():
     ops.reset_launches()
     _, tin = _decode_inputs(2, 16, 2, 2, 16, jnp.float32)
     ops.decode_attention_fused(*tin)
     ops.decdiff_rows([torch.zeros(2, 3)], [torch.ones(2, 3)], None, 1.0)
     ops.decdiff_update(torch.zeros(5), torch.ones(5))
+    ops.drift_norms(torch.zeros(2, 3), torch.ones(2, 3))
     assert not any(ops.LAUNCHES.values())
 
 

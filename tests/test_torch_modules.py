@@ -353,8 +353,11 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.fl.trainer', 'repro_torch.data.pipeline', "
         "'repro_torch.dynamics.processes', 'repro_torch.timing.models', "
         "'repro_torch.obs.channels', 'repro_torch.obs.ledger', "
-        "'repro_torch.obs.trace'):\n"
+        "'repro_torch.obs.trace', 'repro_torch.dist.sharding', "
+        "'repro_torch.graphs.partition', 'repro_torch.launch.mesh'):\n"
         "    assert m in sys.modules, m\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # no import starts a group\n"
         "print('ok', len([k for k in sys.modules "
         "if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

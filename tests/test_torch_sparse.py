@@ -32,6 +32,7 @@ Tolerances against JAX are fp32 reorderings: XLA contracts with dots that
 sum in another order than the port's ordered loops.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -594,7 +595,7 @@ def test_sparse_accuracy_bytes_and_trigger_match_jax(
 def test_cfa_ge_in_small_calls_sparse_equals_dense(parity_world, monkeypatch,
                                                    chunk):
     """CFA-GE's gradient walk split into many calls of `chunk` edges (runs
-    of one slot cut across calls, the last call padded): both layouts make
+    of one slot cut across calls, the last call shorter): both layouts make
     the same calls and stay bitwise equal, and the result agrees with the
     walk in one call to 1e-6 (the CPU's GEMMs may block a call of another
     row count differently)."""
@@ -613,10 +614,10 @@ def test_cfa_ge_in_small_calls_sparse_equals_dense(parity_world, monkeypatch,
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 def test_cfa_ge_walk_evaluates_each_edge_once(parity_world, monkeypatch,
                                               layout):
-    """The walk costs E row-gradients plus the last call's padding, in
-    calls of exactly min(E, GE_CHUNK) rows, whatever the layout (the
-    reference's walk costs N·max_deg on the dense layout and Σ B·width
-    over the sparse buckets)."""
+    """The walk costs E row-gradients, in calls of min(E, GE_CHUNK) rows
+    (the last holds the rest), whatever the layout (the reference's walk
+    costs N·max_deg on the dense layout and Σ B·width over the sparse
+    buckets)."""
     from repro_torch.engine import backends
 
     monkeypatch.setattr(backends, "GE_CHUNK", 7)
@@ -625,16 +626,17 @@ def test_cfa_ge_walk_evaluates_each_edge_once(parity_world, monkeypatch,
     rows = []
     grad_fn = exp._grad_fn
 
-    def counting(params, x, y):
+    def counting(params, x, y, keep):
         rows.append(int(x.shape[0]))
-        return grad_fn(params, x, y)
+        return grad_fn.func(params, x, y, keep=keep)
 
-    exp._grad_fn = counting
+    exp._grad_fn = functools.partial(counting,
+                                     keep=grad_fn.keywords["keep"])
     link = (exp.nbr_valid if layout == "dense" else
             torch.ones(exp.sparse_plan.num_directed))
     backends._make_gradient_exchange(exp)(exp.params, link, 2)
     e = int(exp._total_directed)
-    assert rows == [7] * -(-e // 7)
+    assert rows == [7] * (e // 7) + ([e % 7] if e % 7 else [])
 
 
 def test_batcher_per_row_steps_equal_scalar_steps():

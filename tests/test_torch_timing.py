@@ -23,6 +23,7 @@ tests/test_torch_dynamics.py, next to the processes they drive.
 """
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -375,6 +376,9 @@ def test_experiment_refusals():
     with pytest.raises(TypeError, match="repro_torch.obs.Telemetry"):
         Experiment(_world(telemetry=object()), "decdiff+vt", device="cpu",
                    **TRAIN)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # the pod backend (A.10) is ported: without a process group it runs
+    # one pod, and a mesh without a pod dimension is refused
+    with pytest.raises(ValueError, match="needs a mesh with a 'pod' axis"):
         Experiment(_world(), "decdiff+vt", device="cpu",
-                   backend="shard_map", **TRAIN)
+                   backend="shard_map", **TRAIN,
+                   mesh=types.SimpleNamespace(mesh_dim_names=()))
