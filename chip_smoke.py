@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --path-n]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -246,6 +246,41 @@ It imports the port only (no JAX), and:
      hd 128 over the full 32,768 slots, an odd B = 3, W = 1000 with a
      sliding window, a W below one tile (40), a W one slot past a tile
      boundary (4097) and a ring with no live slot (the uniform average);
+  7b. drives path n, the five LM families beside the dense one at their
+     registered widths (bf16; depth cut only where 80 GB forces it, each
+     cut printed), each sub-path with its peak memory, ms per forward,
+     train step and decode step, and seconds: n1 llava-next-mistral-7b
+     (all 32 layers; forward + VT loss at 1 x (2880 image + 128 text);
+     the train step at the depth whose params, grads and fp32 momentum
+     fit 48 GB: 26 layers); n2 mixtral-8x7b at 8 of 32 layers (forward +
+     loss at 2 x 512 under the global and the batch_local dispatch; a
+     train step at 2 layers; decode over its 4,096-slot sliding-window
+     ring filled so that it has wrapped); n3 arctic-480b at 1 of 35 layers
+     (27 GB; forward and decode, G = 7); n4 mamba2-2.7b (all 64 layers;
+     forward at 2 x 2048, a train step, 48 decode steps, the decode
+     state's bytes at two seq_lens, equal); n5 zamba2-2.7b (all 54 layers;
+     forward at 2 x 2048, a train step, decode through B.9 at hd 80 over
+     six group rings); n6 whisper-large-v3 (32 + 32 layers;
+     `prep_decode_cache` on 8 x 1500 frames, forward + VT loss over 448
+     decoder tokens at V = 51,866, decode); n7 one fused int8 pod round
+     of mixtral on a 2-node ring at the depth whose 20 B a param fit 72 GB
+     (1 layer), the router aux in each node's loss.  Every decode of n1-n6
+     is held against the teacher-forced forward at position 15 of 2 x 16
+     tokens with fp32 activations over the same bf16 weights (within 1e-3
+     of the largest logit; the bf16 gap is printed: the two paths round
+     in different places, and the reference's own bf16 gap passes 2e-2
+     at 8 mamba2 layers: tests/test_torch_families.py); MoE's check at a
+     capacity that drops nothing, as the reference's oracle.  Launches
+     are checked exactly: the VT loss once a loss and once forward and
+     backward a train step, `decode_attention_fused` once per attention
+     layer and decode step.
+     Then each family's reduced preset (fp32) on the card against the
+     CPU (logits 1e-4, loss and aux 1e-5, 8 decode steps 1e-4 with equal
+     tokens), B.9 against its plain version on path n's real rings
+     (mixtral's window, arctic's G = 7, zamba2's hd 80, whisper's K = 20)
+     and B.3 on its real logits at V = 32,000, 50,280 and 51,866 (not a
+     multiple of 8: the kernels' scalar rows); `--path-n` runs the
+     kernel build and path n alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -3207,6 +3242,735 @@ def small_serve_agrees(torch, dev):
                             f"by {ferr}")
 
 
+# path n: the five LM families beside the dense one, at their registered
+# widths (ROADMAP A.11.1); see the module docstring
+N_RING, N_DEC_B, N_DEC_STEPS = 4096, 8, 16   # the timed decode ring
+N_CHECK_B, N_CHECK_P = 2, 16                 # decode = forward at full width
+# a train step's bf16 params and grads and fp32 momentum (8 B a param):
+# the rest of 80 GB holds the update's fp32 temporary of the largest leaf
+# (7.5 GB at llava's 32 layers), activations and the allocator's slack
+N_TRAIN_BYTES = 48e9
+N_ROUND_BYTES = 72e9    # a pod round's 20 B a param (path d's fused gossip)
+N_ARCHS = {"n1": "llava-next-mistral-7b", "n2": "mixtral-8x7b",
+           "n3": "arctic-480b", "n4": "mamba2-2.7b", "n5": "zamba2-2.7b",
+           "n6": "whisper-large-v3", "n7": "mixtral-8x7b"}
+
+
+def n_layers_within(cfg, per_param_bytes, budget, copies=1):
+    """The most layers (at most the config's) whose `copies` models at
+    `per_param_bytes` a param fit `budget` bytes."""
+    import dataclasses
+
+    best = 1
+    for n in range(1, cfg.n_layers + 1):
+        c = dataclasses.replace(cfg, n_layers=n)
+        if copies * per_param_bytes * c.param_count() <= budget:
+            best = n
+    return best
+
+
+def n_cut(cfg, layers, why):
+    """cfg at `layers` layers, the cut printed."""
+    import dataclasses
+
+    if layers >= cfg.n_layers:
+        return cfg
+    print(f"  depth cut: {cfg.arch_id} {cfg.n_layers} -> {layers} layers "
+          f"({why})")
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def n_batch(torch, lm, b, s, dev, seed, **shapes):
+    """A batch by `lm.input_specs(b, s)` (a name in `shapes` overrides its
+    shape): int32 tokens and labels in [0, V), embeddings N(0, 1) · 0.05 in
+    the activation dtype, drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, (shape, dtype) in lm.input_specs(b, s).items():
+        shape = shapes.get(k, shape)
+        if dtype == torch.int32:
+            out[k] = torch.randint(0, lm.cfg.vocab, shape, generator=g,
+                                   device=dev, dtype=torch.int32)
+        else:
+            out[k] = (torch.randn(shape, generator=g, device=dev) * 0.05
+                      ).to(dtype)
+    return out
+
+
+def n_clock(torch, fn, reps):
+    """fn() once to warm, then `reps` times, each ended by a synchronize:
+    (the last result, ms of each timed call)."""
+    out = fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def n_add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def n_attn_layers(cfg):
+    """decode_attention_fused launches per decode step."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def n_forward(torch, ops, lm, params, batch, tag, res, profile=False):
+    """Forward (no grad, 1 warm + 2 timed) and the VT loss once; checks
+    finite logits of [B, S_text, V], the loss's one VT launch, aux; with
+    `profile`, one more forward under torch.profiler."""
+    with torch.no_grad():
+        (logits, aux), ms = n_clock(torch, lambda: lm.forward(params, batch),
+                                    2)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        total, met = lm.loss(params, batch)
+        torch.cuda.synchronize()
+        loss_ms = [1e3 * (time.perf_counter() - t0)]
+        launches = dict(ops.LAUNCHES)
+    b, s = batch["tokens"].shape
+    check(tuple(logits.shape) == (b, s, lm.cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: logits {tuple(logits.shape)} not finite")
+    check(launches["vt_kl_loss_fwd"] == 1,
+          f"{tag}: the VT loss launched {launches} per loss")
+    aux = float(aux)
+    check(math.isfinite(float(total)) and (aux > 0) == (lm.cfg.family
+                                                        == "moe"),
+          f"{tag}: loss {float(total)}, aux {aux}")
+    print(f"{tag} forward [B={b}, S={s}] ms {', '.join(f'{x:.2f}' for x in ms)}"
+          f"; forward + VT loss {loss_ms[0]:.2f} ms, loss "
+          f"{float(met['loss']):.5f}, aux {aux:.5f}, total "
+          f"{float(total):.5f}")
+    res.setdefault("fwd_ms", []).extend(ms)
+    res["loss_ms"] = loss_ms[0]
+    n_add(res.setdefault("launches", {}), launches)
+    if profile:
+        with torch.no_grad():
+            by_name, _ = profile_round(
+                torch, lambda: lm.forward(params, batch), f"{tag} forward")
+        print_families(by_name, f"{tag} forward")
+    return logits
+
+
+def n_train(torch, ops, lm, params, batches, tag, res):
+    """`build_train_step` on the given batches (the first warms), in
+    place: finite losses, moved params, one VT forward and backward a
+    step."""
+    from repro_torch.dist.dfl_step import build_train_step
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_leaves
+
+    opt = sgd_momentum(lr=1e-3, momentum=0.9)
+    state = opt.init(params)
+    step = build_train_step(lm, opt, loss_kind="vt", beta=LM_BETA)
+    probe = tree_leaves(params)[-1]
+    before = probe.float().sum()
+    ops.reset_launches()
+    ms, losses = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, i, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = dict(ops.LAUNCHES)
+    moved = bool(probe.float().sum() != before)
+    print(f"{tag} train step ({lm.cfg.n_layers} layers, remat "
+          f"{lm.cfg.remat}): ms {', '.join(f'{x:.1f}' for x in ms)} (the "
+          f"first warms), losses {losses}, launches {launches}")
+    check(all(math.isfinite(x) for x in losses) and moved,
+          f"{tag}: train losses {losses}, params moved {moved}")
+    check(launches["vt_kl_loss_fwd"] == launches["vt_kl_loss_bwd"]
+          == len(batches), f"{tag}: train step launches {launches}")
+    res["train_ms"] = ms
+    n_add(res.setdefault("launches", {}), launches)
+    del state
+
+
+def n_decode_check(torch, lm, params, tokens, forward, tag, enc=None):
+    """Decode `tokens` [B, P] one by one from an empty cache (the encoder's
+    cross K / V filled first with `enc`) and hold the last position's
+    logits against the teacher-forced forward's (`forward(lm)` -> logits
+    [B, P, V]), twice over the same bf16 weights: with the registered bf16
+    activations, the gap measured and the logits finite; and with fp32
+    activations (the same widths), where the two paths compute the same
+    numbers but for fp32 rounding, the gap held within 1e-3 of the
+    largest |logit|.  In bf16 the two paths round in different places by
+    design (the SSD forward rounds x·dt and each chunk's output to bf16,
+    the recurrent step keeps them fp32; cuBLAS sums M = B and M = B·P rows
+    in other orders), and the gap grows with depth: the reference's own
+    bf16 gap exceeds tests/test_torch_serve.py's 2e-2 rule at 8 mamba2
+    layers (tests/test_torch_families.py).  Returns {dtype: gap / largest
+    |logit|}."""
+    import dataclasses
+
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.models.lm import build_lm
+
+    b, p = tokens.shape
+    out_ratio = {}
+    for dt in (lm.cfg.activation_dtype, "float32"):
+        lmx = build_lm(dataclasses.replace(lm.cfg, activation_dtype=dt))
+        with torch.no_grad():
+            ref = forward(lmx)[:, -1].float()
+        step = build_serve_step(lmx)
+        with torch.inference_mode():
+            cache = lmx.init_cache(b, 64, device=tokens.device)
+            if enc is not None:
+                cache = lmx.prep_decode_cache(params, cache, enc)
+            for t in range(p):
+                out, cache = step(params, cache, tokens[:, t:t + 1])
+        got = out[:, 0].float()
+        err = float((got - ref).abs().max())
+        big = float(ref.abs().max())
+        same = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        out_ratio[dt] = err / big
+        print(f"{tag} decode vs teacher-forced forward, {dt} activations, "
+              f"position {p - 1} [B={b}]: max |diff| {err:.4g}, largest "
+              f"|logit| {big:.4g} (ratio {err / big:.4g}), argmax "
+              f"agreement {same:.2f}")
+        check(bool(torch.isfinite(got).all()) and math.isfinite(big),
+              f"{tag}: {dt} decode logits not finite")
+        del cache
+    check(out_ratio["float32"] <= 1e-3,
+          f"{tag}: fp32 decode and forward differ by "
+          f"{out_ratio['float32']} of the largest logit")
+    return out_ratio
+
+
+def n_fill_ring(torch, cache, prefix, fill, dev, seed):
+    """Fill a decode ring as path e fills its cache: N(0, 1) k and v at
+    positions fill - W .. fill - 1 (those >= 0), each in slot p % W, and
+    `length` = fill."""
+    k, v, sp = (cache[prefix + n] for n in ("k", "v", "slot_pos"))
+    w = k.shape[2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(max(fill - w, 0), fill, dtype=torch.int32,
+                       device=dev)
+    slots = (pos % w).long()
+    for layer in range(k.shape[0]):
+        k[layer][:, slots] = torch.randn((k.shape[1], len(pos)) + tuple(
+            k.shape[3:]), generator=g, device=dev).to(k.dtype)
+        v[layer][:, slots] = torch.randn((v.shape[1], len(pos)) + tuple(
+            v.shape[3:]), generator=g, device=dev).to(v.dtype)
+        sp[layer][slots] = pos
+    cache["length"].fill_(fill)
+
+
+def n_decode(torch, ops, lm, params, cache, tag, res, dev, fill=None,
+             prefix="", steps=N_DEC_STEPS, profile=False):
+    """1 + `steps` greedy steps of N_DEC_B sequences through
+    `build_serve_step` on `cache` (its rings filled to `fill` first):
+    decode_attention_fused must launch once per attention layer and step;
+    ms per step, finite logits; with `profile`, one more step under
+    torch.profiler.  Returns layer 0's ring (cloned) and the last
+    position."""
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.launch.serve import generate
+
+    cfg = lm.cfg
+    if fill is not None:
+        n_fill_ring(torch, cache, prefix, fill, dev, 3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab, (N_DEC_B, 1), generator=g,
+                           device=dev)
+    step = build_serve_step(lm)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits, cache, secs = generate(step, params, cache, prompt,
+                                           steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    ms = [1e3 * x for x in secs]
+    want = n_attn_layers(cfg) * (steps + 1)
+    print(f"{tag} decode [B={N_DEC_B}] {steps + 1} steps in "
+          f"{wall:.3f} s: ms per step median {statistics.median(ms):.3f} "
+          f"(min {min(ms):.3f}, max {max(ms):.3f}), length "
+          f"{int(cache['length'])}, launches {launches}")
+    check(launches["decode_attention_fused"] == want,
+          f"{tag}: decode_attention_fused launched "
+          f"{launches['decode_attention_fused']} times, not {want}")
+    check(tuple(logits.shape) == (N_DEC_B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: decode logits not finite")
+    res["dec_ms"] = ms
+    n_add(res.setdefault("launches", {}), launches)
+    if profile:
+        box = [cache, tokens[:, -1:]]
+
+        def one_step():
+            out, box[0] = step(params, box[0], box[1])
+            box[1] = torch.argmax(out[:, -1:], dim=-1)
+
+        by_name, _ = profile_round(torch, one_step, f"{tag} decode step")
+        print_families(by_name, f"{tag} decode step")
+    if prefix + "k" not in cache:
+        return None
+    return dict(k=cache[prefix + "k"][0].clone(),
+                v=cache[prefix + "v"][0].clone(),
+                sp=cache[prefix + "slot_pos"][0].clone(),
+                pos=(cache["length"] - 1).clone(),
+                window=cfg.sliding_window or 0, h=cfg.n_heads)
+
+
+def n_begin(torch, tag, arch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{tag} ({arch}):")
+    return time.perf_counter(), {}
+
+
+def n_end(torch, tag, t0, res):
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["s"] = time.perf_counter() - t0
+    print(f"{tag} done in {res['s']:.1f} s, peak device memory "
+          f"{res['peak'] / 2**30:.2f} GiB ({res['peak']} B)")
+
+
+def n_build(torch, dev, cfg, seed=0):
+    from repro_torch.models.lm import build_lm
+    from repro_torch.utils.pytree import tree_leaves
+
+    t0 = time.perf_counter()
+    lm = build_lm(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    # `param_count` is analytic: it leaves out the SSM's conv bias and
+    # dt_bias and the hybrid's 2D -> D in_proj (0.54% of zamba2), which
+    # the layout has
+    check(abs(n - cfg.param_count()) <= 5e-2 * n,
+          f"{cfg.arch_id}: {n} params, the config counts "
+          f"{cfg.param_count()}")
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(params)})
+    check(all(t.device == dev for t in tree_leaves(params))
+          and "torch.bfloat16" in dtypes, f"{cfg.arch_id}: params {dtypes} "
+                                          f"off the card")
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n} params (param_count() {cfg.param_count()}; "
+          f"{n * 2 / 1e9:.2f} GB bf16; dtypes {dtypes}), drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return lm, params
+
+
+def n_slice_layers(params, key, layers):
+    """The first `layers` layers of a stacked model (views)."""
+    from repro_torch.utils.pytree import tree_map
+
+    out = dict(params)
+    out[key] = tree_map(lambda t: t[:layers], params[key])
+    return out
+
+
+def path_n(torch, ops, dev, profile=False):
+    """The five families beside the dense one at their registered widths
+    (n1-n7, see the module docstring).  Returns per sub-path results,
+    the launches, the real logits for B.3 and the real rings for B.9.
+    With `profile`, torch.profiler breakdowns of n1's, n4's and n6's
+    forward and decode step."""
+    import dataclasses
+
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_dfl_round_shardmap
+    from repro_torch.launch.train import (
+        init_nodes,
+        make_batches,
+        ring_adjacency,
+    )
+    from repro_torch.models.lm import build_lm
+    from repro_torch.models.lm.vlm import forward_text_only
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    t_n = time.perf_counter()
+    out = {"res": {}, "vt": {}, "rings": {}}
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def check_tokens(cfg):
+        return torch.randint(0, cfg.vocab, (N_CHECK_B, N_CHECK_P),
+                             generator=gen, device=dev)
+
+    # -- n1: llava-next-mistral-7b, all 32 layers -------------------------
+    t0, res = n_begin(torch, "n1", N_ARCHS["n1"])
+    cfg = get_config(N_ARCHS["n1"])
+    lm, params = n_build(torch, dev, cfg)
+    batch = n_batch(torch, lm, 1, cfg.img_tokens + 128, dev, 10)
+    logits = n_forward(torch, ops, lm, params, batch, "n1", res, profile)
+    out["vt"][cfg.vocab] = (logits.reshape(-1, cfg.vocab).contiguous(),
+                            batch["labels"].reshape(-1).long())
+    del logits
+    toks = check_tokens(cfg)
+    res["decode_gap"] = n_decode_check(
+        torch, lm, params, toks,
+        lambda lmx: forward_text_only(lmx.cfg, params, toks), "n1")
+    cache = lm.init_cache(N_DEC_B, N_RING, device=dev)
+    n_decode(torch, ops, lm, params, cache, "n1", res, dev,
+             fill=N_RING - N_DEC_STEPS - 1, profile=profile)
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = n_layers_within(cfg, 8, N_TRAIN_BYTES)
+    tcfg = n_cut(cfg, layers, f"a train step's params, grads and fp32 "
+                              f"momentum within {N_TRAIN_BYTES / 1e9:.0f} GB")
+    n_train(torch, ops, build_lm(tcfg), n_slice_layers(params, "layers",
+                                                       layers),
+            [n_batch(torch, lm, 1, cfg.img_tokens + 128, dev, 11 + i)
+             for i in range(2)], "n1", res)
+    del params, batch
+    n_end(torch, "n1", t0, res)
+    out["res"]["n1"] = res
+
+    # -- n2: mixtral-8x7b, 8 of 32 layers ---------------------------------
+    t0, res = n_begin(torch, "n2", N_ARCHS["n2"])
+    cfg = n_cut(get_config(N_ARCHS["n2"]), 8, "the forward at 24 GB bf16; "
+                "the train step below at 2")
+    lm, params = n_build(torch, dev, cfg)
+    batch = n_batch(torch, lm, 2, 512, dev, 20)
+    logits = n_forward(torch, ops, lm, params, batch, "n2 global", res)
+    lm_bl = build_lm(dataclasses.replace(cfg, moe_dispatch="batch_local"))
+    logits_bl = n_forward(torch, ops, lm_bl, params, batch,
+                          "n2 batch_local", res)
+    gap = float((logits.float() - logits_bl.float()).abs().max())
+    print(f"n2 global vs batch_local dispatch: max |logit diff| {gap:.4g} "
+          f"(capacity per pool of {2 * 512} vs per row of 512 tokens)")
+    del logits, logits_bl, lm_bl
+    toks = check_tokens(cfg)
+    # as the reference's decode = prefill oracle: a capacity that drops
+    # nothing, so the B·P-token forward and the B-token steps route alike
+    lm_nd = build_lm(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    res["decode_gap"] = n_decode_check(
+        torch, lm_nd, params, toks,
+        lambda lmx: lmx.forward(params, {"tokens": toks})[0], "n2")
+    del lm_nd
+    cache = lm.init_cache(N_DEC_B, 2 * N_RING, device=dev)
+    check(cache["k"].shape[2] == cfg.sliding_window,
+          f"n2 ring {tuple(cache['k'].shape)}")
+    # a ring that has wrapped: positions 1,000 .. 5,079 before the steps
+    n2_fill = cfg.sliding_window + 1000 - N_DEC_STEPS
+    out["rings"]["mixtral window"] = n_decode(
+        torch, ops, lm, params, cache, "n2", res, dev, fill=n2_fill)
+    sp = cache["slot_pos"][0]
+    want = n2_fill + N_DEC_STEPS + 1
+    check(int(sp.max()) == want - 1 and int(sp.min()) == want
+          - cfg.sliding_window, f"n2 ring positions {int(sp.min())}.."
+                                f"{int(sp.max())}")
+    del cache
+    tcfg = n_cut(cfg, 2, "the train step")
+    n_train(torch, ops, build_lm(tcfg), n_slice_layers(params, "layers", 2),
+            [n_batch(torch, lm, 2, 512, dev, 21 + i) for i in range(2)],
+            "n2", res)
+    del params, batch
+    n_end(torch, "n2", t0, res)
+    out["res"]["n2"] = res
+
+    # -- n3: arctic-480b, 1 of 35 layers ----------------------------------
+    t0, res = n_begin(torch, "n3", N_ARCHS["n3"])
+    cfg = n_cut(get_config(N_ARCHS["n3"]), 1, "13.6 B params a layer, 27 GB "
+                "bf16; no train step: it needs >= 3x the params")
+    lm, params = n_build(torch, dev, cfg)
+    batch = n_batch(torch, lm, 1, 512, dev, 30)
+    n_forward(torch, ops, lm, params, batch, "n3", res)
+    toks = check_tokens(cfg)
+    lm_nd = build_lm(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    res["decode_gap"] = n_decode_check(
+        torch, lm_nd, params, toks,
+        lambda lmx: lmx.forward(params, {"tokens": toks})[0], "n3")
+    del lm_nd
+    cache = lm.init_cache(N_DEC_B, N_RING, device=dev)
+    out["rings"]["arctic G 7"] = n_decode(
+        torch, ops, lm, params, cache, "n3", res, dev,
+        fill=N_RING - N_DEC_STEPS - 1)
+    del params, batch, cache
+    n_end(torch, "n3", t0, res)
+    out["res"]["n3"] = res
+
+    # -- n4: mamba2-2.7b, all 64 layers -----------------------------------
+    t0, res = n_begin(torch, "n4", N_ARCHS["n4"])
+    cfg = get_config(N_ARCHS["n4"])
+    lm, params = n_build(torch, dev, cfg)
+    batch = n_batch(torch, lm, 2, 2048, dev, 40)
+    logits = n_forward(torch, ops, lm, params, batch, "n4", res, profile)
+    out["vt"][cfg.vocab] = (logits.reshape(-1, cfg.vocab).contiguous(),
+                            batch["labels"].reshape(-1).long())
+    del logits
+    toks = check_tokens(cfg)
+    res["decode_gap"] = n_decode_check(
+        torch, lm, params, toks,
+        lambda lmx: lmx.forward(params, {"tokens": toks})[0], "n4")
+    sizes = {s: sum(t.numel() * t.element_size()
+                    for t in lm.init_cache(N_DEC_B, s, device=dev).values())
+             for s in (N_RING, 32 * N_RING)}
+    print(f"n4 decode state bytes at seq_len {N_RING} / {32 * N_RING}: "
+          f"{sizes[N_RING]} / {sizes[32 * N_RING]}")
+    check(sizes[N_RING] == sizes[32 * N_RING], f"n4 cache sizes {sizes}")
+    cache = lm.init_cache(N_DEC_B, N_RING, device=dev)
+    n_decode(torch, ops, lm, params, cache, "n4", res, dev, steps=47)
+    check(int(cache["length"]) == 48, f"n4 length {int(cache['length'])}")
+    if profile:
+        n_decode(torch, ops, lm, params, cache, "n4 (traced)", {}, dev,
+                 steps=1, profile=True)
+    del cache
+    n_train(torch, ops, lm, params,
+            [n_batch(torch, lm, 2, 2048, dev, 41 + i) for i in range(2)],
+            "n4", res)
+    del params, batch
+    n_end(torch, "n4", t0, res)
+    out["res"]["n4"] = res
+
+    # -- n5: zamba2-2.7b, all 54 layers, B.9 at hd 80 ---------------------
+    t0, res = n_begin(torch, "n5", N_ARCHS["n5"])
+    cfg = get_config(N_ARCHS["n5"])
+    check(cfg.head_dim == 80 and cfg.n_heads == cfg.n_kv_heads,
+          f"zamba2 hd {cfg.head_dim}")
+    lm, params = n_build(torch, dev, cfg)
+    batch = n_batch(torch, lm, 2, 2048, dev, 50)
+    n_forward(torch, ops, lm, params, batch, "n5", res)
+    toks = check_tokens(cfg)
+    res["decode_gap"] = n_decode_check(
+        torch, lm, params, toks,
+        lambda lmx: lmx.forward(params, {"tokens": toks})[0], "n5")
+    cache = lm.init_cache(N_DEC_B, N_RING, device=dev)
+    check(tuple(cache["attn_k"].shape) == (
+        cfg.n_layers // cfg.shared_attn_every, N_DEC_B, N_RING,
+        cfg.n_kv_heads, 80), f"n5 rings {tuple(cache['attn_k'].shape)}")
+    out["rings"]["zamba2 hd 80"] = n_decode(
+        torch, ops, lm, params, cache, "n5", res, dev,
+        fill=N_RING - N_DEC_STEPS - 1, prefix="attn_")
+    del cache
+    n_train(torch, ops, lm, params,
+            [n_batch(torch, lm, 2, 2048, dev, 51 + i) for i in range(2)],
+            "n5", res)
+    del params, batch
+    n_end(torch, "n5", t0, res)
+    out["res"]["n5"] = res
+
+    # -- n6: whisper-large-v3, 32 + 32 layers -----------------------------
+    t0, res = n_begin(torch, "n6", N_ARCHS["n6"])
+    cfg = get_config(N_ARCHS["n6"])
+    lm, params = n_build(torch, dev, cfg)
+    frames, dec_len = 1500, 448   # 30 s of audio, the decoder's context
+    batch = n_batch(torch, lm, 2, dec_len, dev, 60,
+                    enc_embeds=(2, frames, cfg.d_model))
+    logits = n_forward(torch, ops, lm, params, batch, "n6", res, profile)
+    out["vt"][cfg.vocab] = (logits.reshape(-1, cfg.vocab).contiguous(),
+                            batch["labels"].reshape(-1).long())
+    del logits
+    toks = check_tokens(cfg)
+    enc = batch["enc_embeds"]
+    res["decode_gap"] = n_decode_check(
+        torch, lm, params, toks,
+        lambda lmx: lmx.forward(params, {"tokens": toks,
+                                         "enc_embeds": enc})[0], "n6",
+        enc=enc)
+    g = torch.Generator(device=dev).manual_seed(61)
+    enc8 = (torch.randn((N_DEC_B, frames, cfg.d_model), generator=g,
+                        device=dev) * 0.05).to(cfg.adtype)
+    cache = lm.init_cache(N_DEC_B, dec_len, device=dev)
+    with torch.inference_mode():
+        cache, prep_ms = n_clock(
+            torch, lambda: lm.prep_decode_cache(params, cache, enc8), 1)
+    check(tuple(cache["cross_k"].shape) == (cfg.n_layers, N_DEC_B, frames,
+                                            cfg.n_kv_heads, cfg.head_dim),
+          f"n6 cross cache {tuple(cache['cross_k'].shape)}")
+    print(f"n6 prep_decode_cache on {N_DEC_B} x {frames} frames: "
+          f"{prep_ms[0]:.2f} ms (encoder + {cfg.n_layers} layers' cross "
+          f"K / V)")
+    res["prep_ms"] = prep_ms[0]
+    out["rings"]["whisper hd 64"] = n_decode(
+        torch, ops, lm, params, cache, "n6", res, dev,
+        fill=dec_len - N_DEC_STEPS - 1)
+    if profile:
+        n_decode(torch, ops, lm, params, cache, "n6 (traced)", {}, dev,
+                 steps=1, profile=True)
+    del params, batch, cache, enc8
+    n_end(torch, "n6", t0, res)
+    out["res"]["n6"] = res
+
+    # -- n7: the LM pod round with mixtral at 1 of 32 layers --------------
+    t0, res = n_begin(torch, "n7", N_ARCHS["n7"])
+    base = get_config(N_ARCHS["n7"])
+    cfg = n_cut(base, n_layers_within(base, 20, N_ROUND_BYTES, copies=2),
+                f"two nodes of the fused int8 round at 20 B a param "
+                f"(bf16 params, fp32 momentum and the fp32 gossip block, "
+                f"its average and its step) within "
+                f"{N_ROUND_BYTES / 1e9:.0f} GB")
+    lm = build_lm(cfg)
+    params = init_nodes(lm, 2, dev)
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    state = opt.init(params)
+    rnd = build_dfl_round_shardmap(lm, opt, ring_adjacency(2),
+                                   loss_kind="vt", beta=LM_BETA,
+                                   codec=Int8Codec(stochastic=False))
+    (batch,) = list(make_batches(lm, 2, LM_BATCH, LM_SEQ, 1, dev))
+    with torch.no_grad():
+        node_aux = []
+        for i in range(2):
+            node = tree_map(lambda t, i=i: t[i], params)
+            total, met = lm.loss(node, {k: v[i] for k, v in batch.items()})
+            node_aux.append((float(total), float(met["loss"]),
+                             float(met["aux"])))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    params, state, loss = rnd(params, state, 0, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    launches = dict(ops.LAUNCHES)
+    want = sum(t for t, _, _ in node_aux) / 2
+    print(f"n7 pod round (2-node ring, fused int8, {cfg.n_layers} layer(s), "
+          f"{cfg.param_count()} params a node): {ms:.1f} ms, loss "
+          f"{float(loss):.5f} (the nodes' loss + 0.01 aux before the step: "
+          f"{node_aux}), launches {launches}")
+    check(math.isfinite(float(loss)) and abs(float(loss) - want)
+          <= 1e-3 * abs(want), f"n7 loss {float(loss)} against {want}")
+    check(all(abs(t - (m + cfg.router_aux_weight * a)) <= 1e-5 * abs(t)
+              and a > 0 for t, m, a in node_aux), f"n7 aux {node_aux}")
+    check(launches["dequant_neighbor_avg_rows"] == 1
+          and launches["decdiff_update"] == 1
+          and launches["vt_kl_loss_fwd"] == launches["vt_kl_loss_bwd"] == 2,
+          f"n7 launches {launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+          "n7 params not finite")
+    res["round_ms"] = ms
+    res["launches"] = launches
+    del params, state, rnd
+    n_end(torch, "n7", t0, res)
+    out["res"]["n7"] = res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_n
+    print(f"path n in all {out['s']:.1f} s")
+    return out
+
+
+N_FAMILY_ARCHS = ("llava-next-mistral-7b", "mixtral-8x7b", "arctic-480b",
+                  "mamba2-2.7b", "zamba2-2.7b", "whisper-large-v3")
+
+
+def n_reduced_agrees(torch, dev):
+    """Each family's reduced preset (fp32) on the card and on the CPU (the
+    plain versions, which tests/test_torch_families.py holds against the
+    JAX package): forward logits within 1e-4, the VT loss and the router
+    aux within 1e-5, and 8 decode tokens (logits within 1e-4, equal greedy
+    tokens) from the same cache, mixtral's sliding window and the
+    hybrid's rings small enough to wrap, whisper's cross K / V from
+    `prep_decode_cache`."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.models.lm import build_lm
+    from repro_torch.utils.pytree import tree_map
+
+    cpu = torch.device("cpu")
+    for arch in N_FAMILY_ARCHS:
+        over = dict(sliding_window=4) if arch == "mixtral-8x7b" else {}
+        lm = build_lm(get_config(arch).reduced(**over))
+        cfg = lm.cfg
+        p0 = lm.init(torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(0)
+        batch0 = {}
+        for k, (shape, dtype) in lm.input_specs(2, 64).items():
+            batch0[k] = torch.from_numpy(
+                rng.integers(0, cfg.vocab, shape).astype(np.int32)
+                if dtype == torch.int32 else
+                (rng.standard_normal(shape) * 0.05).astype(np.float32))
+        enc0 = torch.from_numpy((rng.standard_normal(
+            (2, 6, cfg.d_model)) * 0.05).astype(np.float32))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+        window = 5 if cfg.family == "hybrid" else 8
+        runs = []
+        for where in (dev, cpu):
+            params = tree_map(lambda t: t.to(where), p0)
+            batch = {k: v.to(where) for k, v in batch0.items()}
+            with torch.no_grad():
+                logits, aux = lm.forward(params, batch)
+                total, met = lm.loss(params, batch)
+            step = build_serve_step(lm)
+            with torch.inference_mode():
+                cache = lm.init_cache(2, window, device=where)
+                if lm.prep_decode_cache is not None:
+                    cache = lm.prep_decode_cache(params, cache,
+                                                 enc0.to(where))
+                dec = []
+                for t in range(8):
+                    out, cache = step(params, cache, toks[:, t:t + 1].to(
+                        where))
+                    dec.append(out[:, 0].cpu())
+            runs.append((logits.cpu(), float(aux), float(met["loss"]),
+                         torch.stack(dec, 1)))
+        (lc, ac, sc, dc), (lh, ah, sh, dh) = runs
+        errs = (float((lc - lh).abs().max()), abs(ac - ah), abs(sc - sh),
+                float((dc - dh).abs().max()))
+        same = bool(torch.equal(dc.argmax(-1), dh.argmax(-1)))
+        print(f"small {cfg.family} ({arch} reduced, fp32) card vs cpu: "
+              f"|logit| {errs[0]:.3g}, |aux| {errs[1]:.3g} (aux {ac:.6f}), "
+              f"|VT loss| {errs[2]:.3g}, 8 decode steps |logit| "
+              f"{errs[3]:.3g}, greedy tokens equal {same}")
+        check(errs[0] <= 1e-4 and errs[1] <= 1e-5 and errs[2] <= 1e-5
+              and errs[3] <= 1e-4 and same,
+              f"small {arch}: card and cpu differ by {errs}")
+
+
+def run_path_n(torch, ops, dev, card, profile=False):
+    """Path n, the reduced presets card vs CPU, and B.9 / B.3 at path n's
+    new shapes against their plain versions.  Returns (the launches of
+    path n's runs, B.9's checks, B.3's checks by vocabulary)."""
+    lmn = path_n(torch, ops, dev, profile)
+    n_reduced_agrees(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    da_n = []
+    for label, ring in lmn["rings"].items():
+        b, _, kk, hd = ring["k"].shape
+        q = torch.randn((b, ring["h"], hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        da_n.append(dict(decode_vs_plain(
+            torch, ops, q, ring["k"], ring["v"], ring["sp"], ring["pos"],
+            f"path n {label} (real ring)", ring["window"]), label=label))
+        del q
+    lmn["rings"].clear()
+    torch.cuda.empty_cache()
+    vt_n = {}
+    for v, (z, y) in sorted(lmn["vt"].items()):
+        vt_n[v] = vt_vs_plain(torch, ops, z, y,
+                              f"path n real logits, V = {v}"
+                              + (" (not a multiple of 8: scalar rows)"
+                                 if v % 8 else ""))
+    lmn["vt"].clear()
+    torch.cuda.empty_cache()
+    launches = {}
+    for res in lmn["res"].values():
+        n_add(launches, res["launches"])
+    print(f"path n ({card}): " + "; ".join(
+        f"{k} {N_ARCHS[k]} {r['s']:.1f} s, peak {r['peak'] / 2**30:.2f} GiB"
+        + (f", forward ms {statistics.median(r['fwd_ms']):.2f}"
+           if "fwd_ms" in r else "")
+        + (f", train step ms {r['train_ms'][-1]:.1f}"
+           if "train_ms" in r else "")
+        + (f", decode step ms {statistics.median(r['dec_ms']):.3f}"
+           if "dec_ms" in r else "")
+        + (f", pod round ms {r['round_ms']:.1f}" if "round_ms" in r else "")
+        for k, r in lmn["res"].items()) + f"; path n in all {lmn['s']:.1f} s")
+    return launches, da_n, vt_n
+
+
 def main() -> int:
     try:
         import torch
@@ -3250,6 +4014,11 @@ def main() -> int:
           f"kernel sources {sorted(libs)}")
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_DIR})")
+    if "--path-n" in sys.argv[1:]:  # path n alone, for its development
+        run_path_n(torch, ops, dev, card, "--profile" in sys.argv[1:])
+        print(f"chip_smoke --path-n finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- the world of every full-width path --------------------------------
     t0 = time.perf_counter()
@@ -3656,9 +4425,13 @@ def main() -> int:
         del q, k, v
     torch.cuda.empty_cache()
 
+    # -- path n: the other five LM families at their registered widths ---
+    l_n, da_n, vt_n = run_path_n(torch, ops, dev, card, profile)
+
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
-               "g": l_ge, **sparse_launches,
+               "g": l_ge, "n": {k: l_n.get(k, 0) for k in ops.LAUNCHES},
+               **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
                      for k in ops.LAUNCHES},
@@ -3717,12 +4490,14 @@ def main() -> int:
               also_replaces="src/repro/kernels/vt_kl_loss.py:108",
               dtype=vt_main["fwd"]["dtype"], path_j=at_j(lmj["vt"]["fwd"]),
               path_j_emnist=at_j(lmj["vt_emnist"]["fwd"]),
-              path_m=at_j(vt_mlp[8 * 32]["fwd"])),
+              path_m=at_j(vt_mlp[8 * 32]["fwd"]),
+              path_n={v: at_j(r["fwd"]) for v, r in vt_n.items()}),
         entry("vt_kl_loss_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127", vt_main["bwd"],
               dtype=vt_main["bwd"]["dtype"], path_j=at_j(lmj["vt"]["bwd"]),
               path_j_emnist=at_j(lmj["vt_emnist"]["bwd"]),
-              path_m=at_j(vt_mlp[8 * 32]["bwd"])),
+              path_m=at_j(vt_mlp[8 * 32]["bwd"]),
+              path_n={v: at_j(r["bwd"]) for v, r in vt_n.items()}),
         entry("decdiff_update_sumsq", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", eq5["sumsq"],
               counter="decdiff_update", dtype=eq5["sumsq"]["dtype"],
@@ -3735,7 +4510,8 @@ def main() -> int:
               path_m=at_j(eq5_m["step"])),
         entry("decode_attention_fused", "decode_attention",
               "src/repro/kernels/decode_attention.py:92", da_main,
-              dtype=da_main["dtype"], other_shapes=da_shapes),
+              dtype=da_main["dtype"], other_shapes=da_shapes,
+              path_n=[at_j(m) for m in da_n]),
         entry("neighbor_avg", "neighbor_avg",
               "src/repro/kernels/neighbor_avg.py:32", nav_f,
               other_shapes=[nav_lm, nav_odd], path_j=at_j(lmj["nav"])),

@@ -1,8 +1,7 @@
 """Architecture registry: --arch <id> lookup for the assigned pool.
 
 The same ten configurations as the JAX package's `repro.configs`, one data
-file each.  Only the dense family builds a model in the port
-(`repro_torch.models.lm.build_lm`)."""
+file each; `repro_torch.models.lm.build_lm` builds every one of them."""
 from __future__ import annotations
 
 import importlib

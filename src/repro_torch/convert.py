@@ -14,10 +14,12 @@ this module imports neither `jax` nor `repro`:
     that `params_from_numpy(..., dtypes=...)` casts back.  Optimizer state
     ({"momentum": tree}) crosses the same way.
   * `cache_from_numpy(tree, device, kv_dtype)` takes a reference decode
-    cache as numpy (k, v [L, B, W, K, hd] as float32, which holds bf16
-    exactly; slot_pos [L, W] and a 0-d length, int32) and returns the
-    port's cache; `params_to_numpy` is its inverse, so both packages
-    decode from the same state.
+    cache of any family as numpy (k, v [L, B, W, K, hd] as float32, which
+    holds bf16 exactly; slot_pos [L, W] and a 0-d length, int32; the
+    SSM's conv windows and fp32 state, the hybrid's per-group rings, the
+    enc-dec's cross K / V) and returns the port's cache;
+    `params_to_numpy` is its inverse, so both packages decode from the
+    same state.
   * `world_from_arrays(...)` builds a port World from a topology's
     adjacency and weights and the per-node data arrays.  Graph samplers
     differ between hosts (the networkx branch and the fallback draw
@@ -58,21 +60,32 @@ def params_to_numpy(params):
         params)
 
 
+#: decode-state entries kept in fp32 whatever the activation dtype (the
+#: SSM's recurrent state); the other float entries are k / v-like
+_FP32_CACHE = ("state",)
+
+
 def cache_from_numpy(tree, device: DeviceLike = None,
                      kv_dtype: str = "float32"):
-    """A decode cache as numpy -> the port's cache on `device`, k and v cast
-    to `kv_dtype` ("bfloat16" for a bf16 reference cache)."""
+    """A decode cache as numpy -> the port's cache on `device`.  Every
+    family's entries cross: the ring's k, v (and the hybrid's attn_k,
+    attn_v, the enc-dec's cross_k, cross_v, the SSM's conv windows), cast
+    to `kv_dtype` ("bfloat16" for a bf16 reference cache); the SSM's
+    `state` in fp32; slot_pos / attn_slot_pos and a 0-d `length` as int32.
+    `params_to_numpy` is its inverse."""
     dev = resolve_device(device)
-
-    def tensor(name, dtype):
-        arr = np.array(tree[name], dtype=np.float32 if dtype.is_floating_point
-                       else np.int32, copy=True)
-        return torch.from_numpy(arr).to(dev).to(dtype)
-
     kv = torch_dtype(kv_dtype)
-    return {"k": tensor("k", kv), "v": tensor("v", kv),
-            "slot_pos": tensor("slot_pos", torch.int32),
-            "length": tensor("length", torch.int32).reshape(())}
+    out = {}
+    for name, a in tree.items():
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            dtype, arr = torch.int32, np.array(a, np.int32, copy=True)
+        else:
+            dtype = torch.float32 if name in _FP32_CACHE else kv
+            arr = np.array(a, np.float32, copy=True)
+        out[name] = torch.from_numpy(arr).to(dev).to(dtype)
+    out["length"] = out["length"].reshape(())
+    return out
 
 
 def dtype_names(tree):

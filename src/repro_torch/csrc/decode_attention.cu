@@ -16,7 +16,7 @@
 // q [B, H, hd] bf16 or fp32, k / v [B, W, K, hd] bf16 or fp32 (one
 // template), slot_pos [W] int32, pos a 0-d int32 on the device (read by
 // pointer: nothing is read back to the host), out [B, H, hd] fp32,
-// hd in {16, 32, 64, 128}, G <= 8.  A masked slot takes the score -1e30
+// hd in {16, 32, 64, 80, 128}, G <= 8.  A masked slot takes the score -1e30
 // rather than being skipped, so the result is the plain version's softmax
 // in every case, including a row whose every slot is masked (a uniform
 // average, as `softmax` gives).
@@ -70,6 +70,16 @@
 //      A failed encode or launch returns an error, which the wrapper
 //      raises.  There is no other kernel to fall back to.
 //
+// hd 80 (zamba2-2.7b's shared attention block: 2560 / 32 heads) is a
+// multiple of the mma's k of 16 but not a power of two, so its instance
+// lays the tile out differently: a slot's K row is 160 bytes, loaded whole
+// by one TMA box without swizzle (ldmatrix then meets at most 2-way bank
+// conflicts), five k-steps (two pairs through ldmatrix.x4, the fifth
+// through .x2), a tile of the most slots that fit 8 KB and split evenly
+// over the warps (16 slots x 2 heads = 5 KB with bf16), with 9 stages
+// instead of 6 so the ring holds as many bytes, and P·V over 8 lanes a row
+// of 10 head dims each.  The cache is read in place: no padding to 128.
+//
 // Each block owns KPB KV heads of one b and one split of sps slots (a
 // multiple of the tile), and writes one (m, l, acc) per (b, h, split), m
 // in log2 units; the slot positions of the next tile are loaded while a
@@ -99,36 +109,51 @@ template <typename T, int HD, int GMAX, int KPB>
 struct Cfg {
   static constexpr int ESZ = sizeof(T);
   static constexpr bool MMA = sizeof(T) == 2;      // bf16 k: tensor cores
-  static constexpr int TILE = kTileBytes / (KPB * HD * ESZ);  // slots
+  // a power-of-two hd (16 .. 128) fills the 8 KB tile exactly; hd 80 (a
+  // multiple of 16 that is not one) takes the most slots that fit, a
+  // multiple of what the warps split (SPW slots a warp, 8 per mma n-block)
+  static constexpr bool POW2 = (HD & (HD - 1)) == 0;
   // consumer warps, and one producer: eight with bf16 k / v at hd <= 64,
   // where a block's registers allow it (four could not keep up with the
   // ring at path e's shape), four otherwise; WPH warps share a head, each
   // taking SPW of the tile's slots
   static constexpr int NC = MMA && HD <= 64 ? 8 : 4;
   static constexpr int THREADS = 32 * (NC + 1);
-  static constexpr int STAGES = 6;
   static constexpr int WPH = NC / KPB;
+  static constexpr int QUANT = WPH * (MMA ? 8 : 1);
+  static constexpr int TILE =
+      kTileBytes / (KPB * HD * ESZ) / QUANT * QUANT;  // slots
+  static constexpr int TBYTES = TILE * KPB * HD * ESZ;  // one K (or V) tile
+  // stages of SB bytes of K and SB of V (1 KB aligned); a smaller tile
+  // gets more stages, so the ring holds the same ~96 KB
+  static constexpr int SB = (TBYTES + 1023) / 1024 * 1024;
+  static constexpr int STAGES = 6 * kTileBytes / SB;
   static constexpr int SPW = TILE / WPH;           // slots per warp
   // K rows in shared memory: bf16 rows of at most 64 elements (128 B),
-  // swizzled; fp32 rows whole and plain
-  static constexpr int KCOLS = MMA ? (HD < 64 ? HD : 64) : HD;
+  // swizzled, at a power-of-two hd; whole and plain otherwise (hd 80:
+  // 160-byte rows, which ldmatrix reads with at most 2-way conflicts) and
+  // for fp32 k
+  static constexpr int KCOLS = MMA && POW2 ? (HD < 64 ? HD : 64) : HD;
   static constexpr int KROWB = KCOLS * ESZ;
   static constexpr int KBOXES = HD / KCOLS;
-  static constexpr int SWZ = MMA ? KROWB / 16 - 1 : 0;   // 1, 3 or 7
+  static constexpr int SWZ = MMA && POW2 ? KROWB / 16 - 1 : 0;  // 1, 3, 7
   static constexpr int KS = HD / 16;               // mma k-steps
   // P·V: DPL head dims per lane, LPR lanes per V row, RG rows at a time
-  static constexpr int DPL = HD >= 128 ? 4 : 2;
+  // (hd 80: 10 dims a lane, 8 lanes a row)
+  static constexpr int DPL = HD >= 128 ? 4 : POW2 ? 2 : HD / 8;
   static constexpr int LPR = HD / DPL;
   static constexpr int RG = 32 / LPR;
   // shared memory, from a 1024-byte aligned base
-  static constexpr int S_OFF = STAGES * 2 * kTileBytes;
+  static constexpr int S_OFF = STAGES * 2 * SB;
   static constexpr int Q_OFF = S_OFF + NC * SPW * 8 * 4;
   static constexpr int BAR_OFF = Q_OFF + GMAX * HD * 4;
   static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;
-  static_assert(TILE * KPB * HD * ESZ == kTileBytes && TILE <= 256 &&
-                NC % KPB == 0, "tile");
+  static_assert(HD % 16 == 0 && TILE >= QUANT && TBYTES <= kTileBytes &&
+                TILE <= 256 && NC % KPB == 0 && HD % KCOLS == 0, "tile");
+  static_assert(!POW2 || TBYTES == kTileBytes, "pow2 tile");
   static_assert(SPW % (MMA ? 8 : 1) == 0 && SPW >= 4 && SPW <= 64, "spw");
-  static_assert(LPR <= 32 && 32 % LPR == 0, "lanes per row");
+  static_assert(LPR <= 32 && 32 % LPR == 0 && DPL % 2 == 0,
+                "lanes per row");
   static_assert(NC * GMAX * HD * 4 + NC * 8 * 2 * 4 <= S_OFF,
                 "merge scratch");
 };
@@ -259,6 +284,27 @@ __device__ __forceinline__ void load_v(const __nv_bfloat16* p,
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
 }
 
+// N even and not 2 or 4 (hd 80's 10 dims a lane): pairs, 8-byte (fp32) or
+// 4-byte (bf16) aligned
+template <int N>
+__device__ __forceinline__ void load_v(const float* p, float (&f)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; e += 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p + e);
+    f[e] = v.x; f[e + 1] = v.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* p,
+                                       float (&f)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; e += 2) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + e));
+    f[e] = v.x; f[e + 1] = v.y;
+  }
+}
+
 // p[j][0..GMAX) of the per-warp buffer (rows of 8 floats, 32-byte aligned)
 template <int GMAX>
 __device__ __forceinline__ void load_p(const float* row, float (&p)[GMAX]) {
@@ -334,14 +380,14 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % C::STAGES;
         if (t >= C::STAGES) mbar_wait(&empty[s], ((t / C::STAGES) - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        unsigned char* kd = smem + s * 2 * kTileBytes;
+        mbar_expect_tx(&full[s], 2 * C::TBYTES);
+        unsigned char* kd = smem + s * 2 * C::SB;
         const int w0 = w_lo + t * C::TILE;
 #pragma unroll
         for (int bx = 0; bx < C::KBOXES; ++bx)
           tma_load_4d(kd + bx * C::TILE * KPB * C::KROWB, &tmap_k,
                       bx * C::KCOLS, kh0, w0, static_cast<int>(b), &full[s]);
-        tma_load_4d(kd + kTileBytes, &tmap_v, 0, kh0, w0, static_cast<int>(b),
+        tma_load_4d(kd + C::SB, &tmap_v, 0, kh0, w0, static_cast<int>(b),
                     &full[s]);
       }
     }
@@ -413,8 +459,8 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % C::STAGES;
-    const unsigned char* kt = smem + s * 2 * kTileBytes;
-    const T* vt = reinterpret_cast<const T*>(kt + kTileBytes) + hh * HD;
+    const unsigned char* kt = smem + s * 2 * C::SB;
+    const T* vt = reinterpret_cast<const T*>(kt + C::SB) + hh * HD;
     const int w0 = w_lo + t * C::TILE + slot0;
     int32_t sp[NSP];
 #pragma unroll
@@ -445,7 +491,7 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap tmap_k,
           if (!q_bf16) mma_bf16(cf, ar[0][0], 0u, ar[0][1], 0u, b0, b1);
         } else {
 #pragma unroll
-          for (int ks = 0; ks < C::KS; ks += 2) {
+          for (int ks = 0; ks + 1 < C::KS; ks += 2) {
             // chunks 2ks .. 2ks+3 of the row (8 head dims each)
             const int ch = ks * 2 + (lane >> 3);
             const int bx = ch * 8 / C::KCOLS;
@@ -461,6 +507,15 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap tmap_k,
               mma_bf16(cf, ar[ks][0], 0u, ar[ks][1], 0u, b0, b1);
               mma_bf16(cf, ar[ks + 1][0], 0u, ar[ks + 1][1], 0u, b2, b3);
             }
+          }
+          if constexpr (C::KS % 2 == 1) {  // hd 80: the fifth k-step alone
+            constexpr int ks = C::KS - 1;
+            const int ch = ks * 2 + (lane >> 3 & 1);
+            const int off = row * C::KROWB + ch * 16;  // one box, no swizzle
+            uint32_t b0, b1;
+            ldsm_x2(kbase + off, b0, b1);
+            mma_bf16(cf, ah[ks][0], al[ks][0], ah[ks][1], al[ks][1], b0, b1);
+            if (!q_bf16) mma_bf16(cf, ar[ks][0], 0u, ar[ks][1], 0u, b0, b1);
           }
         }
 #pragma unroll
@@ -728,7 +783,7 @@ struct Instance {
     if (err != cudaSuccess) return err;
     CUtensorMap tk, tv;
     const CUtensorMapSwizzle kswz =
-        !C::MMA ? CU_TENSOR_MAP_SWIZZLE_NONE
+        C::SWZ == 0 ? CU_TENSOR_MAP_SWIZZLE_NONE
         : C::KROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
         : C::KROWB == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
                           : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -807,6 +862,7 @@ cudaError_t by_head_dim(int64_t HD, int64_t G, bool plan_only, int64_t* plan,
     REPRO_HD(16);
     REPRO_HD(32);
     REPRO_HD(64);
+    REPRO_HD(80);
     REPRO_HD(128);
     default:
       return cudaErrorInvalidValue;

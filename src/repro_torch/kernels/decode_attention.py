@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import _build
 
 #: the head dims the kernel is built for, and the widest query group
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 8
 #: the least share of its last wave that a plan fills, where one can
 MIN_WAVE_FILL = 0.9

@@ -1,14 +1,16 @@
 """Batched autoregressive decoding with the ring KV cache, from the command
 line: the port's counterpart of the JAX package's `examples/serve_decode.py`.
 
-Builds an assigned architecture at its reduced preset, feeds a
-batch of synthetic prompts through the decode step token by token, then
-decodes new tokens greedily (argmax), one `build_serve_step` call per
-token; every layer's attention runs through the `decode_attention` kernel
-on the card.  Runs on the CUDA card unless `--device cpu` is given.  Only
-the dense family has a model in the port: `build_lm` raises
-NotImplementedError naming ROADMAP A.11 for the others (the example's
-enc-dec branch, whisper, among them).
+Builds an assigned architecture of any family at its reduced preset,
+feeds a batch of synthetic prompts through the decode step token by token,
+then decodes new tokens greedily (argmax), one `build_serve_step` call
+per token; every self-attention layer runs through the `decode_attention`
+kernel on the card (the SSM keeps a recurrent state instead).  For the
+enc-dec family (whisper) it first draws encoder frames from numpy,
+N(0, 1) · 0.05 of shape [batch, max_len // enc_seq_divisor, D] as the
+reference's example does, and fills the cross-attention cache with
+`prep_decode_cache`.  Runs on the CUDA card unless `--device cpu` is
+given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
@@ -67,8 +69,14 @@ def main(argv=None):
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
 
-    cache = lm.init_cache(args.batch, args.prompt_len + args.new_tokens,
-                          device=dev)
+    max_len = args.prompt_len + args.new_tokens
+    cache = lm.init_cache(args.batch, max_len, device=dev)
+    if lm.prep_decode_cache is not None:  # enc-dec: run the encoder once
+        enc = torch.from_numpy(rng.standard_normal(
+            (args.batch, max_len // cfg.enc_seq_divisor, cfg.d_model))
+            * 0.05).to(dev).to(cfg.adtype)
+        with torch.inference_mode():
+            cache = lm.prep_decode_cache(params, cache, enc)
     tokens, logits, cache, seconds = generate(
         build_serve_step(lm), params, cache, prompts, args.new_tokens - 1)
     dt = sum(seconds)

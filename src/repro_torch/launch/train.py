@@ -8,8 +8,11 @@ Two modes, as the JAX package's `repro.launch.train`:
     reference at the systems level).
 
 Runs on the CUDA card unless `--device cpu` is given.  Synthetic token
-streams (`repro_torch.data.tokens`) stand in for the data pipeline; only
-the dense family has a model in the port.
+streams (`repro_torch.data.tokens`) stand in for the data pipeline, as in
+the reference, so the families whose batch is tokens alone train here:
+dense, MoE (its router auxiliary in the loss), SSM and hybrid.  The VLM's
+image embeddings and the enc-dec's encoder frames are not in the
+reference's trainer either; those two families raise.
 
 Example (CPU, reduced preset):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
@@ -83,13 +86,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError(
-            "--ckpt-dir: checkpointing is ROADMAP A.11, not ported yet")
+            "--ckpt-dir: checkpointing is ROADMAP A.11.2, not ported yet")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.preset == "reduced":
         cfg = cfg.reduced(n_layers=4, d_model=256, vocab=2048)
     lm = build_lm(cfg)
+    extra = set(lm.input_specs(1, args.seq)) - {"tokens", "labels"}
+    if extra:
+        raise ValueError(f"--arch {args.arch}: the {cfg.family!r} family's "
+                         f"batch also needs {sorted(extra)}, which the "
+                         f"synthetic token stream does not give")
     opt = sgd_momentum(lr=args.lr, momentum=0.9)
 
     if args.mode == "single":

@@ -5,9 +5,8 @@ vlm); family-specific fields are simply unused elsewhere.  The exact per-arch
 values live in :mod:`repro_torch.configs` (one file per architecture, citing
 its source model card / paper).  A copy of the JAX package's
 `repro.models.lm.config`: every field and default is the same, dtypes stay
-names, and `torch_dtype` maps a name to its `torch.dtype`.  Only the dense
-family has a model in the port (`repro_torch.models.lm.build_lm`); the
-fields of the other families are kept so that every config file loads.
+names, and `torch_dtype` maps a name to its `torch.dtype`.
+`repro_torch.models.lm.build_lm` builds a model of every family.
 """
 from __future__ import annotations
 

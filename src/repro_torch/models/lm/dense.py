@@ -1,13 +1,13 @@
 """Dense decoder-only LM (llama/qwen family) over stacked layer params.
 
 Covers deepseek-7b (llama arch), qwen1.5-0.5b / qwen2.5-14b (QKV bias) and
-qwen3-32b (qk-norm, GQA, head_dim 128), as the JAX package's
-`repro.models.lm.dense` does.  Params are a nested dict with the
-reference's keys; the per-layer leaves are stacked [L, ...] and `trunk`
-loops over them, so the flat [N, D] order of a stack of nodes is
-`jax.tree.flatten`'s (embed/table, final_norm/scale, layers/attn/wk/b, ...).
-With `cfg.remat` every layer runs under `torch.utils.checkpoint`: its
-activations are recomputed in the backward pass, which changes no number.
+qwen3-32b (qk-norm, GQA, head_dim 128), and serves as the text trunk of
+llava (`vlm.py`), as the JAX package's `repro.models.lm.dense` does.
+Params are a nested dict with the reference's keys; the per-layer leaves
+are stacked [L, ...] and `trunk` loops over them, so the flat [N, D] order
+of a stack of nodes is `jax.tree.flatten`'s (embed/table,
+final_norm/scale, layers/attn/wk/b, ...).  With `cfg.remat` every layer
+runs under `torch.utils.checkpoint` (`layers.remat`).
 Serving: `init_cache_dense` builds the ring KV cache (the reference's
 window rule) and `decode_step_dense` runs one token through every layer
 against it.  The reference's scan returns a new cache; the port writes
@@ -17,9 +17,14 @@ returns the same dict, with a new `length` tensor.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.constraints import (
+    constrain_batch,
+    constrain_logits,
+    constrain_residual,
+    gather_weights,
+)
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.layers import (
     CacheSpec,
@@ -33,10 +38,11 @@ from repro_torch.models.lm.layers import (
     init_linear,
     init_mlp,
     init_norm,
+    layer_params,
     mlp,
+    remat,
     unembed,
 )
-from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 
 
 def init_dense(gen: torch.Generator, cfg: ArchConfig, device=None):
@@ -67,34 +73,25 @@ def layer_apply(cfg: ArchConfig, lp, x, positions):
     return x
 
 
-def _layer_params(stacked):
-    """The per-layer param trees of a stacked [L, ...] tree.  One unbind
-    per leaf: its backward stacks the L layer gradients once, where L
-    separate `leaf[l]` selects would each scatter into a full [L, ...] zero
-    tensor."""
-    per_leaf = [t.unbind(0) for t in tree_leaves(stacked)]
-    return [tree_unflatten_like(stacked, list(ls)) for ls in zip(*per_leaf)]
-
-
 def trunk(cfg: ArchConfig, params, x, positions):
     """Run the stacked layers on embedded input x [B, S, D]."""
-    for lp in _layer_params(params["layers"]):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(layer_apply, cfg, lp, x, positions,
-                           use_reentrant=False)
-        else:
-            x = layer_apply(cfg, lp, x, positions)
+    for lp in layer_params(params["layers"]):
+        x = constrain_residual(x, cfg.residual_shard)
+        if cfg.zero3_gather:
+            lp = gather_weights(lp)
+        x = remat(cfg, layer_apply, cfg, lp, x, positions)
     return apply_norm(cfg, x, params["final_norm"])
 
 
 def forward_dense(cfg: ArchConfig, params, tokens, positions=None):
     """tokens [B, S] -> logits [B, S, V] in the activation dtype."""
-    x = embed(cfg, params["embed"], tokens)
+    x = constrain_batch(embed(cfg, params["embed"], tokens))
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
     x = trunk(cfg, params, x, positions)
-    return unembed(cfg, params.get("unembed"), params["embed"], x)
+    return constrain_logits(unembed(cfg, params.get("unembed"),
+                                    params["embed"], x))
 
 
 def init_cache_dense(cfg: ArchConfig, batch: int, seq_len: int, device=None):
@@ -111,17 +108,24 @@ def init_cache_dense(cfg: ArchConfig, batch: int, seq_len: int, device=None):
     return init_kv_cache(spec, cfg.n_layers, device=device)
 
 
+def ring_view(cache, layer: int, prefix: str = ""):
+    """Layer `layer`'s ring of a stacked cache: {"k", "v", "slot_pos"}
+    views (of `prefix`k, `prefix`v and `prefix`slot_pos), which
+    `layers.decode_attention` writes into."""
+    return {"k": cache[prefix + "k"][layer], "v": cache[prefix + "v"][layer],
+            "slot_pos": cache[prefix + "slot_pos"][layer]}
+
+
 def decode_step_dense(cfg: ArchConfig, params, cache, tokens):
     """tokens [B, 1] -> (logits [B, 1, V], cache).  Updates the cache's k,
     v and slot_pos IN PLACE and sets `cache["length"]` to a new 0-d tensor
     length + 1; the returned cache is the dict it was given."""
     x = embed(cfg, params["embed"], tokens)
     length = cache["length"]
-    for layer, lp in enumerate(_layer_params(params["layers"])):
-        lc = {"k": cache["k"][layer], "v": cache["v"][layer],
-              "slot_pos": cache["slot_pos"][layer]}
+    for layer, lp in enumerate(layer_params(params["layers"])):
         a, _ = decode_attention(cfg, lp["attn"],
-                                apply_norm(cfg, x, lp["ln1"]), lc, length)
+                                apply_norm(cfg, x, lp["ln1"]),
+                                ring_view(cache, layer), length)
         x = x + a
         x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
     x = apply_norm(cfg, x, params["final_norm"])

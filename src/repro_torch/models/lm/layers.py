@@ -11,8 +11,9 @@ normal · 0.02 for the embedding, zero biases, unit norm scales).  The two
 frameworks draw different numbers from a seed: tests carry the reference's
 params across with `repro_torch.convert`.
 
-Attention supports MHA/GQA, RoPE, qk-norm (qwen3), QKV bias (qwen1.5/2.5)
-and causal / sliding-window masks, over a materialized [Sq, Sk] score
+Attention supports MHA/GQA, RoPE, qk-norm (qwen3), QKV bias (qwen1.5/2.5),
+causal / non-causal / sliding-window masks and cross-attention (K / V
+from `cross_kv` through `kv_override`), over a materialized [Sq, Sk] score
 block up to `cfg.full_attn_max_seq` and flash-style chunks with an online
 softmax above it (the reduced presets set that limit to 64 tokens).
 
@@ -21,9 +22,7 @@ Serving: `CacheSpec` / `init_kv_cache` build the ring KV cache (k, v
 `decode_attention` runs one token against one layer's ring through
 `ops.decode_attention_fused` (the `decode_attention` CUDA kernel on the
 card).  Unlike the reference, which returns a new cache, it writes the new
-token's k, v and slot position INTO the cache it is given.  Not ported
-yet: cross-attention K/V (encdec), which raises NotImplementedError naming
-its ROADMAP item.
+token's k, v and slot position INTO the cache it is given.
 """
 from __future__ import annotations
 
@@ -33,10 +32,34 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.lm.config import ArchConfig, torch_dtype
+from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
+
+# ---------------------------------------------------------------- stacks
+
+
+def layer_params(stacked):
+    """The per-layer param trees of a stacked [L, ...] tree.  One unbind
+    per leaf: its backward stacks the L layer gradients once, where L
+    separate `leaf[l]` selects would each scatter into a full [L, ...] zero
+    tensor."""
+    per_leaf = [t.unbind(0) for t in tree_leaves(stacked)]
+    return [tree_unflatten_like(stacked, list(ls)) for ls in zip(*per_leaf)]
+
+
+def remat(cfg: ArchConfig, fn, *args):
+    """fn(*args), under `torch.utils.checkpoint` when `cfg.remat` is set
+    and autograd records: its activations are recomputed in the backward
+    pass (the reference's `jax.checkpoint` of a layer), which changes no
+    number."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 # ---------------------------------------------------------------- norms
 
@@ -143,16 +166,24 @@ def init_attention(gen, cfg: ArchConfig, stack=(), device=None):
     return p
 
 
-def _project_qkv(cfg: ArchConfig, p, x, positions, rope: bool = True):
+def _project_q(cfg: ArchConfig, p, x, positions, rope: bool = True):
     b, s, _ = x.shape
     q = linear(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["scale"])
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions, rope: bool = True):
+    b, s, _ = x.shape
+    q = _project_q(cfg, p, x, positions, rope)
     k = linear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = linear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"]["scale"])
         k = rms_norm(k, p["k_norm"]["scale"])
     if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -239,26 +270,44 @@ def _chunked_attention(cfg, q, k, v, q_pos, k_pos, causal, window):
     return torch.cat(outs, dim=1)
 
 
-def attention(cfg: ArchConfig, p, x, positions=None):
-    """Causal self-attention over a full sequence: x [B, S, D] -> [B, S, D]
-    (RoPE, the config's sliding window when set)."""
+def attention(cfg: ArchConfig, p, x, positions=None, *, causal: bool = True,
+              rope: bool = True, kv_override=None):
+    """Self- (or cross-, through `kv_override`) attention over a full
+    sequence: x [B, S, D] -> [B, S, D], with the config's sliding window
+    when set.
+
+    kv_override: optional (k, v, k_pos) for cross-attention (the enc-dec
+    decoder): k / v [B, Sk, K, hd] replace the projections of x, k_pos
+    [Sk] their positions; RoPE (when `rope`) then turns q only, as in the
+    reference, whose k and v projections of x go unused."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    if s <= cfg.full_attn_max_seq:
-        out = _plain_attention(cfg, q, k, v, positions, positions, True,
+    if kv_override is None:
+        q, k, v = _project_qkv(cfg, p, x, positions, rope)
+        k_pos = positions
+    else:
+        q = _project_q(cfg, p, x, positions, rope)
+        k, v, k_pos = kv_override
+    if max(s, k.shape[1]) <= cfg.full_attn_max_seq:
+        out = _plain_attention(cfg, q, k, v, positions, k_pos, causal,
                                cfg.sliding_window)
     else:
-        out = _chunked_attention(cfg, q, k, v, positions, positions, True,
+        out = _chunked_attention(cfg, q, k, v, positions, k_pos, causal,
                                  cfg.sliding_window)
     return linear(out.reshape(b, s, cfg.q_dim), p["wo"])
 
 
 def cross_kv(cfg: ArchConfig, p, enc_out):
-    raise NotImplementedError(
-        "cross-attention K/V belongs to the encdec family (ROADMAP A.11), "
-        "not ported yet")
+    """Cross-attention K / V [B, S_enc, K, hd] from the encoder output (the
+    enc-dec decoder's, precomputed once for decoding): the k and v
+    projections, qk-norm on k, no RoPE."""
+    b, s, _ = enc_out.shape
+    k = linear(enc_out, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(enc_out, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"]["scale"])
+    return k, v
 
 
 # ------------------------------------------------- decode (ring KV cache)

@@ -149,7 +149,8 @@ def test_dequant_avg_rows_matches_plain_bitwise(card, n, r, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,v", [(32, 10), (37, 4099), (512, 151936),
-                                 (1, 2)])
+                                 (1, 2), (128, 32000), (64, 50280),
+                                 (96, 51866)])
 def test_vt_kl_loss_kernels_match_plain(card, b, v, dtype):
     """Forward (per-row KL, max, Σexp) and backward against the plain
     versions, labels at the first and last lanes.  The kernels sum in
@@ -248,7 +249,14 @@ DECODE_SHAPES = [(1, 16, 1, 1, 16), (2, 600, 2, 2, 64), (4, 1024, 8, 1, 128),
                  (3, 512, 4, 8, 64), (3, 1000, 16, 1, 64), (5, 4099, 8, 5, 128),
                  (1, 1, 2, 4, 32), (8, 32768, 16, 1, 64), (3, 40, 16, 1, 64),
                  (2, 4097, 16, 1, 64), (2, 2049, 4, 2, 32),
-                 (8, 32768, 8, 8, 128)]
+                 (8, 32768, 8, 8, 128),
+                 # the families of path n: zamba2's hd 80 (two heads a
+                 # block), hd 80 at an odd K (one head a block), W one
+                 # slot past a tile at hd 80, arctic's G = 7, whisper's K
+                 # = 20 over its 448-slot ring
+                 (8, 4096, 32, 1, 80), (3, 1000, 3, 2, 80),
+                 (2, 4097, 32, 1, 80), (4, 4096, 8, 7, 128),
+                 (8, 448, 20, 1, 64)]
 
 
 def _decode_case(card, b, w, kk, g, hd, dtype, filled=None, seed=0):
@@ -382,6 +390,70 @@ def test_drift_norms_kernel_matches_plain(card, r, d):
     for lo, hi in [(0, 1), (r // 2, r), (1, max(r - 1, 1))]:
         assert torch.equal(ops.drift_norms(x[lo:hi], ref[lo:hi]),
                            got[lo:hi])
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "mixtral-8x7b",
+                                  "arctic-480b", "mamba2-2.7b",
+                                  "zamba2-2.7b", "whisper-large-v3"])
+def test_family_on_the_card_matches_the_cpu(card, arch):
+    """Each family's reduced preset (fp32) on the card (the vt_kl_loss and
+    decode_attention kernels) and on the CPU (their plain versions, which
+    tests/test_torch_families.py holds against the JAX package): logits
+    within 1e-4, the VT loss and the router aux within 1e-5, and 8 decode
+    steps from the same cache within 1e-4 with equal greedy tokens
+    (mixtral's window of 4 and the hybrid's rings of 5 wrap; whisper after
+    `prep_decode_cache`); the decode kernel once per attention layer and
+    step, no launch on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_serve_step
+    from repro_torch.models.lm import build_lm
+    from repro_torch.utils.pytree import tree_map
+
+    over = dict(sliding_window=4) if arch == "mixtral-8x7b" else {}
+    lm = build_lm(get_config(arch).reduced(**over))
+    cfg = lm.cfg
+    p0 = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    batch0 = {k: torch.from_numpy(
+        rng.integers(0, cfg.vocab, shape).astype(np.int32)
+        if dtype == torch.int32 else
+        (rng.standard_normal(shape) * 0.05).astype(np.float32))
+        for k, (shape, dtype) in lm.input_specs(2, 64).items()}
+    enc = torch.from_numpy((rng.standard_normal((2, 6, cfg.d_model))
+                            * 0.05).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+    window = 5 if cfg.family == "hybrid" else 8
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev), p0)
+        batch = {k: v.to(dev) for k, v in batch0.items()}
+        ops.reset_launches()
+        with torch.no_grad():
+            logits, aux = lm.forward(params, batch)
+            _, met = lm.loss(params, batch)
+        vt = ops.LAUNCHES["vt_kl_loss_fwd"]
+        step = build_serve_step(lm)
+        cache = lm.init_cache(2, window, device=dev)
+        if lm.prep_decode_cache is not None:
+            with torch.inference_mode():
+                cache = lm.prep_decode_cache(params, cache, enc.to(dev))
+        dec = []
+        ops.reset_launches()
+        for t in range(8):
+            out, cache = step(params, cache, toks[:, t:t + 1].to(dev))
+            dec.append(out[:, 0].cpu())
+        runs.append((logits.cpu(), float(aux), float(met["loss"]),
+                     torch.stack(dec, 1), vt,
+                     ops.LAUNCHES["decode_attention_fused"]))
+    (lc, ac, sc, dc, vc, nc), (lh, ah, sh, dh, vh, nh) = runs
+    attn = (0 if cfg.family == "ssm" else
+            cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
+            else cfg.n_layers)
+    assert (vc, nc) == (1, 8 * attn) and (vh, nh) == (0, 0)
+    torch.testing.assert_close(lc, lh, rtol=1e-4, atol=1e-4)
+    assert abs(ac - ah) <= 1e-5 and abs(sc - sh) <= 1e-5
+    torch.testing.assert_close(dc, dh, rtol=1e-4, atol=1e-4)
+    assert torch.equal(dc.argmax(-1), dh.argmax(-1))
 
 
 def test_decode_step_on_the_card_matches_the_cpu(card):

@@ -282,9 +282,13 @@ def test_multi_pod_and_unported_options_name_their_roadmap_item():
         build_dfl_round_shardmap(tlm, sgd_momentum(), _ring(), three_pods)
     with pytest.raises(NotImplementedError, match="A.11"):
         train.main(["--steps", "1", "--device", "cpu", "--ckpt-dir", "x"])
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="A.11"):
-        serve.main(["--arch", "whisper-large-v3", "--device", "cpu"])
+    # every family is ported (A.11.1); the token-stream trainer refuses the
+    # families whose batch needs more than tokens, as the reference's has
+    # no such batch
+    for arch, extra in [("whisper-large-v3", "enc_embeds"),
+                        ("llava-next-mistral-7b", "img_embeds")]:
+        with pytest.raises(ValueError, match=extra):
+            train.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
 
 
 def test_flatten_stacked_restores_bf16_leaves_as_jax():

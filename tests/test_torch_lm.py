@@ -72,17 +72,30 @@ def test_config_mirrors_jax(arch):
     assert get_config(arch).pdtype == torch.bfloat16
 
 
-def test_build_lm_builds_dense_only():
+@pytest.mark.parametrize("arch", [
+    "qwen1.5-0.5b", "llava-next-mistral-7b", "mixtral-8x7b", "arctic-480b",
+    "mamba2-2.7b", "zamba2-2.7b", "whisper-large-v3"])
+def test_build_lm_builds_every_family(arch):
+    """Every family builds, draws its params on the CPU in the reference's
+    layout (leaf paths and shapes) and starts a decode state at length 0;
+    only the enc-dec family has an encoder to prepare."""
+    from repro.configs import get_config as jget
+    from repro.models.lm import build_lm as jbuild
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_lm
 
-    with pytest.raises(NotImplementedError, match="A.11"):
-        build_lm(get_config("mixtral-8x7b").reduced())
-    lm = build_lm(get_config("qwen1.5-0.5b").reduced())
-    # the dense family serves (tests/test_torch_serve.py) and has no
-    # encoder to prepare
-    assert lm.prep_decode_cache is None
-    assert int(lm.init_cache(1, 8, device="cpu")["length"]) == 0
+    lm = build_lm(get_config(arch).reduced())
+    jshapes = jax.eval_shape(jbuild(jget(arch).reduced()).init,
+                             jax.random.PRNGKey(0))
+    params = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    assert [tuple(j.shape) for j in jax.tree.leaves(jshapes)] == \
+        [tuple(t.shape) for t in tree_leaves(params)]
+    assert [str(j.dtype) for j in jax.tree.leaves(jshapes)] == \
+        [str(t.dtype).replace("torch.", "") for t in tree_leaves(params)]
+    assert (lm.prep_decode_cache is not None) == (lm.cfg.family == "encdec")
+    cache = lm.init_cache(1, 8, device="cpu")
+    assert int(cache["length"]) == 0
+    assert all(t.device.type == "cpu" for t in cache.values())
 
 
 def test_lm_init_defaults_to_the_card(monkeypatch):

@@ -339,12 +339,21 @@ def test_serve_entry_point_runs_reduced(capsys):
     np.testing.assert_array_equal(gen, again)
 
 
-def test_serve_names_its_roadmap_item_for_other_families():
+@pytest.mark.parametrize("arch", [
+    "llava-next-mistral-7b", "mixtral-8x7b", "arctic-480b", "mamba2-2.7b",
+    "zamba2-2.7b", "whisper-large-v3"])
+def test_serve_runs_every_family_reduced(arch, capsys):
+    """`launch/serve.py` decodes every family at its reduced preset (the
+    enc-dec after `prep_decode_cache` on numpy frames), deterministically;
+    its tokens are the greedy decode of the LM's own step."""
     from repro_torch.launch import serve
 
-    for arch in ("whisper-large-v3", "mixtral-8x7b"):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            serve.main(["--device", "cpu", "--arch", arch])
+    args = ["--device", "cpu", "--arch", arch, "--batch", "2",
+            "--prompt-len", "3", "--new-tokens", "4"]
+    gen = serve.main(args)
+    assert gen.shape == (2, 4) and ((gen >= 0) & (gen < 512)).all()
+    assert f"arch={arch} batch=2" in capsys.readouterr().out
+    np.testing.assert_array_equal(gen, serve.main(args))
 
 
 def test_generate_is_greedy_decoding_of_the_step():
