@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile | --path-n]
+    python3 chip_smoke.py [--profile | --path-n | --path-o]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -281,6 +281,26 @@ It imports the port only (no JAX), and:
      and B.3 on its real logits at V = 32,000, 50,280 and 51,866 (not a
      multiple of 8: the kernels' scalar rows); `--path-n` runs the
      kernel build and path n alone;
+  7c. drives path o, checkpoints and the dry run, after path n: o1
+     `repro_torch.launch.train.run` at full width (`--arch qwen1.5-0.5b
+     --preset full --nodes 2 --steps 3 --batch 4 --seq 128 --ckpt-dir`
+     under `build/path_o/`, after checking the disk's free space: 2 x
+     463,987,712 bf16 params and fp32 momentum, ~5.6 GB), the VT loss
+     forward and backward once per node-step and Eq. 5 once per round;
+     the manifest's keys, shapes and dtypes equal the state's, bf16 leaves
+     "bfloat16" under the npy header '<V2'; o2 `restore_checkpoint` onto
+     the card, every leaf bitwise (sha256) the state o1 ended with, and
+     one more DFL round from the restored state bitwise the same round
+     from the in-memory state; o3 8 greedy tokens of 4 sequences from node
+     0's restored params through `launch/serve.py:generate` (B.9 24 times
+     a step), bitwise the same decode from the in-memory params; o4 the
+     dry run (`python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b`,
+     one process per shape and mesh, started with o1 and run on the
+     host's cores beside it), every shape on both meshes `ok`, with FLOPs per chip,
+     argument and temp bytes per device and `fits_hbm` printed; the
+     checkpoint's GB and its write and read seconds; launches counted
+     from 0 around o1, o2's restored round and o3's restored decode, and
+     checked exactly; `--path-o` runs the kernel build and path o alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -3971,6 +3991,311 @@ def run_path_n(torch, ops, dev, card, profile=False):
     return launches, da_n, vt_n
 
 
+# ----------------------------------------------------------------- path o
+# checkpoints (ROADMAP A.11.2) and the dry run (A.11.4) at full width
+
+O_DIR = ROOT / "build" / "path_o"     # path o's checkpoint and dry run
+O_NODES, O_STEPS, O_BATCH, O_SEQ = 2, 3, 4, 128
+O_PROMPT, O_NEW = 8, 8                # o3: prompt and decoded tokens
+O_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def o_digests(torch, tree):
+    """{path: sha256 of the leaf's bytes} over a state tree's leaves."""
+    import hashlib
+
+    from repro_torch.checkpoint.ckpt import _flatten_with_paths
+
+    out = {}
+    for key, t in _flatten_with_paths(tree):
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[key] = hashlib.sha256(memoryview(t.cpu().numpy()).cast("B")
+                                  ).hexdigest()
+    return out
+
+
+def o_npz_descrs(path):
+    """{member: its npy header's descr} of an npz archive."""
+    import ast
+    import struct
+    import zipfile
+
+    import numpy as np
+
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            with zf.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                fmt, size = ("<H", 2) if version == (1, 0) else ("<I", 4)
+                n = struct.unpack(fmt, f.read(size))[0]
+                header = ast.literal_eval(f.read(n).decode("latin1"))
+                out[name[:-len(".npy")]] = header["descr"]
+    return out
+
+
+def o_dryrun_start():
+    """The dry run for qwen1.5-0.5b at its four shapes on both meshes, one
+    process per shape and mesh, started now and read by `o_dryrun_finish`
+    (they run on the host's cores beside o1-o3 and place nothing on the
+    card)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = {}
+    for shape in O_SHAPES:
+        for mesh in ("single", "multi"):
+            log = open(O_DIR / f"dryrun_{shape}_{mesh}.log", "w")
+            procs[(shape, mesh)] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 LM_ARCH, "--shape", shape, "--mesh", mesh, "--out",
+                 str(O_DIR / "dryrun"), "--force"],
+                cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT),
+                log, time.perf_counter())
+    return procs
+
+
+def o_dryrun_stop(procs):
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def o_dryrun_finish(procs, card):
+    out = {}
+    try:
+        for (shape, mesh), (proc, log, t0) in procs.items():
+            rc = proc.wait(timeout=600)
+            out[f"{shape} {mesh}"] = time.perf_counter() - t0
+            text = (O_DIR / f"dryrun_{shape}_{mesh}.log").read_text()
+            print(f"path o4 dry run, {shape} {mesh} (exit {rc}, process "
+                  f"ended {out[f'{shape} {mesh}']:.1f} s after its start): "
+                  + "; ".join(text.strip().splitlines()))
+            check(rc == 0, f"path o4: the {shape} {mesh} dry run exited "
+                           f"{rc}:\n{text}")
+    finally:
+        o_dryrun_stop(procs)
+    recs = {}
+    for shape in O_SHAPES:
+        for mesh in ("single", "multi"):
+            path = O_DIR / "dryrun" / f"{LM_ARCH}__{shape}__{mesh}.json"
+            rec = json.loads(path.read_text())
+            check(rec["ok"], f"path o4: {shape} {mesh}: {rec.get('error')}")
+            mem = rec["memory_analysis"]
+            recs[(shape, mesh)] = rec
+            print(f"path o4 {shape:12s} {mesh:6s} ({card}): FLOPs per chip "
+                  f"{rec['cost_analysis']['flops']:.6e}, bytes accessed per "
+                  f"chip {rec['cost_analysis']['bytes accessed']:.6e}, "
+                  f"argument bytes per device "
+                  f"{mem['argument_size_in_bytes']}, temp bytes per device "
+                  f"{mem['temp_size_in_bytes']} (upper bound, batch "
+                  f"{mem['temp_batch_per_device']} a device), output "
+                  f"{mem['output_size_in_bytes']}, fits_hbm "
+                  f"{rec['fits_hbm']} ({rec['hbm_bytes']:.0f} B), "
+                  f"collectives {rec['collectives']['total']:.0f} B, "
+                  f"useful FLOPs ratio {rec.get('useful_flops_ratio')}, "
+                  f"trace {rec['trace_s']:.1f} s")
+    return recs, out
+
+
+def path_o(torch, ops, dev, card):
+    """Path o: checkpoints and the dry run (see the module docstring).
+    Returns the launches of its main-path runs by sub-path, its timings
+    and the dry run's records."""
+    import shutil
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_dfl_round, build_serve_step
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    t_path = time.perf_counter()
+    if O_DIR.exists():
+        shutil.rmtree(O_DIR)
+    O_DIR.mkdir(parents=True)
+    procs = o_dryrun_start()
+    res = {"launches": {}}
+    try:
+        # bf16 params and fp32 momentum of every node, and a margin
+        need = O_NODES * LM_PARAMS * (2 + 4)
+        free = shutil.disk_usage(O_DIR).free
+        print(f"path o: the checkpoint needs {need} B, {free} B free under "
+              f"{O_DIR}")
+        check(free > 1.5 * need, f"path o: {free} B free on the disk under "
+                                 f"{O_DIR}, the checkpoint needs {need} B")
+        ckpt_dir = O_DIR / "ckpt"
+
+        # -- o1: launch/train.py at full width with --ckpt-dir -----------------
+        timed = {}
+
+        def timed_save(*args, **kwargs):
+            t0 = time.perf_counter()
+            path = save_checkpoint(*args, **kwargs)
+            timed["write_s"] = time.perf_counter() - t0
+            return path
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        save, train.save_checkpoint = train.save_checkpoint, timed_save
+        try:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            losses, params, opt_state = train.run(
+                ["--arch", LM_ARCH, "--preset", "full", "--nodes",
+                 str(O_NODES), "--steps", str(O_STEPS), "--batch",
+                 str(O_BATCH), "--seq", str(O_SEQ), "--ckpt-dir",
+                 str(ckpt_dir), "--log-every", "1"])
+            torch.cuda.synchronize()
+            res["launches"]["o1"] = dict(ops.LAUNCHES)
+            res["o1_s"] = time.perf_counter() - t0
+        finally:
+            train.save_checkpoint = save
+        l1 = res["launches"]["o1"]
+        check(l1["vt_kl_loss_fwd"] == l1["vt_kl_loss_bwd"]
+              == O_NODES * O_STEPS and l1["decdiff_update"] == O_STEPS,
+              f"path o1: launches {l1}")
+        check(all(math.isfinite(x) for x in losses), f"path o1: {losses}")
+        state = {"params": params, "opt": opt_state}
+        leaves = tree_leaves(params)
+        check(sum(t[0].numel() for t in leaves) == LM_PARAMS
+              and all(t.dtype == torch.bfloat16 for t in leaves)
+              and all(t.dtype == torch.float32
+                      for t in tree_leaves(opt_state)),
+              "path o1: the state is not bf16 params and fp32 momentum")
+        step_dir = ckpt_dir / f"step_{O_STEPS:08d}"
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+        from repro_torch.checkpoint.ckpt import _flatten_with_paths
+
+        want = {k: {"shape": list(t.shape),
+                    "dtype": {torch.bfloat16: "bfloat16",
+                              torch.float32: "float32"}[t.dtype]}
+                for k, t in _flatten_with_paths(state)}
+        check(manifest["keys"] == want and manifest["step"] == O_STEPS
+              and manifest["metadata"] == {"arch": LM_ARCH, "mode": "dfl"},
+              "path o1: the manifest's keys, shapes, dtypes or metadata")
+        descrs = o_npz_descrs(step_dir / "arrays.npz")
+        check(list(descrs) == list(want) and all(
+            descrs[k] == ("<V2" if v["dtype"] == "bfloat16" else "<f4")
+            for k, v in want.items()),
+            f"path o1: npy headers {sorted(set(descrs.values()))}")
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        res.update(ckpt_bytes=ckpt_bytes, write_s=timed["write_s"],
+                   o1_peak=torch.cuda.max_memory_allocated(), losses=losses)
+        print(f"path o1 ({card}): {LM_ARCH} full width, {O_NODES} nodes x "
+              f"{LM_PARAMS} bf16 params, {O_STEPS} DFL rounds of batch "
+              f"{O_BATCH} x seq {O_SEQ} in {res['o1_s']:.1f} s (losses "
+              f"{', '.join(f'{x:.5f}' for x in losses)}), peak "
+              f"{res['o1_peak'] / 2**30:.2f} GiB; checkpoint "
+              f"{ckpt_bytes / 1e9:.3f} GB ({len(want)} leaves) written in "
+              f"{timed['write_s']:.2f} s; launches {l1}")
+
+        # -- o2: restore onto the card, bitwise, and one more round ----------
+        t0 = time.perf_counter()
+        restored, man2 = restore_checkpoint(str(ckpt_dir), device=dev)
+        torch.cuda.synchronize()
+        res["read_s"] = time.perf_counter() - t0
+        check(man2 == manifest, "path o2: the restored manifest differs")
+        t0 = time.perf_counter()
+        d_mem, d_rest = o_digests(torch, state), o_digests(torch, restored)
+        digest_s = time.perf_counter() - t0
+        check(d_mem == d_rest and list(d_rest) == list(want),
+              "path o2: a restored leaf is not bitwise the state o1 ended "
+              "with")
+        check(all(t.device == dev for t in tree_leaves(restored["params"])),
+              "path o2: the restored leaves are not on the card")
+        print(f"path o2 ({card}): checkpoint {ckpt_bytes / 1e9:.3f} GB read "
+              f"onto the card in {res['read_s']:.2f} s; {len(d_rest)} "
+              f"leaves bitwise the state o1 ended with (sha256, "
+              f"{digest_s:.1f} s for both)")
+        # node 0's params as checkpointed, for o3
+        node0 = {"rest": tree_map(lambda t: t[0].clone(), restored["params"]),
+                 "mem": tree_map(lambda t: t[0].clone(), params)}
+        lm = build_lm(get_config(LM_ARCH))
+        opt = sgd_momentum(lr=3e-3, momentum=0.9)
+        rnd = build_dfl_round(lm, opt, train.ring_adjacency(O_NODES),
+                              loss_kind="vt", beta=LM_BETA)
+        batch = next(iter(train.make_batches(lm, O_NODES, O_BATCH, O_SEQ, 1,
+                                             dev, seed=O_STEPS * 131)))
+        ops.reset_launches()
+        p_r, _, loss_r = rnd(restored["params"], restored["opt"], O_STEPS,
+                             batch)
+        torch.cuda.synchronize()
+        res["launches"]["o2"] = dict(ops.LAUNCHES)
+        p_m, _, loss_m = rnd(params, opt_state, O_STEPS, batch)
+        torch.cuda.synchronize()
+        l2 = res["launches"]["o2"]
+        check(l2["vt_kl_loss_fwd"] == l2["vt_kl_loss_bwd"] == O_NODES
+              and l2["decdiff_update"] == 1, f"path o2: launches {l2}")
+        same_round = (float(loss_r) == float(loss_m)
+                      and o_digests(torch, p_r) == o_digests(torch, p_m))
+        print(f"path o2: one more round from the restored state, loss "
+              f"{float(loss_r):.6f}, bitwise the in-memory state's "
+              f"({float(loss_m):.6f}): {same_round}; launches {l2}")
+        check(same_round, "path o2: the round from the restored state "
+                          "differs from the in-memory state's")
+        del restored, p_r, p_m, params, opt_state, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- o3: decode from node 0's restored params ------------------------
+        gen = torch.Generator(device=dev).manual_seed(7)
+        prompts = torch.randint(0, lm.cfg.vocab, (O_BATCH, O_PROMPT),
+                                generator=gen, device=dev)
+        step = build_serve_step(lm)
+        out = {}
+        for key in ("rest", "mem"):
+            cache = lm.init_cache(O_BATCH, O_PROMPT + O_NEW, device=dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            toks, logits, _, _ = generate(step, node0[key], cache, prompts,
+                                          O_NEW - 1)
+            torch.cuda.synchronize()
+            out[key] = (toks, logits, time.perf_counter() - t0,
+                        dict(ops.LAUNCHES))
+            del cache
+        res["launches"]["o3"] = out["rest"][3]
+        l3 = out["rest"][3]
+        n_steps = O_PROMPT + O_NEW - 1
+        check(l3["decode_attention_fused"] == LM_LAYERS * n_steps,
+              f"path o3: decode_attention_fused launched "
+              f"{l3['decode_attention_fused']} times, not {LM_LAYERS} x "
+              f"{n_steps}")
+        same_decode = (torch.equal(out["rest"][0], out["mem"][0])
+                       and torch.equal(out["rest"][1], out["mem"][1]))
+        check(tuple(out["rest"][0].shape) == (O_BATCH, O_NEW)
+              and bool(torch.isfinite(out["rest"][1].float()).all()),
+              "path o3: tokens or logits")
+        print(f"path o3 ({card}): {O_NEW} tokens of {O_BATCH} sequences "
+              f"from node 0's restored params in {out['rest'][2]:.2f} s, "
+              f"tokens and logits bitwise the in-memory params': "
+              f"{same_decode}; first sequence "
+              f"{out['rest'][0][0].tolist()}; launches {l3}")
+        check(same_decode, "path o3: the decode from the restored params "
+                           "differs")
+        del node0, out
+        torch.cuda.empty_cache()
+    except BaseException:
+        o_dryrun_stop(procs)
+        raise
+
+    # -- o4: the dry run --------------------------------------------------
+    res["dryrun"], res["dryrun_s"] = o_dryrun_finish(procs, card)
+    shutil.rmtree(O_DIR / "ckpt")
+    res["s"] = time.perf_counter() - t_path
+    print(f"path o ({card}): checkpoint {res['ckpt_bytes'] / 1e9:.3f} GB, "
+          f"write {res['write_s']:.2f} s, read {res['read_s']:.2f} s; "
+          f"path o in all {res['s']:.1f} s")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4017,6 +4342,11 @@ def main() -> int:
     if "--path-n" in sys.argv[1:]:  # path n alone, for its development
         run_path_n(torch, ops, dev, card, "--profile" in sys.argv[1:])
         print(f"chip_smoke --path-n finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-o" in sys.argv[1:]:  # path o alone, for its development
+        path_o(torch, ops, dev, card)
+        print(f"chip_smoke --path-o finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4427,10 +4757,16 @@ def main() -> int:
 
     # -- path n: the other five LM families at their registered widths ---
     l_n, da_n, vt_n = run_path_n(torch, ops, dev, card, profile)
+    torch.cuda.empty_cache()
+
+    # -- path o: checkpoints and the dry run at full width -----------------
+    lmo = path_o(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
                "g": l_ge, "n": {k: l_n.get(k, 0) for k in ops.LAUNCHES},
+               "o": {k: sum(r[k] for r in lmo["launches"].values())
+                     for k in ops.LAUNCHES},
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -4581,6 +4917,11 @@ def main() -> int:
         for k, v in lmm.items() if k != "launches")
         + f"; path a {ms_plain:.2f}, path d {lmd['ms']}; path m in all "
           f"{m_s:.1f} s")
+    print(f"path o (checkpoints and the dry run, {card}): checkpoint "
+          f"{lmo['ckpt_bytes'] / 1e9:.3f} GB, write {lmo['write_s']:.2f} s, "
+          f"read {lmo['read_s']:.2f} s; o1 {lmo['o1_s']:.1f} s; dry run "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in lmo["dryrun_s"].items())
+          + f"; path o in all {lmo['s']:.1f} s")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch.kernels import ops
 
@@ -69,7 +70,10 @@ def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor,
     v = logits.shape[-1]
     lead = logits.shape[:-1]
     idx = labels.to(torch.int64).expand(lead).reshape(-1)
-    h = float(teacher_entropy(beta, v))  # an exact fp32 value, host-side
+    # an exact fp32 value, host-side: real tensors even inside a fake-tensor
+    # trace (launch/dryrun.py), which cannot read a fake scalar
+    with unset_fake_temporarily():
+        h = float(teacher_entropy(beta, v))
     kl = ops.vt_kl_loss(logits.reshape(-1, v).contiguous(), idx, beta,
                         -h).reshape(lead)
     if where is None:

@@ -1,6 +1,7 @@
 """Synthetic LM token streams (a copy of the JAX package's numpy-only
 `repro.data.tokens.synthetic_token_batch`, so both packages see the same
-tokens from the same seed).
+tokens from the same seed), and `lm_input_specs`, the allocation-free
+(shape, dtype) stand-ins of a token batch that the dry run uses.
 
 A deterministic next-token-prediction stream with Zipfian unigram
 statistics and short-range Markov structure, so models actually reduce
@@ -8,9 +9,10 @@ loss during smoke training.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 
 def synthetic_token_batch(batch: int, seq_len: int, vocab: int, seed: int = 0
@@ -26,3 +28,11 @@ def synthetic_token_batch(batch: int, seq_len: int, vocab: int, seed: int = 0
     copy = rng.random((batch, seq_len)) < 0.5
     toks[:, 1:][copy] = (toks[:, :-1][copy] + 1) % v_eff
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_input_specs(batch: int, seq_len: int, dtype=torch.int32
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of a token batch, the form of
+    `LM.input_specs`."""
+    return {"tokens": ((batch, seq_len), dtype),
+            "labels": ((batch, seq_len), dtype)}

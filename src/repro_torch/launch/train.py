@@ -12,7 +12,10 @@ streams (`repro_torch.data.tokens`) stand in for the data pipeline, as in
 the reference, so the families whose batch is tokens alone train here:
 dense, MoE (its router auxiliary in the loss), SSM and hybrid.  The VLM's
 image embeddings and the enc-dec's encoder frames are not in the
-reference's trainer either; those two families raise.
+reference's trainer either; those two families raise.  With `--ckpt-dir D`
+the final params and optimizer state are saved as the reference saves
+them, to `D/step_<steps>` (`repro_torch.checkpoint`, the reference's
+format); `run(argv)` returns them beside the losses.
 
 Example (CPU, reduced preset):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
@@ -26,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.tokens import synthetic_token_batch
 from repro_torch.device import resolve_device
@@ -67,7 +71,8 @@ def ring_adjacency(nodes: int) -> np.ndarray:
     return adj
 
 
-def main(argv=None):
+def run(argv=None):
+    """The command line's run: (losses, final params, final opt_state)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen1.5-0.5b")
     ap.add_argument("--preset", choices=["reduced", "full"], default="reduced")
@@ -84,9 +89,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing is ROADMAP A.11.2, not ported yet")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -127,9 +129,20 @@ def main(argv=None):
             rate = (step + 1) / (time.time() - t0)
             print(f"step {step:5d}  loss {losses[-1]:.4f}  {rate:.2f} it/s",
                   flush=True)
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, args.steps,
+                               {"params": params, "opt": opt_state},
+                               metadata={"arch": args.arch,
+                                         "mode": args.mode})
+        print("checkpoint:", path)
     assert np.isfinite(losses[-1]), "training diverged"
     print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
-    return losses
+    return losses, params, opt_state
+
+
+def main(argv=None):
+    """`run`, returning the losses."""
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

@@ -113,7 +113,10 @@ def _moe_tokens(cfg: ArchConfig, p, xf):
     probs, top_w, top_i = _route(cfg, p, xf)  # [T, E], [T, k], [T, k]
 
     flat_e = top_i.reshape(-1)  # [kT] the expert of each assignment
-    counts = torch.bincount(flat_e, minlength=e)
+    # bincount's integers from a static-shaped count, which a fake-tensor
+    # trace (launch/dryrun.py) can follow
+    counts = torch.zeros(e, dtype=torch.int64, device=xf.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     f_e = counts.to(torch.float32) / (t * k)
     aux = e * torch.sum(f_e * torch.mean(probs, dim=0))
 

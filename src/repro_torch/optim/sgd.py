@@ -3,10 +3,13 @@ learning-rate schedules.
 
 PyTorch-convention momentum: v <- mu*v + g;  w <- w - lr*v.
 
-The optimizer state is fp32 whatever the parameter dtype, and the step is
+The optimizer state is fp32 by default whatever the parameter dtype
+(`momentum_dtype=` / `state_dtype=` hold it in another), and the step is
 taken in fp32 and rounded once to the parameter's dtype, as the JAX
 package's optimizers do for its bf16 LM leaves (an in-place op on a bf16
-tensor with an fp32 operand computes in fp32 and rounds the result).
+tensor with an fp32 operand computes in fp32 and rounds the result).  A
+state held in another dtype is widened to fp32, updated there and rounded
+once back into its tensor, as the reference does.
 
 The update is IN PLACE: `update(grads, state, params, step=None)`
 overwrites the parameter and state tensors it is given and returns them.
@@ -62,8 +65,16 @@ def _lr_at(sched: Callable, step) -> float:
     return sched(0 if step is None else int(step))
 
 
+def _store(state: torch.Tensor, new32: torch.Tensor):
+    """Round the fp32 working copy of a non-fp32 state tensor back into it
+    (`state.to(float32)` is the tensor itself for an fp32 state)."""
+    if new32 is not state:
+        state.copy_(new32)
+
+
 def sgd_momentum(lr=1e-3, momentum: float = 0.9, nesterov: bool = False,
-                 weight_decay: float = 0.0) -> Optimizer:
+                 weight_decay: float = 0.0,
+                 momentum_dtype: torch.dtype = torch.float32) -> Optimizer:
     """Heavy-ball SGD (optionally Nesterov, with L2 weight decay added to
     the gradient); `update` works in place (see the module docstring).
     `lr` is a float or a schedule (step -> float)."""
@@ -71,7 +82,7 @@ def sgd_momentum(lr=1e-3, momentum: float = 0.9, nesterov: bool = False,
 
     def init(params):
         return {"momentum": tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+            lambda p: torch.zeros(p.shape, dtype=momentum_dtype,
                                   device=p.device), params)}
 
     @torch.no_grad()
@@ -82,24 +93,27 @@ def sgd_momentum(lr=1e-3, momentum: float = 0.9, nesterov: bool = False,
             g32 = g.to(torch.float32)
             if weight_decay:
                 g32 = g32 + weight_decay * p.to(torch.float32)
-            v.mul_(momentum).add_(g32)
+            v32 = v.to(torch.float32)
+            v32.mul_(momentum).add_(g32)
             if nesterov:
-                p.sub_(lr_t * (g32 + momentum * v))
+                p.sub_(lr_t * (g32 + momentum * v32))
             else:
-                p.sub_(lr_t * v)
+                p.sub_(lr_t * v32)
+            _store(v, v32)
         return params, state
 
     return Optimizer(init=init, update=update)
 
 
 def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.1) -> Optimizer:
+          weight_decay: float = 0.1,
+          state_dtype: torch.dtype = torch.float32) -> Optimizer:
     """AdamW with bias correction and decoupled weight decay, in place."""
     sched = lr if callable(lr) else constant_schedule(lr)
 
     def init(params):
         def z(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
     @torch.no_grad()
@@ -111,11 +125,14 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
             g32 = g.to(torch.float32)
-            m.mul_(b1).add_((1 - b1) * g32)
-            v.mul_(b2).add_((1 - b2) * torch.square(g32))
-            delta = (m / c1) / (torch.sqrt(v / c2) + eps) \
+            m32, v32 = m.to(torch.float32), v.to(torch.float32)
+            m32.mul_(b1).add_((1 - b1) * g32)
+            v32.mul_(b2).add_((1 - b2) * torch.square(g32))
+            delta = (m32 / c1) / (torch.sqrt(v32 / c2) + eps) \
                 + weight_decay * p.to(torch.float32)
             p.sub_(lr_t * delta)
+            _store(m, m32)
+            _store(v, v32)
         return params, state
 
     return Optimizer(init=init, update=update)

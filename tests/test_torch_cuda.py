@@ -1141,3 +1141,43 @@ def test_pod_backend_on_two_gloo_ranks_of_one_card_is_vmap(card, tmp_path):
         for rank in ranks:
             assert rank[key]["n_pods"] == 2
             _pod_equal(rank[key], want, loss_tol=1e-6)
+
+
+def test_checkpoint_restores_bitwise_and_resumes_on_the_card(card, tmp_path):
+    """Path o2 at the reduced preset: `launch/train.py --ckpt-dir` on the
+    card, the restore onto the card bitwise the state the run ended with,
+    and one more DFL round from the restored state bitwise the same round
+    from the in-memory state (Eq. 5 through `decdiff_update` once)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.dist.dfl_step import build_dfl_round
+    from repro_torch.launch import train
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_leaves
+
+    losses, params, opt_state = train.run(
+        ["--steps", "2", "--nodes", "2", "--batch", "2", "--seq", "32",
+         "--ckpt-dir", str(tmp_path)])
+    assert np.isfinite(losses).all()
+    restored, manifest = restore_checkpoint(str(tmp_path))
+    assert manifest["step"] == 2 and manifest["metadata"]["mode"] == "dfl"
+    state = {"params": params, "opt": opt_state}
+    assert len(tree_leaves(restored)) == len(tree_leaves(state))
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    lm = build_lm(get_config("qwen1.5-0.5b").reduced(n_layers=4, d_model=256,
+                                                     vocab=2048))
+    rnd = build_dfl_round(lm, sgd_momentum(lr=3e-3, momentum=0.9),
+                          train.ring_adjacency(2))
+    batch = next(iter(train.make_batches(lm, 2, 2, 32, 1, card,
+                                         seed=2 * 131)))
+    before = ops.LAUNCHES["decdiff_update"]
+    p_r, _, loss_r = rnd(restored["params"], restored["opt"], 2, batch)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decdiff_update"] == before + 1
+    p_m, _, loss_m = rnd(params, opt_state, 2, batch)
+    assert float(loss_r) == float(loss_m)
+    for a, b in zip(tree_leaves(p_r), tree_leaves(p_m)):
+        assert torch.equal(a, b)

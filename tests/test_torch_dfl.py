@@ -280,8 +280,7 @@ def test_multi_pod_and_unported_options_name_their_roadmap_item():
         get_local_rank=lambda dim: 0, get_group=lambda dim: None)
     with pytest.raises(ValueError, match="do not tile the 3-pod axis"):
         build_dfl_round_shardmap(tlm, sgd_momentum(), _ring(), three_pods)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        train.main(["--steps", "1", "--device", "cpu", "--ckpt-dir", "x"])
+    # checkpoints are ported (A.11.2): tests/test_torch_checkpoint.py
     # every family is ported (A.11.1); the token-stream trainer refuses the
     # families whose batch needs more than tokens, as the reference's has
     # no such batch
