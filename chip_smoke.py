@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile | --path-n | --path-o]
+    python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -301,6 +301,27 @@ It imports the port only (no JAX), and:
      checkpoint's GB and its write and read seconds; launches counted
      from 0 around o1, o2's restored round and o3's restored decode, and
      checked exactly; `--path-o` runs the kernel build and path o alone;
+  7d. drives path p, the examples (`examples_torch/`), after path o: each
+     example's `main(argv)` at the reference example's defaults on the
+     card, every launch count set to 0 just before each and read just
+     after, and checked exactly: quickstart (16 ER nodes, 30 rounds,
+     `isol` and `decdiff+vt`), compressed_gossip (the six transports of
+     the 8-node BA smoke world, 15 rounds each; the always-send fp32,
+     bf16, int8 and top-k rows carry payload x directed edges x rounds
+     bytes, the int8 reduction column reads the payload ratio),
+     decentralized_mnist (20 nodes, 60 rounds, Centralized and the 7
+     Table II methods; eight finite Table II rows with accuracy in [0, 1],
+     Table IV recomputed from the same histories), multipod_dfl_train (8
+     ring nodes, 20 rounds, one NCCL rank in this process and then two
+     gloo ranks sharing the card, bitwise the one-rank run, the
+     node0-node1 distance shrinking) and serve_decode (its default arch);
+     every printed line in the reference example's format; then, at a
+     reduced size, quickstart's two methods, the six transports (int8
+     deterministic) and two of decentralized_mnist's methods on the card
+     against the CPU (params 1e-6 without a transport, 1e-4 plus one
+     codec grain with one, accuracy within one test sample, bytes and
+     triggers exact); each example's wall seconds and ms per round;
+     `--path-p` runs the kernel build and path p alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -320,6 +341,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -4296,6 +4318,456 @@ def path_o(torch, ops, dev, card):
     return res
 
 
+# ----------------------------------------------------------------- path p
+# the examples (ROADMAP A.12.1): each `examples_torch/*.py` main at the
+# reference example's defaults, on the card
+
+P_DIR = ROOT / "build" / "path_p"     # path p's rendezvous and results
+P_EXAMPLES = ROOT / "examples_torch"
+P_PODS = 2                            # the multi-pod example's gloo ranks
+P_KERNELS = ("segment_neighbor_avg", "decdiff_update", "drift_norms",
+             "vt_kl_loss_fwd", "vt_kl_loss_bwd", "gather_rows",
+             "neighbor_avg", "decode_attention_fused")
+# a verbose round line; the loss may be nan: an isolated node can diverge
+# at the examples' lr 0.1 (quickstart's isol)
+P_ROUND = (r"\[{m}\] round +\d+  acc \d\.\d{{4}} ± \d\.\d{{4}}  loss "
+           r"(\d+\.\d{{4}}|nan|inf)")
+
+
+def p_example(name):
+    """`examples_torch/<name>.py` as a module (the examples are scripts,
+    not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", P_EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Tee:
+    """stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def p_main(torch, ops, mod, argv, label):
+    """`mod.main(argv)` with every launch count set to 0 just before and
+    read just after, its printed lines kept: (its return, the lines, the
+    launches, wall seconds)."""
+    import contextlib
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    print(f"path p {label}: {wall:.2f} s; launches "
+          f"{ {k: launches[k] for k in P_KERNELS} }")
+    return out, tee.text().splitlines(), launches, wall
+
+
+def p_expected(ops, runs, steps=4):
+    """The launches of `runs` [(method, rounds, comm)] on the dense
+    layout: the segment reduce (B.1) once a round on the gossip methods,
+    Eq. 5 (B.2) once a round on decdiff*, the drift norms (B.2's pass A)
+    once a round with a transport, the VT loss (B.3) forward and backward
+    once a local step on +vt, `gather_rows` (B.4) once a round on the
+    per-edge transport, `neighbor_avg` (B.6) once a round on fedavg."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    for method, rounds, comm in runs:
+        if method in ("dechetero", "cfa", "cfa-ge", "decdiff", "decdiff+vt"):
+            want["segment_neighbor_avg"] += rounds
+        if method.startswith("decdiff"):
+            want["decdiff_update"] += rounds
+        if method.endswith("+vt"):
+            want["vt_kl_loss_fwd"] += rounds * steps
+            want["vt_kl_loss_bwd"] += rounds * steps
+        if method == "fedavg":
+            want["neighbor_avg"] += rounds
+        if comm is not None:
+            want["drift_norms"] += rounds
+            if comm.use_per_edge:
+                want["gather_rows"] += rounds
+    return want
+
+
+def p_lines(lines, patterns, label):
+    """Every pattern matches a printed line, in order (other lines may
+    come between)."""
+    i = 0
+    for pat in patterns:
+        while i < len(lines) and not re.fullmatch(pat, lines[i]):
+            i += 1
+        check(i < len(lines), f"path p {label}: no line matching {pat!r} "
+                              f"in order; printed {lines}")
+        i += 1
+
+
+def p_agree(torch, label, a, b, n_test, grain=0.0, atol=1e-6):
+    """Two runs of one spec, the card's and the CPU's, each (experiment,
+    history): params within `atol` + `grain`, every eval's accuracies
+    within one test sample, bytes and triggers exact."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    (ea, ha), (eb, hb) = a, b
+    gap = max(float((x.cpu() - y.cpu()).abs().max()) for x, y in
+              zip(tree_leaves(ea.params), tree_leaves(eb.params)))
+    acc = max(float(abs(x.acc_per_node - y.acc_per_node).max()) * n_test
+              for x, y in zip(ha, hb))
+    same = ([m.round for m in ha] == [m.round for m in hb]
+            and [m.bytes_on_wire for m in ha] == [m.bytes_on_wire for m in hb]
+            and ea.comm_bytes_total == eb.comm_bytes_total
+            and ea.trig_history == eb.trig_history)
+    print(f"path p card vs cpu, {label}: params gap {gap:.3g} (bound "
+          f"{atol + grain:.3g}), accuracy gap {acc:.3g} test samples, bytes "
+          f"{ea.comm_bytes_total:.0f} / {eb.comm_bytes_total:.0f}, triggered "
+          f"equal {ea.trig_history == eb.trig_history}")
+    check(gap <= atol + grain, f"path p {label}: card and cpu params differ "
+                               f"by {gap}")
+    check(acc <= 1.0 + 1e-6, f"path p {label}: accuracies differ by {acc} "
+                             f"test samples")
+    check(same, f"path p {label}: rounds, bytes or triggers differ")
+
+
+def p_card_vs_cpu(torch, dev, qs, cg, dm):
+    """quickstart's two methods, compressed_gossip's six transports (int8
+    deterministic) and two of decentralized_mnist's methods, 3 rounds each
+    at a reduced size, on the card and on the CPU from the same init (the
+    port draws every init on the CPU)."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    cpu = torch.device("cpu")
+    worlds = {w: qs.build_world(8, w)[0] for w in (dev, cpu)}
+    n_test = len(worlds[cpu].y_test)
+    used = (n_test // min(128, n_test)) * min(128, n_test)
+    for method in qs.METHODS:
+        runs = []
+        for w in (dev, cpu):
+            exp = qs.experiment(worlds[w], method, 3, 1)
+            runs.append((exp, exp.run()))
+        p_agree(torch, f"quickstart {method} (8 nodes)", *runs, used)
+    world = cg.smoke_world()
+    n_test = len(world[0].y_test)
+    used = (n_test // min(128, n_test)) * min(128, n_test)
+    for comm in cg.default_sweep(stochastic=False):
+        runs = [cg.run_one(world, comm, 3, device=w) for w in (dev, cpu)]
+        top = max(float(t.abs().max()) for t in tree_leaves(runs[1][0].params))
+        grain = {"fp32": 0.0, "int8": top / 127.0, "bf16": top * 2.0 ** -7,
+                 "topk": top}[comm.codec]
+        trig = cg.trigger_label(comm.policy, comm.trigger_threshold,
+                                comm.target_trigger)
+        p_agree(torch, f"compressed_gossip {comm.codec} {trig}", *runs, used,
+                grain=grain, atol=1e-4)
+    wc = dm.WorldConfig(num_nodes=8, data_scale=0.02, rounds=3, eval_every=1)
+    world = dm.build_world(wc)
+    n_test = len(world[0].y_test)
+    used = (n_test // min(128, n_test)) * min(128, n_test)
+    for method in ("decdiff+vt", "fedavg"):
+        ra, rb = (dm.run_method(wc, method, world=world, device=w)
+                  for w in (dev, cpu))
+        acc = max(abs(x - y) for x, y in zip(ra["acc_per_node"],
+                                             rb["acc_per_node"])) * used
+        mean = max(abs(x["acc_mean"] - y["acc_mean"])
+                   for x, y in zip(ra["history"], rb["history"])) * used
+        print(f"path p card vs cpu, decentralized_mnist run_method {method} "
+              f"(8 nodes): final accuracy gap {acc:.3g} test samples, mean "
+              f"accuracy gap {mean:.3g} over {len(ra['history'])} evals, "
+              f"bytes per round {ra['comm_bytes_per_round']} / "
+              f"{rb['comm_bytes_per_round']}")
+        check(acc <= 1.0 + 1e-6 and mean <= 1.0 + 1e-6,
+              f"path p decentralized_mnist {method}: accuracies differ")
+        check(ra["comm_bytes_per_round"] == rb["comm_bytes_per_round"]
+              and sorted(ra) == sorted(rb),
+              f"path p decentralized_mnist {method}: bytes or keys differ")
+
+
+def p_digest(out):
+    """What the one- and two-rank multi-pod runs are held to, bitwise and
+    picklable."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    return dict(params=[t.cpu().numpy() for t in tree_leaves(out["params"])],
+                acc=[m.acc_per_node.tolist() for m in out["history"]],
+                dist=(out["init_dist"], out["final_dist"]),
+                n_pods=out["n_pods"])
+
+
+def p_worker(rank, n_pods, out_dir):
+    """One gloo rank of the multi-pod example on the one card (cuda:0):
+    `main([])` on the group this worker starts; results pickled to
+    `out_dir/rank<r>.pkl`."""
+    import contextlib
+    import io
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+
+    mod = p_example("multipod_dfl_train")
+    store = dist.FileStore(str(Path(out_dir) / "store"), n_pods)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=n_pods)
+    try:
+        buf = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main([])
+        torch.cuda.synchronize()
+        res = dict(digest=p_digest(out), lines=buf.getvalue().splitlines(),
+                   s=time.perf_counter() - t0, launches=dict(ops.LAUNCHES))
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def p_same(a, b):
+    """Params, accuracies and distances bitwise (the pod counts differ)."""
+    import numpy as np
+
+    return all(np.array_equal(x, y) for x, y in zip(a["params"],
+                                                    b["params"])) \
+        and a["acc"] == b["acc"] and a["dist"] == b["dist"]
+
+
+def path_p(torch, ops, dev, card):
+    """The five examples at the reference's defaults (module docstring);
+    returns what the summary and the kernels line read."""
+    import pickle
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    t_path = time.perf_counter()
+    qs, cg, dm, mp_ex, sd = (p_example(n) for n in (
+        "quickstart", "compressed_gossip", "decentralized_mnist",
+        "multipod_dfl_train", "serve_decode"))
+    res = {"s": {}, "ms": {}, "launches": {}}
+
+    # -- p1: quickstart, 16 nodes, 30 rounds, isol and decdiff+vt --------
+    hists, lines, l1, s = p_main(torch, ops, qs, [], "quickstart")
+    res["s"]["quickstart"], res["launches"]["quickstart"] = s, l1
+    res["ms"]["quickstart"] = 1e3 * s / 60
+    p_lines(lines, [r"graph: erdos_renyi\(n=16,p=0\.25\)  \(connected="
+                    r"(True|False)\)  label-skew Gini=\d\.\d\d"]
+            + [p for m in qs.METHODS for p in
+               [P_ROUND.format(m=re.escape(m))] * 4
+               + [rf"--> {re.escape(m)}: final node-average accuracy "
+                  rf"\d\.\d{{3}} ± \d\.\d{{3}}"]], "quickstart")
+    check(sorted(hists) == sorted(qs.METHODS)
+          and all([h.round for h in hist] == [0, 10, 20, 29]
+                  for hist in hists.values()),
+          f"path p quickstart: histories {hists}")
+    want = p_expected(ops, [(m, 30, None) for m in qs.METHODS])
+    check(l1 == want, f"path p quickstart: launches {l1}, want {want}")
+    for m, hist in hists.items():
+        check(all(math.isfinite(h.acc_mean) and 0 <= h.acc_mean <= 1
+                  for h in hist), f"path p quickstart {m}: accuracies")
+
+    # -- p2: compressed_gossip, the six transports, 15 rounds each -------
+    rows, lines, l2, s = p_main(torch, ops, cg, [], "compressed_gossip")
+    res["s"]["compressed_gossip"], res["launches"]["compressed_gossip"] = \
+        s, l2
+    res["ms"]["compressed_gossip"] = 1e3 * s / (6 * 15)
+    header = (f"{'codec':>6} {'trigger':>14} | {'final acc':>9} | "
+              f"{'wire MB':>8} | {'trig':>5} | reduction")
+    p_lines(lines, [re.escape(header)]
+            + [rf" *{r['comm'].codec} +{re.escape(r['trigger'])} \| "
+               rf"+\d\.\d{{4}} \| +\d+\.\d\d \| +\d\.\d\d \| \d+\.\dx"
+               for r in rows], "compressed_gossip")
+    want = p_expected(ops, [("decdiff+vt", 15, r["comm"]) for r in rows])
+    check(l2 == want, f"path p compressed_gossip: launches {l2}, want {want}")
+    by = {(r["comm"].codec, r["comm"].policy, r["comm"].trigger_threshold):
+          r for r in rows}
+    for key in (("fp32", "fixed", 0.0), ("bf16", "fixed", 0.0),
+                ("int8", "fixed", 0.0), ("topk", "fixed", 0.0)):
+        r = by[key]
+        want_b = r["payload_bytes"] * r["directed_edges"] * 15
+        print(f"path p compressed_gossip {key[0]}: bytes {r['bytes']:.0f} = "
+              f"{r['payload_bytes']} x {r['directed_edges']} x 15: "
+              f"{r['bytes'] == want_b}")
+        check(r["bytes"] == want_b, f"path p compressed_gossip {key}: bytes "
+                                    f"{r['bytes']} != {want_b}")
+    ratio = by[("fp32", "fixed", 0.0)]["payload_bytes"] \
+        / by[("int8", "fixed", 0.0)]["payload_bytes"]
+    check(by[("int8", "fixed", 0.0)]["reduction"] == f"{ratio:.1f}x",
+          f"path p compressed_gossip: int8 reduction "
+          f"{by[('int8', 'fixed', 0.0)]['reduction']} against the payload "
+          f"ratio {ratio}")
+    for r in rows:
+        h = r["history"][-1]
+        check(0 <= h.acc_mean <= 1 and 0 < h.triggered_frac <= 1,
+              f"path p compressed_gossip {r['comm']}: acc {h.acc_mean}, "
+              f"triggered {h.triggered_frac}")
+
+    # -- p3: decentralized_mnist, 20 nodes, 60 rounds, Tables II / IV ----
+    (tables, ct), lines, l3, s = p_main(torch, ops, dm, [],
+                                        "decentralized_mnist")
+    res["s"]["decentralized_mnist"] = s
+    res["launches"]["decentralized_mnist"] = l3
+    results = tables["synth-mnist"]
+    res["ms"]["decentralized_mnist"] = {
+        m: 1e3 * results[m]["wall_s"] / 60 for m in dm.METHODS}
+    res["ms"]["centralized_s"] = results["centralized"]["wall_s"]
+    p_lines(lines, [r"\[synth-mnist\] centralized acc=\d\.\d{4}"]
+            + [rf"\[synth-mnist\] {re.escape(f'{m:12s}')} acc=\d\.\d{{4}} "
+               rf"±\d\.\d{{4}}  \(\d+s\)" for m in dm.METHODS]
+            + [r"=== Table II \(accuracy\) ===",
+               re.escape("| dataset | method | avg acc | ±std | "
+                         "node-wise IQR |"),
+               re.escape("|---|---|---|---|---|")]
+            + [rf"\| synth-mnist \| {re.escape(m)} \| \d\.\d{{4}} \| "
+               rf"\d\.\d{{4}} \| (\d\.\d{{3}})? \|"
+               for m in ["centralized"] + dm.METHODS]
+            + [r"=== Table IV \(characteristic time\) ===",
+               re.escape("| dataset | method | 50% | 80% | 90% | 95% |")]
+            + [rf"\| synth-mnist \| {re.escape(m)} \| "
+               rf"((\d+|-) \| ){{3}}(\d+|-) \|" for m in dm.METHODS],
+            "decentralized_mnist")
+    want = p_expected(ops, [(m, 60, None) for m in dm.METHODS])
+    check(l3 == want, f"path p decentralized_mnist: launches {l3}, want "
+                      f"{want}")
+    rows2 = [(m, r) for m, r in results.items() if not m.startswith("_")]
+    check(len(rows2) == 8 and all(
+        math.isfinite(r["acc_mean"]) and 0 <= r["acc_mean"] <= 1
+        and math.isfinite(r["acc_std"]) for _, r in rows2),
+        f"path p decentralized_mnist: Table II rows {rows2}")
+    cacc = results["centralized"]["acc_mean"]
+    for m in dm.METHODS:
+        for thr, hit in ct["synth-mnist"]["times"][m].items():
+            first = next((h["round"] for h in results[m]["history"]
+                          if h["acc_mean"] >= thr * cacc), None)
+            check(hit == first, f"path p Table IV {m} at {thr}: {hit}, the "
+                                f"history gives {first}")
+    res["tables"] = {m: dict(acc=r["acc_mean"], std=r["acc_std"],
+                             bytes=r["comm_bytes_per_round"])
+                     for m, r in rows2}
+    res["char_times"] = ct["synth-mnist"]["times"]
+
+    # -- p4: multipod_dfl_train, 8 nodes, 20 rounds: one NCCL rank, then
+    # two gloo ranks sharing the card
+    if P_DIR.exists():
+        shutil.rmtree(P_DIR)
+    P_DIR.mkdir(parents=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(P_DIR / "store0"), 1), rank=0,
+        world_size=1, device_id=dev)
+    try:
+        out, lines, l4, s = p_main(torch, ops, mp_ex, [],
+                                   "multipod_dfl_train (NCCL, 1 rank)")
+        check(dist.get_backend() == "nccl" and out["n_pods"] == 1,
+              f"path p multipod: {out['n_pods']} pods")
+    finally:
+        dist.destroy_process_group()
+    res["s"]["multipod_1"], res["launches"]["multipod_1"] = s, l4
+    res["ms"]["multipod_1"] = 1e3 * s / 20
+    p_lines(lines, [r"1 device\(s\) -> 1-pod mesh, 8 nodes per pod "
+                    r"\(heterogeneous init, ring gossip\)"]
+            + [P_ROUND.format(m=re.escape("decdiff+vt"))] * 5
+            + [r"node0-node1 model distance: init \d+\.\d\d -> final "
+               r"\d+\.\d\d \((converging|diverging)\) — DecDiff pulls "
+               r"heterogeneously-initialized nodes together without a "
+               r"server, final acc \d\.\d{3} ± \d\.\d{3}"],
+            "multipod_dfl_train")
+    want = p_expected(ops, [("decdiff+vt", 20, None)])
+    check(l4 == want, f"path p multipod: launches {l4}, want {want}")
+    one = p_digest(out)
+    print(f"path p multipod: node0-node1 distance {one['dist'][0]:.4f} -> "
+          f"{one['dist'][1]:.4f}")
+    check(one["dist"][1] < one["dist"][0],
+          f"path p multipod: the distance grew {one['dist']}")
+    t0 = time.perf_counter()
+    mp.spawn(p_worker, args=(P_PODS, str(P_DIR)), nprocs=P_PODS, join=True)
+    ranks = []
+    for r in range(P_PODS):
+        with open(P_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    res["s"]["multipod_2"] = time.perf_counter() - t0
+    res["ms"]["multipod_2"] = [1e3 * x["s"] / 20 for x in ranks]
+    l5 = {k: sum(x["launches"][k] for x in ranks) for k in ops.LAUNCHES}
+    res["launches"]["multipod_2"] = l5
+    print(f"path p multipod_dfl_train ({P_PODS} gloo ranks on the card): "
+          f"{res['s']['multipod_2']:.2f} s with the spawn, main "
+          f"{[round(x['s'], 2) for x in ranks]} s by rank; launches (both "
+          f"ranks) { {k: l5[k] for k in P_KERNELS} }")
+    check(ranks[0]["lines"][0] == "2 device(s) -> 2-pod mesh, 4 nodes per "
+                                  "pod (heterogeneous init, ring gossip)"
+          and not ranks[1]["lines"],
+          f"path p multipod: rank 0 printed {ranks[0]['lines'][:1]}, rank 1 "
+          f"{ranks[1]['lines']}")
+    check(all(x["digest"]["n_pods"] == P_PODS for x in ranks),
+          "path p multipod: pods")
+    check(all(x["launches"] == l4 for x in ranks),
+          f"path p multipod: each rank's launches "
+          f"{[x['launches'] for x in ranks]} against one rank's {l4}")
+    bitwise = [p_same(x["digest"], one) for x in ranks]
+    print(f"path p multipod: two ranks bitwise the one-rank run: {bitwise}")
+    check(all(bitwise), "path p multipod: two ranks differ from one")
+
+    # -- p5: serve_decode at its default arch ----------------------------
+    from repro_torch.configs import get_config
+
+    gen, lines, l6, s = p_main(torch, ops, sd, [], "serve_decode")
+    res["s"]["serve_decode"], res["launches"]["serve_decode"] = s, l6
+    layers = get_config("qwen1.5-0.5b").reduced().n_layers
+    p_lines(lines, [r"arch=qwen1\.5-0\.5b batch=4 decoded 32 tokens in "
+                    r"\d+\.\d\ds \(\d+\.\d tok/s\)",
+                    r"first sequence: \[.*\] \.\.\."], "serve_decode")
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["decode_attention_fused"] = layers * (16 + 31)
+    check(l6 == want, f"path p serve_decode: launches {l6}, want {want}")
+    check(gen.shape == (4, 32), f"path p serve_decode: tokens {gen.shape}")
+
+    # -- card against the CPU at a reduced size ----------------------------
+    t0 = time.perf_counter()
+    p_card_vs_cpu(torch, dev, qs, cg, dm)
+    res["s"]["card_vs_cpu"] = time.perf_counter() - t0
+    res["total"] = {k: sum(l[k] for l in res["launches"].values())
+                    for k in ops.LAUNCHES}
+    res["s"]["all"] = time.perf_counter() - t_path
+    shutil.rmtree(P_DIR)
+    print(f"path p ({card}): " + "; ".join(
+        f"{k} {v:.1f} s" for k, v in res["s"].items())
+        + "; ms per round (wall of each main over its rounds, world build "
+          "included): " + p_ms_text(res["ms"]))
+    return res
+
+
+def p_ms_text(ms):
+    """Path p's ms per round as one line of text."""
+    return (f"quickstart {ms['quickstart']:.2f}, compressed_gossip "
+            f"{ms['compressed_gossip']:.2f}, decentralized_mnist by method "
+            "(its run's own wall) " + ", ".join(
+                f"{m} {v:.2f}" for m, v in ms["decentralized_mnist"].items())
+            + f" (centralized {ms['centralized_s']:.2f} s), multipod one "
+              f"rank {ms['multipod_1']:.2f}, two ranks "
+              f"{[round(x, 2) for x in ms['multipod_2']]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4347,6 +4819,11 @@ def main() -> int:
     if "--path-o" in sys.argv[1:]:  # path o alone, for its development
         path_o(torch, ops, dev, card)
         print(f"chip_smoke --path-o finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-p" in sys.argv[1:]:  # path p alone, for its development
+        path_p(torch, ops, dev, card)
+        print(f"chip_smoke --path-p finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4761,12 +5238,17 @@ def main() -> int:
 
     # -- path o: checkpoints and the dry run at full width -----------------
     lmo = path_o(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- path p: the examples at the reference examples' defaults ----------
+    lmp = path_p(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
                "g": l_ge, "n": {k: l_n.get(k, 0) for k in ops.LAUNCHES},
                "o": {k: sum(r[k] for r in lmo["launches"].values())
                      for k in ops.LAUNCHES},
+               "p": lmp["total"],
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -4922,6 +5404,12 @@ def main() -> int:
           f"read {lmo['read_s']:.2f} s; o1 {lmo['o1_s']:.1f} s; dry run "
           + ", ".join(f"{k} {v:.1f} s" for k, v in lmo["dryrun_s"].items())
           + f"; path o in all {lmo['s']:.1f} s")
+    print(f"path p (the examples, {card}): seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in lmp["s"].items())
+        + f"; ms per round {p_ms_text(lmp['ms'])}; Table II "
+        + ", ".join(f"{m} {r['acc']:.4f} ± {r['std']:.4f}"
+                    for m, r in lmp["tables"].items())
+        + f"; Table IV {lmp['char_times']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

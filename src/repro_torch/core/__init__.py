@@ -23,6 +23,7 @@ from repro_torch.core.decdiff import (  # noqa: F401
 from repro_torch.core.virtual_teacher import (  # noqa: F401
     cross_entropy_loss,
     make_loss_fn,
+    soft_labels,
     teacher_entropy,
     vt_kl_loss,
 )

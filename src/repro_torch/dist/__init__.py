@@ -9,3 +9,4 @@ from repro_torch.dist.constraints import (  # noqa: F401
     constrain_residual,
     gather_weights,
 )
+from repro_torch.dist import constraints, dfl_step, sharding  # noqa: F401

@@ -15,6 +15,13 @@ hooks in place.
 from __future__ import annotations
 
 
+def current_mesh():
+    """The mesh the model code runs under: always None here, the
+    reference's answer outside any `with mesh:` block (no tensor of a
+    forward pass is split over devices)."""
+    return None
+
+
 def constrain_batch(x):
     """Dim 0 (batch) over the data-parallel axes: the identity here."""
     return x

@@ -309,6 +309,21 @@ def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor, beta: float,
     return _VTKLLoss.apply(logits, labels, float(beta), float(neg_h))
 
 
+def vt_kl_loss_fused(logits: torch.Tensor, labels: torch.Tensor,
+                     beta: float = 0.95) -> torch.Tensor:
+    """Mean KL(p_t || softmax(logits)) over the batch — Eq. 8 — as the JAX
+    package's entry point of this name: logits [B, V] fp32 or bf16, labels
+    [B] of any integer dtype -> a scalar, differentiable in `logits`
+    through `vt_kl_loss`'s forward and backward kernels."""
+    # here, not at the top: core.virtual_teacher imports this module
+    from repro_torch.core.virtual_teacher import vt_kl_loss as vt_mean
+
+    if logits.dim() != 2:
+        raise ValueError(f"vt_kl_loss_fused wants logits [B, V]; got "
+                         f"{tuple(logits.shape)}")
+    return vt_mean(logits, labels, beta=beta)
+
+
 def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            slot_pos: torch.Tensor, pos: torch.Tensor,
                            window: int = 0) -> torch.Tensor:

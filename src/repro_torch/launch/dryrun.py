@@ -83,6 +83,7 @@ from repro_torch.dist.sharding import (
     make_cache_specs,
     make_param_specs,
 )
+from repro_torch.launch.mesh import HW
 from repro_torch.launch.train import ring_adjacency
 from repro_torch.models.lm import build_lm
 from repro_torch.models.lm.config import torch_dtype
@@ -104,10 +105,6 @@ MESHES = {
     "multi": ((2, 16, 16), ("pod", "data", "model")),
 }
 
-# NVIDIA H100 SXM data sheet (dense rates, 700 W): bf16 tensor-core peak,
-# HBM3 bandwidth and size, and NVLink 4 (900 GB/s both ways: 450 each way)
-HW = {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12, "hbm_bytes": 80e9,
-      "link_bw": 450e9}
 
 # The reference's §Perf variants (EXPERIMENTS.md §Perf), by name.
 VARIANTS = {

@@ -10,9 +10,9 @@ mesh.
 
 Functions, not module constants: importing this module initializes no
 process group.  `init_device_mesh` needs a world size equal to the mesh's
-size; each function checks that first and raises a clear error.  The JAX
-package's TPU v5e roofline constants (`HW`) are not copied: they belong to
-its HLO analysis (ROADMAP A.11.4).
+size; each function checks that first and raises a clear error.  `HW`
+holds the hardware constants of the dry run's roofline, as the reference's
+does for its TPU v5e chip: here the H100's data sheet.
 """
 from __future__ import annotations
 
@@ -23,6 +23,11 @@ from typing import Tuple
 import torch.distributed as dist
 
 from repro_torch.dist.sharding import NODE_AXIS
+
+# NVIDIA H100 SXM data sheet (dense rates, 700 W): bf16 tensor-core peak,
+# HBM3 bandwidth and size, and NVLink 4 (900 GB/s both ways: 450 each way)
+HW = {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12, "hbm_bytes": 80e9,
+      "link_bw": 450e9}
 
 
 def pod_axis(mesh):

@@ -51,6 +51,35 @@ def generate(step, params, cache, prompts: torch.Tensor, decode_steps: int):
     return torch.cat(out, dim=1), logits, cache, seconds
 
 
+def decode(arch: str, batch: int, prompt_len: int, new_tokens: int,
+           device=None):
+    """The reduced `arch` from seed 0, `batch` random prompts of
+    `prompt_len` tokens, then `new_tokens` greedy tokens (the first from
+    the last prompt logits): (tokens [batch, new_tokens] on the host, each
+    decode step's wall seconds, the device).  Raises on non-finite
+    logits."""
+    cfg = get_config(arch).reduced()
+    lm = build_lm(cfg)
+    dev = resolve_device(device)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len))).to(dev)
+
+    max_len = prompt_len + new_tokens
+    cache = lm.init_cache(batch, max_len, device=dev)
+    if lm.prep_decode_cache is not None:  # enc-dec: run the encoder once
+        enc = torch.from_numpy(rng.standard_normal(
+            (batch, max_len // cfg.enc_seq_divisor, cfg.d_model))
+            * 0.05).to(dev).to(cfg.adtype)
+        with torch.inference_mode():
+            cache = lm.prep_decode_cache(params, cache, enc)
+    tokens, logits, cache, seconds = generate(
+        build_serve_step(lm), params, cache, prompts, new_tokens - 1)
+    assert bool(torch.isfinite(logits.float()).all()), "non-finite logits"
+    return tokens.cpu().numpy(), seconds, dev
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen1.5-0.5b")
@@ -61,32 +90,14 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch).reduced()
-    lm = build_lm(cfg)
-    dev = resolve_device(args.device)
-    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
-    rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
-
-    max_len = args.prompt_len + args.new_tokens
-    cache = lm.init_cache(args.batch, max_len, device=dev)
-    if lm.prep_decode_cache is not None:  # enc-dec: run the encoder once
-        enc = torch.from_numpy(rng.standard_normal(
-            (args.batch, max_len // cfg.enc_seq_divisor, cfg.d_model))
-            * 0.05).to(dev).to(cfg.adtype)
-        with torch.inference_mode():
-            cache = lm.prep_decode_cache(params, cache, enc)
-    tokens, logits, cache, seconds = generate(
-        build_serve_step(lm), params, cache, prompts, args.new_tokens - 1)
+    gen, seconds, dev = decode(args.arch, args.batch, args.prompt_len,
+                               args.new_tokens, args.device)
     dt = sum(seconds)
     rate = f"{args.batch * len(seconds) / dt:.1f}" if dt > 0 else "n/a"
     print(f"arch={args.arch} batch={args.batch} "
           f"device={dev} decoded {args.new_tokens} tokens "
           f"({len(seconds)} decode steps) in {dt:.2f}s ({rate} tok/s)")
-    gen = tokens.cpu().numpy()
     print("first sequence:", gen[0][:16], "...")
-    assert bool(torch.isfinite(logits.float()).all()), "non-finite logits"
     return gen
 
 

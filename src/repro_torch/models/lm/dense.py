@@ -45,19 +45,26 @@ from repro_torch.models.lm.layers import (
 )
 
 
+def init_layer(gen: torch.Generator, cfg: ArchConfig, stack=(),
+               device=None):
+    """One dense layer's params, leaves stacked over `stack` (`init_dense`
+    passes (n_layers,)), drawn from `gen` on `device` (None: the card)."""
+    device = resolve_device(device)
+    return {
+        "ln1": init_norm(cfg, stack=stack, device=device),
+        "attn": init_attention(gen, cfg, stack=stack, device=device),
+        "ln2": init_norm(cfg, stack=stack, device=device),
+        "mlp": init_mlp(gen, cfg, stack=stack, device=device),
+    }
+
+
 def init_dense(gen: torch.Generator, cfg: ArchConfig, device=None):
     """One node's params, drawn from `gen` (a generator of the same device)
     on `device`: None means the card and raises on a host without CUDA."""
     device = resolve_device(device)
-    stack = (cfg.n_layers,)
     params = {
         "embed": init_embedding(gen, cfg, device=device),
-        "layers": {
-            "ln1": init_norm(cfg, stack=stack, device=device),
-            "attn": init_attention(gen, cfg, stack=stack, device=device),
-            "ln2": init_norm(cfg, stack=stack, device=device),
-            "mlp": init_mlp(gen, cfg, stack=stack, device=device),
-        },
+        "layers": init_layer(gen, cfg, stack=(cfg.n_layers,), device=device),
         "final_norm": init_norm(cfg, device=device),
     }
     if not cfg.tie_embeddings:

@@ -52,28 +52,44 @@ from repro_torch.models.lm.layers import (
 )
 
 
+def init_enc_layer(gen: torch.Generator, cfg: ArchConfig, stack=(),
+                   device=None):
+    """One encoder layer's params, leaves stacked over `stack`, on
+    `device` (None: the card)."""
+    kw = dict(stack=stack, device=resolve_device(device))
+    return {
+        "ln1": init_norm(cfg, **kw),
+        "attn": init_attention(gen, cfg, **kw),
+        "ln2": init_norm(cfg, **kw),
+        "mlp": init_mlp(gen, cfg, **kw),
+    }
+
+
+def init_dec_layer(gen: torch.Generator, cfg: ArchConfig, stack=(),
+                   device=None):
+    """One decoder layer's params (self- and cross-attention), leaves
+    stacked over `stack`, on `device` (None: the card)."""
+    kw = dict(stack=stack, device=resolve_device(device))
+    return {
+        "ln1": init_norm(cfg, **kw),
+        "self_attn": init_attention(gen, cfg, **kw),
+        "ln_x": init_norm(cfg, **kw),
+        "cross_attn": init_attention(gen, cfg, **kw),
+        "ln2": init_norm(cfg, **kw),
+        "mlp": init_mlp(gen, cfg, **kw),
+    }
+
+
 def init_encdec(gen: torch.Generator, cfg: ArchConfig, device=None):
     """One node's params on `device` (None: the card)."""
     device = resolve_device(device)
     kw = dict(device=device)
-    enc, dec = (cfg.n_enc_layers,), (cfg.n_layers,)
     return {
         "embed": init_embedding(gen, cfg, **kw),  # decoder tokens
-        "enc_layers": {
-            "ln1": init_norm(cfg, stack=enc, **kw),
-            "attn": init_attention(gen, cfg, stack=enc, **kw),
-            "ln2": init_norm(cfg, stack=enc, **kw),
-            "mlp": init_mlp(gen, cfg, stack=enc, **kw),
-        },
+        "enc_layers": init_enc_layer(gen, cfg, stack=(cfg.n_enc_layers,),
+                                     **kw),
         "enc_final_norm": init_norm(cfg, **kw),
-        "dec_layers": {
-            "ln1": init_norm(cfg, stack=dec, **kw),
-            "self_attn": init_attention(gen, cfg, stack=dec, **kw),
-            "ln_x": init_norm(cfg, stack=dec, **kw),
-            "cross_attn": init_attention(gen, cfg, stack=dec, **kw),
-            "ln2": init_norm(cfg, stack=dec, **kw),
-            "mlp": init_mlp(gen, cfg, stack=dec, **kw),
-        },
+        "dec_layers": init_dec_layer(gen, cfg, stack=(cfg.n_layers,), **kw),
         "final_norm": init_norm(cfg, **kw),
         "unembed": init_linear(gen, cfg.d_model, cfg.vocab, cfg, **kw),
     }

@@ -192,19 +192,28 @@ def _moe_batch_local(cfg: ArchConfig, p, x):
     return constrain_batch(out).to(x.dtype), aux
 
 
-def init_moe_lm(gen: torch.Generator, cfg: ArchConfig, device=None):
-    """One node's params on `device` (None: the card): the dense layout
-    with `moe` in place of `mlp`, and arctic's `dense_mlp` beside it."""
+def init_layer_moe(gen: torch.Generator, cfg: ArchConfig, stack=(),
+                   device=None):
+    """One MoE layer's params, leaves stacked over `stack`, on `device`
+    (None: the card): the dense layer with `moe` in place of `mlp`, and
+    arctic's `dense_mlp` beside it."""
     device = resolve_device(device)
-    stack = (cfg.n_layers,)
-    layers = {
+    layer = {
         "ln1": init_norm(cfg, stack=stack, device=device),
         "attn": init_attention(gen, cfg, stack=stack, device=device),
         "ln2": init_norm(cfg, stack=stack, device=device),
         "moe": init_moe_ffn(gen, cfg, stack=stack, device=device),
     }
     if cfg.dense_residual:
-        layers["dense_mlp"] = init_mlp(gen, cfg, stack=stack, device=device)
+        layer["dense_mlp"] = init_mlp(gen, cfg, stack=stack, device=device)
+    return layer
+
+
+def init_moe_lm(gen: torch.Generator, cfg: ArchConfig, device=None):
+    """One node's params on `device` (None: the card): `init_layer_moe`
+    stacked over the layers, then the embedding."""
+    device = resolve_device(device)
+    layers = init_layer_moe(gen, cfg, stack=(cfg.n_layers,), device=device)
     params = {
         "embed": init_embedding(gen, cfg, device=device),
         "layers": layers,

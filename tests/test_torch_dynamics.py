@@ -254,30 +254,36 @@ def _coins(jworld):
     return np.random.default_rng(5).integers(0, 2, (3, m)).astype(np.float32)
 
 
-def _both(jworld, method, cfg, layout, dyn, timing=None, deadline=None,
-          rounds=3):
-    """(reference Experiment, its history, port Experiment, its history)
-    from the reference's init; `dyn` / `timing` are (name, kwargs) pairs
-    built in each package."""
+def _build(dmod, tmod, dyn, timing):
+    """A (process, Timing) pair from (name, kwargs) specs in one package."""
+    d = dmod.make_process(dyn[0], **dyn[1])
+    t = None if timing is None else tmod.Timing(
+        tmod.LognormalStep(**timing[0]), tmod.LognormalLink(**timing[1]))
+    return d, t
+
+
+def _reference(jworld, method, cfg, layout, dyn, timing=None, deadline=None,
+               rounds=3):
+    """(reference Experiment, its loop history, its init)."""
     from repro.comm import CommConfig as JCommConfig
     from repro.engine import Experiment as JExperiment
     from repro.engine import Schedule as JSchedule
 
-    def build(dmod, tmod):
-        d = dmod.make_process(dyn[0], **dyn[1])
-        t = None if timing is None else tmod.Timing(
-            tmod.LognormalStep(**timing[0]), tmod.LognormalLink(**timing[1]))
-        return d, t
-
-    jdyn, jtim = build(jd, jt)
+    jdyn, jtim = _build(jd, jt, dyn, timing)
     je = JExperiment(dataclasses.replace(jworld, dynamics=jdyn, timing=jtim),
                      method, layout=layout,
                      comm=None if cfg is None else JCommConfig(**cfg),
                      schedule=JSchedule(rounds=rounds, deadline=deadline),
                      **TRAIN)
     params0 = jax.tree.map(np.asarray, je.params)
-    jhist = je.run(rounds=rounds, eval_every=1, mode="loop")
-    tdyn, ttim = build(td, tt)
+    return je, je.run(rounds=rounds, eval_every=1, mode="loop"), params0
+
+
+def _port(jworld, method, cfg, layout, dyn, params0, timing=None,
+          deadline=None, rounds=3, mode="loop"):
+    """(port Experiment, its history) on the reference's world from
+    `params0`, in `mode`."""
+    tdyn, ttim = _build(td, tt, dyn, timing)
     tworld = convert.world_from_arrays(
         model=make_mlp(hidden=(64, 32)), adjacency=jworld.topo.adjacency,
         weights=jworld.topo.weights, xs=jworld.xs, ys=jworld.ys,
@@ -291,7 +297,19 @@ def _both(jworld, method, cfg, layout, dyn, timing=None, deadline=None,
     exp.opt_state = exp.optimizer.init(exp.params)
     if exp.transport is not None:
         exp.comm_state = exp.transport.init_state(exp.params)
-    return je, jhist, exp, exp.run(rounds=rounds, eval_every=1, mode="loop")
+    return exp, exp.run(rounds=rounds, eval_every=1, mode=mode)
+
+
+def _both(jworld, method, cfg, layout, dyn, timing=None, deadline=None,
+          rounds=3):
+    """(reference Experiment, its history, port Experiment, its history)
+    from the reference's init; `dyn` / `timing` are (name, kwargs) pairs
+    built in each package."""
+    je, jhist, params0 = _reference(jworld, method, cfg, layout, dyn,
+                                    timing, deadline, rounds)
+    exp, thist = _port(jworld, method, cfg, layout, dyn, params0, timing,
+                       deadline, rounds)
+    return je, jhist, exp, thist
 
 
 def _check_against_jax(je, jhist, exp, thist, cfg, n_test):
@@ -339,6 +357,37 @@ def test_scripted_graph_matches_jax(jworld, comm, layout):
     if cfg is not None:
         assert thist[-1].bytes_on_wire > 0
     _check_against_jax(je, jhist, exp, thist, cfg, len(jworld.x_test))
+
+
+SCRIPTED_CASES = {
+    "decdiff+vt-int8-edge": ("decdiff+vt", "int8-edge-adaptive"),
+    "decdiff+vt-int8-node": ("decdiff+vt", "int8-node-trigger"),
+    "cfa-ge": ("cfa-ge", "none"),
+    "fedavg": ("fedavg", "none"),
+    "cfa-int8-edge": ("cfa", "int8-edge-adaptive"),
+}
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+@pytest.mark.parametrize("case", sorted(SCRIPTED_CASES))
+def test_random_scripted_tables_match_jax(jworld, case, seed):
+    """Three random symmetric tables (one coin per undirected edge and
+    round, from a numpy seed) over the methods and transports above, on
+    both layouts in loop and fused mode, against the reference's loop
+    run on the dense layout."""
+    method, comm = SCRIPTED_CASES[case]
+    cfg = SCRIPTED_COMMS[comm]
+    m = int(np.triu(jworld.topo.adjacency, 1).sum())
+    tables = np.random.default_rng(seed).integers(0, 2, (3, m))
+    dyn = ("scripted", dict(tables=tables.astype(np.float32)))
+    je, jhist, params0 = _reference(jworld, method, cfg, "dense", dyn)
+    for layout in ("dense", "sparse"):
+        for mode in ("loop", "fused"):
+            exp, thist = _port(jworld, method, cfg, layout, dyn, params0,
+                               mode=mode)
+            assert 0.0 < min(exp.live_history) < 1.0
+            _check_against_jax(je, jhist, exp, thist, cfg,
+                               len(jworld.x_test))
 
 
 def _alive_recorder(exp):

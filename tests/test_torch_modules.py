@@ -24,6 +24,7 @@ from repro_torch.utils import pytree as tpytree
 
 RTOL, ATOL = 1e-5, 1e-6
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples_torch")
 
 
 def _mlp_pair(hidden=(64, 32), n=4, seed=0):
@@ -185,6 +186,102 @@ def test_vt_kl_loss_and_gradient_match_jax(beta):
     zn = torch.from_numpy(z.reshape(2, 8, 10))
     per_node = vt_kl_loss(zn, torch.from_numpy(y.reshape(2, 8)), beta=beta)
     assert per_node.shape == (2,)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vt_kl_loss_fused_matches_jax(dtype):
+    """`kernels.ops.vt_kl_loss_fused` (the reference's name, int32 labels
+    accepted) against the reference's Pallas entry point run on the CPU,
+    with its gradient; the package exports the reference's names."""
+    import repro.kernels as jkernels
+    from repro.kernels.ops import vt_kl_loss_fused as jvt
+
+    import repro_torch.kernels as tkernels
+    from repro_torch.kernels.ops import vt_kl_loss_fused
+
+    rng = np.random.default_rng(4)
+    z = (3 * rng.standard_normal((12, 26))).astype(np.float32)
+    y = rng.integers(0, 26, 12).astype(np.int32)
+    jz = jnp.asarray(z, dtype)
+    jl, jg = jax.value_and_grad(lambda zz: jvt(zz, y, 0.9))(jz)
+    tz = torch.from_numpy(z).to(getattr(torch, dtype)).requires_grad_(True)
+    tl = vt_kl_loss_fused(tz, torch.from_numpy(y), 0.9)
+    (tg,) = torch.autograd.grad(tl, tz)
+    assert tl.shape == () and tg.dtype == tz.dtype
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=RTOL,
+                               atol=ATOL)
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(tg.float().numpy(),
+                               np.asarray(jg.astype(jnp.float32)), rtol=tol,
+                               atol=tol)
+    with pytest.raises(ValueError, match=r"logits \[B, V\]"):
+        vt_kl_loss_fused(tz.detach()[None], torch.from_numpy(y)[None])
+    for name in ("decdiff_update_tree", "decode_attention_fused",
+                 "dequant_neighbor_avg", "dequant_neighbor_avg_rows",
+                 "vt_kl_loss_fused"):
+        assert hasattr(jkernels, name) and hasattr(tkernels, name), name
+    # the port's package keeps its kernel modules under their own names
+    # (in the reference's, the function or the module, by import order)
+    for name in ("decdiff_update", "gather_rows", "neighbor_avg"):
+        assert getattr(tkernels, name).__name__ == \
+            f"repro_torch.kernels.{name}"
+        assert callable(getattr(tkernels.ops, name))
+
+
+def _shapes(tree):
+    return {k: _shapes(v) if isinstance(v, dict) else tuple(v.shape)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch,fns", [
+    ("qwen1.5-0.5b", [("dense", "init_layer")]),
+    ("arctic-480b", [("moe", "init_layer_moe")]),
+    ("whisper-large-v3", [("encdec", "init_enc_layer"),
+                          ("encdec", "init_dec_layer")]),
+])
+def test_layer_inits_have_the_reference_names_and_shapes(arch, fns):
+    """One layer's init under the reference's name: the reference's keys
+    and shapes, and stacked over `stack=` the layers the whole model's
+    init holds."""
+    import importlib
+
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+
+    cfg = get_config(arch).reduced()
+    whole = build_lm(cfg).init(torch.Generator().manual_seed(0),
+                               device="cpu")
+    for module, name in fns:
+        jfn = getattr(importlib.import_module(f"repro.models.lm.{module}"),
+                      name)
+        tfn = getattr(importlib.import_module(
+            f"repro_torch.models.lm.{module}"), name)
+        jcfg = jget(arch).reduced()
+        jshapes = jax.tree.map(lambda a: tuple(a.shape),
+                               jfn(jax.random.PRNGKey(0), jcfg))
+        one = tfn(torch.Generator().manual_seed(0), cfg, device="cpu")
+        assert _shapes(one) == jshapes
+        n = cfg.n_enc_layers if name == "init_enc_layer" else cfg.n_layers
+        stacked = tfn(torch.Generator().manual_seed(0), cfg, stack=(n,),
+                      device="cpu")
+        key = {"init_enc_layer": "enc_layers",
+               "init_dec_layer": "dec_layers"}.get(name, "layers")
+        assert _shapes(stacked) == _shapes(whole[key])
+
+
+def test_mesh_names_of_the_reference():
+    from repro.dist.constraints import current_mesh as jcurrent
+    from repro.launch.mesh import HW as JHW
+    from repro_torch.dist.constraints import current_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW
+
+    assert current_mesh() is None and jcurrent() is None  # no mesh here
+    # the inter-chip rate is the TPU's ICI there, the H100's NVLink here
+    assert set(JHW) - {"ici_bw"} | {"link_bw"} == set(HW)
+    assert dryrun.HW is HW
+    assert HW["hbm_bytes"] == 80e9  # the H100's, not the TPU's
 
 
 def test_cross_entropy_matches_jax():
@@ -359,11 +456,115 @@ def test_port_imports_neither_jax_nor_repro():
         "    assert m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # no import starts a group\n"
+        "import importlib.util\n"
+        "for f in sorted(os.listdir(EXAMPLES)):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        'examples_torch_' + f[:-3], os.path.join(EXAMPLES, f))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'repro', 'ml_dtypes', 'benchmarks'))\n"
+        "assert not bad, bad  # the examples import none of them either\n"
+        "assert not dist.is_initialized()\n"
         "print('ok', len([k for k in sys.modules "
-        "if k.startswith('repro_torch')]))\n")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=300)
+        "if k.startswith('repro_torch')]), len(os.listdir(EXAMPLES)))\n")
+    examples = os.path.abspath(EXAMPLES)
+    assert sorted(os.listdir(examples)) == [
+        "compressed_gossip.py", "decentralized_mnist.py",
+        "multipod_dfl_train.py", "quickstart.py", "serve_decode.py"]
+    # the repository root on the path too: a `benchmarks` import would
+    # resolve there and be caught
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.abspath(SRC), os.path.abspath(os.path.join(SRC, ".."))]))
+    out = subprocess.run([sys.executable, "-c",
+                          f"import os\nEXAMPLES = {examples!r}\n" + code],
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert int(out.stdout.split()[1]) >= 75  # every submodule imported
+    assert int(out.stdout.split()[2]) == 5  # and every example
+
+
+# ---------------------------------------------------------- public names
+
+# Top-level public names of `src/repro` with no counterpart of the same
+# name in the port's mirrored module, each with its reason.  Any other
+# missing name fails the test below.
+NOT_PORTED = {
+    # the Pallas kernel bodies and their TPU tile constants: the port's
+    # kernels are the CUDA sources in src/repro_torch/csrc/, behind ops.py
+    "kernels/decdiff_update.py": {"BLOCK_ROWS", "LANES", "scaled_step_blocks",
+                                  "sumsq_diff_blocks"},
+    "kernels/decode_attention.py": {"B_BLK", "W_BLK",
+                                    "decode_attention_blocks"},
+    "kernels/dequant_avg.py": {"COLS", "dequant_avg_blocks",
+                               "dequant_avg_rows_blocks"},
+    "kernels/gather_rows.py": {"COLS", "gather_rows_blocks"},
+    "kernels/neighbor_avg.py": {"COLS", "neighbor_avg_blocks"},
+    "kernels/segment_avg.py": {"COLS", "ROWS", "dequant_segment_avg_chunk",
+                               "segment_avg_chunk"},
+    "kernels/vt_kl_loss.py": {"NEG", "ROWS", "VCOLS", "row_max", "row_stats",
+                              "vt_backward"},
+    # functions the reference's package binds over its kernel modules of
+    # the same names; the port keeps the modules there (`ops.<name>`)
+    "kernels/__init__.py": {"decdiff_update", "gather_rows", "neighbor_avg"},
+    # NamedShardings for jit; the port places specs with `placements` /
+    # `distribute_tree` on a DeviceMesh (ROADMAP A.11.3)
+    "dist/sharding.py": {"named"},
+    # XLA cost-analysis calibration; the port's dry run counts every layer
+    # at dispatch (ROADMAP A.11.4)
+    "launch/dryrun.py": {"calibrated_metrics", "lower_combo"},
+}
+# modules of `src/repro` with no counterpart file, each with its reason
+NOT_PORTED_MODULES = {
+    # parses XLA's post-SPMD HLO text, which the port never produces
+    # (ROADMAP A.11.4)
+    "launch/hlo_analysis.py",
+}
+
+
+def _public_names(path):
+    """Top-level public names of a module: functions, classes and
+    assigned names, and in a package's `__init__` the imported ones."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and \
+                os.path.basename(path) == "__init__.py":
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_public_names_are_mirrored():
+    """Every public top-level name of every `src/repro` module exists in
+    the port's module of the same path, or is listed in NOT_PORTED with
+    its reason; the lists hold nothing the port has since gained."""
+    ref_root = os.path.join(SRC, "repro")
+    port_root = os.path.join(SRC, "repro_torch")
+    missing, missing_modules = {}, set()
+    for dirpath, _, files in os.walk(ref_root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), ref_root)
+            rel = rel.replace(os.sep, "/")
+            port = os.path.join(port_root, rel)
+            if not os.path.exists(port):
+                missing_modules.add(rel)
+                continue
+            gap = _public_names(os.path.join(dirpath, f)) \
+                - _public_names(port)
+            if gap:
+                missing[rel] = gap
+    assert missing_modules == NOT_PORTED_MODULES
+    assert missing == NOT_PORTED

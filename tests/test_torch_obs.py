@@ -107,9 +107,9 @@ def _port_world(jw, **kw):
 
 
 def _both(jw, cfg, layout, rounds=3, timed=True, channels="auto",
-          jledger=None, tledger=None):
+          jledger=None, tledger=None, method="decdiff+vt"):
     """(reference Experiment, its history, port Experiment, its history):
-    `decdiff+vt` in loop mode, every round evaluated, from the reference's
+    `method` in loop mode, every round evaluated, from the reference's
     init."""
     from repro.comm import CommConfig as JCommConfig
     from repro.engine import Experiment as JExperiment
@@ -124,7 +124,7 @@ def _both(jw, cfg, layout, rounds=3, timed=True, channels="auto",
     je = JExperiment(
         dataclasses.replace(jw, timing=jtiming, telemetry=jobs.Telemetry(
             channels=channels, ledger=jledger)),
-        "decdiff+vt", layout=layout,
+        method, layout=layout,
         comm=None if cfg is None else JCommConfig(**cfg),
         schedule=JSchedule(rounds=rounds, deadline=deadline), **TINY)
     params0 = jax.tree.map(np.asarray, je.params)
@@ -132,7 +132,7 @@ def _both(jw, cfg, layout, rounds=3, timed=True, channels="auto",
     exp = Experiment(
         _port_world(jw, timing=HET if timed else None,
                     telemetry=Telemetry(channels=channels, ledger=tledger)),
-        "decdiff+vt", device="cpu", layout=layout,
+        method, device="cpu", layout=layout,
         comm=None if cfg is None else CommConfig(**cfg),
         schedule=Schedule(rounds=rounds, deadline=deadline), **TINY)
     exp.params = convert.params_from_numpy(params0, "cpu")
@@ -309,6 +309,52 @@ def test_detail_matches_reference(jba, comm, layout):
     assert exp.sim_time_history == je.sim_time_history
     assert exp.arrived_history == je.arrived_history
     assert len(exp.obs_history) == len(je.obs_history) == 3
+
+
+ROSTER_PROBES = ("fedavg", "fedavg+vt", "cfa-ge", "decavg", "isol", "cfa",
+                 "dechetero+vt")
+
+
+def _check_roster_detail(jw, method, comm, layout):
+    """Every channel of `method`'s run against the reference's: the step,
+    clock, accuracy and edge channels exactly, consensus and drift within
+    1e-6 without a transport and 2e-5 with one (a probe of these runs
+    measured at most 9.5e-7 and 1.6e-5); accuracies and bytes exact."""
+    cfg = COMMS[comm]
+    je, jhist, exp, thist = _both(jw, cfg, layout, method=method)
+    tol = 1e-6 if cfg is None else 2e-5
+    assert [m.round for m in thist] == [m.round for m in jhist]
+    assert exp.bound_obs.channels == je.bound_obs.channels
+    for jm, tm in zip(jhist, thist):
+        np.testing.assert_array_equal(tm.acc_per_node, jm.acc_per_node)
+        assert tm.bytes_on_wire == jm.bytes_on_wire
+        assert sorted(tm.detail) == sorted(jm.detail)
+        for ch, ref in jm.detail.items():
+            ref = np.asarray(ref)
+            got = tm.detail[ch]
+            assert got.shape == ref.shape, ch
+            if ch in ("consensus", "drift"):
+                np.testing.assert_allclose(got, ref, rtol=0, atol=tol,
+                                           err_msg=ch)
+            else:
+                np.testing.assert_array_equal(got, ref, err_msg=ch)
+    assert exp.trig_history == list(je.trig_history)
+    assert exp.sim_time_history == je.sim_time_history
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("method", ROSTER_PROBES)
+def test_detail_matches_reference_over_the_roster(jba, method, layout):
+    """The methods the tests above do not pin, with the clock and its
+    deadline, without a transport."""
+    _check_roster_detail(jba, method, "none", layout)
+
+
+@pytest.mark.parametrize("comm", ["node-int8-trigger", "edge-int8-adaptive"])
+@pytest.mark.parametrize("method", ["cfa", "decavg"])
+def test_detail_matches_reference_over_the_roster_with_transport(
+        jba, method, comm):
+    _check_roster_detail(jba, method, comm, "dense")
 
 
 # ------------------------------------------------------ (c) in-port oracles
