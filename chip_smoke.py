@@ -279,7 +279,7 @@ It imports the port only (no JAX), and:
      tokens), B.9 against its plain version on path n's real rings
      (mixtral's window, arctic's G = 7, zamba2's hd 80, whisper's K = 20)
      and B.3 on its real logits at V = 32,000, 50,280 and 51,866 (not a
-     multiple of 8: the kernels' scalar rows); `--path-n` runs the
+     multiple of 8: 4-byte vectors); `--path-n` runs the
      kernel build and path n alone;
   7c. drives path o, checkpoints and the dry run, after path n: o1
      `repro_torch.launch.train.run` at full width (`--arch qwen1.5-0.5b
@@ -2886,7 +2886,11 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
     2^-7·|ref| (bf16), plus min(1e-5·(p + p_t), 1e-6)·|g|: the fp32
     rounding of the two terms whose difference it is, at most 1e-6·|g|.
     The gradient's tolerance is checked to reject the plain backward with
-    the teacher's tail a = (1-β)/(V-1) dropped from the wrong classes."""
+    the teacher's tail a = (1-β)/(V-1) dropped from the wrong classes.
+    The forward's per-row KL, max and Σexp must be bitwise equal between
+    the call on all rows and calls on blocks of them (a row, a third, the
+    rest).  Prints the forward's `vt_plan` and the backward's vector
+    width, as the main path's launches took them."""
     import torch.nn.functional as F
 
     from repro_torch.core.virtual_teacher import teacher_entropy
@@ -2899,6 +2903,9 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
     kl = ops.vt_kl_loss(zr, y, beta, -h)
     (dz,) = torch.autograd.grad(kl, zr, g)
     torch.cuda.synchronize()
+    plan = {"fwd": vt.vt_plan(v, z.dtype, vt._align(zr))._asdict(),
+            "bwd": {"vec_bytes": vt.vt_plan(v, z.dtype,
+                                            vt._align(zr, dz)).vec_bytes}}
     pk, pm, ps = vt.vt_forward_plain(z, y, beta, -h)
     pdz = vt.vt_backward_plain(z, y, pm, ps, g, beta)
     kl = kl.detach()
@@ -2924,6 +2931,14 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
     eps = v * (1.0 - beta) / (v - 1)
     ce_minus_h = float(F.cross_entropy(z, y, label_smoothing=eps)) - h
     del dz, pdz, diff
+    # per row bitwise across row splits (a row, a third, the rest)
+    whole = vt.vt_forward_cuda(z, y, beta, -h)
+    cuts = [0, 1, 1 + b // 3, b]
+    parts = [vt.vt_forward_cuda(z[lo:hi], y[lo:hi], beta, -h)
+             for lo, hi in zip(cuts, cuts[1:]) if hi > lo]
+    split_ok = all(torch.equal(whole[k], torch.cat([p[k] for p in parts]))
+                   for k in range(3))
+    del whole, parts
     km, ks = vt.vt_forward_cuda(z, y, beta, -h)[1:]
     t_fwd = timings(torch, lambda: vt.vt_forward_cuda(z, y, beta, -h),
                     lambda: vt.vt_forward_plain(z, y, beta, -h),
@@ -2946,10 +2961,12 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
         out[kind] = dict(t, bound_ms=1e3 * max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations",
-                         max_abs_err=err, shape=[b, v], dtype=str(z.dtype))
+                         max_abs_err=err, shape=[b, v], dtype=str(z.dtype),
+                         plan=plan[kind])
         lib = ("F.cross_entropy(label_smoothing)"
                + (" backward" if kind == "bwd" else ""))
-        print(f"vt_kl_loss_{kind} {label} [B={b}, V={v}, {z.dtype}]: "
+        print(f"vt_kl_loss_{kind} {label} [B={b}, V={v}, {z.dtype}], plan "
+              f"{plan[kind]}: "
               f"max_abs_err={err:g} "
               f"{timing_text(t, lib, out[kind]['bound_ms'])}; bound "
               f"{out[kind]['bound_ms']:.4f} ms ({out[kind]['bound_by']})")
@@ -2961,6 +2978,8 @@ def vt_vs_plain(torch, ops, z, y, label, beta=LM_BETA):
                   f"{bwd_err:g}")
     check(tail_caught, f"vt_kl_loss_bwd {label}: the tolerance passes a "
                        f"backward without the teacher's tail")
+    check(split_ok, f"vt_kl_loss_fwd {label}: rows differ between one call "
+                    f"and calls on blocks of the rows")
     return out
 
 
@@ -3993,7 +4012,7 @@ def run_path_n(torch, ops, dev, card, profile=False):
     for v, (z, y) in sorted(lmn["vt"].items()):
         vt_n[v] = vt_vs_plain(torch, ops, z, y,
                               f"path n real logits, V = {v}"
-                              + (" (not a multiple of 8: scalar rows)"
+                              + (" (not a multiple of 8: narrower vectors)"
                                  if v % 8 else ""))
     lmn["vt"].clear()
     torch.cuda.empty_cache()
@@ -5306,13 +5325,15 @@ def main() -> int:
         entry("vt_kl_loss_fwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:94", vt_main["fwd"],
               also_replaces="src/repro/kernels/vt_kl_loss.py:108",
-              dtype=vt_main["fwd"]["dtype"], path_j=at_j(lmj["vt"]["fwd"]),
+              dtype=vt_main["fwd"]["dtype"], plan=vt_main["fwd"]["plan"],
+              path_j=at_j(lmj["vt"]["fwd"]),
               path_j_emnist=at_j(lmj["vt_emnist"]["fwd"]),
               path_m=at_j(vt_mlp[8 * 32]["fwd"]),
               path_n={v: at_j(r["fwd"]) for v, r in vt_n.items()}),
         entry("vt_kl_loss_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127", vt_main["bwd"],
-              dtype=vt_main["bwd"]["dtype"], path_j=at_j(lmj["vt"]["bwd"]),
+              dtype=vt_main["bwd"]["dtype"], plan=vt_main["bwd"]["plan"],
+              path_j=at_j(lmj["vt"]["bwd"]),
               path_j_emnist=at_j(lmj["vt_emnist"]["bwd"]),
               path_m=at_j(vt_mlp[8 * 32]["bwd"]),
               path_n={v: at_j(r["bwd"]) for v, r in vt_n.items()}),

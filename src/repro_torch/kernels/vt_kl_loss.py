@@ -1,5 +1,5 @@
 """Fused virtual-teacher KL loss over the class axis: the CUDA kernels'
-launchers and their plain PyTorch versions.
+launchers, their plan and their plain PyTorch versions.
 
 Per row b of logits z [B, V] with label c_b and a = (1-β)/(V-1):
 
@@ -10,22 +10,85 @@ Per row b of logits z [B, V] with label c_b and a = (1-β)/(V-1):
 
 The kernels are `csrc/vt_kl_loss.cu` (they replace the Pallas TPU kernels
 `row_max`, `row_stats` and `vt_backward` of `repro.kernels.vt_kl_loss`).
-The plain versions compute the same formulas with PyTorch reductions,
-which sum in another order than the kernels, so on the card the two agree
-to fp32 rounding.  Use `repro_torch.kernels.ops.vt_kl_loss`, which
-validates the inputs, picks between the two by the tensors' device and
-ties them together as one autograd function.
+`vt_plan` picks each launch's vector width, lanes per row and rows per
+block from (V, dtype) and the pointers' alignment, never from the row
+count, so a row's summation order is the same in any call that
+holds it.  The plain versions compute the same formulas with PyTorch
+reductions, which sum in another order than the kernels, so on the card
+the two agree to fp32 rounding.  Use `repro_torch.kernels.ops.vt_kl_loss`,
+which validates the inputs, picks between the two by the tensors' device
+and ties them together as one autograd function.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The forward's tiers (csrc/vt_kl_loss.cu): a row of at most GROUP_BYTES
+# takes a sub-warp of 2-32 lanes in blocks of GROUP_THREADS, each lane
+# holding two vectors of it (a shorter butterfly than one), at most
+# LOAD_BYTES; a longer row takes one CTA of a thread per 128 bytes of it,
+# 64 to 256.
+LOAD_BYTES = 32
+GROUP_BYTES = 32 * LOAD_BYTES
+GROUP_THREADS = 256
+MIN_THREADS, MAX_THREADS = 64, 256
+
+
+class VTPlan(NamedTuple):
+    """One launch's shape: `vec_bytes` per load, `lanes` per row and
+    `rows_per_block`."""
+    vec_bytes: int
+    lanes: int
+    rows_per_block: int
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.rows_per_block
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def vt_plan(v: int, dtype: torch.dtype, align: int = 16) -> VTPlan:
+    """The plan of a launch on rows of `v` logits of `dtype` whose pointers
+    are all multiples of `align` bytes.  It takes no row count: each row's
+    summation order then depends on (v, dtype) alone (and on the pointers'
+    alignment, which a block of contiguous rows shares with the whole)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"vt_plan wants float32 or bfloat16 logits, got "
+                        f"{dtype}")
+    elt = torch.finfo(dtype).bits // 8
+    if v < 2:
+        raise ValueError(f"vt_plan wants at least 2 classes, got {v}")
+    if align % elt:
+        raise ValueError(f"logits at a {align}-byte alignment are not "
+                         f"{elt}-byte elements")
+    row_bytes = v * elt
+    vec_bytes = next(w for w in (16, 8, 4, 2)
+                     if w >= elt and row_bytes % w == 0 and align % w == 0)
+    nvec = row_bytes // vec_bytes
+    if row_bytes <= GROUP_BYTES:
+        lanes = min(32, max(2, _pow2_ceil(-(-nvec // 2))))
+        return VTPlan(vec_bytes, lanes, GROUP_THREADS // lanes)
+    threads = min(MAX_THREADS, max(MIN_THREADS, _pow2_ceil(
+        -(-row_bytes // 128))))
+    return VTPlan(vec_bytes, threads, 1)
+
+
+def _align(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    ptr = 0
+    for t in tensors:
+        ptr |= t.data_ptr()
+    return 16 if ptr % 16 == 0 else ptr & -ptr
 
 
 def teacher_tail(beta: float, vocab: int) -> float:
@@ -67,10 +130,10 @@ def _library() -> ctypes.CDLL:
     # and cut the pointers
     lib.vt_kl_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int] \
         + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 \
-        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     lib.vt_kl_fwd.restype = ctypes.c_int
     lib.vt_kl_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 \
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] \
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     lib.vt_kl_bwd.restype = ctypes.c_int
     return lib
@@ -83,21 +146,22 @@ def _stream(dev: torch.device) -> int:
 def vt_forward_cuda(z: torch.Tensor, labels: torch.Tensor, beta: float,
                     neg_h: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on the current stream.  The caller
-    validated the inputs: contiguous CUDA tensors on one device, z fp32 or
-    bf16 [B, V] with V >= 2, labels int64 [B]."""
+    """Launch the forward kernel on the current stream, planned by
+    `vt_plan`.  The caller validated the inputs: contiguous CUDA tensors on
+    one device, z fp32 or bf16 [B, V] with V >= 2, labels int64 [B]."""
     b, v = z.shape
+    plan = vt_plan(v, z.dtype, _align(z))
     kl, mx, sumexp = (torch.empty((b,), dtype=torch.float32, device=z.device)
                       for _ in range(3))
     lib = _library()
     with torch.cuda.device(z.device):
         err = lib.vt_kl_fwd(z.data_ptr(), _DTYPE_CODE[z.dtype],
                             labels.data_ptr(), kl.data_ptr(), mx.data_ptr(),
-                            sumexp.data_ptr(), b, v, beta,
+                            sumexp.data_ptr(), b, v, *plan, beta,
                             teacher_tail(beta, v), neg_h, _stream(z.device))
     if err != 0:
         raise RuntimeError(f"vt_kl_fwd launch failed: cudaError {err} "
-                           f"(B={b}, V={v}, {z.dtype})")
+                           f"(B={b}, V={v}, {z.dtype}, {plan})")
     return kl, mx, sumexp
 
 
@@ -108,14 +172,16 @@ def vt_backward_cuda(z: torch.Tensor, labels: torch.Tensor,
     forward's, plus contiguous fp32 row stats and row gradients g [B])."""
     b, v = z.shape
     dz = torch.empty_like(z)
+    vec_bytes = vt_plan(v, z.dtype, _align(z, dz)).vec_bytes
     lib = _library()
     with torch.cuda.device(z.device):
         err = lib.vt_kl_bwd(z.data_ptr(), _DTYPE_CODE[z.dtype],
                             labels.data_ptr(), mx.data_ptr(),
                             sumexp.data_ptr(), g.data_ptr(), dz.data_ptr(), b,
-                            v, beta, teacher_tail(beta, v),
+                            v, vec_bytes, beta, teacher_tail(beta, v),
                             _stream(z.device))
     if err != 0:
         raise RuntimeError(f"vt_kl_bwd launch failed: cudaError {err} "
-                           f"(B={b}, V={v}, {z.dtype})")
+                           f"(B={b}, V={v}, {z.dtype}, {vec_bytes}-byte "
+                           f"vectors)")
     return dz

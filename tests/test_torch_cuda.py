@@ -150,7 +150,13 @@ def test_dequant_avg_rows_matches_plain_bitwise(card, n, r, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,v", [(32, 10), (37, 4099), (512, 151936),
                                  (1, 2), (128, 32000), (64, 50280),
-                                 (96, 51866)])
+                                 (96, 51866),
+                                 # each tier of vt_plan: sub-warp rows,
+                                 # one block a row
+                                 (1600, 10), (1600, 26), (5, 33), (3, 2),
+                                 (1, 151936), (896, 51866),
+                                 # one row past a block's 64 / 128 rows
+                                 (65, 10), (129, 2)])
 def test_vt_kl_loss_kernels_match_plain(card, b, v, dtype):
     """Forward (per-row KL, max, Σexp) and backward against the plain
     versions, labels at the first and last lanes.  The kernels sum in
@@ -199,6 +205,32 @@ def test_vt_kl_loss_kernels_match_plain(card, b, v, dtype):
     no_tail[rows, y] -= a * g                # classes: must be rejected
     assert not ((no_tail.to(dtype).float() - want.float()).abs()
                 <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,v", [(1600, 10), (300, 26), (70, 33), (129, 2),
+                                 (40, 3000), (40, 4099), (24, 32000),
+                                 (9, 51866), (5, 151936), (150, 151936)])
+def test_vt_forward_rows_are_bitwise_across_row_splits(card, b, v, dtype):
+    """The forward's per-row KL, max and Σexp are bitwise equal between one
+    call on B rows and separate calls on contiguous blocks of them (a row,
+    a third, the rest), in both tiers of `vt_plan` (sub-warp rows and one
+    block a row): the plan never looks at B, which the pod backend's
+    bitwise equality with the vmap rounds relies on."""
+    from repro_torch.kernels import vt_kl_loss as vt
+
+    rng = np.random.default_rng([b, v, 7])
+    z = torch.from_numpy((rng.standard_normal((b, v)) * 4).astype(
+        np.float32)).to(dtype).to(card)
+    y = torch.from_numpy(rng.integers(0, v, b)).to(card)
+    whole = vt.vt_forward_cuda(z, y, 0.98, -0.5)
+    cuts = [0, 1, 1 + b // 3, b]
+    parts = [vt.vt_forward_cuda(z[lo:hi], y[lo:hi], 0.98, -0.5)
+             for lo, hi in zip(cuts, cuts[1:])]
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(whole[k], torch.cat([p[k] for p in parts]))
+    assert torch.isfinite(whole[0]).all()
 
 
 def test_lm_round_on_the_card_matches_the_cpu(card):

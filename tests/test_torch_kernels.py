@@ -440,6 +440,100 @@ def test_vt_kl_loss_wrapper_rejects_bad_inputs(bad):
         ops.vt_kl_loss(z, y, 0.9, 0.0)
 
 
+def _plan_tier(plan):
+    """The forward tier a plan launches (csrc/vt_kl_loss.cu)."""
+    return "group" if plan.rows_per_block > 1 else "block"
+
+
+def _registered_vocabs():
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+
+    out = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        out |= {cfg.vocab, cfg.reduced().vocab}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vt_plan_over_every_vocabulary(dtype):
+    """`vt_plan` at V = 2..5000 and every registered vocabulary (full and
+    reduced): the vector width divides a row's bytes (every row starts at
+    the same phase), a sub-warp group is a power of two of 2-32 lanes,
+    each holding at most one step of loads, a CTA's threads are whole
+    warps, at most 1024, lanes x rows per block of them, one CTA a row,
+    and both forward tiers occur.  At a smaller alignment the width drops
+    to it."""
+    from repro_torch.kernels import vt_kl_loss as vt
+    from repro_torch.kernels.vt_kl_loss import vt_plan
+
+    elt = 4 if dtype == torch.float32 else 2
+    vocabs = list(range(2, 5001)) + _registered_vocabs()
+    assert {32000, 50280, 51866, 151936} <= set(vocabs)
+    tiers = set()
+    for v in vocabs:
+        plan = vt_plan(v, dtype)
+        nvec = v * elt // plan.vec_bytes
+        assert plan.vec_bytes in (2, 4, 8, 16) and plan.vec_bytes >= elt
+        assert (v * elt) % plan.vec_bytes == 0
+        # the widest width that divides the row
+        assert plan.vec_bytes == 16 or (v * elt) % (2 * plan.vec_bytes)
+        assert plan.threads == plan.lanes * plan.rows_per_block
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        tier = _plan_tier(plan)
+        tiers.add(tier)
+        if tier == "group":  # each lane's share is one step of loads
+            assert plan.lanes in (2, 4, 8, 16, 32)
+            assert nvec <= plan.lanes * (vt.LOAD_BYTES // plan.vec_bytes)
+        else:
+            assert plan.rows_per_block == 1 and plan.lanes % 32 == 0
+        for align in (2, 4, 8):
+            if align >= elt:
+                low = vt_plan(v, dtype, align)
+                assert low.vec_bytes <= align
+                assert (v * elt) % low.vec_bytes == 0
+    assert tiers == {"group", "block"}
+
+
+def test_vt_plan_constants_are_the_kernels():
+    """The plan's step and block limits are the ones csrc/vt_kl_loss.cu
+    checks and unrolls by."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import vt_kl_loss as vt
+
+    src = (_build.CSRC_DIR / "vt_kl_loss.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kLoadBytes") == vt.LOAD_BYTES
+    assert const("kMaxThreads") == vt.MAX_THREADS == vt.GROUP_THREADS
+    assert const("kGroupMaxLanes") * vt.LOAD_BYTES == vt.GROUP_BYTES
+
+
+def test_vt_plan_takes_no_row_count_and_refuses_what_it_cannot_take():
+    """The plan's inputs are (V, dtype, alignment): no row count, so a
+    row's summation order cannot depend on B.  It refuses one class, a
+    dtype the kernels do not take and a pointer off its element size."""
+    import inspect
+
+    from repro_torch.kernels.vt_kl_loss import _align, vt_plan
+
+    assert list(inspect.signature(vt_plan).parameters) == ["v", "dtype",
+                                                           "align"]
+    with pytest.raises(ValueError):
+        vt_plan(1, torch.float32)
+    with pytest.raises(TypeError):
+        vt_plan(10, torch.float16)
+    with pytest.raises(ValueError):
+        vt_plan(10, torch.float32, align=2)
+    x = torch.zeros(64, dtype=torch.float32)  # 64-byte aligned on the CPU
+    assert _align(x) == _align(x[4:]) == 16
+    assert _align(x[1:]) == 4 and _align(x, x[2:]) == 8
+
+
 def test_new_wrappers_count_no_launch_on_the_cpu():
     ops.reset_launches()
     q, scale, wn = map(torch.from_numpy, _payload(4, 2, 9))
@@ -450,18 +544,24 @@ def test_new_wrappers_count_no_launch_on_the_cpu():
     assert not any(ops.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("module,fn,n_ptr,n_int,n_float", [
-    ("dequant_avg", "dequant_avg_rows_f32", 3, 3, 0),
-    ("vt_kl_loss", "vt_kl_fwd", 5, 2, 3),
-    ("vt_kl_loss", "vt_kl_bwd", 6, 2, 2),
-    ("neighbor_avg", "neighbor_avg_f32", 3, 2, 0),
-])
+@pytest.mark.parametrize("module,fn,n_ptr,n_int,n_float,n_cint", [
+    ("dequant_avg", "dequant_avg_rows_f32", 3, 3, 0, 0),
+    # vt_kl_fwd's ints: the dtype and the plan (vec_bytes, lanes,
+    # rows_per_block); vt_kl_bwd's: the dtype and vec_bytes
+    ("vt_kl_loss", "vt_kl_fwd", 5, 2, 3, 4),
+    ("vt_kl_loss", "vt_kl_bwd", 6, 2, 2, 2),
+    ("neighbor_avg", "neighbor_avg_f32", 3, 2, 0, 1),
+], ids=["dequant_avg-dequant_avg_rows_f32-3-3-0",
+        "vt_kl_loss-vt_kl_fwd-5-2-3", "vt_kl_loss-vt_kl_bwd-6-2-2",
+        "neighbor_avg-neighbor_avg_f32-3-2-0"])
 def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
-                                                     n_ptr, n_int, n_float):
+                                                     n_ptr, n_int, n_float,
+                                                     n_cint):
     """Every pointer and 64-bit size is declared (ctypes would pass 32-bit
-    ints otherwise), and the floats as c_float.  A launcher that binds once
-    (it caches the library in `_LIB`) loads and declares at its first call
-    only."""
+    ints otherwise), the floats as c_float and the 32-bit ints as c_int,
+    and nothing else: the argument list is the C function's.  A launcher
+    that binds once (it caches the library in `_LIB`) loads and declares at
+    its first call only."""
     import ctypes
     import importlib
     import types
@@ -487,6 +587,8 @@ def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
     assert args.count(ctypes.c_void_p) == n_ptr + 1  # + the stream
     assert args.count(ctypes.c_int64) == n_int
     assert args.count(ctypes.c_float) == n_float
+    assert args.count(ctypes.c_int) == n_cint
+    assert len(args) == n_ptr + 1 + n_int + n_float + n_cint
     assert args[-1] is ctypes.c_void_p
     assert getattr(lib, fn).restype is ctypes.c_int
     if bound_once:
