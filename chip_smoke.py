@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p]
+    python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p |
+                           --path-q]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -322,6 +323,33 @@ It imports the port only (no JAX), and:
      codec grain with one, accuracy within one test sample, bytes and
      triggers exact); each example's wall seconds and ms per round;
      `--path-p` runs the kernel build and path p alone;
+  7e. drives path q, the partitioned dense LM step (`build_train_step`,
+     `build_prefill_step` and `build_serve_step` with `mesh=`: params,
+     optimizer state, batch and cache placed as DTensors by the specs),
+     after path p, at full qwen1.5-0.5b width (bf16 params): one train
+     step of 4 x 128 (VT loss, β = 0.98), prefill of the same batch and
+     32 greedy decode steps on a 4,096-slot ring, with fp32 activations:
+     q0 unpartitioned, then on a (data, model) = (1, 1) mesh over NCCL in
+     this process, bitwise equal (loss, updated params, prefill logits,
+     every decode step's logits and tokens, launches); q1 on a (1, 2)
+     mesh in two ranks sharing the card (`torch.multiprocessing.spawn`,
+     both on cuda:0) over the host-staged backend
+     (`repro_torch.dist.host_staging`: gloo's functional all-gather of
+     CUDA tensors ends the process there, so every collective runs on
+     host copies through gloo), held to the unpartitioned step (loss
+     within 1e-5, logits within 1e-3 of the largest, equal tokens), each
+     rank's launches checked exactly: the vocab-parallel VT kernels
+     (`vt_kl_partial_fwd`, `vt_kl_shard_bwd`) once each, the split-hd
+     decode kernels (`decode_scores_partial`, `decode_softmax_combine`)
+     24 x 32 times; then the same steps with bf16 activations timed both
+     ways (ms per train, prefill and decode step, medians); then, in this
+     process, B.3's split forms at [512, 151936] (fp32 and bf16) and
+     B.9's at path e's [8, 32768, 16, 64] bf16 cache, each at 2 and 16
+     shards, against their plain versions and timed against the byte
+     bound (B.9's scores beside one `torch.matmul`), and B.9's again at
+     q1's own [4, 4096, 16, 64] cache cut in 2, fp32 and bf16, against
+     their plain versions; files go to `build/path_q/`; `--path-q` runs
+     the kernel build and path q alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -483,12 +511,16 @@ def timings(torch, kernel, plain, library, cold=False, library_device=None):
     their device kernels alone (`device_ms`; `library_device`, when given,
     is the library call whose kernels are timed).  With `cold`, the same
     for kernel and library with 128 MB written before each call, outside
-    what is timed (`*_cold`)."""
+    what is timed (`*_cold`).  `library` None (no PyTorch call computes
+    the function): `library_ms` None and no library timing."""
     lib_dev = library if library_device is None else library_device
     t = dict(ms=median_ms(torch, kernel), plain_ms=median_ms(torch, plain),
-             library_ms=median_ms(torch, library))
+             library_ms=None if library is None
+             else median_ms(torch, library))
     (t["kernel_ms"], t["kernels_per_call"], t["kernel_events_per_call"],
      t["kernel_names"]) = device_ms(torch, kernel)
+    if library is None:
+        return t
     t["library_kernel_ms"], _, _, t["library_kernels"] = device_ms(torch,
                                                                    lib_dev)
     if cold:
@@ -4787,6 +4819,491 @@ def p_ms_text(ms):
               f"{[round(x, 2) for x in ms['multipod_2']]}")
 
 
+Q_DIR = ROOT / "build" / "path_q"     # path q's rendezvous and results
+Q_BATCH, Q_SEQ, Q_WINDOW, Q_STEPS = 4, 128, 4096, 32
+Q_RANKS = 2                           # (data = 1, model = 2) on the card
+Q_SHARDS = (2, 16)                    # the split kernels' shard counts
+Q_TIMED = 3                           # bf16 train / prefill steps timed
+Q_TIMED_DECODE = 8                    # bf16 decode steps timed
+Q_KERNELS = ("vt_kl_partial_fwd", "vt_kl_shard_bwd", "decode_scores_partial",
+             "decode_softmax_combine")
+
+
+def q_lm(act):
+    """Full-width qwen1.5-0.5b (bf16 params) with `act` activations."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+
+    return build_lm(dataclasses.replace(get_config(LM_ARCH),
+                                        activation_dtype=act))
+
+
+def q_steps(torch, ops, lm, dev, mesh=None, timed=False):
+    """One train step of Q_BATCH x Q_SEQ (VT loss), prefill of the same
+    batch, then Q_STEPS greedy decode steps on a Q_WINDOW-slot ring, on
+    `mesh` (params, state, batch and cache placed by the specs) or whole;
+    the launch counts set to 0 just before and read just after.  With
+    `timed` (the bf16 runs): Q_TIMED_DECODE decode steps only, then
+    Q_TIMED more train and prefill steps after the first, each timed
+    (host clock, synchronized); every decode step is timed."""
+    from repro_torch.dist.dfl_step import (build_prefill_step,
+                                           build_serve_step,
+                                           build_train_step)
+    from repro_torch.dist.sharding import (distribute_tree, full_tree,
+                                           make_batch_specs,
+                                           make_cache_specs,
+                                           make_param_specs)
+    from repro_torch.optim.sgd import sgd_momentum
+
+    def place(tree, specs):
+        return tree if mesh is None else distribute_tree(
+            tree, specs(tree, mesh), mesh)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    params = place(lm.init(torch.Generator(device=dev).manual_seed(26),
+                            device=dev), make_param_specs)
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    state = opt.init(params)
+    g = torch.Generator(device=dev).manual_seed(27)
+    seq = torch.randint(0, lm.cfg.vocab, (Q_BATCH, Q_SEQ + 1), generator=g,
+                        device=dev, dtype=torch.int32)
+    whole = {"tokens": seq[:, :-1].contiguous(),
+             "labels": seq[:, 1:].contiguous()}
+    batch = place(whole, make_batch_specs)
+    train = build_train_step(lm, opt, beta=LM_BETA, mesh=mesh)
+    prefill = build_prefill_step(lm, mesh=mesh)
+    serve = build_serve_step(lm, mesh=mesh)
+    out = {"ms": {"train": [], "prefill": [], "decode": []}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    (_, _, loss), ms = clock(lambda: train(params, state, 0, batch))
+    out["ms"]["train"].append(ms)
+    logits, ms = clock(lambda: prefill(params, batch))
+    out["ms"]["prefill"].append(ms)
+    cache = place(lm.init_cache(Q_BATCH, Q_WINDOW, device=dev),
+                  make_cache_specs)
+    tok = whole["tokens"][:, :1].contiguous()
+    dec, toks = [], []
+    for _ in range(Q_TIMED_DECODE if timed else Q_STEPS):
+        (lg, cache), ms = clock(lambda: serve(
+            params, cache, place(tok, make_batch_specs)))
+        out["ms"]["decode"].append(ms)
+        lg = full_tree(lg)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        dec.append(lg[:, 0].float())
+        toks.append(tok)
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.LAUNCHES)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out.update(loss=float(loss), prefill=full_tree(logits).float(),
+               decode=torch.stack(dec), tokens=torch.cat(toks, dim=1),
+               params=params)
+    if timed:
+        for _ in range(Q_TIMED):
+            out["ms"]["train"].append(clock(
+                lambda: train(params, state, 1, batch))[1])
+            out["ms"]["prefill"].append(clock(
+                lambda: prefill(params, batch))[1])
+    return out
+
+
+def q_against(torch, got, ref, label):
+    """Path q's check of a partitioned run against the unpartitioned one
+    (fp32 activations): the loss within 1e-5, prefill and every decode
+    step's logits within 1e-3 of the largest, the same tokens."""
+    loss_gap = abs(got["loss"] - ref["loss"])
+    pre = float((got["prefill"] - ref["prefill"]).abs().max())
+    pre_max = float(ref["prefill"].abs().max())
+    dec = float((got["decode"] - ref["decode"]).abs().max())
+    dec_max = float(ref["decode"].abs().max())
+    same_tokens = bool(torch.equal(got["tokens"], ref["tokens"]))
+    finite = bool(torch.isfinite(got["prefill"]).all()
+                  and torch.isfinite(got["decode"]).all())
+    text = (f"{label}: loss {got['loss']:.6f} (unpartitioned "
+            f"{ref['loss']:.6f}, gap {loss_gap:.3g}); prefill logits "
+            f"|diff| {pre:.3g} of max {pre_max:.3g}; {Q_STEPS} decode "
+            f"steps |diff| {dec:.3g} of max {dec_max:.3g}; tokens equal "
+            f"{same_tokens}")
+    ok = (loss_gap <= 1e-5 and pre <= 1e-3 * pre_max
+          and dec <= 1e-3 * dec_max and same_tokens and finite)
+    return ok, text
+
+
+def q_worker(rank, n_ranks, out_dir):
+    """One rank of path q1 on the card (cuda:0): the (data = 1, model = 2)
+    mesh over the host-staged backend; the fp32 steps against the
+    unpartitioned run (rank 0, from `ref.pt`), then the bf16 steps timed;
+    results pickled to `out_dir/rank<r>.pkl`."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import host_staging
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        host_staging.register(), rank=rank, world_size=n_ranks,
+        store=dist.FileStore(str(Path(out_dir) / "store"), n_ranks))
+    try:
+        mesh = make_host_mesh(data=1, model=n_ranks, device_type="cuda")
+        got = q_steps(torch, ops, q_lm("float32"), dev, mesh)
+        out = {"launches": got["launches"], "peak": got["peak"],
+               "ms_fp32": got["ms"]}
+        if rank == 0:
+            ref = torch.load(Path(out_dir) / "ref.pt", map_location=dev)
+            out["ok"], out["text"] = q_against(torch, got, ref,
+                                               "path q1 (1, 2)")
+            del ref
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = q_steps(torch, ops, q_lm("bfloat16"), dev, mesh, timed=True)
+        out["ms_bf16"] = got["ms"]
+        out["finite_bf16"] = bool(torch.isfinite(got["decode"]).all())
+        out["imported"] = sorted(k for k in sys.modules
+                                 if k.split(".")[0] in ("jax", "repro"))
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def q_bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def q_vt_split(torch, ops, z, y, n):
+    """B.3's vocab-parallel kernels on z [B, V] cut into n column shards:
+    each shard's partial statistics and shard backward against their plain
+    versions, the merged statistics' KL against the unsplit plain KL;
+    shard 0 timed against its byte bound."""
+    from repro_torch.core.virtual_teacher import teacher_entropy
+    from repro_torch.kernels import vt_kl_loss as vt
+
+    b, v = z.shape
+    vl = v // n
+    h = float(teacher_entropy(LM_BETA, v))
+    g = torch.full((b,), 1.0 / b, dtype=torch.float32, device=z.device)
+    shards = [z[:, i * vl:(i + 1) * vl].contiguous() for i in range(n)]
+    parts, ok, err = [], True, 0.0
+    for i, s in enumerate(shards):
+        got = ops.vt_partial_stats(s, y, i * vl, v)
+        want = vt.vt_partial_plain(s, y, i * vl)
+        s32 = s.float()
+        tols = (0.0, 1e-5 * want[1], 1e-5 * s32.abs().sum(-1) + 1e-6, 0.0)
+        for a, w, tol in zip(got, want, tols):
+            d = (a - w).abs()
+            err = max(err, float(d.max()))
+            ok = ok and bool((d <= tol).all())
+        parts.append(got)
+    m, se, zs, zc = vt.vt_combine(*(torch.stack(t) for t in zip(*parts)))
+    kl = vt.vt_kl_from_stats(m, se, zs, zc, LM_BETA, -h, v)
+    pk, pm, ps = vt.vt_forward_plain(z, y, LM_BETA, -h)
+    kl_err = float((kl - pk).abs().max())
+    ok = ok and bool(((kl - pk).abs() <= 1e-5 * pk.abs()
+                      + 1e-5 * math.log(v)).all())
+    bwd_err, bwd_ok = 0.0, True
+    rtol = 2.0 ** -7 if z.dtype == torch.bfloat16 else 1e-5
+    for i, s in enumerate(shards):
+        got = ops.vt_shard_backward(s, y, i * vl, m, se, g, LM_BETA, v)
+        want = vt.vt_shard_backward_plain(s, y, i * vl, m, se, g, LM_BETA,
+                                          v).float()
+        d = (got.float() - want).abs()
+        bwd_err = max(bwd_err, float(d.max()))
+        bwd_ok = bwd_ok and bool((d <= rtol * want.abs() + 1e-6 * g[0]).all())
+    s0 = shards[0]
+    elt = z.element_size()
+    t_f = timings(torch, lambda: ops.vt_partial_stats(s0, y, 0, v),
+                  lambda: vt.vt_partial_plain(s0, y, 0), None)
+    t_b = timings(torch, lambda: ops.vt_shard_backward(
+        s0, y, 0, m, se, g, LM_BETA, v), lambda: vt.vt_shard_backward_plain(
+        s0, y, 0, m, se, g, LM_BETA, v), None)
+    out = {}
+    for kind, t, e, nbytes, per in [
+            ("fwd", t_f, max(err, kl_err), b * vl * elt + 8 * b + 16 * b, 4),
+            ("bwd", t_b, bwd_err, 2 * b * vl * elt + 8 * b + 12 * b, 5)]:
+        bound_ms, bound_by = q_bound(nbytes, per * b * vl)
+        out[kind] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=e, shape=[b, vl], shards=n,
+                         dtype=str(z.dtype))
+        name = "vt_kl_partial_fwd" if kind == "fwd" else "vt_kl_shard_bwd"
+        print(f"{name} at {n} shards of [B={b}, V={v}, {z.dtype}] (a shard "
+              f"[{b}, {vl}]): max_abs_err={e:g} (merged KL "
+              f"{kl_err:g}); kernel {t['ms']:.4f} ms call / "
+              f"{t['kernel_ms']:.4f} ms device, plain {t['plain_ms']:.4f} "
+              f"ms; bound {bound_ms:.4f} ms ({bound_by}), device time at "
+              f"{100 * bound_ms / t['kernel_ms']:.1f}% of bound")
+    check(ok, f"vt_kl_partial_fwd at {n} shards: kernel and plain differ "
+              f"by {err:g}, merged KL by {kl_err:g}")
+    check(bwd_ok, f"vt_kl_shard_bwd at {n} shards: kernel and plain differ "
+                  f"by {bwd_err:g}")
+    return out
+
+
+def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True):
+    """B.9's split-hd kernels on a cache cut into n hd shards: each shard's
+    partial scores against the plain version, their sum's softmax-combine
+    against the plain version, and the joined output against the unsplit
+    plain attention.  With `timed` (path e's cache), shard 0 timed against
+    its byte bound and beside the library's scores: one `torch.matmul` of
+    q·scale [B, K, G, hd/n] and the transposed k view [B, K, hd/n, W] (in
+    the inputs' dtype, so bf16 scores for bf16 inputs where the kernel
+    writes fp32; the transposition copied inside the call), and the same
+    product on a k transposed beforehand.  Without, the checks' errors."""
+    from repro_torch.kernels import decode_attention as da
+
+    b, h, hd = q.shape
+    w, kk = k.shape[1], k.shape[2]
+    hl = hd // n
+    scale = 1.0 / math.sqrt(hd)
+    cut = [(q[..., i * hl:(i + 1) * hl].contiguous(),
+            k[..., i * hl:(i + 1) * hl].contiguous(),
+            v[..., i * hl:(i + 1) * hl].contiguous()) for i in range(n)]
+    s_err, s_ok, total = 0.0, True, None
+    for qs, ks, _ in cut:
+        got = ops.decode_scores_partial(qs, ks, scale)
+        want = da.scores_partial_plain(qs, ks, scale)
+        terms = scale * torch.einsum(
+            "bkgd,bwkd->bkgw", qs.float().abs().reshape(b, kk, h // kk, hl),
+            ks.float().abs()).reshape(b, h, w)
+        d = (got - want).abs()
+        s_err = max(s_err, float(d.max()))
+        s_ok = s_ok and bool((d <= 1e-5 * terms + 1e-6).all())
+        total = got if total is None else total + got
+        del want, terms, d
+    c_err, c_ok, outs = 0.0, True, []
+    vmax = float(v.abs().max())
+    for _, _, vs in cut:
+        got = ops.decode_softmax_combine(total, vs, sp, pos)
+        want = da.softmax_combine_plain(total, vs, sp, pos)
+        d = (got - want).abs()
+        c_err = max(c_err, float(d.max()))
+        c_ok = c_ok and bool((d <= 2e-5 * want.abs()
+                              + 2e-5 * max(vmax, 1.0)).all())
+        outs.append(got)
+    joined = torch.cat(outs, dim=-1)
+    ref = da.decode_attention_plain(q, k, v, sp, pos)
+    j_err = float((joined - ref).abs().max())
+    j_ok = bool(((joined - ref).abs() <= 2e-5 * ref.abs()
+                 + 2e-5 * max(vmax, 1.0)).all())
+    del outs, joined, ref
+    label = (f"{n} hd shards of [B={b}, H={h}, W={w}, K={kk}, hd={hd}, "
+             f"{k.dtype}] (a shard's hd {hl})")
+    check(s_ok, f"decode_scores_partial at {label}: kernel and plain "
+                f"differ by {s_err:g}")
+    check(c_ok and j_ok, f"decode_softmax_combine at {label}: kernel and "
+                         f"plain differ by {c_err:g}, joined by {j_err:g}")
+    if not timed:
+        print(f"decode_scores_partial / decode_softmax_combine at {label}: "
+              f"max_abs_err {s_err:g} / {c_err:g} (joined output against "
+              f"the unsplit attention {j_err:g})")
+        return {kind: dict(max_abs_err=e, shape=[b, h, w, kk, hl], shards=n,
+                           dtype=str(k.dtype))
+                for kind, e in (("scores", s_err),
+                                ("combine", max(c_err, j_err)))}
+    q0, k0, v0 = cut[0]
+    q4 = (q0 * scale).reshape(b, kk, h // kk, hl)
+    kt = k0.permute(0, 2, 3, 1)
+    t_s = timings(torch, lambda: ops.decode_scores_partial(q0, k0, scale),
+                  lambda: da.scores_partial_plain(q0, k0, scale),
+                  lambda: torch.matmul(q4, kt))
+    kt = kt.contiguous()
+    t_s["library_pretransposed_kernel_ms"] = device_ms(
+        torch, lambda: torch.matmul(q4, kt))[0]
+    del kt
+    t_c = timings(torch, lambda: ops.decode_softmax_combine(total, v0, sp,
+                                                            pos),
+                  lambda: da.softmax_combine_plain(total, v0, sp, pos), None)
+    elt = k.element_size()
+    s_bytes = 4 * b * h * w
+    out = {}
+    for kind, t, e, nbytes, flops in [
+            ("scores", t_s, s_err, q0.numel() * q0.element_size()
+             + k0.numel() * elt + s_bytes, 2 * b * h * w * hl),
+            ("combine", t_c, max(c_err, j_err), s_bytes + v0.numel() * elt
+             + 4 * w + 4 + 4 * b * h * hl, 2 * b * h * w * hl + 3 * b * h * w)]:
+        bound_ms, bound_by = q_bound(nbytes, flops)
+        out[kind] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=e, shape=[b, h, w, kk, hl], shards=n,
+                         dtype=str(k.dtype))
+        name = ("decode_scores_partial" if kind == "scores"
+                else "decode_softmax_combine")
+        lib = ("" if t["library_ms"] is None else
+               f", torch.matmul {t['library_ms']:.4f} ms call / "
+               f"{t['library_kernel_ms']:.4f} ms device (on a k transposed "
+               f"beforehand {t['library_pretransposed_kernel_ms']:.4f} ms "
+               f"device)")
+        print(f"{name} at {label}: max_abs_err={e:g} (joined output "
+              f"against the unsplit attention {j_err:g}); kernel "
+              f"{t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms device, "
+              f"plain {t['plain_ms']:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+              f"({bound_by}), device time at "
+              f"{100 * bound_ms / t['kernel_ms']:.1f}% of bound")
+    return out
+
+
+def path_q(torch, ops, dev, card):
+    """The partitioned dense LM step (see the module docstring): q0 the
+    unpartitioned run and the (1, 1) NCCL mesh in this process, bitwise;
+    q1 the (1, 2) mesh in Q_RANKS ranks on the card over the host-staged
+    backend, against the unpartitioned run; the bf16 steps timed both
+    ways; then B.3's and B.9's split kernels at Q_SHARDS shards.  Returns
+    the launches by rank and the kernels' checks."""
+    import pickle
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.dist.sharding import full_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    t_q = time.perf_counter()
+    if Q_DIR.exists():
+        shutil.rmtree(Q_DIR)
+    Q_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    # -- q0: unpartitioned, then the (1, 1) NCCL mesh, fp32 activations
+    lm = q_lm("float32")
+    ref = q_steps(torch, ops, lm, dev)
+    want = {"vt_kl_loss_fwd": 1, "vt_kl_loss_bwd": 1,
+            "decode_attention_fused": LM_LAYERS * Q_STEPS}
+    check(ref["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
+          f"path q (unpartitioned): launches {ref['launches']}")
+    torch.save({k: ref[k] for k in ("loss", "prefill", "decode", "tokens")},
+               Q_DIR / "ref.pt")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(Q_DIR / "store0"), 1), rank=0,
+        world_size=1, device_id=dev)
+    try:
+        got = q_steps(torch, ops, lm, dev, make_host_mesh(data=1, model=1))
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(full_tree(got["params"])),
+            tree_leaves(ref["params"])))
+    finally:
+        dist.destroy_process_group()
+    same = {"loss": got["loss"] == ref["loss"], "params": same_params,
+            **{k: bool(torch.equal(got[k], ref[k]))
+               for k in ("prefill", "decode", "tokens")}}
+    bitwise = all(same.values())
+    print(f"path q0 ((data, model) = (1, 1) on NCCL, {card}): loss "
+          f"{got['loss']:.6f}, bitwise the unpartitioned step (loss, "
+          f"updated params, prefill logits, {Q_STEPS} decode steps' logits "
+          f"and tokens) = {bitwise}; launches {got['launches']}")
+    check(bitwise, f"path q0: the (1, 1) mesh differs from the "
+                   f"unpartitioned step: equal {same}")
+    check(got["launches"] == ref["launches"],
+          f"path q0: launches {got['launches']} against {ref['launches']}")
+    del got, ref, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- the unpartitioned bf16 steps, timed
+    base = q_steps(torch, ops, q_lm("bfloat16"), dev, timed=True)
+    base_ms, base_peak = base["ms"], base["peak"]
+    check(bool(torch.isfinite(base["decode"]).all()),
+          "path q: unpartitioned bf16 logits not finite")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- q1: (1, 2) over the host-staged backend, two ranks on this card
+    t0 = time.perf_counter()
+    mp.spawn(q_worker, args=(Q_RANKS, str(Q_DIR)), nprocs=Q_RANKS,
+             join=True)
+    ranks = []
+    for r in range(Q_RANKS):
+        with open(Q_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    q1_s = time.perf_counter() - t0
+    print(ranks[0]["text"])
+    check(ranks[0]["ok"], f"path q1 against the unpartitioned step: "
+                          f"{ranks[0]['text']}")
+    want = {"vt_kl_partial_fwd": 1, "vt_kl_shard_bwd": 1,
+            "decode_scores_partial": LM_LAYERS * Q_STEPS,
+            "decode_softmax_combine": LM_LAYERS * Q_STEPS}
+    for r, res in enumerate(ranks):
+        check(res["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
+              f"path q1 rank {r}: launches {res['launches']}")
+        check(res["imported"] == [] and res["finite_bf16"],
+              f"path q1 rank {r}: imported {res['imported']}, finite bf16 "
+              f"logits {res['finite_bf16']}")
+
+    def med(ms):
+        return {k: round(statistics.median(v[1:] if len(v) > 1 else v), 3)
+                for k, v in ms.items()}
+
+    print(f"path q (bf16 ms per step, median; {card}): unpartitioned "
+          f"{med(base_ms)}, peak {base_peak} B; (1, 2) over the host-staged "
+          f"backend, rank 0 {med(ranks[0]['ms_bf16'])}, rank 1 "
+          f"{med(ranks[1]['ms_bf16'])}, peak {ranks[0]['peak']} / "
+          f"{ranks[1]['peak']} B (fp32 run); launches per rank "
+          f"{[{k: r['launches'][k] for k in Q_KERNELS} for r in ranks]}; "
+          f"q1 in {q1_s:.1f} s")
+    # -- the split kernels in this process, at Q_SHARDS shards
+    gen = torch.Generator(device=dev).manual_seed(28)
+    v_full = 151936
+    y = torch.randint(0, v_full, (LM_BATCH * LM_SEQ,), generator=gen,
+                      device=dev)
+    vt_checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        z = (torch.randn((LM_BATCH * LM_SEQ, v_full), generator=gen,
+                         device=dev) * 3).to(dtype)
+        for n in Q_SHARDS:
+            vt_checks[str(dtype), n] = q_vt_split(torch, ops, z, y, n)
+        del z
+    torch.cuda.empty_cache()
+    b, h, hd = SERVE_BATCH, 16, 64
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, SERVE_WINDOW, h, hd), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((b, SERVE_WINDOW, h, hd), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    sp = torch.arange(SERVE_WINDOW, dtype=torch.int32, device=dev)
+    sp[32720:] = -1  # path e's live context
+    pos = torch.tensor(32719, dtype=torch.int32, device=dev)
+    da_checks = {n: q_decode_split(torch, ops, q, k, v, sp, pos, n)
+                 for n in Q_SHARDS}
+    del q, k, v, sp
+    torch.cuda.empty_cache()
+    # ... and at q1's own shard shape (Q_BATCH x Q_WINDOW, hd 64 over
+    # Q_RANKS, the ring's first Q_STEPS slots live), both dtypes
+    da_q1 = {}
+    sp = torch.full((Q_WINDOW,), -1, dtype=torch.int32, device=dev)
+    sp[:Q_STEPS] = torch.arange(Q_STEPS, dtype=torch.int32, device=dev)
+    pos = torch.tensor(Q_STEPS - 1, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((Q_BATCH, h, hd),
+                                 (Q_BATCH, Q_WINDOW, h, hd),
+                                 (Q_BATCH, Q_WINDOW, h, hd)))
+        da_q1[str(dtype)] = q_decode_split(torch, ops, q, k, v, sp, pos,
+                                           Q_RANKS, timed=False)
+    del q, k, v, sp
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ops.LAUNCHES}
+    print(f"path q in all {time.perf_counter() - t_q:.1f} s")
+    return {"launches": launches, "vt": vt_checks, "da": da_checks,
+            "da_q1": da_q1,
+            "ms": {"unpartitioned_bf16": med(base_ms),
+                   "partitioned_bf16": med(ranks[0]["ms_bf16"])}}
+
+
 def main() -> int:
     try:
         import torch
@@ -4824,6 +5341,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")))
     check(sorted(libs) == ["decdiff_update", "decode_attention",
+                           "decode_attention_split",
                            "dequant_avg", "dequant_avg_rows",
                            "dequant_segment_avg", "gather_rows",
                            "neighbor_avg", "segment_avg", "vt_kl_loss"],
@@ -4843,6 +5361,11 @@ def main() -> int:
     if "--path-p" in sys.argv[1:]:  # path p alone, for its development
         path_p(torch, ops, dev, card)
         print(f"chip_smoke --path-p finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-q" in sys.argv[1:]:  # path q alone, for its development
+        path_q(torch, ops, dev, card)
+        print(f"chip_smoke --path-q finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -5261,13 +5784,17 @@ def main() -> int:
 
     # -- path p: the examples at the reference examples' defaults ----------
     lmp = path_p(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- path q: the partitioned dense LM step -----------------------------
+    lmq = path_q(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
                "g": l_ge, "n": {k: l_n.get(k, 0) for k in ops.LAUNCHES},
                "o": {k: sum(r[k] for r in lmo["launches"].values())
                      for k in ops.LAUNCHES},
-               "p": lmp["total"],
+               "p": lmp["total"], "q": lmq["launches"],
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -5363,6 +5890,33 @@ def main() -> int:
         entry("drift_norms", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", drift,
               other_shapes=[at_j(drift_c)], path_m=at_j(drift_m)),
+        # path q's split forms: the main path's shard ([512, 75968] fp32,
+        # hd 32 of 64) first, the other shard counts and dtypes beside
+        entry("vt_kl_partial_fwd", "vt_kl_loss",
+              "src/repro/kernels/vt_kl_loss.py:94",
+              at_j(lmq["vt"]["torch.float32", 2]["fwd"]),
+              also_replaces="src/repro/kernels/vt_kl_loss.py:108",
+              other_shapes=[at_j(c["fwd"]) for key, c in lmq["vt"].items()
+                            if key != ("torch.float32", 2)]),
+        entry("vt_kl_shard_bwd", "vt_kl_loss",
+              "src/repro/kernels/vt_kl_loss.py:127",
+              at_j(lmq["vt"]["torch.float32", 2]["bwd"]),
+              other_shapes=[at_j(c["bwd"]) for key, c in lmq["vt"].items()
+                            if key != ("torch.float32", 2)]),
+        entry("decode_scores_partial", "decode_attention_split",
+              "src/repro/kernels/decode_attention.py:92",
+              at_j(lmq["da"][2]["scores"]),
+              library_pretransposed_kernel_ms=lmq["da"][2]["scores"][
+                  "library_pretransposed_kernel_ms"],
+              other_shapes=[at_j(lmq["da"][n]["scores"])
+                            for n in Q_SHARDS[1:]],
+              path_q1=[c["scores"] for c in lmq["da_q1"].values()]),
+        entry("decode_softmax_combine", "decode_attention_split",
+              "src/repro/kernels/decode_attention.py:92",
+              at_j(lmq["da"][2]["combine"]),
+              other_shapes=[at_j(lmq["da"][n]["combine"])
+                            for n in Q_SHARDS[1:]],
+              path_q1=[c["combine"] for c in lmq["da_q1"].values()]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -5431,6 +5985,9 @@ def main() -> int:
         + ", ".join(f"{m} {r['acc']:.4f} ± {r['std']:.4f}"
                     for m, r in lmp["tables"].items())
         + f"; Table IV {lmp['char_times']}")
+    print(f"path q (the partitioned step, {card}): bf16 ms per step "
+          f"unpartitioned {lmq['ms']['unpartitioned_bf16']}, (1, 2) "
+          f"{lmq['ms']['partitioned_bf16']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,6 +17,14 @@ plain PyTorch version on the CPU.
 Node batching: logits are [..., B, V] and labels [..., B]; the losses
 average over the batch axis B only, so [N, B, V] logits give one loss per
 node ([N]) and [B, V] logits one scalar, as in the JAX package.
+
+On a mesh (logits a DTensor, `dist.constraints.use_mesh`) the loss runs on
+the local shards: with the vocabulary split over "model" (the layout of
+`constrain_logits`) each shard takes its rows' partial statistics and two
+all-reduces over "model" combine them (`ops.vt_kl_loss_vocab_parallel`),
+so [B, V] is never gathered; the mean over the data-split rows is a
+DTensor reduction.  Cross-entropy there is the same computation at β = 1,
+where a = 0 and H(p_t) = 0 make Eq. 8 lse(z) − z_c.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional
 import torch
 from torch._subclasses.fake_tensor import unset_fake_temporarily
 
+from repro_torch.dist.constraints import is_dtensor, vocab_shard
 from repro_torch.kernels import ops
 
 DEFAULT_BETA = 0.95
@@ -67,6 +76,11 @@ def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor,
     computes in fp32), labels broadcastable to [..., B].  `where`, a bool
     mask broadcastable to [..., B] (e.g. padding tokens), zeroes the masked
     positions and excludes them from the mean, as the reference's does."""
+    if is_dtensor(logits):
+        if where is not None:
+            raise NotImplementedError("vt_kl_loss takes no `where` on a "
+                                      "mesh")
+        return _mean_kl_on_mesh(logits, labels, beta)
     v = logits.shape[-1]
     lead = logits.shape[:-1]
     idx = labels.to(torch.int64).expand(lead).reshape(-1)
@@ -84,9 +98,45 @@ def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(kl, dim=-1) / denom
 
 
+def _mean_kl_on_mesh(logits, labels, beta: float):
+    """`vt_kl_loss` of DTensor logits [..., B, V] (module docstring)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    v = logits.shape[-1]
+    lead = logits.shape[:-1]
+    vocab = vocab_shard(mesh, v)
+    z = logits.reshape(-1, v)
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in z.placements)
+    z_pl = vocab.place(z.placements, 1)
+    if z_pl != tuple(z.placements):
+        z = z.redistribute(mesh, z_pl)
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh,
+                                    [Replicate()] * mesh.ndim)
+    idx = labels.to(torch.int64).reshape(-1).redistribute(mesh, rows)
+    with unset_fake_temporarily():
+        h = float(teacher_entropy(beta, v))
+
+    def local(zl, il):
+        zl, il = zl.contiguous(), il.contiguous()
+        if vocab.split:
+            return ops.vt_kl_loss_vocab_parallel(zl, il, beta, -h,
+                                                 vocab.offset, v, vocab.group)
+        return ops.vt_kl_loss(zl, il, beta, -h)
+
+    kl = local_map(local, out_placements=list(rows),
+                   in_placements=(z_pl, rows), device_mesh=mesh)(z, idx)
+    return torch.mean(kl.reshape(lead), dim=-1)
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
     """Cross-entropy on hard labels, mean over the batch axis."""
+    if is_dtensor(logits):
+        return _mean_kl_on_mesh(logits, labels, 1.0)
     z = logits.to(torch.float32)
     return torch.mean(torch.logsumexp(z, dim=-1) - _true_class(z, labels),
                       dim=-1)

@@ -56,6 +56,17 @@
 // element depends on (z, max, sumexp, label, g) alone.
 // Sums are taken in another order than the plain PyTorch version's, so the
 // two agree to fp32 rounding, not bit for bit.  Offsets are 64-bit.
+//
+// Vocab-parallel forms (logits split over the "model" axis of a mesh, each
+// shard holding the columns [off, off + V) of V_total): `vt_kl_partial_fwd`
+// runs the same forward plans but writes the row's partial statistics
+// instead of the KL -- max, sum exp(z - max), sum z and z_c when the
+// label falls in the shard (0 otherwise; a label outside [0, V_total)
+// traps) -- which the caller combines with an all-reduce over the shards
+// (the max first, then the rescaled sums: the reference's row_max ->
+// row_stats split with a reduction in between); `vt_kl_bwd_shard` is the
+// backward on the local columns, from the combined max and sum and the
+// global a, the label located by the shard's offset.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -237,11 +248,29 @@ __device__ __forceinline__ float label_logit(const T* __restrict__ zr,
   return to_f32(zr[lab]);
 }
 
+// The outputs of a forward launch: the KL and the stats the backward
+// reuses, or (PARTIAL) the shard's four partial statistics.
+struct FwdOut {
+  float* kl;      // KL (full) / sum z (partial)
+  float* mx;
+  float* sumexp;
+  float* zc;      // partial only: z_c or 0
+};
+
+template <bool PARTIAL>
 __device__ __forceinline__ void write_row(const Stats& t, float zc,
-                                          int64_t row, float* __restrict__ kl,
-                                          float* __restrict__ mx,
-                                          float* __restrict__ sumexp,
+                                          int64_t row, const FwdOut& o,
                                           float beta, float a, float neg_h) {
+  if constexpr (PARTIAL) {
+    o.kl[row] = t.z;
+    o.mx[row] = t.m;
+    o.sumexp[row] = t.s;
+    o.zc[row] = zc;
+    return;
+  }
+  float* __restrict__ kl = o.kl;
+  float* __restrict__ mx = o.mx;
+  float* __restrict__ sumexp = o.sumexp;
   const float lse = __fadd_rn(logf(t.s), t.m);
   // beta*z_c + a*(sum z - z_c) - lse, one rounding per operation
   const float cross = __fsub_rn(
@@ -273,12 +302,13 @@ __device__ __forceinline__ Stats block_reduce(Stats st, Stats* warp_stats) {
 
 // kGroupRows: blockDim.x / lanes rows a block, `lanes` (2-32) lanes a row.
 // kBlockRows: one block a row.
-template <typename T, int VEC, FwdForm FORM>
+// PARTIAL: the shard's partial statistics (labels - lab_off are local,
+// out of [0, V) in every shard but one; labels outside [0, v_total) trap).
+template <typename T, int VEC, FwdForm FORM, bool PARTIAL>
 __global__ void __launch_bounds__(kMaxThreads)
 vt_fwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
-              float* __restrict__ kl, float* __restrict__ mx,
-              float* __restrict__ sumexp, int64_t B, int64_t V, int lanes,
-              float beta, float a, float neg_h) {
+              FwdOut o, int64_t B, int64_t V, int lanes, float beta,
+              float a, float neg_h, int64_t lab_off, int64_t v_total) {
   const int64_t nvec = V / VEC;
   if constexpr (FORM == kGroupRows) {
     // each lane holds at most U vectors of its row (launch_fwd checks),
@@ -304,7 +334,8 @@ vt_fwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
           ++n;
         }
       }
-      const int64_t lab = labels[row];
+      const int64_t glab = labels[row];
+      const int64_t lab = glab - lab_off;
       float zc = 0.0f;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -316,10 +347,19 @@ vt_fwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
       Stats st = empty_stats();
       fold<T, VEC, U>(st, p, n);
       st = shfl_combine(st, mask, lanes);
-      if (lab < 0 || lab >= V) __trap();
-      zc = __shfl_sync(mask, zc, static_cast<int>((lab / VEC) & (lanes - 1)),
-                       lanes);
-      if (lane == 0) write_row(st, zc, row, kl, mx, sumexp, beta, a, neg_h);
+      if constexpr (PARTIAL) {
+        if (glab < 0 || glab >= v_total) __trap();
+        // a label outside the shard leaves zc = 0 on every lane
+        zc = __shfl_sync(mask, zc,
+                         static_cast<int>(((lab < 0 ? 0 : lab) / VEC)
+                                          & (lanes - 1)),
+                         lanes);
+      } else {
+        if (lab < 0 || lab >= V) __trap();
+        zc = __shfl_sync(mask, zc,
+                         static_cast<int>((lab / VEC) & (lanes - 1)), lanes);
+      }
+      if (lane == 0) write_row<PARTIAL>(st, zc, row, o, beta, a, neg_h);
     }
   } else {
     __shared__ Stats warp_stats[kMaxThreads / 32];
@@ -328,10 +368,17 @@ vt_fwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
       const int64_t lab = threadIdx.x == 0 ? labels[row] : 0;
       const Stats part = accumulate<T, VEC>(zr, threadIdx.x, nvec, blockDim.x);
       float zc = 0.0f;
-      if (threadIdx.x == 0) zc = label_logit(zr, lab, V);
+      if (threadIdx.x == 0) {
+        if constexpr (PARTIAL) {
+          if (lab < 0 || lab >= v_total) __trap();
+          const int64_t loc = lab - lab_off;
+          if (loc >= 0 && loc < V) zc = to_f32(zr[loc]);
+        } else {
+          zc = label_logit(zr, lab, V);
+        }
+      }
       const Stats st = block_reduce(part, warp_stats);
-      if (threadIdx.x == 0)
-        write_row(st, zc, row, kl, mx, sumexp, beta, a, neg_h);
+      if (threadIdx.x == 0) write_row<PARTIAL>(st, zc, row, o, beta, a, neg_h);
     }
   }
 }
@@ -359,7 +406,7 @@ vt_bwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
               const float* __restrict__ mx, const float* __restrict__ sumexp,
               const float* __restrict__ g, T* __restrict__ dz, int64_t total,
               int64_t nvec, int64_t V, Divider rowdiv, bool narrow,
-              float beta, float a) {
+              float beta, float a, int64_t lab_off) {
   constexpr int U = bwd_unroll<T, VEC>();
   const int64_t grid = static_cast<int64_t>(gridDim.x) * kBwdThreads;
   for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * kBwdThreads
@@ -381,7 +428,9 @@ vt_bwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
       if (i < total) {
         const int64_t r = row[u];
         const float m = mx[r], s = sumexp[r], gr = g[r];
-        const int64_t lab_at = r * V + labels[r];  // the label's element
+        // the label's element (none of row r's when the label lies
+        // outside this shard's columns)
+        const int64_t lab_at = r * V + (labels[r] - lab_off);
         Pack<T, VEC> out;
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
@@ -396,10 +445,10 @@ vt_bwd_kernel(const T* __restrict__ z, const int64_t* __restrict__ labels,
   }
 }
 
-template <typename T, int VEC>
-cudaError_t launch_fwd(const void* z, const int64_t* labels, float* kl,
-                       float* mx, float* sumexp, int64_t B, int64_t V,
-                       int lanes, int rows, float beta, float a, float neg_h,
+template <typename T, int VEC, bool PARTIAL>
+cudaError_t launch_fwd(const void* z, const int64_t* labels, FwdOut o,
+                       int64_t B, int64_t V, int lanes, int rows, float beta,
+                       float a, float neg_h, int64_t lab_off, int64_t v_total,
                        cudaStream_t stream) {
   const T* zt = static_cast<const T*>(z);
   const int threads = lanes * rows;
@@ -408,15 +457,15 @@ cudaError_t launch_fwd(const void* z, const int64_t* labels, float* kl,
       return cudaErrorInvalidValue;  // a lane would hold more than a step
     const int64_t want = (B + rows - 1) / rows;
     const int64_t blocks = want < kMaxRowBlocks ? want : kMaxRowBlocks;
-    vt_fwd_kernel<T, VEC, kGroupRows>
+    vt_fwd_kernel<T, VEC, kGroupRows, PARTIAL>
         <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-            zt, labels, kl, mx, sumexp, B, V, lanes, beta, a, neg_h);
+            zt, labels, o, B, V, lanes, beta, a, neg_h, lab_off, v_total);
     return cudaGetLastError();
   }
   const int64_t blocks = B < kMaxRowBlocks ? B : kMaxRowBlocks;
-  vt_fwd_kernel<T, VEC, kBlockRows>
+  vt_fwd_kernel<T, VEC, kBlockRows, PARTIAL>
       <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-          zt, labels, kl, mx, sumexp, B, V, lanes, beta, a, neg_h);
+          zt, labels, o, B, V, lanes, beta, a, neg_h, lab_off, v_total);
   return cudaGetLastError();
 }
 
@@ -424,7 +473,7 @@ template <typename T, int VEC>
 cudaError_t launch_bwd(const void* z, const int64_t* labels, const float* mx,
                        const float* sumexp, const float* g, void* dz,
                        int64_t B, int64_t V, float beta, float a,
-                       cudaStream_t stream) {
+                       int64_t lab_off, cudaStream_t stream) {
   const int64_t nvec = V / VEC, total = B * nvec;
   const bool narrow = total < (int64_t{1} << 31);
   const Divider rowdiv(narrow ? static_cast<uint32_t>(nvec) : 1u);
@@ -440,7 +489,7 @@ cudaError_t launch_bwd(const void* z, const int64_t* labels, const float* mx,
   vt_bwd_kernel<T, VEC><<<static_cast<unsigned>(blocks), kBwdThreads, 0,
                           stream>>>(
       static_cast<const T*>(z), labels, mx, sumexp, g, static_cast<T*>(dz),
-      total, nvec, V, rowdiv, narrow, beta, a);
+      total, nvec, V, rowdiv, narrow, beta, a, lab_off);
   return cudaGetLastError();
 }
 
@@ -461,25 +510,27 @@ bool fwd_plan_fits(int lanes, int rows) {
   return rows == 1 && lanes % 32 == 0 && lanes >= 32 && lanes <= kMaxThreads;
 }
 
-template <typename T>
-cudaError_t fwd_by_width(const void* z, const int64_t* labels, float* kl,
-                         float* mx, float* sumexp, int64_t B, int64_t V,
-                         int vec_bytes, int lanes, int rows, float beta,
-                         float a, float neg_h, cudaStream_t stream) {
+template <typename T, bool PARTIAL>
+cudaError_t fwd_by_width(const void* z, const int64_t* labels, FwdOut o,
+                         int64_t B, int64_t V, int vec_bytes, int lanes,
+                         int rows, float beta, float a, float neg_h,
+                         int64_t lab_off, int64_t v_total,
+                         cudaStream_t stream) {
   switch (vec_bytes / static_cast<int>(sizeof(T))) {
     case 1:
-      return launch_fwd<T, 1>(z, labels, kl, mx, sumexp, B, V, lanes, rows,
-                              beta, a, neg_h, stream);
+      return launch_fwd<T, 1, PARTIAL>(z, labels, o, B, V, lanes, rows, beta,
+                                       a, neg_h, lab_off, v_total, stream);
     case 2:
-      return launch_fwd<T, 2>(z, labels, kl, mx, sumexp, B, V, lanes, rows,
-                              beta, a, neg_h, stream);
+      return launch_fwd<T, 2, PARTIAL>(z, labels, o, B, V, lanes, rows, beta,
+                                       a, neg_h, lab_off, v_total, stream);
     case 4:
-      return launch_fwd<T, 4>(z, labels, kl, mx, sumexp, B, V, lanes, rows,
-                              beta, a, neg_h, stream);
+      return launch_fwd<T, 4, PARTIAL>(z, labels, o, B, V, lanes, rows, beta,
+                                       a, neg_h, lab_off, v_total, stream);
     case 8:
       if constexpr (sizeof(T) == 2)
-        return launch_fwd<T, 8>(z, labels, kl, mx, sumexp, B, V, lanes, rows,
-                                beta, a, neg_h, stream);
+        return launch_fwd<T, 8, PARTIAL>(z, labels, o, B, V, lanes, rows,
+                                         beta, a, neg_h, lab_off, v_total,
+                                         stream);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
@@ -490,25 +541,76 @@ template <typename T>
 cudaError_t bwd_by_width(const void* z, const int64_t* labels,
                          const float* mx, const float* sumexp, const float* g,
                          void* dz, int64_t B, int64_t V, int vec_bytes,
-                         float beta, float a, cudaStream_t stream) {
+                         float beta, float a, int64_t lab_off,
+                         cudaStream_t stream) {
   switch (vec_bytes / static_cast<int>(sizeof(T))) {
     case 1:
       return launch_bwd<T, 1>(z, labels, mx, sumexp, g, dz, B, V, beta, a,
-                              stream);
+                              lab_off, stream);
     case 2:
       return launch_bwd<T, 2>(z, labels, mx, sumexp, g, dz, B, V, beta, a,
-                              stream);
+                              lab_off, stream);
     case 4:
       return launch_bwd<T, 4>(z, labels, mx, sumexp, g, dz, B, V, beta, a,
-                              stream);
+                              lab_off, stream);
     case 8:
       if constexpr (sizeof(T) == 2)
         return launch_bwd<T, 8>(z, labels, mx, sumexp, g, dz, B, V, beta, a,
-                                stream);
+                                lab_off, stream);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+namespace {
+
+cudaError_t fwd_any(const void* z, int dtype, const int64_t* labels,
+                    FwdOut o, int64_t B, int64_t V, int vec_bytes, int lanes,
+                    int rows_per_block, float beta, float a, float neg_h,
+                    bool partial, int64_t lab_off, int64_t v_total,
+                    cudaStream_t stream) {
+  if (B <= 0) return cudaSuccess;
+  const int elt = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (elt == 0 || V < (partial ? 1 : 2) ||
+      !width_fits(V, elt, vec_bytes, reinterpret_cast<uintptr_t>(z)) ||
+      !fwd_plan_fits(lanes, rows_per_block))
+    return cudaErrorInvalidValue;
+  if (partial) {
+    if (dtype == 0)
+      return fwd_by_width<float, true>(z, labels, o, B, V, vec_bytes, lanes,
+                                       rows_per_block, beta, a, neg_h,
+                                       lab_off, v_total, stream);
+    return fwd_by_width<__nv_bfloat16, true>(z, labels, o, B, V, vec_bytes,
+                                             lanes, rows_per_block, beta, a,
+                                             neg_h, lab_off, v_total, stream);
+  }
+  if (dtype == 0)
+    return fwd_by_width<float, false>(z, labels, o, B, V, vec_bytes, lanes,
+                                      rows_per_block, beta, a, neg_h, 0, V,
+                                      stream);
+  return fwd_by_width<__nv_bfloat16, false>(z, labels, o, B, V, vec_bytes,
+                                            lanes, rows_per_block, beta, a,
+                                            neg_h, 0, V, stream);
+}
+
+cudaError_t bwd_any(const void* z, int dtype, const int64_t* labels,
+                    const float* mx, const float* sumexp, const float* g,
+                    void* dz, int64_t B, int64_t V, int vec_bytes, float beta,
+                    float a, int64_t lab_off, cudaStream_t stream) {
+  if (B <= 0) return cudaSuccess;
+  const int elt = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(z)
+                       | reinterpret_cast<uintptr_t>(dz);
+  if (elt == 0 || V < 1 || !width_fits(V, elt, vec_bytes, al))
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return bwd_by_width<float>(z, labels, mx, sumexp, g, dz, B, V, vec_bytes,
+                               beta, a, lab_off, stream);
+  return bwd_by_width<__nv_bfloat16>(z, labels, mx, sumexp, g, dz, B, V,
+                                     vec_bytes, beta, a, lab_off, stream);
 }
 
 }  // namespace
@@ -522,18 +624,9 @@ extern "C" cudaError_t vt_kl_fwd(const void* z, int dtype,
                                  int vec_bytes, int lanes, int rows_per_block,
                                  float beta, float a, float neg_h,
                                  cudaStream_t stream) {
-  if (B <= 0) return cudaSuccess;
-  const int elt = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
-  if (elt == 0 || V < 2 ||
-      !width_fits(V, elt, vec_bytes, reinterpret_cast<uintptr_t>(z)) ||
-      !fwd_plan_fits(lanes, rows_per_block))
-    return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return fwd_by_width<float>(z, labels, kl, mx, sumexp, B, V, vec_bytes,
-                               lanes, rows_per_block, beta, a, neg_h, stream);
-  return fwd_by_width<__nv_bfloat16>(z, labels, kl, mx, sumexp, B, V,
-                                     vec_bytes, lanes, rows_per_block, beta, a,
-                                     neg_h, stream);
+  return fwd_any(z, dtype, labels, FwdOut{kl, mx, sumexp, nullptr}, B, V,
+                 vec_bytes, lanes, rows_per_block, beta, a, neg_h, false, 0,
+                 V, stream);
 }
 
 extern "C" cudaError_t vt_kl_bwd(const void* z, int dtype,
@@ -542,15 +635,37 @@ extern "C" cudaError_t vt_kl_bwd(const void* z, int dtype,
                                  void* dz, int64_t B, int64_t V,
                                  int vec_bytes, float beta, float a,
                                  cudaStream_t stream) {
-  if (B <= 0) return cudaSuccess;
-  const int elt = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
-  const uintptr_t al = reinterpret_cast<uintptr_t>(z)
-                       | reinterpret_cast<uintptr_t>(dz);
-  if (elt == 0 || V < 2 || !width_fits(V, elt, vec_bytes, al))
+  if (V < 2) return cudaErrorInvalidValue;
+  return bwd_any(z, dtype, labels, mx, sumexp, g, dz, B, V, vec_bytes, beta,
+                 a, 0, stream);
+}
+
+// The shard [B, V] holding columns [lab_off, lab_off + V) of V_total: per
+// row its max, sum exp(z - max), sum z and z_c (0 when the label is not
+// in the shard).
+extern "C" cudaError_t vt_kl_partial_fwd(const void* z, int dtype,
+                                         const int64_t* labels,
+                                         int64_t lab_off, int64_t v_total,
+                                         float* mx, float* sumexp,
+                                         float* zsum, float* zc, int64_t B,
+                                         int64_t V, int vec_bytes, int lanes,
+                                         int rows_per_block,
+                                         cudaStream_t stream) {
+  if (v_total < 2 || lab_off < 0 || lab_off + V > v_total)
     return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return bwd_by_width<float>(z, labels, mx, sumexp, g, dz, B, V, vec_bytes,
-                               beta, a, stream);
-  return bwd_by_width<__nv_bfloat16>(z, labels, mx, sumexp, g, dz, B, V,
-                                     vec_bytes, beta, a, stream);
+  return fwd_any(z, dtype, labels, FwdOut{zsum, mx, sumexp, zc}, B, V,
+                 vec_bytes, lanes, rows_per_block, 0.0f, 0.0f, 0.0f, true,
+                 lab_off, v_total, stream);
+}
+
+// The backward on the shard's columns: mx / sumexp the combined row
+// statistics, a = (1 - beta) / (V_total - 1).
+extern "C" cudaError_t vt_kl_bwd_shard(const void* z, int dtype,
+                                       const int64_t* labels, int64_t lab_off,
+                                       const float* mx, const float* sumexp,
+                                       const float* g, void* dz, int64_t B,
+                                       int64_t V, int vec_bytes, float beta,
+                                       float a, cudaStream_t stream) {
+  return bwd_any(z, dtype, labels, mx, sumexp, g, dz, B, V, vec_bytes, beta,
+                 a, lab_off, stream);
 }

@@ -34,9 +34,21 @@ and "dfl_round.gossip", which a profiler trace reads (`chip_smoke.py
 (the `decdiff_update` kernels on the card: one norm per node, no [N, D]
 difference or square in device memory).  `build_serve_step` is one decode
 step against the ring KV cache, under `torch.inference_mode()`.
+
+`build_train_step`, `build_prefill_step` and `build_serve_step` take a
+`mesh=` (a DeviceMesh with "data" and "model" dimensions): the step then
+runs partitioned on it, the counterpart of the reference's step jitted
+with `in_shardings` from its specs.  The caller places params, optimizer
+state, batch and cache as DTensors by `dist.sharding`'s specs
+(`place_tree`); the step computes what the unpartitioned one computes
+(`models/lm/layers.py`: tensor parallelism over "model", the batch over
+"data", vocab-parallel logits and loss), returns the loss whole and the
+logits vocab-sharded, and updates the placed params, state and cache in
+place.  The dense family partitions (ROADMAP A.14 queues the others).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -45,6 +57,7 @@ from torch.profiler import record_function
 from repro_torch.comm.codecs import Int8Codec
 from repro_torch.comm.transport import (DENSE_CTX, codec_roundtrip_stacked,
                                         pod_context, pod_mean)
+from repro_torch.dist.constraints import is_dtensor, use_mesh
 from repro_torch.dist.sharding import NODE_AXIS
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import OnePodMesh, pod_axis
@@ -112,44 +125,70 @@ def decdiff_gossip(stacked, adj, s=DEFAULT_S, *, mask=None,
     return _decdiff_apply(stacked, full, wn, row, s)
 
 
-def _make_node_step(lm, opt, loss_kind, beta):
+def _on_mesh(lm, mesh):
+    """The context a step runs in: `use_mesh(mesh)`, or none."""
+    if mesh is None:
+        return contextlib.nullcontext
+    if lm.cfg.family != "dense":
+        raise NotImplementedError(
+            f"a partitioned step of the {lm.cfg.family!r} family is not "
+            f"ported yet (ROADMAP A.14); the dense family partitions")
+    return lambda: use_mesh(mesh)
+
+
+def _make_node_step(lm, opt, loss_kind, beta, mesh=None):
+    context = _on_mesh(lm, mesh)
+
     def node_step(params, opt_state, step, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
+        with context(), torch.enable_grad():
             total, _ = lm.loss(tree_unflatten_like(params, leaves), batch,
                                loss_kind=loss_kind, beta=beta)
             grads = torch.autograd.grad(total, leaves)
-        params, opt_state = opt.update(
-            tree_unflatten_like(params, list(grads)), opt_state, params)
-        return params, opt_state, total.detach()
+            params, opt_state = opt.update(
+                tree_unflatten_like(params, list(grads)), opt_state, params)
+        loss = total.detach()
+        return params, opt_state, (loss.full_tensor() if is_dtensor(loss)
+                                   else loss)
 
     return node_step
 
 
-def build_train_step(lm, opt, *, loss_kind: str = "vt", beta: float = 0.98):
+def build_train_step(lm, opt, *, loss_kind: str = "vt", beta: float = 0.98,
+                     mesh=None):
     """(params, opt_state, step, batch) -> (params, opt_state, loss) for a
-    single model replica; params and opt_state are updated in place."""
-    return _make_node_step(lm, opt, loss_kind, beta)
+    single model replica; params and opt_state are updated in place.  On
+    `mesh` (module docstring) the loss is returned whole."""
+    return _make_node_step(lm, opt, loss_kind, beta, mesh)
 
 
-def build_prefill_step(lm):
-    """(params, batch) -> logits: the forward pass, teacher-forced."""
+def build_prefill_step(lm, *, mesh=None):
+    """(params, batch) -> logits: the forward pass, teacher-forced (on
+    `mesh`, vocab-sharded DTensor logits)."""
+    context = _on_mesh(lm, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = lm.forward(params, batch)
+        with context():
+            logits, _ = lm.forward(params, batch)
         return logits
 
     return prefill_step
 
 
-def build_serve_step(lm):
+def build_serve_step(lm, *, mesh=None):
     """(params, cache, tokens [B, 1]) -> (logits [B, 1, V], cache): one
-    decode step against the ring KV cache, under `torch.inference_mode()`.
-    The cache is updated in place and returned."""
+    decode step against the ring KV cache, under `torch.inference_mode()`
+    (`torch.no_grad()` on `mesh`).  The cache is updated in place and
+    returned (on `mesh`, the placed cache's local shards; the logits
+    vocab-sharded)."""
+    context = _on_mesh(lm, mesh)
+
+    # DTensor ops do not run on inference tensors: no_grad on a mesh
+    grad_off = torch.inference_mode if mesh is None else torch.no_grad
 
     def serve_step(params, cache, tokens):
-        with torch.inference_mode():
+        with context(), grad_off():
             return lm.decode_step(params, cache, tokens)
 
     return serve_step

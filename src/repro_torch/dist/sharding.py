@@ -28,10 +28,10 @@ reference's `jax.sharding.PartitionSpec`.  `mesh` is anything with a
 `DeviceMesh` (its `mesh_dim_names` and `shape`).  In place of the
 reference's `named` (NamedShardings for `jit`), `placements` turns a spec
 into DTensor placements on a DeviceMesh and `distribute_tree` places a
-whole tree.  The port runs one model per card, and the pod backend moves
-whole node blocks between ranks, so no code path of a round places its
-tensors this way: the dry run (`launch/dryrun.py`) does, to size each
-device's share.
+whole tree, and `full_tree` gathers one back.  The partitioned steps of
+`dist/dfl_step.py` (`mesh=`) and the dry run (`launch/dryrun.py`) place
+their params, state, batch and cache this way; the pod backend moves whole
+node blocks between ranks instead.
 """
 from __future__ import annotations
 
@@ -251,7 +251,8 @@ def placements(spec, mesh):
 
 def distribute_tree(tree, specs, mesh):
     """`distribute_tensor` of every leaf of `tree` by its spec in the
-    like-structured `specs`: a tree of DTensors on `mesh`."""
+    like-structured `specs`: a tree of DTensors on `mesh`.  Every rank
+    passes the same whole tree (rank 0's values are broadcast)."""
     from torch.distributed.tensor import distribute_tensor
 
     if isinstance(tree, dict):
@@ -260,4 +261,16 @@ def distribute_tree(tree, specs, mesh):
         return type(tree)(distribute_tree(t, s, mesh)
                           for t, s in zip(tree, specs))
     return distribute_tensor(tree, mesh, placements(specs, mesh))
+
+
+def full_tree(tree):
+    """The whole tensors of a tree of DTensors (`full_tensor()` of each
+    leaf, an all-gather of its shards); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_tree(v) for v in tree)
+    if type(tree).__name__ == "DTensor":
+        return tree.full_tensor()
+    return tree
 

@@ -16,6 +16,12 @@ resident blocks per SM.  It sums in another order than the plain version,
 so the two agree to a tolerance, not bitwise.  Use `repro_torch.kernels.
 ops.decode_attention_fused`, which validates the inputs and picks between
 the two by the tensors' device.
+
+The split-hd form, for a cache split over a mesh's "model" axis along hd
+(`csrc/decode_attention_split.cu`): `scores_partial_*` give the scaled
+partial scores [B, H, W] fp32 over the local hd columns, which the caller
+sums over the shards (an all-reduce), and `softmax_combine_*` mask them,
+take the softmax and combine the local hd columns of v.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ MIN_WAVE_FILL = 0.9
 _PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
 _SPLITS: Dict[tuple, Tuple[int, int, int]] = {}
 _LIB: Optional[ctypes.CDLL] = None
+_SPLIT_LIB: Optional[ctypes.CDLL] = None
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,3 +179,87 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{err} (B={b}, H={h}, W={w}, K={kk}, hd={hd}, "
                            f"splits={s}x{sps})")
     return buf[n_acc + n_ml:].view(b, h, hd)
+
+
+def scores_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """q [B, H, hdl], k [B, W, K, hdl] (a shard's hd columns) -> scale ·
+    q·k over those columns, [B, H, W] fp32."""
+    b, h, hd = q.shape
+    kk = k.shape[2]
+    qg = q.to(torch.float32).reshape(b, kk, h // kk, hd)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k.to(torch.float32)) * scale
+    return s.reshape(b, h, k.shape[1])
+
+
+def softmax_combine_plain(scores: torch.Tensor, v: torch.Tensor,
+                          slot_pos: torch.Tensor, pos: torch.Tensor,
+                          window: int = 0) -> torch.Tensor:
+    """scores [B, H, W] (summed over the shards), v [B, W, K, hdl] ->
+    softmax over the live slots · v, [B, H, hdl] fp32 (the masking of
+    `decode_attention_plain`)."""
+    b, h, w = scores.shape
+    kk = v.shape[2]
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    if window > 0:
+        ok = ok & (slot_pos > pos - window)
+    s = torch.where(ok[None, None, :], scores, -1e30)
+    p = torch.softmax(s, dim=-1).reshape(b, kk, h // kk, w)
+    out = torch.einsum("bkgw,bwkd->bkgd", p, v.to(torch.float32))
+    return out.reshape(b, h, v.shape[-1])
+
+
+def _split_library() -> ctypes.CDLL:
+    global _SPLIT_LIB
+    if _SPLIT_LIB is None:
+        lib = _build.load("decode_attention_split")
+        # q, q_bf16, k, kv_bf16, s, B, W, K, G, hdl, scale, stream
+        lib.decode_scores_partial.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p] + [ctypes.c_int64] * 5 + [ctypes.c_float,
+                                                        ctypes.c_void_p]
+        lib.decode_scores_partial.restype = ctypes.c_int
+        # s, v, kv_bf16, slot_pos, pos, window, out, B, W, K, G, hdl, stream
+        lib.decode_softmax_combine.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p] + [
+                ctypes.c_int64] * 5 + [ctypes.c_void_p]
+        lib.decode_softmax_combine.restype = ctypes.c_int
+        _SPLIT_LIB = lib
+    return _SPLIT_LIB
+
+
+def scores_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """Launch the partial-score kernel on the current stream (contiguous
+    CUDA tensors, validated by the caller)."""
+    b, h, hd = q.shape
+    w, kk = k.shape[1], k.shape[2]
+    s = torch.empty((b, h, w), dtype=torch.float32, device=q.device)
+    err = _build.launch(
+        q.device, _split_library().decode_scores_partial, q.data_ptr(),
+        int(q.dtype == torch.bfloat16), k.data_ptr(),
+        int(k.dtype == torch.bfloat16), s.data_ptr(), b, w, kk, h // kk, hd,
+        scale)
+    if err != 0:
+        raise RuntimeError(f"decode_scores_partial launch failed: cudaError "
+                           f"{err} (B={b}, H={h}, W={w}, K={kk}, hdl={hd})")
+    return s
+
+
+def softmax_combine_cuda(scores: torch.Tensor, v: torch.Tensor,
+                         slot_pos: torch.Tensor, pos: torch.Tensor,
+                         window: int = 0) -> torch.Tensor:
+    """Launch the mask / softmax / p·v kernel on the current stream."""
+    b, h, w = scores.shape
+    kk, hd = v.shape[2], v.shape[3]
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=v.device)
+    err = _build.launch(
+        v.device, _split_library().decode_softmax_combine,
+        scores.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+        slot_pos.data_ptr(), pos.data_ptr(), int(window), out.data_ptr(), b,
+        w, kk, h // kk, hd)
+    if err != 0:
+        raise RuntimeError(f"decode_softmax_combine launch failed: cudaError "
+                           f"{err} (B={b}, H={h}, W={w}, K={kk}, hdl={hd})")
+    return out

@@ -23,7 +23,10 @@ from repro_torch.kernels import vt_kl_loss as _vt
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 
 #: kernel launches per wrapper since the last `reset_launches()`
-#: (`vt_kl_loss` counts its forward and backward kernels apart;
+#: (`vt_kl_loss` counts its forward and backward kernels apart, and so do
+#: its vocab-parallel forms `vt_kl_partial_fwd` and `vt_kl_shard_bwd`;
+#: `decode_scores_partial` and `decode_softmax_combine` are the split-hd
+#: decode attention's two kernels;
 #: `decode_attention_fused` counts its split kernel and merge as one, and
 #: `decdiff_update` one per Eq. 5 update: pass A over every leaf, the
 #: scale kernel and pass B over every leaf; `drift_norms` one per call of
@@ -34,7 +37,10 @@ LAUNCHES: Dict[str, int] = {"segment_neighbor_avg": 0, "gather_rows": 0,
                             "decode_attention_fused": 0,
                             "decdiff_update": 0, "neighbor_avg": 0,
                             "dequant_segment_neighbor_avg": 0,
-                            "dequant_neighbor_avg": 0, "drift_norms": 0}
+                            "dequant_neighbor_avg": 0, "drift_norms": 0,
+                            "vt_kl_partial_fwd": 0, "vt_kl_shard_bwd": 0,
+                            "decode_scores_partial": 0,
+                            "decode_softmax_combine": 0}
 
 
 def reset_launches() -> None:
@@ -309,6 +315,103 @@ def vt_kl_loss(logits: torch.Tensor, labels: torch.Tensor, beta: float,
     return _VTKLLoss.apply(logits, labels, float(beta), float(neg_h))
 
 
+def _check_vt_shard(logits, labels, offset: int, vocab: int, name: str):
+    if logits.dim() != 2 or labels.dim() != 1 \
+            or labels.shape[0] != logits.shape[0]:
+        raise ValueError(f"{name} wants logits [B, V] and labels [B]; got "
+                         f"{tuple(logits.shape)} and {tuple(labels.shape)}")
+    if logits.dtype not in (torch.float32, torch.bfloat16) \
+            or labels.dtype != torch.int64:
+        raise TypeError(f"{name} wants float32 or bfloat16 logits and int64 "
+                        f"labels; got {logits.dtype} and {labels.dtype}")
+    if vocab < 2 or offset < 0 or offset + logits.shape[1] > vocab \
+            or logits.shape[1] < 2:
+        raise ValueError(f"{name}: a shard of {logits.shape[1]} columns at "
+                         f"{offset} does not fit a vocabulary of {vocab}")
+    if logits.device != labels.device:
+        raise ValueError(f"logits on {logits.device} but labels on "
+                         f"{labels.device}")
+    if not (logits.is_contiguous() and labels.is_contiguous()):
+        raise ValueError(f"{name} wants contiguous tensors")
+    return _device_kind(logits, name)
+
+
+def vt_partial_stats(logits: torch.Tensor, labels: torch.Tensor, offset: int,
+                     vocab: int) -> Tuple[torch.Tensor, ...]:
+    """The vocab-parallel forward of B.3 on one shard: logits [B, V] (the
+    columns [offset, offset + V) of `vocab`), labels [B] int64 in the whole
+    vocabulary -> per row (max, Σexp(z - max), Σz, z_c or 0), fp32 [B]
+    each (`kernels.vt_kl_loss.vt_combine` merges the shards')."""
+    kind = _check_vt_shard(logits, labels, offset, vocab, "vt_partial_stats")
+    if kind == "cpu":
+        return _vt.vt_partial_plain(logits, labels, offset)
+    out = _vt.vt_partial_cuda(logits, labels, offset, vocab)
+    LAUNCHES["vt_kl_partial_fwd"] += 1
+    return out
+
+
+def vt_shard_backward(logits: torch.Tensor, labels: torch.Tensor,
+                      offset: int, mx: torch.Tensor, sumexp: torch.Tensor,
+                      g: torch.Tensor, beta: float,
+                      vocab: int) -> torch.Tensor:
+    """B.3's backward on one shard's columns, from the merged row
+    statistics (max, Σexp) and the row gradients g [B] fp32."""
+    kind = _check_vt_shard(logits, labels, offset, vocab,
+                           "vt_shard_backward")
+    mx, sumexp, g = (t.to(torch.float32).contiguous()
+                     for t in (mx, sumexp, g))
+    if kind == "cpu":
+        return _vt.vt_shard_backward_plain(logits, labels, offset, mx,
+                                           sumexp, g, beta, vocab)
+    dz = _vt.vt_shard_backward_cuda(logits, labels, offset, mx, sumexp, g,
+                                    beta, vocab)
+    LAUNCHES["vt_kl_shard_bwd"] += 1
+    return dz
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+
+class _VTKLVocabParallel(torch.autograd.Function):
+    """Per-row VT KL over logits split by columns over `group`: partial
+    statistics, an all-reduce of the max, one of the rescaled sums, then
+    the KL; the backward needs no communication."""
+
+    @staticmethod
+    def forward(ctx, z, labels, offset, vocab, beta, neg_h, group):
+        mx, sumexp, zsum, zc = vt_partial_stats(z, labels, offset, vocab)
+        m = _all_reduce(mx, "max", group)
+        stats = _all_reduce(torch.stack([sumexp * torch.exp(mx - m), zsum,
+                                         zc]), "sum", group)
+        s, zs, zcs = stats.unbind(0)
+        ctx.save_for_backward(z, labels, m, s)
+        ctx.args = (offset, vocab, beta)
+        return _vt.vt_kl_from_stats(m, s, zs, zcs, beta, neg_h, vocab)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, labels, m, s = ctx.saved_tensors
+        offset, vocab, beta = ctx.args
+        return (vt_shard_backward(z, labels, offset, m, s, g, beta, vocab),
+                None, None, None, None, None, None)
+
+
+def vt_kl_loss_vocab_parallel(logits: torch.Tensor, labels: torch.Tensor,
+                              beta: float, neg_h: float, offset: int,
+                              vocab: int, group) -> torch.Tensor:
+    """`vt_kl_loss` on a shard of the columns: logits [B, V] the columns
+    [offset, offset + V) of `vocab`, the other shards on the ranks of the
+    process group `group` -> kl [B] fp32 (the same on every shard),
+    differentiable in the shard's logits."""
+    _check_vt_shard(logits, labels, offset, vocab,
+                    "vt_kl_loss_vocab_parallel")
+    return _VTKLVocabParallel.apply(logits, labels, int(offset), int(vocab),
+                                    float(beta), float(neg_h), group)
+
+
 def vt_kl_loss_fused(logits: torch.Tensor, labels: torch.Tensor,
                      beta: float = 0.95) -> torch.Tensor:
     """Mean KL(p_t || softmax(logits)) over the batch — Eq. 8 — as the JAX
@@ -377,6 +480,77 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "16-byte aligned")
     out = _da.decode_attention_cuda(q, k, v, slot_pos, pos, window)
     LAUNCHES["decode_attention_fused"] += 1
+    return out
+
+
+def _check_split_decode(q, k, name):
+    if q.dim() != 3 or k.dim() != 4 or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[2] or k.shape[2] == 0 \
+            or q.shape[1] % k.shape[2]:
+        raise ValueError(f"{name} wants q [B, H, hdl] and k / v [B, W, K, "
+                         f"hdl] with K dividing H; got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    floats = (torch.float32, torch.bfloat16)
+    if q.dtype not in floats or k.dtype not in floats:
+        raise TypeError(f"{name} wants float32 or bfloat16 tensors; got "
+                        f"{q.dtype} and {k.dtype}")
+    if q.device != k.device:
+        raise ValueError(f"{name}: q on {q.device}, k on {k.device}")
+    if not (q.is_contiguous() and k.is_contiguous()):
+        raise ValueError(f"{name} wants contiguous tensors")
+    return _device_kind(q, name)
+
+
+def decode_scores_partial(q: torch.Tensor, k: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """The split-hd decode attention's first kernel: q [B, H, hdl] and a
+    ring k [B, W, K, hdl] holding a shard's hd columns -> scale · q·k over
+    them, [B, H, W] fp32, to be summed over the shards."""
+    if _check_split_decode(q, k, "decode_scores_partial") == "cpu":
+        return _da.scores_partial_plain(q, k, scale)
+    out = _da.scores_partial_cuda(q, k, scale)
+    LAUNCHES["decode_scores_partial"] += 1
+    return out
+
+
+def decode_softmax_combine(scores: torch.Tensor, v: torch.Tensor,
+                           slot_pos: torch.Tensor, pos: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
+    """The split-hd decode attention's second kernel: scores [B, H, W]
+    fp32 (summed over the shards), v [B, W, K, hdl], slot_pos [W] and pos
+    0-d int32 -> softmax over the live slots (those of
+    `decode_attention_fused`) · v, [B, H, hdl] fp32."""
+    if scores.dim() != 3 or v.dim() != 4 or slot_pos.dim() != 1 \
+            or pos.dim() != 0 or v.shape[0] != scores.shape[0] \
+            or v.shape[1] != scores.shape[2] \
+            or slot_pos.shape[0] != scores.shape[2] or v.shape[2] == 0 \
+            or scores.shape[1] % v.shape[2]:
+        raise ValueError(f"decode_softmax_combine wants scores [B, H, W], v "
+                         f"[B, W, K, hdl] with K dividing H, slot_pos [W] "
+                         f"and a 0-d pos; got {tuple(scores.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(slot_pos.shape)} and "
+                         f"{tuple(pos.shape)}")
+    if scores.dtype != torch.float32 \
+            or v.dtype not in (torch.float32, torch.bfloat16) \
+            or slot_pos.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"decode_softmax_combine wants fp32 scores, float32 "
+                        f"or bfloat16 v and int32 slot_pos and pos; got "
+                        f"{scores.dtype}, {v.dtype}, {slot_pos.dtype} and "
+                        f"{pos.dtype}")
+    if not (scores.device == v.device == slot_pos.device == pos.device):
+        raise ValueError("decode_softmax_combine: its tensors lie on "
+                         "different devices")
+    if not all(t.is_contiguous() for t in (scores, v, slot_pos)):
+        raise ValueError("decode_softmax_combine wants contiguous tensors")
+    _device_kind(v, "decode_softmax_combine")
+    window = int(window or 0)
+    if scores.device.type == "cpu":
+        return _da.softmax_combine_plain(scores, v, slot_pos, pos, window)
+    if v.shape[3] > 64:
+        raise ValueError(f"decode_softmax_combine: the kernel takes at most "
+                         f"64 head dims a shard; got {v.shape[3]}")
+    out = _da.softmax_combine_cuda(scores, v, slot_pos, pos, window)
+    LAUNCHES["decode_softmax_combine"] += 1
     return out
 
 

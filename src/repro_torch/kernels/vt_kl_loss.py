@@ -10,6 +10,14 @@ Per row b of logits z [B, V] with label c_b and a = (1-β)/(V-1):
 
 The kernels are `csrc/vt_kl_loss.cu` (they replace the Pallas TPU kernels
 `row_max`, `row_stats` and `vt_backward` of `repro.kernels.vt_kl_loss`).
+
+Vocab-parallel forms, for logits split over a mesh's "model" axis (a shard
+[B, V] holding the columns [offset, offset + V) of the whole vocabulary):
+`vt_partial_*` give each row's partial statistics (max, Σexp(z - max), Σz
+and z_c where the label falls in the shard, else 0), `vt_combine` merges
+the shards' statistics as the all-reduces do (the max first, then the
+rescaled sums), `vt_kl_from_stats` turns the merged ones into the KL, and
+`vt_shard_backward_*` is the backward on the shard's columns.
 `vt_plan` picks each launch's vector width, lanes per row and rows per
 block from (V, dtype) and the pointers' alignment, never from the row
 count, so a row's summation order is the same in any call that
@@ -124,6 +132,51 @@ def vt_backward_plain(z: torch.Tensor, labels: torch.Tensor,
     return ((p - pt) * g[:, None]).to(z.dtype)
 
 
+def vt_partial_plain(z: torch.Tensor, labels: torch.Tensor, offset: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """z [B, V] (the shard of columns [offset, offset + V)), labels [B]
+    int64 in the whole vocabulary -> (max, Σexp(z - max), Σz, z_c or 0)
+    [B] fp32."""
+    z32 = z.to(torch.float32)
+    mx = torch.amax(z32, dim=-1)
+    sumexp = torch.sum(torch.exp(z32 - mx[:, None]), dim=-1)
+    zsum = torch.sum(z32, dim=-1)
+    loc = labels - offset
+    ok = (loc >= 0) & (loc < z.shape[-1])
+    zc = torch.gather(z32, -1, torch.where(ok, loc, 0)[:, None])[:, 0]
+    return mx, sumexp, zsum, torch.where(ok, zc, torch.zeros_like(zc))
+
+
+def vt_combine(mx: torch.Tensor, sumexp: torch.Tensor, zsum: torch.Tensor,
+               zc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The shards' statistics, stacked [n, B], merged as the all-reduces
+    merge them: M = max, S = Σ sumexp·exp(max - M), Σz and z_c summed."""
+    m = torch.amax(mx, dim=0)
+    return (m, torch.sum(sumexp * torch.exp(mx - m[None]), dim=0),
+            torch.sum(zsum, dim=0), torch.sum(zc, dim=0))
+
+
+def vt_kl_from_stats(mx, sumexp, zsum, zc, beta: float, neg_h: float,
+                     vocab: int) -> torch.Tensor:
+    """Each row's KL from its whole-vocabulary statistics."""
+    a = teacher_tail(beta, vocab)
+    lse = torch.log(sumexp) + mx
+    return neg_h - (beta * zc + a * (zsum - zc) - lse)
+
+
+def vt_shard_backward_plain(z: torch.Tensor, labels: torch.Tensor,
+                            offset: int, mx: torch.Tensor,
+                            sumexp: torch.Tensor, g: torch.Tensor,
+                            beta: float, vocab: int) -> torch.Tensor:
+    """(softmax(z) - p_t) · g on the shard's columns, from the merged row
+    statistics, in z's dtype."""
+    a = teacher_tail(beta, vocab)
+    p = torch.exp(z.to(torch.float32) - mx[:, None]) / sumexp[:, None]
+    col = torch.arange(z.shape[-1], device=z.device) + offset
+    pt = torch.where(col[None, :] == labels[:, None], beta, a)
+    return ((p - pt) * g[:, None]).to(z.dtype)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("vt_kl_loss")
     # without argtypes ctypes would pass each Python int as a 32-bit int
@@ -136,6 +189,16 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] \
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     lib.vt_kl_bwd.restype = ctypes.c_int
+    lib.vt_kl_partial_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p] \
+        + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.vt_kl_partial_fwd.restype = ctypes.c_int
+    lib.vt_kl_bwd_shard.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_int64] \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    lib.vt_kl_bwd_shard.restype = ctypes.c_int
     return lib
 
 
@@ -184,4 +247,47 @@ def vt_backward_cuda(z: torch.Tensor, labels: torch.Tensor,
         raise RuntimeError(f"vt_kl_bwd launch failed: cudaError {err} "
                            f"(B={b}, V={v}, {z.dtype}, {vec_bytes}-byte "
                            f"vectors)")
+    return dz
+
+
+def vt_partial_cuda(z: torch.Tensor, labels: torch.Tensor, offset: int,
+                    vocab: int) -> Tuple[torch.Tensor, ...]:
+    """Launch the partial-statistics forward on the current stream (inputs
+    as `vt_forward_cuda`'s; the shard's columns start at `offset` of a
+    `vocab`-wide row)."""
+    b, v = z.shape
+    plan = vt_plan(v, z.dtype, _align(z))
+    out = torch.empty((4, b), dtype=torch.float32, device=z.device)
+    mx, sumexp, zsum, zc = out.unbind(0)
+    lib = _library()
+    with torch.cuda.device(z.device):
+        err = lib.vt_kl_partial_fwd(
+            z.data_ptr(), _DTYPE_CODE[z.dtype], labels.data_ptr(), offset,
+            vocab, mx.data_ptr(), sumexp.data_ptr(), zsum.data_ptr(),
+            zc.data_ptr(), b, v, *plan, _stream(z.device))
+    if err != 0:
+        raise RuntimeError(f"vt_kl_partial_fwd launch failed: cudaError "
+                           f"{err} (B={b}, V={v} of {vocab} at {offset}, "
+                           f"{z.dtype}, {plan})")
+    return mx, sumexp, zsum, zc
+
+
+def vt_shard_backward_cuda(z: torch.Tensor, labels: torch.Tensor,
+                           offset: int, mx: torch.Tensor,
+                           sumexp: torch.Tensor, g: torch.Tensor,
+                           beta: float, vocab: int) -> torch.Tensor:
+    """Launch the shard-local backward on the current stream."""
+    b, v = z.shape
+    dz = torch.empty_like(z)
+    vec_bytes = vt_plan(v, z.dtype, _align(z, dz)).vec_bytes
+    lib = _library()
+    with torch.cuda.device(z.device):
+        err = lib.vt_kl_bwd_shard(
+            z.data_ptr(), _DTYPE_CODE[z.dtype], labels.data_ptr(), offset,
+            mx.data_ptr(), sumexp.data_ptr(), g.data_ptr(), dz.data_ptr(), b,
+            v, vec_bytes, beta, teacher_tail(beta, vocab), _stream(z.device))
+    if err != 0:
+        raise RuntimeError(f"vt_kl_bwd_shard launch failed: cudaError {err} "
+                           f"(B={b}, V={v} of {vocab} at {offset}, "
+                           f"{z.dtype}, {vec_bytes}-byte vectors)")
     return dz

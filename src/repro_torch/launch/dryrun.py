@@ -33,21 +33,36 @@ combination it
      score block is 4096 x 8192 (the default 512 x 1024 chunks would make
      the trace walk 64 times the blocks).
 
+The dense family on the single mesh (`partitions`: qwen1.5-0.5b,
+deepseek-7b, qwen2.5-14b, qwen3-32b) traces the PARTITIONED step instead,
+as the reference compiles it: params, optimizer state, batch and cache
+placed by the specs, and `build_*_step(mesh=)` run at the global batch on
+the fake group (steps 3 and 4 above become one trace each, with remat off
+and with the shape's config, after one uncounted run that fills DTensor's
+sharding-propagation cache).  A dispatch mode that steps aside for
+DTensor sees the ops on rank 0's local shards, so the FLOPs and bytes
+(`_LocalCounts`) and the collectives (`launch/comm_analysis.py`, the
+counterpart of the reference's `hlo_analysis.collective_bytes`, under its
+keys) are per device as they come, and `temp_size_in_bytes` is the
+sharded step's own peak (`temp_is_upper_bound: false`); the record says
+`"partitioned": true`.  Every other combination keeps the estimate above
+and says `"partitioned": false` with the ROADMAP item that would
+partition it.
+
 XLA counts a while-loop body once, so the reference compiles extra
 calibration points (1 and 2 layers) and extrapolates; a dispatch-level
 count sees every layer, so `_calibration_points`, `calibrated_metrics`
-and `_combine` have no counterpart.  `launch/hlo_analysis.py` has none
-either: it parses XLA's HLO text, and the port produces none.  The
-collectives come from the port's own round: `collectives.total` is the
-pod-axis gossip each device receives in a multi-pod round (its shard of
-the other pods' models, in the gossip dtype) and 0 for a single pod;
-traffic inside a pod (`intra_pod`) is null: the port runs one model per
-card and splits no tensor of a step over devices.  The roofline uses the
-H100's data-sheet peaks (`HW`); `fits_hbm` compares argument + temp +
-output bytes with the card's memory when a card is present, else with
+and `_combine` have no counterpart.  `collectives.total` is the traffic
+inside a pod (`intra_pod`, the partitioned step's; null where the step is
+not partitioned) plus the pod-axis gossip each device receives in a
+multi-pod round (`gossip`: its shard of the other pods' models, in the
+gossip dtype; 0 for a single pod).  The roofline uses the H100's
+data-sheet peaks (`HW`); `fits_hbm` compares argument + temp + output
+bytes with the card's memory when a card is present, else with
 `--hbm-bytes`.  Variants that change only the reference's sharding
-constraints or its shard_map form trace the step of another variant in
-the port, and their record says which (`"same_as"`).
+constraints or its shard_map form trace the step of another variant where
+the step is not partitioned, and their record says which (`"same_as"`);
+on a partitioned step only the shard_map form has no effect.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --mesh both
@@ -83,6 +98,7 @@ from repro_torch.dist.sharding import (
     make_cache_specs,
     make_param_specs,
 )
+from repro_torch.launch.comm_analysis import CollectiveCounter
 from repro_torch.launch.mesh import HW
 from repro_torch.launch.train import ring_adjacency
 from repro_torch.models.lm import build_lm
@@ -155,14 +171,39 @@ def _adapt_config(cfg, shape_name: str, layer_override=None):
     return dataclasses.replace(cfg, **over)
 
 
-def same_as(variant_override) -> str | None:
+# Why a combination is not partitioned, by family (ROADMAP A.14's queue).
+_NOT_PARTITIONED = {
+    "moe": "the MoE family's partitioned step, with "
+           "constrain_expert_sharded's all-to-all (ROADMAP A.14.2)",
+    "ssm": "the SSM family's partitioned step (ROADMAP A.14.3)",
+    "hybrid": "the hybrid family's partitioned step (ROADMAP A.14.3)",
+    "encdec": "the enc-dec family's partitioned step (ROADMAP A.14.3)",
+    "vlm": "the VLM family's partitioned step (ROADMAP A.14.3)",
+}
+_MULTI_REASON = ("the multi mesh: the DFL round partitioned inside each pod "
+                 "(ROADMAP A.14.1)")
+
+
+def partitions(cfg, mesh_kind: str):
+    """(whether the combination traces the partitioned step, and why not
+    when it does not): the dense family on the single mesh does."""
+    if mesh_kind != "single":
+        return False, _MULTI_REASON
+    if cfg.family != "dense":
+        return False, _NOT_PARTITIONED[cfg.family]
+    return True, None
+
+
+def same_as(variant_override, partitioned: bool = False) -> str | None:
     """The variant whose step a variant traces in the port, where its
-    override differs from that one's only by `_SHARDING_ONLY` keys
-    ("baseline" for none left), else None."""
+    override differs from that one's only by keys that do not change the
+    port's step ("baseline" for none left), else None: the
+    `_SHARDING_ONLY` keys, or on a `partitioned` step the shard_map form
+    alone."""
     if not variant_override:
         return None
-    rest = {k: v for k, v in variant_override.items()
-            if k not in _SHARDING_ONLY}
+    inert = ("_dfl_shardmap",) if partitioned else _SHARDING_ONLY
+    rest = {k: v for k, v in variant_override.items() if k not in inert}
     if rest == variant_override:
         return None
     if not rest:
@@ -213,6 +254,33 @@ class _BytesAccessed(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         if func.namespace == "aten" and not func.is_view:
             self.total += _tree_bytes(args, kwargs, out)
+        return out
+
+
+class _LocalCounts(CollectiveCounter):
+    """FLOPs (`torch.utils.flop_counter`'s formulas) and bytes accessed
+    (as `_BytesAccessed`) of the ops on the local shards, and the
+    collectives (`CollectiveCounter`): steps aside for DTensor, so every
+    count is one device's.  Count a step whose ops DTensor has seen
+    before: its sharding propagation runs each new op once more at its
+    global shape, which computes nothing on a device."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is NotImplemented:
+            return out
+        if func.namespace == "aten" and not func.is_view:
+            self.total += _tree_bytes(args, kwargs, out)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += int(formula(*args, **(kwargs or {}), out_val=out))
         return out
 
 
@@ -410,9 +478,7 @@ def trace_combo(cfg, shape, mesh, *, multi: bool, gossip_dtype=None,
                          "temp_batch_per_device": share,
                          "attn_chunks": [_TRACE_CHUNKS["attn_chunk_q"],
                                          _TRACE_CHUNKS["attn_chunk_kv"]]},
-        collectives={"total": coll, "intra_pod": None,
-                     "intra_pod_reason": "one model per card: no tensor of "
-                                         "a step is split over devices"},
+        collectives={"total": coll, "intra_pod": None, "gossip": coll},
     )
     out["roofline"] = roofline_terms(out["cost_analysis"]["flops"],
                                      out["cost_analysis"]["bytes accessed"],
@@ -422,6 +488,116 @@ def trace_combo(cfg, shape, mesh, *, multi: bool, gossip_dtype=None,
         out["model_flops_per_chip"] = mf
         out["useful_flops_ratio"] = (mf / out["cost_analysis"]["flops"]
                                      if flops_global else None)
+    return out
+
+
+class _Placed:
+    """One partitioned combination's inputs, placed on the mesh by the
+    specs, and its step (`build_*_step(mesh=)`)."""
+
+    def __init__(self, cfg, kind, batch, seq_len, mesh):
+        lm = build_lm(cfg)
+        opt = sgd_momentum(lr=1e-3, momentum=0.9,
+                           momentum_dtype=torch.float32)
+        params = _init_params(lm)
+        self.params = distribute_tree(params, make_param_specs(
+            params, mesh, expert_parallel=cfg.expert_parallel), mesh)
+        if kind == "decode":
+            cache = lm.init_cache(batch, seq_len, device="cpu")
+            self.cache_bytes_global = _tree_bytes(cache)
+            cache = distribute_tree(cache, make_cache_specs(cache, mesh),
+                                    mesh)
+            tokens = torch.zeros((batch, 1), dtype=torch.int32)
+            tokens = distribute_tree(tokens, make_batch_specs(tokens, mesh),
+                                     mesh)
+            self.step = build_serve_step(lm, mesh=mesh)
+            self.args = (self.params, cache, tokens)
+            return
+        b = _empty(lm.input_specs(batch, seq_len))
+        b = distribute_tree(b, make_batch_specs(b, mesh), mesh)
+        if kind == "train":
+            self.step = build_train_step(lm, opt, mesh=mesh)
+            self.args = (self.params, opt.init(self.params), 0, b)
+        else:
+            self.step = build_prefill_step(lm, mesh=mesh)
+            self.args = (self.params, b)
+
+    def local_tensors(self, tree=None):
+        tree = self.args if tree is None else tree
+        return [t.to_local() if type(t).__name__ == "DTensor" else t
+                for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+    def run(self):
+        return self.step(*self.args)
+
+
+def trace_partitioned(cfg, shape, mesh, *, shape_name: str = ""):
+    """The record's measured fields for a partitioned combination on
+    `mesh` (under a fake process group): every count from rank 0's local
+    ops (module docstring)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    seq_len, global_batch, kind = shape
+    sizes = dict(zip(mesh.mesh_dim_names, (int(d) for d in mesh.shape)))
+    n_chips = math.prod(sizes.values())
+    out = {}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        # FLOPs, bytes and collectives, remat off
+        c = _Placed(dataclasses.replace(cfg, remat=False, **_TRACE_CHUNKS),
+                    kind, global_batch, seq_len, mesh)
+        c.run()  # DTensor's sharding propagation, cached from here on
+        c = _Placed(dataclasses.replace(cfg, remat=False, **_TRACE_CHUNKS),
+                    kind, global_batch, seq_len, mesh)
+        counted = _LocalCounts()
+        with counted:
+            c.run()
+        del c
+        # the sharded step's own live bytes, with the shape's config
+        c = _Placed(dataclasses.replace(cfg, **_TRACE_CHUNKS), kind,
+                    global_batch, seq_len, mesh)
+        inputs = c.local_tensors()
+        arg = sum(_nbytes(t) for t in inputs)
+        out["traced_param_count"] = sum(
+            t.numel() for t in tree_leaves(c.params))
+        if kind == "decode":
+            out["cache_bytes_global"] = c.cache_bytes_global
+        mt = MemTracker()
+        mt.track_external(*inputs)
+        with mt:
+            result = c.run()
+        peak = max(v["Total"] for v in mt.get_tracker_snapshot("peak")
+                   .values())
+        held = {id(t) for t in tree_flatten(c.args)[0]}
+        output = sum(_nbytes(t) for t in c.local_tensors(
+            [t for t in tree_flatten(result)[0] if id(t) not in held]))
+        del c, result, mt
+    intra = counted.summary()
+    coll = {**intra, "intra_pod": float(intra["total"]), "gossip": 0.0}
+    coll["total"] = float(intra["total"])
+    dp = sizes.get(DATA_AXIS, 1)
+    out.update(
+        n_chips=n_chips, partitioned=True,
+        cost_analysis={"flops": float(counted.flops),
+                       "bytes accessed": float(counted.total)},
+        memory_analysis={"argument_size_in_bytes": arg,
+                         "output_size_in_bytes": output,
+                         "temp_size_in_bytes": max(peak - arg, 0),
+                         "temp_is_upper_bound": False,
+                         "temp_batch_per_device": (
+                             global_batch // dp if global_batch % dp == 0
+                             else global_batch),
+                         "attn_chunks": [_TRACE_CHUNKS["attn_chunk_q"],
+                                         _TRACE_CHUNKS["attn_chunk_kv"]]},
+        collectives=coll,
+    )
+    out["roofline"] = roofline_terms(counted.flops, counted.total,
+                                     coll["total"])
+    if shape_name in SHAPES:
+        mf = model_flops_per_chip(cfg, shape_name, n_chips)
+        out["model_flops_per_chip"] = mf
+        out["useful_flops_ratio"] = mf / counted.flops if counted.flops \
+            else None
     return out
 
 
@@ -459,19 +635,26 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
            "variant_override": variant_override or {},
            "seq_len": seq_len, "global_batch": global_batch, "kind": kind,
            "mesh_shape": dict(zip(names, dims))}
-    twin = same_as(variant_override)
     try:
+        base = cfg if cfg is not None else get_config(arch)
+        part, reason = partitions(base, mesh_kind)
+        twin = same_as(variant_override, part)
         if twin is not None:
             rec.update(ok=True, same_as=twin)
         else:
-            base = cfg if cfg is not None else get_config(arch)
             full = _adapt_config(base, shape_name, variant_override)
             gd = (variant_override or {}).get("_gossip_dtype")
             with fake_mesh(dims, names) as mesh:
-                rec.update(trace_combo(
-                    full, shape, mesh, multi=mesh_kind == "multi",
-                    gossip_dtype=torch_dtype(gd) if gd else None,
-                    shape_name=shape_name if cfg is None else ""))
+                if part:
+                    rec.update(trace_partitioned(
+                        full, shape, mesh,
+                        shape_name=shape_name if cfg is None else ""))
+                else:
+                    rec.update(trace_combo(
+                        full, shape, mesh, multi=mesh_kind == "multi",
+                        gossip_dtype=torch_dtype(gd) if gd else None,
+                        shape_name=shape_name if cfg is None else ""))
+                    rec.update(partitioned=False, not_partitioned=reason)
             rec["param_count"] = int(base.param_count())
             rec["active_param_count"] = int(base.active_param_count())
             mem = rec["memory_analysis"]

@@ -21,6 +21,13 @@ none.
 
 A schedule maps a step to the learning rate as a Python float holding an
 exact fp32 value, computed in fp32 as the reference computes it.
+
+The parameters and state may be DTensors (a step partitioned on a mesh,
+`dist.dfl_step.build_train_step(mesh=)`): each leaf's state takes its
+parameter's placements from `init`, and a gradient in other placements (a
+replicated weight's gradient comes out of the backward as partial sums
+over "data") is redistributed to them first, so every update runs on the
+local shards and no state is gathered.
 """
 from __future__ import annotations
 
@@ -65,6 +72,22 @@ def _lr_at(sched: Callable, step) -> float:
     return sched(0 if step is None else int(step))
 
 
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """g in p's placements when both are DTensors; otherwise g itself."""
+    placements = getattr(p, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(p.device_mesh, placements)
+
+
+def _zeros_like(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of p's shape in `dtype`, on p's device, or a DTensor in p's
+    placements when p is one."""
+    if getattr(p, "placements", None) is not None:
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
 def _store(state: torch.Tensor, new32: torch.Tensor):
     """Round the fp32 working copy of a non-fp32 state tensor back into it
     (`state.to(float32)` is the tensor itself for an fp32 state)."""
@@ -82,15 +105,14 @@ def sgd_momentum(lr=1e-3, momentum: float = 0.9, nesterov: bool = False,
 
     def init(params):
         return {"momentum": tree_map(
-            lambda p: torch.zeros(p.shape, dtype=momentum_dtype,
-                                  device=p.device), params)}
+            lambda p: _zeros_like(p, momentum_dtype), params)}
 
     @torch.no_grad()
     def update(grads, state, params, step=None):
         lr_t = lr if sched is None else _lr_at(sched, step)
         for g, v, p in zip(tree_leaves(grads), tree_leaves(state["momentum"]),
                            tree_leaves(params)):
-            g32 = g.to(torch.float32)
+            g32 = _as_param(g, p).to(torch.float32)
             if weight_decay:
                 g32 = g32 + weight_decay * p.to(torch.float32)
             v32 = v.to(torch.float32)
@@ -113,7 +135,7 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     def init(params):
         def z(p):
-            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+            return _zeros_like(p, state_dtype)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
     @torch.no_grad()
@@ -124,7 +146,7 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         c2 = float(np.float32(1.0) - np.float32(b2) ** t)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
-            g32 = g.to(torch.float32)
+            g32 = _as_param(g, p).to(torch.float32)
             m32, v32 = m.to(torch.float32), v.to(torch.float32)
             m32.mul_(b1).add_((1 - b1) * g32)
             v32.mul_(b2).add_((1 - b2) * torch.square(g32))

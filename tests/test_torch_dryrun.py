@@ -5,7 +5,9 @@ needs, against the JAX package, on the CPU.
     pod, the multi-pod DFL round, prefill, decode — on small meshes
     ((data = 2, model = 2); (pod = 2, data = 2, model = 2)): the record's
     fields, the argument bytes against the leaves' sizes divided as the
-    specs say, the gossip bytes, the chip-count division;
+    specs say, the gossip bytes, the chip-count division where the step is
+    not partitioned, and for the dense family on the single mesh the
+    partitioned step's own per-device counts, temp and collectives;
   * `FlopCounterMode` and the bytes counter under fake tensors count what
     they count on real CPU tensors;
   * `model_flops_per_chip` equals the reference's for every arch and
@@ -25,6 +27,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.comm_analysis import COLLECTIVE_OPS  # noqa: E402
 from repro_torch.utils import pytree as tp  # noqa: E402
 
 SMALL = {"single": (2, 2), "multi": (2, 2, 2)}
@@ -71,10 +74,31 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     assert rec["active_param_count"] == cfg.active_param_count()
     cost = rec["cost_analysis"]
     assert cost["flops"] > 0 and cost["bytes accessed"] > 0
-    assert cost["flops"] == cost["flops_global"] / n_chips
-    assert cost["bytes accessed"] == cost["bytes_accessed_global"] / n_chips
     mem = rec["memory_analysis"]
-    assert mem["argument_size_in_bytes"] > 0 and mem["temp_is_upper_bound"]
+    coll = rec["collectives"]
+    r = rec["roofline"]
+    part = mesh == "single" and cfg.family == "dense"
+    assert rec["partitioned"] is part
+    if part:  # the sharded step's own per-device counts
+        assert "flops_global" not in cost and not mem["temp_is_upper_bound"]
+        assert coll["intra_pod"] == coll["total"] > 0
+        assert coll["gossip"] == 0.0
+        assert coll["total"] == sum(v for k, v in coll.items()
+                                    if k in COLLECTIVE_OPS)
+        assert all(coll[k + "_count"] > 0 for k in COLLECTIVE_OPS
+                   if k in coll)
+        assert r["collective_s"] > 0 and "not_partitioned" not in rec
+    else:
+        assert cost["flops"] == cost["flops_global"] / n_chips
+        assert cost["bytes accessed"] == \
+            cost["bytes_accessed_global"] / n_chips
+        assert mem["temp_is_upper_bound"]
+        assert coll["intra_pod"] is None
+        assert coll["gossip"] == coll["total"]
+        assert "ROADMAP A.14" in rec["not_partitioned"]
+        assert (coll["total"] > 0) == (shape[2] == "train"
+                                       and mesh == "multi")
+    assert mem["argument_size_in_bytes"] > 0
     assert mem["temp_size_in_bytes"] >= 0
     assert mem["temp_batch_per_device"] == {
         ("train", "single"): 4, ("train", "multi"): 2,
@@ -84,13 +108,9 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
                                        + mem["temp_size_in_bytes"]
                                        + mem["output_size_in_bytes"])
     assert rec["fits_hbm"] is True and rec["hbm_bytes"] == 80e9
-    r = rec["roofline"]
     assert r["compute_s"] == cost["flops"] / dryrun.HW["peak_flops_bf16"]
     assert r["memory_s"] == cost["bytes accessed"] / dryrun.HW["hbm_bw"]
-    coll = rec["collectives"]
-    assert coll["intra_pod"] is None and coll["intra_pod_reason"]
     assert r["collective_s"] == coll["total"] / dryrun.HW["link_bw"]
-    assert (coll["total"] > 0) == (shape[2] == "train" and mesh == "multi")
     path = tmp_path / f"{arch}__{shape_name}__{mesh}.json"
     assert path.is_file()
     assert dryrun.run_one(arch, shape_name, mesh, str(tmp_path)) == \
@@ -144,6 +164,9 @@ def test_argument_and_gossip_bytes_follow_the_specs(tmp_path):
 
 
 def test_variants_that_only_steer_sharding_trace_their_twin(tmp_path):
+    """Where the step is not partitioned, a variant that changes only the
+    reference's sharding traces its twin's step; on a partitioned step
+    only the shard_map form does (the others change the step)."""
     assert dryrun.same_as(dryrun.VARIANTS["zero3"]) == "baseline"
     assert dryrun.same_as(dryrun.VARIANTS["seqshard"]) == "baseline"
     assert dryrun.same_as(dryrun.VARIANTS["shardmap"]) == "baseline"
@@ -152,13 +175,26 @@ def test_variants_that_only_steer_sharding_trace_their_twin(tmp_path):
         dryrun.VARIANTS["shardmap+seqshard+gossipbf16"]) == "gossipbf16"
     assert dryrun.same_as(dryrun.VARIANTS["moelocal"]) is None
     assert dryrun.same_as(None) is None
-    rec = dryrun.run_one("q", "x", "single", str(tmp_path),
+    assert dryrun.same_as(dryrun.VARIANTS["zero3"], True) is None
+    assert dryrun.same_as(dryrun.VARIANTS["shardmap"], True) == "baseline"
+    assert dryrun.same_as(dryrun.VARIANTS["shardmap+seqshard"],
+                          True) == "seqshard"
+    rec = dryrun.run_one("q", "x", "multi", str(tmp_path),
                          variant="zero3",
                          variant_override=dryrun.VARIANTS["zero3"],
                          cfg=_reduced("qwen1.5-0.5b"),
-                         shape=(64, 8, "train"), mesh_dims=(2, 2))
+                         shape=(64, 8, "train"), mesh_dims=(2, 2, 2))
     assert rec["ok"] and rec["same_as"] == "baseline"
     assert "cost_analysis" not in rec
+    # on the single mesh zero3 gathers every weight: more all-gathered
+    part = [dryrun.run_one("q", "x", "single", str(tmp_path), force=True,
+                           variant=v, variant_override=dryrun.VARIANTS.get(v),
+                           cfg=_reduced("qwen1.5-0.5b").reduced(vocab=2048),
+                           shape=(32, 4, "train"), mesh_dims=(2, 2))
+            for v in (None, "zero3")]
+    assert all(r["ok"] and r["partitioned"] for r in part)
+    assert part[1]["collectives"]["all-gather"] > \
+        part[0]["collectives"]["all-gather"]
     # a variant that changes the step runs, and the gossip shrinks in bf16
     recs = [dryrun.run_one("q", "x", "multi", str(tmp_path), force=True,
                            variant=v, variant_override=dryrun.VARIANTS.get(v),

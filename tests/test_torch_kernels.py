@@ -246,15 +246,18 @@ def test_every_kernel_source_is_built_by_name():
     from repro_torch.kernels import _build
 
     sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["decdiff_update", "decode_attention", "dequant_avg",
+    assert sources == ["decdiff_update", "decode_attention",
+                       "decode_attention_split", "dequant_avg",
                        "dequant_avg_rows", "dequant_segment_avg",
                        "gather_rows", "neighbor_avg", "segment_avg",
                        "vt_kl_loss"]
     assert sorted(ops.LAUNCHES) == [
-        "decdiff_update", "decode_attention_fused", "dequant_neighbor_avg",
+        "decdiff_update", "decode_attention_fused", "decode_scores_partial",
+        "decode_softmax_combine", "dequant_neighbor_avg",
         "dequant_neighbor_avg_rows", "dequant_segment_neighbor_avg",
         "drift_norms", "gather_rows", "neighbor_avg", "segment_neighbor_avg",
-        "vt_kl_loss_bwd", "vt_kl_loss_fwd"]
+        "vt_kl_loss_bwd", "vt_kl_loss_fwd", "vt_kl_partial_fwd",
+        "vt_kl_shard_bwd"]
 
 
 # --------------------------------------------------- dequant avg rows
@@ -551,9 +554,15 @@ def test_new_wrappers_count_no_launch_on_the_cpu():
     ("vt_kl_loss", "vt_kl_fwd", 5, 2, 3, 4),
     ("vt_kl_loss", "vt_kl_bwd", 6, 2, 2, 2),
     ("neighbor_avg", "neighbor_avg_f32", 3, 2, 0, 1),
+    # the vocab-parallel forms: their ints as the above, plus the shard's
+    # offset (and the whole vocabulary) as 64-bit sizes
+    ("vt_kl_loss", "vt_kl_partial_fwd", 6, 4, 0, 4),
+    ("vt_kl_loss", "vt_kl_bwd_shard", 6, 3, 2, 2),
 ], ids=["dequant_avg-dequant_avg_rows_f32-3-3-0",
         "vt_kl_loss-vt_kl_fwd-5-2-3", "vt_kl_loss-vt_kl_bwd-6-2-2",
-        "neighbor_avg-neighbor_avg_f32-3-2-0"])
+        "neighbor_avg-neighbor_avg_f32-3-2-0",
+        "vt_kl_loss-vt_kl_partial_fwd-6-4-0",
+        "vt_kl_loss-vt_kl_bwd_shard-6-3-2"])
 def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
                                                      n_ptr, n_int, n_float,
                                                      n_cint):
@@ -570,7 +579,8 @@ def test_new_ctypes_bindings_declare_their_arguments(monkeypatch, module, fn,
 
     fns = {name: types.SimpleNamespace(argtypes=None, restype=None)
            for name in ("dequant_avg_rows_f32", "vt_kl_fwd", "vt_kl_bwd",
-                        "neighbor_avg_f32")}
+                        "neighbor_avg_f32", "vt_kl_partial_fwd",
+                        "vt_kl_bwd_shard")}
     loads = []
 
     def fake_load(name):
