@@ -344,12 +344,15 @@ It imports the port only (no JAX), and:
      24 x 32 times; then the same steps with bf16 activations timed both
      ways (ms per train, prefill and decode step, medians); then, in this
      process, B.3's split forms at [512, 151936] (fp32 and bf16) and
-     B.9's at path e's [8, 32768, 16, 64] bf16 cache, each at 2 and 16
-     shards, against their plain versions and timed against the byte
-     bound (B.9's scores beside one `torch.matmul`), and B.9's again at
-     q1's own [4, 4096, 16, 64] cache cut in 2, fp32 and bf16, against
-     their plain versions; files go to `build/path_q/`; `--path-q` runs
-     the kernel build and path q alone;
+     B.9's at path e's [8, 32768, 16, 64] bf16 cache and at qwen3-32b's
+     GQA cache [8, 32768, 8, 128], each at 2 and 16 shards, against their
+     plain versions, bitwise across batch sizes (a row alone = that row
+     of the batch) and calls, and timed against the byte bound (the
+     16-shard shapes also with the L2 cold; B.9's scores beside one
+     `torch.matmul`), and B.9's again at q1's own [4, 4096, 16, 64] cache
+     cut in 2, fp32 and bf16, against their plain versions; files go to
+     `build/path_q/`; `--path-q` runs the kernel build and path q alone,
+     `--path-q-decode` the kernel build and B.9's split kernels alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -519,17 +522,17 @@ def timings(torch, kernel, plain, library, cold=False, library_device=None):
              else median_ms(torch, library))
     (t["kernel_ms"], t["kernels_per_call"], t["kernel_events_per_call"],
      t["kernel_names"]) = device_ms(torch, kernel)
-    if library is None:
-        return t
-    t["library_kernel_ms"], _, _, t["library_kernels"] = device_ms(torch,
-                                                                   lib_dev)
+    if library is not None:
+        t["library_kernel_ms"], _, _, t["library_kernels"] = device_ms(
+            torch, lib_dev)
     if cold:
         flush = l2_flush(torch)
         t["ms_cold"] = median_ms(torch, kernel, before=flush)
-        t["library_ms_cold"] = median_ms(torch, library, before=flush)
         t["kernel_ms_cold"] = device_ms(torch, kernel, before=flush)[0]
-        t["library_kernel_ms_cold"] = device_ms(torch, lib_dev,
-                                                before=flush)[0]
+        if library is not None:
+            t["library_ms_cold"] = median_ms(torch, library, before=flush)
+            t["library_kernel_ms_cold"] = device_ms(torch, lib_dev,
+                                                    before=flush)[0]
         del flush
         torch.cuda.empty_cache()
     return t
@@ -5057,16 +5060,20 @@ def q_vt_split(torch, ops, z, y, n):
     return out
 
 
-def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True):
+def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True, cold=False,
+                   row=3):
     """B.9's split-hd kernels on a cache cut into n hd shards: each shard's
     partial scores against the plain version, their sum's softmax-combine
     against the plain version, and the joined output against the unsplit
-    plain attention.  With `timed` (path e's cache), shard 0 timed against
-    its byte bound and beside the library's scores: one `torch.matmul` of
-    q·scale [B, K, G, hd/n] and the transposed k view [B, K, hd/n, W] (in
-    the inputs' dtype, so bf16 scores for bf16 inputs where the kernel
-    writes fp32; the transposition copied inside the call), and the same
-    product on a k transposed beforehand.  Without, the checks' errors."""
+    plain attention.  With `timed`, shard 0 also checked bitwise against
+    itself (batch row `row` alone = that row of the whole batch; a second
+    call = the first) and timed against its byte bound, the scores beside
+    the library's: one `torch.matmul` of q·scale [B, K, G, hd/n] and the
+    transposed k view [B, K, hd/n, W] (in the inputs' dtype, so bf16
+    scores for bf16 inputs where the kernel writes fp32; the transposition
+    copied inside the call), and the same product on a k transposed
+    beforehand; with `cold`, also with the L2 flushed before each call.
+    Without `timed`, the checks' errors."""
     from repro_torch.kernels import decode_attention as da
 
     b, h, hd = q.shape
@@ -5119,18 +5126,49 @@ def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True):
                 for kind, e in (("scores", s_err),
                                 ("combine", max(c_err, j_err)))}
     q0, k0, v0 = cut[0]
+    # bitwise: a batch row alone as in the whole batch, a call as the last
+    r = slice(row, row + 1)
+    s_all = ops.decode_scores_partial(q0, k0, scale)
+    c_all = ops.decode_softmax_combine(total, v0, sp, pos)
+    bitwise = {
+        "scores_row": torch.equal(s_all[r], ops.decode_scores_partial(
+            q0[r].contiguous(), k0[r].contiguous(), scale)),
+        "combine_row": torch.equal(c_all[r], ops.decode_softmax_combine(
+            total[r].contiguous(), v0[r].contiguous(), sp, pos)),
+        "scores_again": torch.equal(s_all, ops.decode_scores_partial(
+            q0, k0, scale)),
+        "combine_again": torch.equal(c_all, ops.decode_softmax_combine(
+            total, v0, sp, pos))}
+    del s_all, c_all
+    check(all(bitwise.values()), f"B.9's split kernels at {label}: not "
+                                 f"bitwise across batch sizes or calls "
+                                 f"{bitwise}")
     q4 = (q0 * scale).reshape(b, kk, h // kk, hl)
     kt = k0.permute(0, 2, 3, 1)
     t_s = timings(torch, lambda: ops.decode_scores_partial(q0, k0, scale),
                   lambda: da.scores_partial_plain(q0, k0, scale),
-                  lambda: torch.matmul(q4, kt))
+                  lambda: torch.matmul(q4, kt), cold=cold)
     kt = kt.contiguous()
     t_s["library_pretransposed_kernel_ms"] = device_ms(
         torch, lambda: torch.matmul(q4, kt))[0]
     del kt
     t_c = timings(torch, lambda: ops.decode_softmax_combine(total, v0, sp,
                                                             pos),
-                  lambda: da.softmax_combine_plain(total, v0, sp, pos), None)
+                  lambda: da.softmax_combine_plain(total, v0, sp, pos), None,
+                  cold=cold)
+    # a floor for the combine: PyTorch's own reductions reading the same
+    # bytes (the scores and v, each summed to one fp32), not the function
+    def read_all():
+        return [torch.sum(x, dtype=torch.float32) for x in (total, v0)]
+
+    t_c["read_floor_kernel_ms"] = device_ms(torch, read_all)[0]
+    if cold:
+        t_c["read_floor_kernel_ms_cold"] = device_ms(
+            torch, read_all, before=l2_flush(torch))[0]
+    plan = (da.split_plan(w, kk, h // kk, hl, k.element_size(),
+                          torch.cuda.get_device_properties(
+                              q.device).multi_processor_count)._asdict()
+            if hasattr(da, "split_plan") else None)  # older trees: none
     elt = k.element_size()
     s_bytes = 4 * b * h * w
     out = {}
@@ -5142,7 +5180,7 @@ def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True):
         bound_ms, bound_by = q_bound(nbytes, flops)
         out[kind] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
                          max_abs_err=e, shape=[b, h, w, kk, hl], shards=n,
-                         dtype=str(k.dtype))
+                         dtype=str(k.dtype), bitwise=bitwise, plan=plan)
         name = ("decode_scores_partial" if kind == "scores"
                 else "decode_softmax_combine")
         lib = ("" if t["library_ms"] is None else
@@ -5150,13 +5188,71 @@ def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True):
                f"{t['library_kernel_ms']:.4f} ms device (on a k transposed "
                f"beforehand {t['library_pretransposed_kernel_ms']:.4f} ms "
                f"device)")
+        text = (f"kernel {t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms "
+                f"device ({t['kernels_per_call']} kernels a call), plain "
+                f"{t['plain_ms']:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+                f"({bound_by}), device time at "
+                f"{100 * bound_ms / t['kernel_ms']:.1f}% of bound")
+        if cold:
+            text += (f"; L2 cold: kernel {t['ms_cold']:.4f} / "
+                     f"{t['kernel_ms_cold']:.4f} ms (call / device, "
+                     f"{100 * bound_ms / t['kernel_ms_cold']:.1f}% of "
+                     f"bound)")
+            if t["library_ms"] is not None:
+                text += (f", torch.matmul {t['library_ms_cold']:.4f} / "
+                         f"{t['library_kernel_ms_cold']:.4f} ms")
+        if "read_floor_kernel_ms" in t:
+            text += (f"; torch.sum of the same bytes "
+                     f"{t['read_floor_kernel_ms']:.4f} ms device")
+            if cold:
+                text += f", L2 cold {t['read_floor_kernel_ms_cold']:.4f}"
         print(f"{name} at {label}: max_abs_err={e:g} (joined output "
-              f"against the unsplit attention {j_err:g}); kernel "
-              f"{t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms device, "
-              f"plain {t['plain_ms']:.4f} ms{lib}; bound {bound_ms:.4f} ms "
-              f"({bound_by}), device time at "
-              f"{100 * bound_ms / t['kernel_ms']:.1f}% of bound")
+              f"against the unsplit attention {j_err:g}); {text}; bitwise "
+              f"across B and calls; plan {plan}")
     return out
+
+
+def q_decode_shapes(torch, ops, dev, gen):
+    """B.9's split kernels at Q_SHARDS shards of path e's [8, 32768, 16,
+    64] bf16 cache, timed; at q1's own [4, 4096, 16, 64] cache cut in 2,
+    fp32 and bf16, checked; and at Q_SHARDS shards of qwen3-32b's GQA cache
+    [8, 32768, 8, 128] (64 query heads), timed.  The 16-shard shapes are
+    also timed with the L2 cold (their k shard fits the 50 MB L2).  Inputs
+    from the seeded generator `gen`, in that order; path e's live context
+    (slots 0..32719) on both long caches, q1's first Q_STEPS slots on its
+    own."""
+    def cache(shape_q, shape_kv, dtype=torch.bfloat16):
+        return (torch.randn(shape_q, generator=gen, device=dev).to(dtype),
+                *(torch.randn(shape_kv, generator=gen, device=dev).to(dtype)
+                  for _ in range(2)))
+
+    def long_cache(h, kk, hd):
+        q, k, v = cache((SERVE_BATCH, h, hd),
+                        (SERVE_BATCH, SERVE_WINDOW, kk, hd))
+        out = {n: q_decode_split(torch, ops, q, k, v, sp, pos, n,
+                                 cold=n > 2) for n in Q_SHARDS}
+        del q, k, v
+        torch.cuda.empty_cache()
+        return out
+
+    sp = torch.arange(SERVE_WINDOW, dtype=torch.int32, device=dev)
+    sp[32720:] = -1  # path e's live context
+    pos = torch.tensor(32719, dtype=torch.int32, device=dev)
+    checks = long_cache(16, 16, 64)
+    # ... at q1's own shard shape (Q_BATCH x Q_WINDOW, hd 64 over Q_RANKS,
+    # the ring's first Q_STEPS slots live), both dtypes
+    da_q1 = {}
+    sp1 = torch.full((Q_WINDOW,), -1, dtype=torch.int32, device=dev)
+    sp1[:Q_STEPS] = torch.arange(Q_STEPS, dtype=torch.int32, device=dev)
+    pos1 = torch.tensor(Q_STEPS - 1, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = cache((Q_BATCH, 16, 64), (Q_BATCH, Q_WINDOW, 16, 64),
+                        dtype)
+        da_q1[str(dtype)] = q_decode_split(torch, ops, q, k, v, sp1, pos1,
+                                           Q_RANKS, timed=False)
+        del q, k, v
+    gqa = long_cache(64, 8, 128)  # qwen3-32b
+    return checks, da_q1, gqa
 
 
 def path_q(torch, ops, dev, card):
@@ -5269,37 +5365,11 @@ def path_q(torch, ops, dev, card):
             vt_checks[str(dtype), n] = q_vt_split(torch, ops, z, y, n)
         del z
     torch.cuda.empty_cache()
-    b, h, hd = SERVE_BATCH, 16, 64
-    q = torch.randn((b, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, SERVE_WINDOW, h, hd), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    v = torch.randn((b, SERVE_WINDOW, h, hd), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    sp = torch.arange(SERVE_WINDOW, dtype=torch.int32, device=dev)
-    sp[32720:] = -1  # path e's live context
-    pos = torch.tensor(32719, dtype=torch.int32, device=dev)
-    da_checks = {n: q_decode_split(torch, ops, q, k, v, sp, pos, n)
-                 for n in Q_SHARDS}
-    del q, k, v, sp
-    torch.cuda.empty_cache()
-    # ... and at q1's own shard shape (Q_BATCH x Q_WINDOW, hd 64 over
-    # Q_RANKS, the ring's first Q_STEPS slots live), both dtypes
-    da_q1 = {}
-    sp = torch.full((Q_WINDOW,), -1, dtype=torch.int32, device=dev)
-    sp[:Q_STEPS] = torch.arange(Q_STEPS, dtype=torch.int32, device=dev)
-    pos = torch.tensor(Q_STEPS - 1, dtype=torch.int32, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for shape in ((Q_BATCH, h, hd),
-                                 (Q_BATCH, Q_WINDOW, h, hd),
-                                 (Q_BATCH, Q_WINDOW, h, hd)))
-        da_q1[str(dtype)] = q_decode_split(torch, ops, q, k, v, sp, pos,
-                                           Q_RANKS, timed=False)
-    del q, k, v, sp
+    da_checks, da_q1, da_gqa = q_decode_shapes(torch, ops, dev, gen)
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ops.LAUNCHES}
     print(f"path q in all {time.perf_counter() - t_q:.1f} s")
     return {"launches": launches, "vt": vt_checks, "da": da_checks,
-            "da_q1": da_q1,
+            "da_q1": da_q1, "da_gqa": da_gqa,
             "ms": {"unpartitioned_bf16": med(base_ms),
                    "partitioned_bf16": med(ranks[0]["ms_bf16"])}}
 
@@ -5366,6 +5436,12 @@ def main() -> int:
     if "--path-q" in sys.argv[1:]:  # path q alone, for its development
         path_q(torch, ops, dev, card)
         print(f"chip_smoke --path-q finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-q-decode" in sys.argv[1:]:  # B.9's split kernels alone
+        q_decode_shapes(torch, ops, dev,
+                        torch.Generator(device=dev).manual_seed(28))
+        print(f"chip_smoke --path-q-decode finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -5909,13 +5985,15 @@ def main() -> int:
               library_pretransposed_kernel_ms=lmq["da"][2]["scores"][
                   "library_pretransposed_kernel_ms"],
               other_shapes=[at_j(lmq["da"][n]["scores"])
-                            for n in Q_SHARDS[1:]],
+                            for n in Q_SHARDS[1:]]
+              + [at_j(m["scores"]) for m in lmq["da_gqa"].values()],
               path_q1=[c["scores"] for c in lmq["da_q1"].values()]),
         entry("decode_softmax_combine", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["combine"]),
               other_shapes=[at_j(lmq["da"][n]["combine"])
-                            for n in Q_SHARDS[1:]],
+                            for n in Q_SHARDS[1:]]
+              + [at_j(m["combine"]) for m in lmq["da_gqa"].values()],
               path_q1=[c["combine"] for c in lmq["da_q1"].values()]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "

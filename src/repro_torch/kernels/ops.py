@@ -26,8 +26,8 @@ from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 #: (`vt_kl_loss` counts its forward and backward kernels apart, and so do
 #: its vocab-parallel forms `vt_kl_partial_fwd` and `vt_kl_shard_bwd`;
 #: `decode_scores_partial` and `decode_softmax_combine` are the split-hd
-#: decode attention's two kernels;
-#: `decode_attention_fused` counts its split kernel and merge as one, and
+#: decode attention's two kernels, the latter counting its split kernel
+#: and merge as one, as `decode_attention_fused` counts its own; and
 #: `decdiff_update` one per Eq. 5 update: pass A over every leaf, the
 #: scale kernel and pass B over every leaf; `drift_norms` one per call of
 #: Eq. 5's pass A and scale kernel alone)
@@ -549,6 +549,15 @@ def decode_softmax_combine(scores: torch.Tensor, v: torch.Tensor,
     if v.shape[3] > 64:
         raise ValueError(f"decode_softmax_combine: the kernel takes at most "
                          f"64 head dims a shard; got {v.shape[3]}")
+    kk, g = v.shape[2], scores.shape[1] // v.shape[2]
+    cols = 0 if _da.combine_by_head(g, v.shape[3]) else \
+        _da.combine_columns(kk, g, v.shape[3])[2]
+    if max(cols, kk * g) > _da.SPLIT_THREADS:
+        raise ValueError(f"decode_softmax_combine: the kernel takes at most "
+                         f"{_da.SPLIT_THREADS} heads and {_da.SPLIT_THREADS} "
+                         f"columns (kv head, query group, head-dim run) a "
+                         f"slot; got {kk * g} and {cols} (K={kk}, G={g}, "
+                         f"hdl={v.shape[3]})")
     out = _da.softmax_combine_cuda(scores, v, slot_pos, pos, window)
     LAUNCHES["decode_softmax_combine"] += 1
     return out

@@ -30,7 +30,11 @@ under the specs' small-leaf limit and replicate), batch 4 x 32.
     all-reduce with MAX;
   * `launch/comm_analysis.py` against a hand count for one column- and
     one row-parallel linear on a fake (2, 2) group;
-  * `cuda`: the split kernels against their plain versions (skip here).
+  * B.9's split plan: no batch size, W covered, shared memory in a block
+    for the dense archs at model = 2 to 16;
+  * `cuda`: the split kernels against their plain versions, a batch
+    row's output bitwise that of the whole batch, and two calls bitwise
+    (skip here).
 
 All ranks run in ONE `torch.multiprocessing.spawn` per module, with a
 `FileStore` in the test's temporary directory, as tests/test_torch_pods.py
@@ -530,6 +534,41 @@ def test_decode_split_forms_check_their_inputs():
             torch.tensor(0, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-7b",
+                                  "qwen2.5-14b", "qwen3-32b"])
+@pytest.mark.parametrize("model", [2, 4, 8, 16])
+def test_decode_split_plan_covers_w_and_fits_a_block(arch, model):
+    """B.9's split plan takes no batch size (a row's output is then
+    bitwise the same at any B); its scores blocks and combine splits cover
+    W in whole stages with none empty, and each kernel's shared memory
+    fits a block (227 KB) and the combine's columns its threads, for the
+    dense archs' hd split over "model", bf16 and fp32, from a W below one
+    stage to 2^19 slots, on 132 and 114 SMs."""
+    import inspect
+
+    from repro_torch.configs import get_config
+
+    assert list(inspect.signature(_da.split_plan).parameters) == [
+        "w", "kk", "g", "hdl", "kv_bytes", "sms"]
+    cfg = get_config(arch)
+    kk, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    hdl = cfg.head_dim // model
+    assert kk * g <= _da.SPLIT_THREADS
+    assert _da.combine_by_head(g, hdl) \
+        or _da.combine_columns(kk, g, hdl)[2] <= _da.SPLIT_THREADS
+    for kv_bytes in (2, 4):
+        for w in (1, 5, 777, 4096, 32768, 32769, 1 << 19):
+            for sms in (132, 114):
+                p = _da.split_plan(w, kk, g, hdl, kv_bytes, sms)
+                assert p.per_block % p.tile == 0 and p.per_split % p.chunk == 0
+                assert p.blocks * p.per_block >= w \
+                    > (p.blocks - 1) * p.per_block
+                assert p.splits * p.per_split >= w \
+                    > (p.splits - 1) * p.per_split
+                assert max(p.scores_smem,
+                           p.combine_smem) <= _da.SMEM_LIMIT, p
+
+
 # ----------------------------------------------------------- comm_analysis
 
 def test_comm_analysis_counts_a_column_and_a_row_parallel_linear():
@@ -618,12 +657,9 @@ def test_vt_split_kernels_match_their_plain_versions(card, shape, dtype):
     assert (torch.abs(dz.cpu().float() - ref) <= tol).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 4096, 16, 16, 4), (3, 40, 8, 4, 32),
-                                   (2, 1000, 64, 8, 64)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_split_kernels_match_their_plain_versions(card, shape,
-                                                         dtype):
+def _split_inputs(shape, dtype, dev):
+    """q [B, H, hd], k and v [B, W, K, hd] from a seeded generator, slot_pos
+    with a third of W masked, and pos."""
     b, w, h, kk, hd = shape
     g = torch.Generator().manual_seed(w)
     q = torch.randn(b, h, hd, generator=g).to(dtype)
@@ -632,15 +668,68 @@ def test_decode_split_kernels_match_their_plain_versions(card, shape,
     slot_pos = torch.arange(w, dtype=torch.int32)
     slot_pos[w // 3:w // 2] = -1
     pos = torch.tensor(w - 2, dtype=torch.int32)
+    return tuple(t.to(dev) for t in (q, k, v, slot_pos, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (8, 4096, 16, 16, 4), (3, 40, 8, 4, 32), (2, 1000, 64, 8, 64),
+    (2, 1000, 40, 8, 64),  # qwen2.5-14b's G = 5 at hdl 64
+    (3, 777, 16, 16, 32),  # a W that no stage or split divides
+    (2, 5, 16, 16, 32),    # a W below one stage
+    (4, 2048, 32, 32, 8), (4, 1500, 64, 8, 16),  # hdl 8 and 16
+    (2, 1000, 64, 8, 8)])  # qwen3-32b's G = 8 at hdl 8
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernels_match_their_plain_versions(card, shape,
+                                                         dtype):
+    b, w, h, kk, hd = shape
+    q, k, v, slot_pos, pos = _split_inputs(shape, dtype, "cpu")
     want = _da.scores_partial_plain(q, k, 0.125)
     got = ops.decode_scores_partial(q.to(card), k.to(card), 0.125).cpu()
     terms = 0.125 * torch.einsum("bkgd,bwkd->bkgw", q.float().abs().reshape(
         b, kk, h // kk, hd), k.float().abs()).reshape(b, h, w)
     assert (torch.abs(got - want) <= 1e-6 + 1e-5 * terms).all()
-    for window in (0, 17):
-        want = _da.softmax_combine_plain(got, v, slot_pos, pos, window)
+    masked = torch.full_like(slot_pos, -1)  # every slot: uniform weights
+    for sp, window in ((slot_pos, 0), (slot_pos, 17), (masked, 0)):
+        want = _da.softmax_combine_plain(got, v, sp, pos, window)
         out = ops.decode_softmax_combine(got.to(card), v.to(card),
-                                         slot_pos.to(card), pos.to(card),
+                                         sp.to(card), pos.to(card),
                                          window).cpu()
         vt = v.float().abs().amax(dim=1).repeat_interleave(h // kk, 1)
         assert (torch.abs(out - want) <= 1e-6 + 1e-5 * vt).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 4096, 16, 16, 4),
+                                   (8, 3000, 64, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_rows_are_bitwise_across_batch_sizes(card, shape,
+                                                          dtype):
+    """A batch row's scores and combine, computed alone, are bitwise that
+    row of the whole batch's: the kernels' plan sees no B."""
+    b = shape[0]
+    q, k, v, slot_pos, pos = _split_inputs(shape, dtype, card)
+    s = ops.decode_scores_partial(q, k, 0.125)
+    out = ops.decode_softmax_combine(s, v, slot_pos, pos, 17)
+    for r in (0, b - 1):
+        one = slice(r, r + 1)
+        s1 = ops.decode_scores_partial(q[one].contiguous(),
+                                       k[one].contiguous(), 0.125)
+        assert torch.equal(s1, s[one])
+        o1 = ops.decode_softmax_combine(s[one].contiguous(),
+                                        v[one].contiguous(), slot_pos, pos,
+                                        17)
+        assert torch.equal(o1, out[one])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 4096, 16, 16, 4),
+                                   (8, 3000, 64, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernels_are_bitwise_repeatable(card, shape, dtype):
+    """Two calls give the same bits: every sum runs in a fixed order."""
+    q, k, v, slot_pos, pos = _split_inputs(shape, dtype, card)
+    s = ops.decode_scores_partial(q, k, 0.125)
+    out = ops.decode_softmax_combine(s, v, slot_pos, pos)
+    assert torch.equal(ops.decode_scores_partial(q, k, 0.125), s)
+    assert torch.equal(ops.decode_softmax_combine(s, v, slot_pos, pos), out)
