@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p |
-                           --path-q]
+                           --path-q | --path-r]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -353,6 +353,28 @@ It imports the port only (no JAX), and:
      cut in 2, fp32 and bf16, against their plain versions; files go to
      `build/path_q/`; `--path-q` runs the kernel build and path q alone,
      `--path-q-decode` the kernel build and B.9's split kernels alone;
+     then path r, the LM DFL round partitioned inside each pod on the
+     multi mesh (pod, data, model): full-width qwen1.5-0.5b cut to 12 of
+     its 24 layers (the path's time), two nodes on a ring, each with a batch of 4 x 128 (VT loss), fp32 params and
+     activations for the checks; r0 the unpartitioned round of each
+     exchange (fp32, the bf16 cast, the deterministic int8 codec), then
+     the same on a (1, 1, 1) mesh over NCCL in this process, bitwise
+     equal (loss and gossiped params; int8 against the one-pod fused
+     `build_dfl_round_shardmap`) with equal launches; r1 on a (2, 1, 2)
+     mesh in four ranks sharing the card over the host-staged backend,
+     each exchange held to the unpartitioned round shard for shard (loss
+     within 1e-5, params within 1e-5, int8 within 1e-4 plus one int8
+     grain), then prefill and 32 decode steps on a 4,096-slot ring held
+     to the unpartitioned steps (logits within 1e-3 of the largest, equal
+     tokens), each rank's launches checked exactly (`vt_kl_partial_fwd`,
+     `vt_kl_shard_bwd` and `decdiff_update` once a round,
+     `dequant_neighbor_avg_rows` once in the int8 round, the split-hd
+     decode kernels 12 x 32 times); the bf16 round (registered bf16
+     config, bf16 exchange) timed both ways; then the split B.2
+     (`ops.decdiff_rows_split`) at r1's flat block against its plain
+     version, timed against its byte bound; files go to `build/path_r/`
+     (~11 GB of references, deleted at the end); `--path-r` runs the
+     kernel build and path r alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -4168,8 +4190,9 @@ def o_dryrun_finish(procs, card):
                   f"chip {rec['cost_analysis']['bytes accessed']:.6e}, "
                   f"argument bytes per device "
                   f"{mem['argument_size_in_bytes']}, temp bytes per device "
-                  f"{mem['temp_size_in_bytes']} (upper bound, batch "
-                  f"{mem['temp_batch_per_device']} a device), output "
+                  f"{mem['temp_size_in_bytes']} ("
+                  f"{'upper bound, ' if mem['temp_is_upper_bound'] else ''}"
+                  f"batch {mem['temp_batch_per_device']} a device), output "
                   f"{mem['output_size_in_bytes']}, fits_hbm "
                   f"{rec['fits_hbm']} ({rec['hbm_bytes']:.0f} B), "
                   f"collectives {rec['collectives']['total']:.0f} B, "
@@ -4921,9 +4944,10 @@ def q_steps(torch, ops, lm, dev, mesh=None, timed=False):
 
 def q_against(torch, got, ref, label):
     """Path q's check of a partitioned run against the unpartitioned one
-    (fp32 activations): the loss within 1e-5, prefill and every decode
-    step's logits within 1e-3 of the largest, the same tokens."""
-    loss_gap = abs(got["loss"] - ref["loss"])
+    (fp32 activations): the loss within 1e-5 (where the run has one),
+    prefill and every decode step's logits within 1e-3 of the largest,
+    the same tokens."""
+    loss_gap = abs(got["loss"] - ref["loss"]) if "loss" in ref else 0.0
     pre = float((got["prefill"] - ref["prefill"]).abs().max())
     pre_max = float(ref["prefill"].abs().max())
     dec = float((got["decode"] - ref["decode"]).abs().max())
@@ -4931,8 +4955,9 @@ def q_against(torch, got, ref, label):
     same_tokens = bool(torch.equal(got["tokens"], ref["tokens"]))
     finite = bool(torch.isfinite(got["prefill"]).all()
                   and torch.isfinite(got["decode"]).all())
-    text = (f"{label}: loss {got['loss']:.6f} (unpartitioned "
-            f"{ref['loss']:.6f}, gap {loss_gap:.3g}); prefill logits "
+    text = (f"{label}: " + (f"loss {got['loss']:.6f} (unpartitioned "
+                            f"{ref['loss']:.6f}, gap {loss_gap:.3g}); "
+                            if "loss" in ref else "") + f"prefill logits "
             f"|diff| {pre:.3g} of max {pre_max:.3g}; {Q_STEPS} decode "
             f"steps |diff| {dec:.3g} of max {dec_max:.3g}; tokens equal "
             f"{same_tokens}")
@@ -5374,6 +5399,452 @@ def path_q(torch, ops, dev, card):
                    "partitioned_bf16": med(ranks[0]["ms_bf16"])}}
 
 
+R_DIR = ROOT / "build" / "path_r"     # path r's rendezvous and results
+R_NODES, R_BATCH, R_SEQ = 2, 4, 128   # two nodes on a ring, 4 x 128 each
+R_LAYERS = 12                         # of 24: keeps path r near 150 s
+R_MESH = (2, 1, 2)                    # (pod, data, model) on the card
+R_EXCHANGES = ("fp32", "bf16", "int8")
+R_TIMED = 3                           # bf16 rounds timed after one
+R_ROUND = ("vt_kl_partial_fwd", "vt_kl_shard_bwd", "decdiff_update")
+R_SERVE = ("decode_scores_partial", "decode_softmax_combine")
+
+
+def r_lm(checks):
+    """Full-width qwen1.5-0.5b cut to R_LAYERS layers: fp32 params and
+    activations for the checks, else the registered bf16 config (the
+    timed rounds)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=R_LAYERS)
+    if checks:
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  activation_dtype="float32")
+    return build_lm(cfg)
+
+
+def r_exchange(torch, name):
+    from repro_torch.comm.codecs import Int8Codec
+
+    return {"fp32": {}, "bf16": {"gossip_dtype": torch.bfloat16},
+            "int8": {"codec": Int8Codec(stochastic=False)}}[name]
+
+
+def r_round(torch, ops, lm, dev, name, mesh=None, shardmap=False, timed=0):
+    """One DFL round of exchange `name` over R_NODES nodes on a ring, each
+    with a batch of R_BATCH x R_SEQ (VT loss): on `mesh` (the multi mesh)
+    this rank's pod block placed on its sub-mesh, else all nodes (with
+    `shardmap`, the one-pod fused `build_dfl_round_shardmap`); node i's
+    params from seed 30 + i.  The launch counts set to 0 just before the
+    round and read just after; with `timed`, that many more rounds, each
+    timed (host clock, synchronized)."""
+    from repro_torch.dist.dfl_step import (build_dfl_round,
+                                           build_dfl_round_shardmap)
+    from repro_torch.dist.sharding import place_node_block
+    from repro_torch.launch.mesh import pod_axis
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_map
+
+    n_pods, pod = (1, 0) if mesh is None else pod_axis(mesh)[:2]
+    r = R_NODES // n_pods
+    nodes = [lm.init(torch.Generator(device=dev).manual_seed(30 + i),
+                     device=dev) for i in range(pod * r, (pod + 1) * r)]
+    params = tree_map(lambda *xs: torch.stack(xs), *nodes)
+    del nodes
+    g = torch.Generator(device=dev).manual_seed(31)
+    seq = torch.randint(0, lm.cfg.vocab, (R_NODES, R_BATCH, R_SEQ + 1),
+                        generator=g, device=dev, dtype=torch.int32)
+    seq = seq[pod * r:(pod + 1) * r]
+    batch = {"tokens": seq[..., :-1].contiguous(),
+             "labels": seq[..., 1:].contiguous()}
+    if mesh is not None:
+        params = place_node_block(params, mesh)
+        batch = place_node_block(batch, mesh, batch=True)
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    state = opt.init(params)
+    adj = [[0.0, 1.0], [1.0, 0.0]]
+    kw = r_exchange(torch, name)
+    step = (build_dfl_round_shardmap(lm, opt, adj, beta=LM_BETA, **kw)
+            if shardmap else
+            build_dfl_round(lm, opt, adj, beta=LM_BETA, mesh=mesh, **kw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    new, state, loss = step(params, state, 0, batch)
+    torch.cuda.synchronize()
+    out = {"launches": dict(ops.LAUNCHES),
+           "ms": [1e3 * (time.perf_counter() - t0)], "loss": float(loss)}
+    for i in range(timed):
+        t0 = time.perf_counter()
+        new, state, _ = step(new, state, i + 1, batch)
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+    out.update(params=new, peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def r_serve(torch, ops, lm, dev, mesh=None):
+    """Node 0's params (seed 30): prefill of its first R_BATCH x R_SEQ
+    tokens, then Q_STEPS greedy decode steps on a Q_WINDOW-slot ring; on
+    `mesh` params replicated over "pod", batch and tokens over ("pod",
+    "data"), the cache by its specs.  Launch counts set to 0 just before
+    and read just after."""
+    from repro_torch.dist.dfl_step import build_prefill_step, build_serve_step
+    from repro_torch.dist.sharding import (NODE_AXIS, distribute_tree,
+                                           full_tree, make_batch_specs,
+                                           make_cache_specs,
+                                           make_param_specs)
+
+    def place(tree, specs, **kw):
+        return tree if mesh is None else distribute_tree(
+            tree, specs(tree, mesh, **kw), mesh)
+
+    dp = {"dp_axes": (NODE_AXIS, "data")}
+    params = place(lm.init(torch.Generator(device=dev).manual_seed(30),
+                           device=dev), make_param_specs)
+    g = torch.Generator(device=dev).manual_seed(31)
+    seq = torch.randint(0, lm.cfg.vocab, (R_NODES, R_BATCH, R_SEQ + 1),
+                        generator=g, device=dev, dtype=torch.int32)[0]
+    whole = {"tokens": seq[:, :-1].contiguous(),
+             "labels": seq[:, 1:].contiguous()}
+    prefill = build_prefill_step(lm, mesh=mesh)
+    serve = build_serve_step(lm, mesh=mesh)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    logits = full_tree(prefill(params, place(whole, make_batch_specs, **dp)))
+    cache = place(lm.init_cache(R_BATCH, Q_WINDOW, device=dev),
+                  make_cache_specs)
+    tok = whole["tokens"][:, :1].contiguous()
+    dec, toks = [], []
+    for _ in range(Q_STEPS):
+        lg, cache = serve(params, cache,
+                          place({"t": tok}, make_batch_specs, **dp)["t"])
+        lg = full_tree(lg)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        dec.append(lg[:, 0].float())
+        toks.append(tok)
+    torch.cuda.synchronize()
+    return {"launches": dict(ops.LAUNCHES), "prefill": logits.float(),
+            "decode": torch.stack(dec), "tokens": torch.cat(toks, dim=1)}
+
+
+def r_shard(t, placements, coord, sizes):
+    """The shard at `coord` of the sub-mesh (dimension sizes `sizes`) of a
+    whole tensor `t` placed by `placements` (DTensor's even chunks)."""
+    for pl, c, n in zip(placements, coord, sizes):
+        if pl.is_shard():
+            t = t.chunk(n, dim=pl.dim)[c]
+    return t
+
+
+def r_worker(rank, n_ranks, out_dir, device="cuda:0"):
+    """One rank of path r1 on the card (cuda:0): the (2, 1, 2) multi mesh
+    over the host-staged backend; the three fp32-config rounds, each
+    against the unpartitioned round (its pod's node, from `ref_<x>.pt`,
+    shard for shard), prefill and decode against the unpartitioned steps
+    (rank 0, from `serve.pt`), then the bf16 round timed; results pickled
+    to `out_dir/rank<r>.pkl`."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import host_staging
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, pod_submesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    dist.init_process_group(
+        host_staging.register(), rank=rank, world_size=n_ranks,
+        store=dist.FileStore(str(Path(out_dir) / "store"), n_ranks))
+    try:
+        mesh = make_host_mesh(pod=R_MESH[0], data=R_MESH[1],
+                              model=R_MESH[2], device_type=dev.type)
+        sub = pod_submesh(mesh)
+        coord, sizes = sub.get_coordinate(), tuple(sub.shape)
+        pod, r = mesh.get_coordinate()[0], R_NODES // R_MESH[0]
+        out = {"rounds": {}}
+        lm = r_lm(True)
+        for name in R_EXCHANGES:
+            got = r_round(torch, ops, lm, dev, name, mesh)
+            ref = torch.load(Path(out_dir) / f"ref_{name}.pt",
+                             map_location="cpu", mmap=True)
+            err = 0.0
+            for t, w in zip(tree_leaves(got["params"]),
+                            tree_leaves(ref["params"])):
+                want = r_shard(w[pod * r:(pod + 1) * r], t.placements, coord,
+                               sizes)
+                err = max(err, float((t.to_local().float()
+                                      - want.to(dev)).abs().max()))
+            tol = 1e-5 if name != "int8" else 1e-4 + max(
+                ref["grain"][pod * r:(pod + 1) * r])
+            out["rounds"][name] = dict(
+                loss=got["loss"], loss_gap=abs(got["loss"] - ref["loss"]),
+                err=err, tol=tol, ms=got["ms"], peak=got["peak"],
+                launches=got["launches"],
+                ok=abs(got["loss"] - ref["loss"]) <= 1e-5 and err <= tol)
+            del got, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        got = r_serve(torch, ops, lm, dev, mesh)
+        out["serve_launches"] = got["launches"]
+        if rank == 0:
+            ref = torch.load(Path(out_dir) / "serve.pt", map_location=dev)
+            out["serve_ok"], out["serve_text"] = q_against(
+                torch, got, ref, "path r1 (2, 1, 2) prefill and decode")
+            del ref
+        del got, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = r_round(torch, ops, r_lm(False), dev, "bf16", mesh,
+                      timed=R_TIMED)
+        out["ms_bf16"], out["peak_bf16"] = got["ms"], got["peak"]
+        out["finite_bf16"] = bool(math.isfinite(got["loss"]))
+        del got
+        out["imported"] = sorted(k for k in sys.modules
+                                 if k.split(".")[0] in ("jax", "repro"))
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def r_split_check(torch, dev, gen):
+    """The split B.2 (`ops.decdiff_rows_split`) at path r1's shape: the
+    flat [1, D_local] fp32 block (the int8 round's form) of the rank at
+    model coordinate 1 of 2, whose spans leave out the leaves replicated
+    over "model", the all-reduce the identity; against its plain version
+    (the norm within 1e-5 relative, the step within what that moves) and
+    timed against its byte bound.  No single PyTorch call computes it
+    (library_ms null)."""
+    from repro_torch.dist.dfl_step import _counted_here, _flat_spans
+    from repro_torch.dist.sharding import node_block_specs, placements
+    from repro_torch.kernels import decdiff_update as dd
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    def spec_leaves(tree):  # sorted keys, as tree_leaves
+        if isinstance(tree, dict):
+            return [s for k in sorted(tree) for s in spec_leaves(tree[k])]
+        return [tree]
+
+    meta = tree_map(lambda t: torch.empty((1,) + tuple(t.shape),
+                                          dtype=t.dtype, device="meta"),
+                    r_lm(True).init(torch.Generator(), device="meta"))
+    sizes = dict(zip(("pod", "data", "model"), R_MESH))
+    sub = type("Sub", (), {"mesh_dim_names": ("data", "model")})()
+    counted, widths = [], []
+    for t, spec in zip(tree_leaves(meta), spec_leaves(node_block_specs(
+            meta, type("M", (), {"shape": sizes})()))):
+        widths.append(t[0].numel() // math.prod(
+            sizes[a] for a in ("data", "model") if a in spec))
+        counted.append(_counted_here(placements(spec, sub), (0, 1)))
+    spans = _flat_spans(counted, widths)
+    d, dc = sum(widths), sum(c1 - c0 for _, c0, c1 in spans)
+    x = torch.randn((1, d), generator=gen, device=dev)
+    a = x + 0.01 * torch.randn((1, d), generator=gen, device=dev)
+    seen = []
+
+    def identity(t):
+        seen.append(t.clone())
+        return t
+
+    got = ops.decdiff_rows_split([x], [a], None, 1.0, spans, identity)[0]
+    torch.cuda.synchronize()
+    sq_p = dd.sumsq_spans_plain([x], [a], spans)
+    want = dd.decdiff_rows_split_plain([x], [a], None, 1.0, spans,
+                                       lambda t: t)[0]
+    norm_err = float((seen[0] - sq_p).abs().max())
+    step_err = float((got - want).abs().max())
+    # a norm 1e-5 off moves the step by 1e-5 of it; fp32 rounds either side
+    scale = float(1.0 / (torch.sqrt(sq_p) + 1.0))
+    step_ok = bool(((got - want).abs() <= 1e-6 + 1e-5 * scale * (a - x).abs()
+                    + 2.0 ** -22 * x.abs()).all())
+    del got, want, seen[:]
+    t = timings(torch, lambda: ops.decdiff_rows_split(
+        [x], [a], None, 1.0, spans, identity),
+        lambda: dd.decdiff_rows_split_plain([x], [a], None, 1.0, spans,
+                                            identity), None)
+    nbytes, flops = dc * 8 + d * 12, 3 * dc + 3 * d
+    bound, by = q_bound(nbytes, flops)
+    res = dict(t, max_abs_err=step_err, norm_err=norm_err, bound_ms=bound,
+               bound_by=by, shape=[1, d], counted_columns=dc,
+               spans=len(spans), dtype="torch.float32")
+    print(f"decdiff_update split (path r1's flat block [1, {d}] fp32, "
+          f"{len(spans)} spans, {dc} counted columns): step |diff| "
+          f"{step_err:g}, norm |diff| {norm_err:g} of {float(sq_p):.6g}; "
+          f"kernel {t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms device, "
+          f"plain {t['plain_ms']:.4f} ms; bound {bound:.4f} ms ({by}, "
+          f"{nbytes / 1e9:.3f} GB), device time at "
+          f"{100 * bound / t['kernel_ms']:.1f}% of bound")
+    check(norm_err <= 1e-5 * float(sq_p),
+          f"split decdiff_update: the norm differs by {norm_err:g}")
+    check(step_ok, f"split decdiff_update: the step differs by "
+                   f"{step_err:g}")
+    return res
+
+
+def path_r(torch, ops, dev, card):
+    """The LM DFL round partitioned inside each pod on the multi mesh (see
+    the module docstring): r0 the unpartitioned rounds and the (1, 1, 1)
+    NCCL mesh in this process, bitwise; r1 the (2, 1, 2) mesh in four
+    ranks on the card over the host-staged backend, against the
+    unpartitioned round, then prefill and decode; the bf16 round timed
+    both ways; then the split B.2 at r1's shape.  Returns the launches by
+    rank, the split kernel's check and the ms."""
+    import pickle
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.dist.sharding import full_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    t_r = time.perf_counter()
+    if R_DIR.exists():
+        shutil.rmtree(R_DIR)
+    R_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    lm = r_lm(True)
+
+    def want_launches(name, kernels):
+        base = {"vt_kl_loss_fwd": R_NODES, "vt_kl_loss_bwd": R_NODES,
+                "decdiff_update": 1}
+        if name == "int8" and kernels == "fused":
+            base["dequant_neighbor_avg_rows"] = 1
+        return {k: base.get(k, 0) for k in ops.LAUNCHES}
+
+    # -- r0: the unpartitioned rounds (r1's references), then the (1, 1, 1)
+    # NCCL mesh against them (int8: against the one-pod fused round)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(R_DIR / "store0"), 1), rank=0,
+        world_size=1, device_id=dev)
+    same = {}
+    try:
+        mesh = make_host_mesh(pod=1, data=1, model=1, device_type=dev.type)
+        for name in R_EXCHANGES:
+            ref = r_round(torch, ops, lm, dev, name)
+            check(ref["launches"] == want_launches(name, "unfused"),
+                  f"path r ({name}, unpartitioned): launches "
+                  f"{ref['launches']}")
+            grain = [float(max(t[i].abs().max() for t in
+                               tree_leaves(ref["params"]))) / 127.0
+                     for i in range(R_NODES)]
+            torch.save({"loss": ref["loss"], "grain": grain,
+                        "params": tree_map(lambda t: t.cpu(),
+                                           ref["params"])},
+                       R_DIR / f"ref_{name}.pt")
+            if name == "int8":
+                del ref
+                ref = r_round(torch, ops, lm, dev, name, shardmap=True)
+            got = r_round(torch, ops, lm, dev, name, mesh)
+            same[name] = (got["loss"] == ref["loss"] and all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(full_tree(got["params"])),
+                    tree_leaves(ref["params"]))))
+            check(got["launches"] == ref["launches"],
+                  f"path r0 ({name}): launches {got['launches']} against "
+                  f"{ref['launches']}")
+            print(f"path r0 ({name} exchange, (pod, data, model) = "
+                  f"(1, 1, 1) on NCCL, {card}): loss {got['loss']:.6f}, "
+                  f"bitwise the {'one-pod fused' if name == 'int8' else 'unpartitioned'} "
+                  f"round (loss, gossiped params) = {same[name]}; launches "
+                  f"{ {k: v for k, v in got['launches'].items() if v} }")
+            del got, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    check(all(same.values()), f"path r0: the (1, 1, 1) mesh differs: {same}")
+    serve = r_serve(torch, ops, lm, dev)
+    check(serve["launches"] == {k: R_LAYERS * Q_STEPS
+                                if k == "decode_attention_fused" else 0
+                                for k in ops.LAUNCHES},
+          f"path r (unpartitioned serve): launches {serve['launches']}")
+    torch.save({k: serve[k] for k in ("prefill", "decode", "tokens")},
+               R_DIR / "serve.pt")
+    del serve, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- the unpartitioned bf16 round, timed
+    base = r_round(torch, ops, r_lm(False), dev, "bf16", timed=R_TIMED)
+    base_ms, base_peak = base["ms"], base["peak"]
+    check(math.isfinite(base["loss"]), "path r: unpartitioned bf16 loss")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- r1: (2, 1, 2) over the host-staged backend, four ranks on the card
+    n_ranks = math.prod(R_MESH)
+    t0 = time.perf_counter()
+    mp.spawn(r_worker, args=(n_ranks, str(R_DIR), str(dev)), nprocs=n_ranks,
+             join=True)
+    ranks = []
+    for r in range(n_ranks):
+        with open(R_DIR / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    r1_s = time.perf_counter() - t0
+    for name in R_EXCHANGES:
+        rows = [res["rounds"][name] for res in ranks]
+        print(f"path r1 ({name} exchange, (2, 1, 2)): loss "
+              f"{rows[0]['loss']:.6f}, gap to the unpartitioned round "
+              f"{max(x['loss_gap'] for x in rows):.3g}; params |diff| "
+              f"{max(x['err'] for x in rows):.3g} (tolerance "
+              f"{rows[0]['tol']:.3g}); peak {[x['peak'] for x in rows]} B")
+        check(all(x["ok"] for x in rows),
+              f"path r1 ({name}) against the unpartitioned round: "
+              f"{[(x['loss_gap'], x['err'], x['tol']) for x in rows]}")
+    print(ranks[0]["serve_text"])
+    check(ranks[0]["serve_ok"], f"path r1 prefill and decode: "
+                                f"{ranks[0]['serve_text']}")
+    for r, res in enumerate(ranks):
+        for name in R_EXCHANGES:
+            want = {k: 1 for k in R_ROUND}
+            if name == "int8":
+                want["dequant_neighbor_avg_rows"] = 1
+            got = res["rounds"][name]["launches"]
+            check(got == {k: want.get(k, 0) for k in ops.LAUNCHES},
+                  f"path r1 rank {r} ({name}): launches {got}")
+        check(res["serve_launches"] == {k: R_LAYERS * Q_STEPS
+                                        if k in R_SERVE else 0
+                                        for k in ops.LAUNCHES},
+              f"path r1 rank {r} (serve): launches {res['serve_launches']}")
+        check(res["imported"] == [] and res["finite_bf16"],
+              f"path r1 rank {r}: imported {res['imported']}, finite bf16 "
+              f"loss {res['finite_bf16']}")
+
+    def med(ms):
+        return round(statistics.median(ms[1:] if len(ms) > 1 else ms), 3)
+
+    ms = {"unpartitioned_bf16": med(base_ms),
+          "partitioned_bf16": [med(res["ms_bf16"]) for res in ranks]}
+    print(f"path r (bf16 ms per round, bf16 exchange, median of "
+          f"{R_TIMED} after one; {card}): unpartitioned 2 nodes "
+          f"{ms['unpartitioned_bf16']} (peak {base_peak} B); (2, 1, 2) over "
+          f"the host-staged backend, by rank {ms['partitioned_bf16']} "
+          f"(peak {[res['peak_bf16'] for res in ranks]} B); r1 in "
+          f"{r1_s:.1f} s")
+    for f in R_DIR.glob("*.pt"):
+        f.unlink()  # ~11 GB of references
+    split = r_split_check(torch, dev, torch.Generator(device=dev)
+                          .manual_seed(32))
+    launches = {k: sum(res["rounds"][x]["launches"][k]
+                       for res in ranks for x in R_EXCHANGES)
+                + sum(res["serve_launches"][k] for res in ranks)
+                for k in ops.LAUNCHES}
+    print(f"path r in all {time.perf_counter() - t_r:.1f} s")
+    return {"launches": launches, "split": split, "ms": ms}
+
+
 def main() -> int:
     try:
         import torch
@@ -5436,6 +5907,11 @@ def main() -> int:
     if "--path-q" in sys.argv[1:]:  # path q alone, for its development
         path_q(torch, ops, dev, card)
         print(f"chip_smoke --path-q finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-r" in sys.argv[1:]:  # path r alone, for its development
+        path_r(torch, ops, dev, card)
+        print(f"chip_smoke --path-r finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--path-q-decode" in sys.argv[1:]:  # B.9's split kernels alone
@@ -5864,6 +6340,10 @@ def main() -> int:
 
     # -- path q: the partitioned dense LM step -----------------------------
     lmq = path_q(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- path r: the DFL round partitioned inside each pod -----------------
+    lmr = path_r(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
@@ -5871,6 +6351,7 @@ def main() -> int:
                "o": {k: sum(r[k] for r in lmo["launches"].values())
                      for k in ops.LAUNCHES},
                "p": lmp["total"], "q": lmq["launches"],
+               "r": lmr["launches"],
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -5963,6 +6444,15 @@ def main() -> int:
               other_shapes=lmh["bucket_checks"]),
         entry("dequant_neighbor_avg", "dequant_avg",
               "src/repro/kernels/dequant_avg.py:42", dqa_main),
+        # path r's split Eq. 5: pass A over the counted spans, the scale
+        # kernel twice around the all-reduce, pass B (one launch count)
+        entry("decdiff_update_split", "decdiff_update",
+              "src/repro/kernels/decdiff_update.py:42", lmr["split"],
+              counter="decdiff_update",
+              also_replaces="src/repro/kernels/decdiff_update.py:60",
+              dtype=lmr["split"]["dtype"],
+              counted_columns=lmr["split"]["counted_columns"],
+              norm_err=lmr["split"]["norm_err"]),
         entry("drift_norms", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", drift,
               other_shapes=[at_j(drift_c)], path_m=at_j(drift_m)),
@@ -6066,6 +6556,9 @@ def main() -> int:
     print(f"path q (the partitioned step, {card}): bf16 ms per step "
           f"unpartitioned {lmq['ms']['unpartitioned_bf16']}, (1, 2) "
           f"{lmq['ms']['partitioned_bf16']}")
+    print(f"path r (the round partitioned inside each pod, {card}): bf16 "
+          f"ms per round unpartitioned {lmr['ms']['unpartitioned_bf16']}, "
+          f"(2, 1, 2) by rank {lmr['ms']['partitioned_bf16']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

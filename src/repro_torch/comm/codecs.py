@@ -118,7 +118,12 @@ class Int8Codec(Codec):
     """Symmetric per-vector int8 with optional stochastic rounding + EF.
 
     scale = max|x| / 127; wire = int8 values + one fp32 scale per vector
-    (4x fewer bytes than fp32, minus 4 bytes of scale)."""
+    (4x fewer bytes than fp32, minus 4 bytes of scale).  For a vector
+    split over ranks (the LM round partitioned inside each pod), each
+    rank encodes its shard with `reduce_amax`, an all-reduce MAX over the
+    ranks of each vector's local amax: the scale is then the whole
+    vector's, and the shard's int8 values are the whole vector's, column
+    for column."""
 
     name: str = "int8"
     is_delta: bool = True
@@ -126,11 +131,13 @@ class Int8Codec(Codec):
     has_residual: bool = True
     stochastic: bool = True
 
-    def encode(self, vec, rng=None, residual=None):
+    def encode(self, vec, rng=None, residual=None, reduce_amax=None):
         x = vec.to(torch.float32)
         if residual is not None:
             x = x + residual
         amax = torch.amax(torch.abs(x), dim=-1)
+        if reduce_amax is not None:
+            amax = reduce_amax(amax)
         scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
         y = x / scale[..., None]
         if self.stochastic and rng is not None:

@@ -17,6 +17,13 @@
 //            (no gate: always on; the sum in a fixed order)
 //   pass B   out[r, :] = x + scale[r] * (a - x), rounded to x's dtype
 //
+// The split form (`ops.decdiff_rows_split`, the LM round partitioned
+// inside each pod) runs pass A on each rank's local shards, over the
+// column spans that rank counts (rows `ld` apart), the scale
+// kernel to add them into the rank's [R] partial sums, which an
+// all-reduce over the pod's (data, model) group sums, then the scale
+// kernel again on the reduced [R, 1] sums and pass B on the local shards.
+//
 // Nothing is read back to the host between the passes, and the [R, D]
 // difference and its square, which the unfused form writes, never exist.
 // Pass B uses __fsub_rn / __fmul_rn / __fadd_rn and one rounding to bf16,
@@ -112,12 +119,12 @@ __device__ __forceinline__ float block_sum(float v) {
 template <typename TX, int VW>
 __global__ void __launch_bounds__(kThreads)
 sumsq_rows_kernel(const TX* __restrict__ x, const float* __restrict__ a,
-                  float* __restrict__ partials, int64_t D, int64_t nb_total,
-                  int64_t blk_off) {
+                  float* __restrict__ partials, int64_t D, int64_t ldx,
+                  int64_t lda, int64_t nb_total, int64_t blk_off) {
   const int64_t r = blockIdx.y;
   const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kBlockCols;
-  const TX* xr = x + r * D;
-  const float* ar = a + r * D;
+  const TX* xr = x + r * ldx;
+  const float* ar = a + r * lda;
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < kItems / VW; ++i) {
@@ -196,16 +203,17 @@ bool wide(int64_t D, const void* x, int x_bytes, const void* a,
 
 template <typename TX>
 cudaError_t sumsq_launch(const void* x, const float* a, float* partials,
-                         int64_t R, int64_t D, int64_t nb_total,
-                         int64_t blk_off, cudaStream_t stream) {
+                         int64_t R, int64_t D, int64_t ldx, int64_t lda,
+                         int64_t nb_total, int64_t blk_off,
+                         cudaStream_t stream) {
   dim3 grid(static_cast<unsigned>(col_blocks(D)), static_cast<unsigned>(R));
   const TX* xt = static_cast<const TX*>(x);
-  if (wide(D, x, sizeof(TX), a, a))
+  if (wide(D, x, sizeof(TX), a, a) && ldx % 4 == 0 && lda % 4 == 0)
     sumsq_rows_kernel<TX, 4><<<grid, kThreads, 0, stream>>>(
-        xt, a, partials, D, nb_total, blk_off);
+        xt, a, partials, D, ldx, lda, nb_total, blk_off);
   else
     sumsq_rows_kernel<TX, 1><<<grid, kThreads, 0, stream>>>(
-        xt, a, partials, D, nb_total, blk_off);
+        xt, a, partials, D, ldx, lda, nb_total, blk_off);
   return cudaGetLastError();
 }
 
@@ -234,21 +242,26 @@ bool bad_grid(int64_t R, int64_t D) {
 // The number of column blocks pass A writes for a leaf of D columns.
 extern "C" int64_t decdiff_col_blocks(int64_t D) { return col_blocks(D); }
 
-// Pass A for one leaf: x [R, D] (x_bf16: bf16, else fp32), a [R, D] fp32;
-// writes partials[r, blk_off : blk_off + decdiff_col_blocks(D)] of the
-// [R, nb_total] buffer.
+// Pass A for one leaf or column span: D columns of R rows of x (x_bf16:
+// bf16, else fp32) and of a (fp32), the rows ldx and lda elements apart
+// (the leaf's own width, or a wider row of which the span is part: the
+// split norm of `ops.decdiff_rows_split` sums only the columns a rank
+// counts); writes partials[r, blk_off : blk_off + decdiff_col_blocks(D)]
+// of the [R, nb_total] buffer.
 extern "C" cudaError_t decdiff_sumsq_rows(const void* x, int x_bf16,
                                           const float* a, float* partials,
-                                          int64_t R, int64_t D,
-                                          int64_t nb_total, int64_t blk_off,
+                                          int64_t R, int64_t D, int64_t ldx,
+                                          int64_t lda, int64_t nb_total,
+                                          int64_t blk_off,
                                           cudaStream_t stream) {
   if (R <= 0 || D <= 0) return cudaSuccess;
-  if (bad_grid(R, D) || blk_off + col_blocks(D) > nb_total)
+  if (bad_grid(R, D) || blk_off + col_blocks(D) > nb_total || ldx < D ||
+      lda < D)
     return cudaErrorInvalidValue;
-  return x_bf16 ? sumsq_launch<__nv_bfloat16>(x, a, partials, R, D, nb_total,
-                                              blk_off, stream)
-                : sumsq_launch<float>(x, a, partials, R, D, nb_total, blk_off,
-                                      stream);
+  return x_bf16 ? sumsq_launch<__nv_bfloat16>(x, a, partials, R, D, ldx,
+                                              lda, nb_total, blk_off, stream)
+                : sumsq_launch<float>(x, a, partials, R, D, ldx, lda,
+                                      nb_total, blk_off, stream);
 }
 
 // The per-row scale from the [R, nb] partials; gate may be null (always

@@ -45,6 +45,20 @@ state, batch and cache as DTensors by `dist.sharding`'s specs
 "data", vocab-parallel logits and loss), returns the loss whole and the
 logits vocab-sharded, and updates the placed params, state and cache in
 place.  The dense family partitions (ROADMAP A.14 queues the others).
+
+`build_dfl_round(..., mesh=)` takes the multi mesh (pod, data, model): the
+round partitioned inside each pod, the counterpart of the reference's
+round jitted with its `dfl_node_axis` specs.  Each pod (a block of ranks)
+holds N / P nodes, placed on its (data, model) sub-mesh
+(`dist.sharding.place_node_block`); each node's step runs partitioned
+there, and the gossip runs over "pod" on the local shards: Eq. 6 is
+linear per column, so each rank averages its own shard of the gathered
+block, and Eq. 5's norm over the whole model is split
+(`ops.decdiff_rows_split`: each rank's counted columns, an all-reduce
+over the pod's ranks).  Prefill and decode take the multi mesh as they
+are, with params replicated over "pod" and the batch over ("pod",
+"data"); the cache, split over "data" only, is written from the new k
+and v gathered over "pod", and decode attends with q gathered alike.
 """
 from __future__ import annotations
 
@@ -60,7 +74,7 @@ from repro_torch.comm.transport import (DENSE_CTX, codec_roundtrip_stacked,
 from repro_torch.dist.constraints import is_dtensor, use_mesh
 from repro_torch.dist.sharding import NODE_AXIS
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import OnePodMesh, pod_axis
+from repro_torch.launch.mesh import OnePodMesh, pod_axis, pod_submesh
 from repro_torch.utils.pytree import (
     tree_flatten_stacked,
     tree_leaves,
@@ -214,14 +228,15 @@ def _local_steps(node_step, params, opt_state, step, batch) -> torch.Tensor:
 
 
 def _build_round(lm, opt, adj, loss_kind, beta, built_mask, gossip,
-                 ctx=DENSE_CTX):
+                 ctx=DENSE_CTX, mesh=None):
     """The round around `gossip(params, adj, mask) -> new params` for the
-    block of nodes `ctx` holds; the loss is the pods' mean (`pod_mean`)."""
+    block of nodes `ctx` holds, each node's step on `mesh` (a pod's
+    sub-mesh) or whole; the loss is the pods' mean (`pod_mean`)."""
     adj = torch.as_tensor(adj, dtype=torch.float32)
     # adj moves to the device once: a blocking copy from host memory every
     # round would wait for the card
     on_device = {}
-    node_step = _make_node_step(lm, opt, loss_kind, beta)
+    node_step = _make_node_step(lm, opt, loss_kind, beta, mesh)
 
     def round_fn(params, opt_state, step, batch, mask=None):
         with record_function("dfl_round.local_steps"):
@@ -241,7 +256,7 @@ def _build_round(lm, opt, adj, loss_kind, beta, built_mask, gossip,
 def build_dfl_round(lm, opt, adj, *, loss_kind: str = "vt",
                     beta: float = 0.98, s=DEFAULT_S,
                     gossip_dtype: Optional[torch.dtype] = None, mask=None,
-                    codec=None):
+                    codec=None, mesh=None):
     """One DFL communication round over stacked per-node state.
 
     (params [N, ...], opt_state [N, ...], step, batch {"tokens", "labels"}
@@ -249,12 +264,35 @@ def build_dfl_round(lm, opt, adj, *, loss_kind: str = "vt",
     given here is baked in; the round function's `mask` overrides it for
     one round.  Use a deterministic codec (`Int8Codec(stochastic=False)`, or
     any codec without random numbers) so the round equals the reference's.
-    """
+
+    On `mesh`, a (pod, data, model) DeviceMesh, the round runs partitioned
+    inside each pod (`_mesh_gossip`): params, opt_state and batch are the
+    caller's pod's block [R, ...] (R = N / P), placed on the pod's
+    (data, model) sub-mesh by `dist.sharding.place_node_block`; the round
+    returns the gossiped block placed alike and the mean loss over every
+    node."""
+    if mesh is not None:
+        return _build_round_on_mesh(lm, opt, adj, mesh, loss_kind, beta, s,
+                                    gossip_dtype, mask, codec)
+
     def gossip(params, adj_d, m):
         return decdiff_gossip(params, adj_d, s=s, mask=m,
                               gossip_dtype=gossip_dtype, codec=codec)
 
     return _build_round(lm, opt, adj, loss_kind, beta, mask, gossip)
+
+
+def _gather_full(ctx, params, codec, gossip_dtype):
+    """What crosses the pods: the encoded payload (decoded after the
+    gather), the cast models, or the fp32 models -> leaves [N, ...]."""
+    if codec is not None:
+        w, unflatten = tree_flatten_stacked(params)
+        payload, _ = codec.encode(w)
+        full = {k: ctx.gather(v) for k, v in payload.items()}
+        return unflatten(codec.decode(full, out_size=int(w.shape[1])))
+    if gossip_dtype is not None:
+        return tree_map(lambda x: ctx.gather(x.to(gossip_dtype)), params)
+    return tree_map(ctx.gather, params)
 
 
 def build_dfl_round_shardmap(lm, opt, adj, mesh=None, *,
@@ -283,24 +321,13 @@ def build_dfl_round_shardmap(lm, opt, adj, mesh=None, *,
     ctx = pod_context(n, *pod_axis(mesh))
     fused = fuse_dequant and isinstance(codec, Int8Codec)
 
-    def gather_full(params):
-        """What crosses the pods: the encoded payload (decoded after the
-        gather), the cast models, or the fp32 models -> leaves [N, ...]."""
-        if codec is not None:
-            w, unflatten = tree_flatten_stacked(params)
-            payload, _ = codec.encode(w)
-            full = {k: ctx.gather(v) for k, v in payload.items()}
-            return unflatten(codec.decode(full, out_size=int(w.shape[1])))
-        if gossip_dtype is not None:
-            return tree_map(lambda x: ctx.gather(x.to(gossip_dtype)), params)
-        return tree_map(ctx.gather, params)
-
     def gossip(params, adj_d, m):
         wn, row = _normalized(adj_d, m)
         wn_blk, row_blk = ctx.rows(wn), ctx.rows(row)
         if not fused:
-            return _decdiff_apply(params, gather_full(params), wn_blk,
-                                  row_blk, s)
+            return _decdiff_apply(params, _gather_full(ctx, params, codec,
+                                                       gossip_dtype),
+                                  wn_blk, row_blk, s)
         w_local, unflatten = tree_flatten_stacked(params)  # [R, D] fp32
         payload, _ = codec.encode(w_local)
         q, scale = ctx.gather(payload["q"]), ctx.gather(payload["scale"])
@@ -311,3 +338,117 @@ def build_dfl_round_shardmap(lm, opt, adj, mesh=None, *,
         return unflatten(out["w"])
 
     return _build_round(lm, opt, adj, loss_kind, beta, mask, gossip, ctx)
+
+
+# ------------------------------------------ the round on the multi mesh
+
+def _counted_here(placements, coordinate) -> bool:
+    """Whether the shard at `coordinate` of the sub-mesh of a leaf placed
+    by `placements` enters Eq. 5's norm: a leaf replicated over a
+    dimension is counted at that dimension's coordinate 0 only, so that
+    the all-reduce adds it once."""
+    return all(not p.is_replicate() or c == 0
+               for p, c in zip(placements, coordinate))
+
+
+def _leaf_spans(counted, widths):
+    """(leaf, 0, width) for every counted leaf."""
+    return [(i, 0, w) for i, (c, w) in enumerate(zip(counted, widths)) if c]
+
+
+def _flat_spans(counted, widths):
+    """The counted leaves' columns of the flat [R, Σ widths] block, runs of
+    adjacent counted leaves joined into one span."""
+    spans, off = [], 0
+    for c, w in zip(counted, widths):
+        if c and spans and spans[-1][2] == off:
+            spans[-1] = (0, spans[-1][1], off + w)
+        elif c:
+            spans.append((0, off, off + w))
+        off += w
+    return spans
+
+
+def _group_reduce(sub, op: str):
+    """t -> its all-reduce (`op`: "sum" or "max") over the sub-mesh's
+    ranks, one dimension after the other (none for a one-rank
+    dimension)."""
+    import torch.distributed._functional_collectives as funcol
+
+    groups = [sub.get_group(d) for d in range(sub.ndim) if sub.size(d) > 1]
+
+    def reduce(t):
+        for g in groups:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+        return t
+
+    return reduce
+
+
+def _mesh_gossip(ctx, sub, s, gossip_dtype, codec):
+    """DecDiff gossip over "pod" on the local shards of a pod's block of
+    placed nodes.  Eq. 6 is linear per column, so each rank averages its
+    own shard of the gathered block: fp32 or the `gossip_dtype` cast, as
+    `_gather_full` gathers them over the pods, or the deterministic
+    `Int8Codec`'s payload, fused (its scale from the whole model's amax,
+    an all-reduce MAX over the pod's (data, model) ranks; then
+    `ops.dequant_neighbor_avg_rows` on the local [R, D_local] payload).
+    Eq. 5's norm is over the whole model: `ops.decdiff_rows_split` sums
+    each rank's counted columns and all-reduces the sums over the same
+    ranks."""
+    from torch.distributed.tensor import DTensor
+
+    fused = isinstance(codec, Int8Codec)
+    if codec is not None and not fused:
+        raise NotImplementedError(
+            f"the {codec.name!r} codec on a mesh: the partitioned round "
+            f"exchanges fp32, a gossip_dtype cast or the int8 codec's "
+            f"payload")
+    total, amax = _group_reduce(sub, "sum"), _group_reduce(sub, "max")
+
+    def gossip(params, adj_d, m):
+        wn, row = _normalized(adj_d, m)
+        wn_blk, row_blk = ctx.rows(wn), ctx.rows(row)
+        placed = tree_leaves(params)
+        local = [t.to_local() for t in placed]
+        local_tree = tree_unflatten_like(params, local)
+        counted = [_counted_here(t.placements, sub.get_coordinate())
+                   for t in placed]
+        widths = [x[0].numel() for x in local]
+        if fused:
+            w_local, unflatten = tree_flatten_stacked(local_tree)  # fp32
+            payload, _ = codec.encode(w_local, reduce_amax=amax)
+            q, scale = ctx.gather(payload["q"]), ctx.gather(payload["scale"])
+            del payload
+            avg = ops.dequant_neighbor_avg_rows(q, scale, wn_blk)
+            del q
+            (out,) = ops.decdiff_rows_split(
+                [w_local], [avg], row_blk.contiguous(), s,
+                _flat_spans(counted, widths), total)
+            new = tree_leaves(unflatten(out))
+        else:
+            full = _gather_full(ctx, local_tree, None, gossip_dtype)
+            avg = [torch.einsum("rj,j...->r...", wn_blk,
+                                f.to(torch.float32)).contiguous()
+                   for f in tree_leaves(full)]
+            del full
+            new = ops.decdiff_rows_split(
+                [x.contiguous() for x in local], avg, row_blk.contiguous(),
+                s, _leaf_spans(counted, widths), total)
+        return tree_unflatten_like(params, [
+            DTensor.from_local(x, sub, t.placements, shape=t.shape,
+                               stride=t.stride())
+            for x, t in zip(new, placed)])
+
+    return gossip
+
+
+def _build_round_on_mesh(lm, opt, adj, mesh, loss_kind, beta, s,
+                         gossip_dtype, mask, codec):
+    """`build_dfl_round` on the multi mesh (its docstring)."""
+    sub = pod_submesh(mesh)
+    n = int(torch.as_tensor(adj).shape[0])
+    ctx = pod_context(n, *pod_axis(mesh))
+    return _build_round(lm, opt, adj, loss_kind, beta, mask,
+                        _mesh_gossip(ctx, sub, s, gossip_dtype, codec), ctx,
+                        mesh=sub)

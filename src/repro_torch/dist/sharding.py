@@ -31,7 +31,9 @@ into DTensor placements on a DeviceMesh and `distribute_tree` places a
 whole tree, and `full_tree` gathers one back.  The partitioned steps of
 `dist/dfl_step.py` (`mesh=`) and the dry run (`launch/dryrun.py`) place
 their params, state, batch and cache this way; the pod backend moves whole
-node blocks between ranks instead.
+node blocks between ranks instead.  On the multi mesh (pod, data, model)
+the partitioned DFL round holds each pod's block of nodes [R, ...] on the
+pod's (data, model) sub-mesh (`node_block_specs`, `place_node_block`).
 """
 from __future__ import annotations
 
@@ -233,6 +235,40 @@ def make_cache_specs(cache, mesh):
         return P(*spec)
 
     return _map_with_path(one, cache)
+
+
+def _strip_pod(specs):
+    if isinstance(specs, P):
+        def entry(e):
+            if isinstance(e, tuple):
+                rest = tuple(a for a in e if a != NODE_AXIS)
+                return rest[0] if len(rest) == 1 else (rest or None)
+            return None if e == NODE_AXIS else e
+        return P(*(entry(e) for e in specs))
+    if isinstance(specs, dict):
+        return {k: _strip_pod(v) for k, v in specs.items()}
+    return type(specs)(_strip_pod(v) for v in specs)
+
+
+def node_block_specs(tree, mesh, *, batch: bool = False):
+    """The specs of one pod's block of stacked node state [R, ...] (params
+    or optimizer state; with `batch`, the batch [R, B, S]) on the pod's
+    (data, model) sub-mesh: the multi mesh's `make_param_specs(...,
+    dfl_node_axis=True)` (`make_batch_specs(..., dfl_node_axis=True)`: B
+    over "data") without their "pod" entry, which the block itself
+    stands for."""
+    fn = make_batch_specs if batch else make_param_specs
+    return _strip_pod(fn(tree, mesh, dfl_node_axis=True))
+
+
+def place_node_block(tree, mesh, *, batch: bool = False):
+    """A pod's block [R, ...] placed on its (data, model) sub-mesh of the
+    multi mesh by `node_block_specs` (`distribute_tree`: every rank of
+    the pod passes the same block); `full_tree` gathers it back."""
+    from repro_torch.launch.mesh import pod_submesh
+
+    return distribute_tree(tree, node_block_specs(tree, mesh, batch=batch),
+                           pod_submesh(mesh))
 
 
 def placements(spec, mesh):

@@ -21,6 +21,16 @@ Use `repro_torch.kernels.ops.decdiff_rows` (or the reference wrappers'
 single-model forms `ops.decdiff_update` / `decdiff_update_tree`), which
 validate the inputs and pick between the two by the tensors' device.
 
+The split form (`decdiff_rows_split_*`, through `ops.decdiff_rows_split`)
+is Eq. 5 over the local shards of R models partitioned over a group of
+ranks: each rank sums (a − x)² over the column spans it counts
+(`sumsq_spans_plain`; on the card pass A over each span, rows `ld` apart,
+then the scale kernel into [R] partial sums), the caller's all-reduce
+adds the ranks' sums, the scale follows from the total (on the card the
+scale kernel on the reduced [R, 1] sums) and pass B runs on every local
+shard.  With one rank counting every column it is bitwise the unsplit
+form, on the CPU and on the card.
+
 Pass A and the scale kernel also give the event trigger's drift
 ‖x[r] − ref[r]‖ (`drift_norms_cuda`, through `ops.drift_norms`): each row
 is summed by the same blocks in the same order whatever the number of
@@ -65,6 +75,36 @@ def decdiff_rows_plain(xs, avgs, gate, s) -> List[torch.Tensor]:
     return [step_rows_plain(x, a, scale) for x, a in zip(xs, avgs)]
 
 
+def _span_cols(x: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1)[:, c0:c1]
+
+
+def sumsq_spans_plain(xs, avgs, spans) -> torch.Tensor:
+    """Σ over `spans` (leaf index, first column, end column of the leaf's
+    row viewed flat) of each row's Σ(a − x)²: [R] fp32.  A span over a
+    whole leaf sums it as `sumsq_rows_plain` does, so spans over every
+    leaf are bitwise `sumsq_rows_plain`."""
+    def one(i, c0, c1):
+        x, a = xs[i], avgs[i]
+        if c0 == 0 and c1 == a[0].numel():
+            return sumsq_rows_plain([x], [a])
+        return torch.sum(torch.square(_span_cols(a, c0, c1)
+                                      - _span_cols(x, c0, c1).float()),
+                         dim=1)
+
+    r = xs[0].shape[0]
+    return sum((one(*sp) for sp in spans),
+               torch.zeros((r,), dtype=torch.float32, device=xs[0].device)
+               if not spans else 0)
+
+
+def decdiff_rows_split_plain(xs, avgs, gate, s, spans,
+                             all_reduce) -> List[torch.Tensor]:
+    sq = all_reduce(sumsq_spans_plain(xs, avgs, spans))
+    scale = scale_from_sumsq(sq, gate, s)
+    return [step_rows_plain(x, a, scale) for x, a in zip(xs, avgs)]
+
+
 def drift_norms_plain(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """‖x[r] − ref[r]‖₂ per row of [R, D] fp32: [R] fp32."""
     diff = x - ref
@@ -76,9 +116,9 @@ def _library() -> ctypes.CDLL:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.decdiff_col_blocks.argtypes = [i64]
     lib.decdiff_col_blocks.restype = i64
-    # x, x_bf16, a, partials, R, D, nb_total, blk_off, stream
+    # x, x_bf16, a, partials, R, D, ldx, lda, nb_total, blk_off, stream
     lib.decdiff_sumsq_rows.argtypes = [ptr, ctypes.c_int, ptr, ptr, i64, i64,
-                                       i64, i64, ptr]
+                                       i64, i64, i64, i64, ptr]
     # partials, R, nb, gate, s, scale, sumsq, stream
     lib.decdiff_scale_rows.argtypes = [ptr, i64, i64, ptr, ctypes.c_float,
                                        ptr, ptr, ptr]
@@ -97,36 +137,55 @@ def _check(err: int, what: str, shape) -> None:
                            f"(leaf {tuple(shape)})")
 
 
-def norms_cuda(xs, avgs, gate: Optional[torch.Tensor],
-               s: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass A over every leaf, then the scale kernel: (scale [R], sq [R])
-    fp32, on the current stream.  The caller validated the inputs."""
-    lib = _library()
+def _partials_cuda(lib, xs, avgs, spans) -> torch.Tensor:
+    """Pass A over each span (leaf index, first column, end column of the
+    leaf's row viewed flat), on the current stream: the [R, nb] partials
+    of Σ(a − x)², the spans' column blocks side by side."""
     dev = xs[0].device
     r = xs[0].shape[0]
-    widths = [x.numel() // r if r else 0 for x in xs]
-    blocks = [lib.decdiff_col_blocks(d) for d in widths]
-    nb = max(sum(blocks), 1)
-    partials = torch.empty((r, nb), dtype=torch.float32, device=dev)
+    blocks = [lib.decdiff_col_blocks(c1 - c0) for _, c0, c1 in spans]
+    partials = torch.empty((r, max(sum(blocks), 1)), dtype=torch.float32,
+                           device=dev)
     if sum(blocks) == 0:
         partials.zero_()
-    scale = torch.empty((r,), dtype=torch.float32, device=dev)
-    sq = torch.empty((r,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         off = 0
-        for x, a, d, n in zip(xs, avgs, widths, blocks):
+        for (i, c0, c1), n in zip(spans, blocks):
+            x, a = xs[i], avgs[i]
+            ld = a.numel() // r if r else 0
             _check(lib.decdiff_sumsq_rows(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
-                partials.data_ptr(), r, d, nb, off, stream),
-                "decdiff_sumsq_rows", x.shape)
+                x.data_ptr() + c0 * x.element_size(),
+                int(x.dtype == torch.bfloat16), a.data_ptr() + 4 * c0,
+                partials.data_ptr(), r, c1 - c0, ld, ld, partials.shape[1],
+                off, stream), "decdiff_sumsq_rows", x.shape)
             off += n
+    return partials
+
+
+def _scale_cuda(lib, partials, gate, s):
+    """The scale kernel on the [R, nb] partials: (scale [R], sq [R])."""
+    r, nb = partials.shape
+    scale = torch.empty((r,), dtype=torch.float32, device=partials.device)
+    sq = torch.empty_like(scale)
+    with torch.cuda.device(partials.device):
+        stream = torch.cuda.current_stream(partials.device).cuda_stream
         _check(lib.decdiff_scale_rows(
             partials.data_ptr(), r, nb,
             None if gate is None else gate.data_ptr(), float(s),
             scale.data_ptr(), sq.data_ptr(), stream),
             "decdiff_scale_rows", (r, nb))
     return scale, sq
+
+
+def norms_cuda(xs, avgs, gate: Optional[torch.Tensor],
+               s: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass A over every leaf, then the scale kernel: (scale [R], sq [R])
+    fp32, on the current stream.  The caller validated the inputs."""
+    lib = _library()
+    r = xs[0].shape[0]
+    spans = [(i, 0, x.numel() // r if r else 0) for i, x in enumerate(xs)]
+    return _scale_cuda(lib, _partials_cuda(lib, xs, avgs, spans), gate, s)
 
 
 def step_cuda(x: torch.Tensor, a: torch.Tensor,
@@ -146,6 +205,20 @@ def step_cuda(x: torch.Tensor, a: torch.Tensor,
 
 def decdiff_rows_cuda(xs, avgs, gate, s) -> List[torch.Tensor]:
     scale, _ = norms_cuda(xs, avgs, gate, s)
+    return [step_cuda(x, a, scale) for x, a in zip(xs, avgs)]
+
+
+def decdiff_rows_split_cuda(xs, avgs, gate, s, spans,
+                            all_reduce) -> List[torch.Tensor]:
+    """The split form on the card (module docstring): pass A over each
+    span, the scale kernel into the rank's [R] sums, `all_reduce` of
+    them, the scale kernel on the [R, 1] totals, pass B on every leaf.
+    The caller validated the inputs."""
+    lib = _library()
+    _, sq = _scale_cuda(lib, _partials_cuda(lib, xs, avgs, spans), None,
+                        0.0)
+    scale, _ = _scale_cuda(lib, all_reduce(sq)[:, None].contiguous(), gate,
+                           s)
     return [step_cuda(x, a, scale) for x, a in zip(xs, avgs)]
 
 

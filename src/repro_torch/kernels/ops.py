@@ -9,7 +9,7 @@ main path went through the kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -563,6 +563,37 @@ def decode_softmax_combine(scores: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_decdiff(xs, avgs, gate, name: str) -> None:
+    """The inputs of `decdiff_rows` and its split form."""
+    if not xs or len(xs) != len(avgs):
+        raise ValueError(f"{name} wants as many averages as leaves "
+                         f"(at least one); got {len(xs)} and {len(avgs)}")
+    r = xs[0].shape[0] if xs[0].dim() else None
+    for x, a in zip(xs, avgs):
+        if x.dim() == 0 or tuple(x.shape) != tuple(a.shape) \
+                or x.shape[0] != r:
+            raise ValueError(f"{name} wants leaves [R, ...] with R = "
+                             f"{r} and averages of the same shape; got "
+                             f"{tuple(x.shape)} and {tuple(a.shape)}")
+        if x.dtype not in (torch.float32, torch.bfloat16) \
+                or a.dtype != torch.float32:
+            raise TypeError(f"{name} wants float32 or bfloat16 leaves "
+                            f"and float32 averages; got {x.dtype} and "
+                            f"{a.dtype}")
+        if not (x.is_contiguous() and a.is_contiguous()):
+            raise ValueError(f"{name} wants contiguous tensors")
+    if gate is not None and (tuple(gate.shape) != (r,)
+                             or gate.dtype != torch.float32
+                             or not gate.is_contiguous()):
+        raise ValueError(f"{name} wants a contiguous float32 gate [{r}]; "
+                         f"got {gate.dtype} {tuple(gate.shape)}")
+    dev = xs[0].device
+    if any(t.device != dev for t in xs + avgs) or (
+            gate is not None and gate.device != dev):
+        raise ValueError(f"{name}: the leaves, averages and gate are on "
+                         "more than one device")
+
+
 def decdiff_rows(xs: Sequence[torch.Tensor], avgs: Sequence[torch.Tensor],
                  gate: Optional[torch.Tensor], s: float) -> List[torch.Tensor]:
     """The paper's Eq. 5 for a block of R nodes over a list of leaves.
@@ -574,36 +605,45 @@ def decdiff_rows(xs: Sequence[torch.Tensor], avgs: Sequence[torch.Tensor],
     x + (a − x) / (‖a − x‖ + s) per leaf, as new tensors in the leaves'
     dtypes (see `repro_torch.kernels.decdiff_update`)."""
     xs, avgs = list(xs), list(avgs)
-    if not xs or len(xs) != len(avgs):
-        raise ValueError(f"decdiff_rows wants as many averages as leaves "
-                         f"(at least one); got {len(xs)} and {len(avgs)}")
-    r = xs[0].shape[0] if xs[0].dim() else None
-    for x, a in zip(xs, avgs):
-        if x.dim() == 0 or tuple(x.shape) != tuple(a.shape) \
-                or x.shape[0] != r:
-            raise ValueError(f"decdiff_rows wants leaves [R, ...] with R = "
-                             f"{r} and averages of the same shape; got "
-                             f"{tuple(x.shape)} and {tuple(a.shape)}")
-        if x.dtype not in (torch.float32, torch.bfloat16) \
-                or a.dtype != torch.float32:
-            raise TypeError(f"decdiff_rows wants float32 or bfloat16 leaves "
-                            f"and float32 averages; got {x.dtype} and "
-                            f"{a.dtype}")
-        if not (x.is_contiguous() and a.is_contiguous()):
-            raise ValueError("decdiff_rows wants contiguous tensors")
-    if gate is not None and (tuple(gate.shape) != (r,)
-                             or gate.dtype != torch.float32
-                             or not gate.is_contiguous()):
-        raise ValueError(f"decdiff_rows wants a contiguous float32 gate [{r}]; "
-                         f"got {gate.dtype} {tuple(gate.shape)}")
-    dev = xs[0].device
-    if any(t.device != dev for t in xs + avgs) or (
-            gate is not None and gate.device != dev):
-        raise ValueError("decdiff_rows: the leaves, averages and gate are on "
-                         "more than one device")
+    _check_decdiff(xs, avgs, gate, "decdiff_rows")
     if _device_kind(xs[0], "decdiff_rows") == "cpu":
         return _dd.decdiff_rows_plain(xs, avgs, gate, s)
     out = _dd.decdiff_rows_cuda(xs, avgs, gate, s)
+    LAUNCHES["decdiff_update"] += 1
+    return out
+
+
+def decdiff_rows_split(xs: Sequence[torch.Tensor],
+                       avgs: Sequence[torch.Tensor],
+                       gate: Optional[torch.Tensor], s: float,
+                       spans: Sequence[Tuple[int, int, int]],
+                       all_reduce: Callable[[torch.Tensor], torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """Eq. 5 over this rank's local shards of R models that are split over
+    a group of ranks (the LM round partitioned inside each pod): the norm
+    is over the whole models.
+
+    xs, avgs, gate and s as in `decdiff_rows`, but each leaf is this
+    rank's shard; spans: (leaf index, first column, end column) of the
+    leaf's row viewed flat, the columns this rank counts in the norm (a
+    leaf replicated over the group is counted by one rank only);
+    all_reduce: sums an [R] float32 tensor over the group and returns it.
+    Each rank sums (a − x)² over its spans, `all_reduce` adds the ranks'
+    sums, and every leaf takes the step of the total: as new tensors in
+    the leaves' dtypes (see `repro_torch.kernels.decdiff_update`).  With
+    one rank and spans over every leaf it is bitwise `decdiff_rows`."""
+    xs, avgs = list(xs), list(avgs)
+    _check_decdiff(xs, avgs, gate, "decdiff_rows_split")
+    spans = [(int(i), int(c0), int(c1)) for i, c0, c1 in spans]
+    for i, c0, c1 in spans:
+        if not (0 <= i < len(xs)
+                and 0 <= c0 < c1 <= xs[i].numel() // max(xs[i].shape[0], 1)):
+            raise ValueError(f"decdiff_rows_split: span ({i}, {c0}, {c1}) "
+                             f"is not a column range of a leaf")
+    if _device_kind(xs[0], "decdiff_rows_split") == "cpu":
+        return _dd.decdiff_rows_split_plain(xs, avgs, gate, s, spans,
+                                            all_reduce)
+    out = _dd.decdiff_rows_split_cuda(xs, avgs, gate, s, spans, all_reduce)
     LAUNCHES["decdiff_update"] += 1
     return out
 

@@ -17,7 +17,10 @@ reduce-scatter its input (the result times the group).  `summary()` gives
 the reference's keys: `"total"`, and for each op type seen its bytes and
 `"<op>_count"`.  Under `FakeTensorMode` the collectives never run (their
 fake kernels give the shapes), so a step traced on a fake process group
-is counted as it would run.
+is counted as it would run.  `CollectiveCounter(apart=...)` keeps the
+collectives over the named process groups apart (`summary(apart=True)`):
+the dry run counts the multi mesh's pod-axis gossip that way, beside the
+traffic inside a pod.
 """
 from __future__ import annotations
 
@@ -67,15 +70,32 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _group_name(args):
+    """The process group a collective's arguments name: a c10d op's
+    process group object, else a functional op's last string argument
+    (its group name)."""
+    import torch.distributed as dist
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            return dist.ProcessGroup.unbox(a).group_name
+    names = [a for a in args if isinstance(a, str)]
+    return names[-1] if names else None
+
+
 class CollectiveCounter(TorchDispatchMode):
     """Per-device operand bytes and counts of the collectives dispatched
-    inside it, by the reference's op types (module docstring).  Leaves
+    inside it, by the reference's op types (module docstring), those over
+    the process groups named in `apart` (group names) kept apart.  Leaves
     every op as it is."""
 
-    def __init__(self):
+    def __init__(self, apart=()):
         super().__init__()
+        self.apart = {str(g) for g in apart}
         self.bytes: Dict[str, int] = {op: 0 for op in COLLECTIVE_OPS}
         self.count: Dict[str, int] = {op: 0 for op in COLLECTIVE_OPS}
+        self.bytes_apart: Dict[str, int] = {op: 0 for op in COLLECTIVE_OPS}
+        self.count_apart: Dict[str, int] = {op: 0 for op in COLLECTIVE_OPS}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(t is not torch.Tensor and issubclass(t, torch.Tensor)
@@ -85,18 +105,24 @@ class CollectiveCounter(TorchDispatchMode):
             else None
         if kind is not None:
             op, arg = kind
-            self.bytes[op] += _nbytes(args[arg] if len(args) > arg else ())
-            self.count[op] += 1
+            apart = bool(self.apart) and _group_name(args) in self.apart
+            nbytes, count = ((self.bytes_apart, self.count_apart) if apart
+                             else (self.bytes, self.count))
+            nbytes[op] += _nbytes(args[arg] if len(args) > arg else ())
+            count[op] += 1
         return func(*args, **(kwargs or {}))
 
-    def summary(self) -> Dict[str, int]:
+    def summary(self, apart: bool = False) -> Dict[str, int]:
         """{"total": bytes, op: bytes, op + "_count": n} for every op type
-        seen (`hlo_analysis.collective_bytes`'s keys)."""
-        out = {"total": sum(self.bytes.values())}
+        seen (`hlo_analysis.collective_bytes`'s keys): of the collectives
+        over the `apart` groups with `apart`, else of the others."""
+        nbytes, count = ((self.bytes_apart, self.count_apart) if apart
+                         else (self.bytes, self.count))
+        out = {"total": sum(nbytes.values())}
         for op in COLLECTIVE_OPS:
-            if self.count[op]:
-                out[op] = self.bytes[op]
-                out[op + "_count"] = self.count[op]
+            if count[op]:
+                out[op] = nbytes[op]
+                out[op + "_count"] = count[op]
         return out
 
 

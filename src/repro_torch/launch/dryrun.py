@@ -33,36 +33,48 @@ combination it
      score block is 4096 x 8192 (the default 512 x 1024 chunks would make
      the trace walk 64 times the blocks).
 
-The dense family on the single mesh (`partitions`: qwen1.5-0.5b,
-deepseek-7b, qwen2.5-14b, qwen3-32b) traces the PARTITIONED step instead,
-as the reference compiles it: params, optimizer state, batch and cache
-placed by the specs, and `build_*_step(mesh=)` run at the global batch on
-the fake group (steps 3 and 4 above become one trace each, with remat off
-and with the shape's config, after one uncounted run that fills DTensor's
-sharding-propagation cache).  A dispatch mode that steps aside for
-DTensor sees the ops on rank 0's local shards, so the FLOPs and bytes
-(`_LocalCounts`) and the collectives (`launch/comm_analysis.py`, the
-counterpart of the reference's `hlo_analysis.collective_bytes`, under its
-keys) are per device as they come, and `temp_size_in_bytes` is the
-sharded step's own peak (`temp_is_upper_bound: false`); the record says
-`"partitioned": true`.  Every other combination keeps the estimate above
-and says `"partitioned": false` with the ROADMAP item that would
-partition it.
+The dense family (`partitions`: qwen1.5-0.5b, deepseek-7b, qwen2.5-14b,
+qwen3-32b) traces the PARTITIONED step instead, as the reference compiles
+it: params, optimizer state, batch and cache placed by the specs, and
+`build_*_step(mesh=)` run at the global batch on the fake group (steps 3
+and 4 above become one trace each, with remat off and with the shape's
+config, after one uncounted run that fills DTensor's sharding-propagation
+cache).  On the multi mesh train_4k traces `build_dfl_round(mesh=)`: rank
+0's pod block of one node on the pod's (data, model) sub-mesh
+(`dist.sharding.place_node_block`), its share of the batch over "data",
+the gossip over "pod" on the local shards; prefill and decode run on the
+whole (pod, data, model) mesh, params replicated over "pod" and the batch
+over ("pod", "data").  A dispatch mode that steps aside for DTensor sees
+the ops on rank 0's local shards, so the FLOPs and bytes (`_LocalCounts`)
+and the collectives (`launch/comm_analysis.py`, the counterpart of the
+reference's `hlo_analysis.collective_bytes`, under its keys) are per
+device as they come, and `temp_size_in_bytes` is the sharded step's own
+peak (`temp_is_upper_bound: false`); the record says `"partitioned":
+true`.  Every other combination keeps the estimate above and says
+`"partitioned": false` with the ROADMAP item that would partition it, or,
+for the multi mesh's shard_map variants, that they trace the reference's
+own shard_map design (each pod holds its nodes whole).
 
 XLA counts a while-loop body once, so the reference compiles extra
 calibration points (1 and 2 layers) and extrapolates; a dispatch-level
 count sees every layer, so `_calibration_points`, `calibrated_metrics`
 and `_combine` have no counterpart.  `collectives.total` is the traffic
-inside a pod (`intra_pod`, the partitioned step's; null where the step is
-not partitioned) plus the pod-axis gossip each device receives in a
-multi-pod round (`gossip`: its shard of the other pods' models, in the
-gossip dtype; 0 for a single pod).  The roofline uses the H100's
-data-sheet peaks (`HW`); `fits_hbm` compares argument + temp + output
+inside a pod (`intra_pod`, the partitioned step's collectives over the
+"data" and "model" groups; null where the step is not partitioned) plus
+the traffic over "pod": on a partitioned multi-mesh step, the collectives
+over the pod group as counted (`pod_axis`, by op in `pod_axis_ops`; the
+round's all-gathers of the models and of the loss are its `gossip`,
+prefill's and decode's gathers of the new k / v and q are not); where the
+round is not partitioned, the estimated `gossip` each device receives
+(its shard of the other pods' models, in the gossip dtype; 0 for a
+single pod).  The roofline uses the H100's data-sheet peaks (`HW`); `fits_hbm` compares argument + temp + output
 bytes with the card's memory when a card is present, else with
 `--hbm-bytes`.  Variants that change only the reference's sharding
 constraints or its shard_map form trace the step of another variant where
 the step is not partitioned, and their record says which (`"same_as"`);
-on a partitioned step only the shard_map form has no effect.
+on a partitioned step of the single mesh only the shard_map form has no
+effect, and on the multi mesh the shard_map form selects the round over
+whole nodes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --mesh both
@@ -97,6 +109,7 @@ from repro_torch.dist.sharding import (
     make_batch_specs,
     make_cache_specs,
     make_param_specs,
+    place_node_block,
 )
 from repro_torch.launch.comm_analysis import CollectiveCounter
 from repro_torch.launch.mesh import HW
@@ -180,29 +193,37 @@ _NOT_PARTITIONED = {
     "encdec": "the enc-dec family's partitioned step (ROADMAP A.14.3)",
     "vlm": "the VLM family's partitioned step (ROADMAP A.14.3)",
 }
-_MULTI_REASON = ("the multi mesh: the DFL round partitioned inside each pod "
-                 "(ROADMAP A.14.1)")
+_SHARDMAP_REASON = (
+    "the reference's shard_map form of the DFL round: every axis manual, "
+    "so each pod holds its nodes' full replicas (src/repro/dist/"
+    "dfl_step.py:202-205); traced as the round over whole nodes")
 
 
-def partitions(cfg, mesh_kind: str):
+def partitions(cfg, mesh_kind: str, variant_override=None):
     """(whether the combination traces the partitioned step, and why not
-    when it does not): the dense family on the single mesh does."""
-    if mesh_kind != "single":
-        return False, _MULTI_REASON
+    when it does not): the dense family does, on the single mesh and on
+    the multi mesh, except for the multi mesh's shard_map variants, which
+    trace the reference's own design (`_SHARDMAP_REASON`)."""
     if cfg.family != "dense":
         return False, _NOT_PARTITIONED[cfg.family]
+    if mesh_kind == "multi" and (variant_override or {}).get(
+            "_dfl_shardmap"):
+        return False, _SHARDMAP_REASON
     return True, None
 
 
-def same_as(variant_override, partitioned: bool = False) -> str | None:
+def same_as(variant_override, partitioned: bool = False,
+            keep=()) -> str | None:
     """The variant whose step a variant traces in the port, where its
     override differs from that one's only by keys that do not change the
     port's step ("baseline" for none left), else None: the
     `_SHARDING_ONLY` keys, or on a `partitioned` step the shard_map form
-    alone."""
+    alone; never the keys in `keep` (the multi mesh's shard_map form,
+    which selects the unpartitioned round there)."""
     if not variant_override:
         return None
-    inert = ("_dfl_shardmap",) if partitioned else _SHARDING_ONLY
+    inert = tuple(k for k in (("_dfl_shardmap",) if partitioned
+                              else _SHARDING_ONLY) if k not in keep)
     rest = {k: v for k, v in variant_override.items() if k not in inert}
     if rest == variant_override:
         return None
@@ -265,8 +286,8 @@ class _LocalCounts(CollectiveCounter):
     before: its sharding propagation runs each new op once more at its
     global shape, which computes nothing on a device."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, apart=()):
+        super().__init__(apart)
         self.flops = 0
         self.total = 0
 
@@ -493,28 +514,41 @@ def trace_combo(cfg, shape, mesh, *, multi: bool, gossip_dtype=None,
 
 class _Placed:
     """One partitioned combination's inputs, placed on the mesh by the
-    specs, and its step (`build_*_step(mesh=)`)."""
+    specs, and its step (`build_*_step(mesh=)`; on the multi mesh
+    `build_dfl_round(mesh=)` for train: rank 0's pod block of one node,
+    its batch the node's share, on the pod's (data, model) sub-mesh)."""
 
-    def __init__(self, cfg, kind, batch, seq_len, mesh):
+    def __init__(self, cfg, kind, batch, seq_len, mesh, gossip_dtype=None):
         lm = build_lm(cfg)
         opt = sgd_momentum(lr=1e-3, momentum=0.9,
                            momentum_dtype=torch.float32)
+        multi = NODE_AXIS in tuple(mesh.mesh_dim_names)
+        if kind == "train" and multi:
+            n_pods = int(mesh.size(0))
+            self.params = place_node_block(_init_params(lm, 1), mesh)
+            b = place_node_block(_empty(lm.input_specs(
+                batch // n_pods, seq_len), (1,)), mesh, batch=True)
+            self.step = build_dfl_round(lm, opt, ring_adjacency(n_pods),
+                                        gossip_dtype=gossip_dtype, mesh=mesh)
+            self.args = (self.params, opt.init(self.params), 0, b)
+            return
         params = _init_params(lm)
         self.params = distribute_tree(params, make_param_specs(
             params, mesh, expert_parallel=cfg.expert_parallel), mesh)
+        dp = (NODE_AXIS, DATA_AXIS) if multi else (DATA_AXIS,)
         if kind == "decode":
             cache = lm.init_cache(batch, seq_len, device="cpu")
             self.cache_bytes_global = _tree_bytes(cache)
             cache = distribute_tree(cache, make_cache_specs(cache, mesh),
                                     mesh)
             tokens = torch.zeros((batch, 1), dtype=torch.int32)
-            tokens = distribute_tree(tokens, make_batch_specs(tokens, mesh),
-                                     mesh)
+            tokens = distribute_tree(tokens, make_batch_specs(
+                tokens, mesh, dp_axes=dp), mesh)
             self.step = build_serve_step(lm, mesh=mesh)
             self.args = (self.params, cache, tokens)
             return
         b = _empty(lm.input_specs(batch, seq_len))
-        b = distribute_tree(b, make_batch_specs(b, mesh), mesh)
+        b = distribute_tree(b, make_batch_specs(b, mesh, dp_axes=dp), mesh)
         if kind == "train":
             self.step = build_train_step(lm, opt, mesh=mesh)
             self.args = (self.params, opt.init(self.params), 0, b)
@@ -531,31 +565,36 @@ class _Placed:
         return self.step(*self.args)
 
 
-def trace_partitioned(cfg, shape, mesh, *, shape_name: str = ""):
+def trace_partitioned(cfg, shape, mesh, *, shape_name: str = "",
+                      gossip_dtype=None):
     """The record's measured fields for a partitioned combination on
     `mesh` (under a fake process group): every count from rank 0's local
-    ops (module docstring)."""
+    ops (module docstring); on the multi mesh the collectives over the
+    pod group are the gossip, the others the traffic inside the pod."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
 
     seq_len, global_batch, kind = shape
     sizes = dict(zip(mesh.mesh_dim_names, (int(d) for d in mesh.shape)))
     n_chips = math.prod(sizes.values())
+    pod_group = ([mesh.get_group(NODE_AXIS).group_name]
+                 if NODE_AXIS in sizes else [])
+
+    def placed(over):
+        return _Placed(dataclasses.replace(cfg, **over, **_TRACE_CHUNKS),
+                       kind, global_batch, seq_len, mesh, gossip_dtype)
+
     out = {}
     with FakeTensorMode(allow_non_fake_inputs=True):
         # FLOPs, bytes and collectives, remat off
-        c = _Placed(dataclasses.replace(cfg, remat=False, **_TRACE_CHUNKS),
-                    kind, global_batch, seq_len, mesh)
-        c.run()  # DTensor's sharding propagation, cached from here on
-        c = _Placed(dataclasses.replace(cfg, remat=False, **_TRACE_CHUNKS),
-                    kind, global_batch, seq_len, mesh)
-        counted = _LocalCounts()
+        placed({"remat": False}).run()  # DTensor's sharding propagation,
+        c = placed({"remat": False})    # cached from here on
+        counted = _LocalCounts(apart=pod_group)
         with counted:
             c.run()
         del c
         # the sharded step's own live bytes, with the shape's config
-        c = _Placed(dataclasses.replace(cfg, **_TRACE_CHUNKS), kind,
-                    global_batch, seq_len, mesh)
+        c = placed({})
         inputs = c.local_tensors()
         arg = sum(_nbytes(t) for t in inputs)
         out["traced_param_count"] = sum(
@@ -572,10 +611,18 @@ def trace_partitioned(cfg, shape, mesh, *, shape_name: str = ""):
         output = sum(_nbytes(t) for t in c.local_tensors(
             [t for t in tree_flatten(result)[0] if id(t) not in held]))
         del c, result, mt
-    intra = counted.summary()
-    coll = {**intra, "intra_pod": float(intra["total"]), "gossip": 0.0}
-    coll["total"] = float(intra["total"])
-    dp = sizes.get(DATA_AXIS, 1)
+    intra, pod_axis = counted.summary(), counted.summary(apart=True)
+    coll = {**intra, "intra_pod": float(intra["total"]),
+            "gossip": float(pod_axis["total"]) if kind == "train" else 0.0}
+    if pod_group:  # the round's gossip; prefill's and decode's k, v, q
+        coll.update(pod_axis=float(pod_axis["total"]),
+                    pod_axis_ops=pod_axis)
+    coll["total"] = coll["intra_pod"] + float(pod_axis["total"])
+    dp, batch = sizes.get(DATA_AXIS, 1), global_batch
+    if pod_group and kind == "train":  # a node's share, over "data"
+        batch //= sizes[NODE_AXIS]
+    elif pod_group:  # the batch over ("pod", "data")
+        dp *= sizes[NODE_AXIS]
     out.update(
         n_chips=n_chips, partitioned=True,
         cost_analysis={"flops": float(counted.flops),
@@ -585,8 +632,7 @@ def trace_partitioned(cfg, shape, mesh, *, shape_name: str = ""):
                          "temp_size_in_bytes": max(peak - arg, 0),
                          "temp_is_upper_bound": False,
                          "temp_batch_per_device": (
-                             global_batch // dp if global_batch % dp == 0
-                             else global_batch),
+                             batch // dp if batch % dp == 0 else batch),
                          "attn_chunks": [_TRACE_CHUNKS["attn_chunk_q"],
                                          _TRACE_CHUNKS["attn_chunk_kv"]]},
         collectives=coll,
@@ -637,8 +683,10 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
            "mesh_shape": dict(zip(names, dims))}
     try:
         base = cfg if cfg is not None else get_config(arch)
-        part, reason = partitions(base, mesh_kind)
-        twin = same_as(variant_override, part)
+        part, reason = partitions(base, mesh_kind, variant_override)
+        twin = same_as(variant_override, part,
+                       keep=("_dfl_shardmap",) if mesh_kind == "multi"
+                       and base.family == "dense" else ())
         if twin is not None:
             rec.update(ok=True, same_as=twin)
         else:
@@ -648,7 +696,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
                 if part:
                     rec.update(trace_partitioned(
                         full, shape, mesh,
-                        shape_name=shape_name if cfg is None else ""))
+                        shape_name=shape_name if cfg is None else "",
+                        gossip_dtype=torch_dtype(gd) if gd else None))
                 else:
                     rec.update(trace_combo(
                         full, shape, mesh, multi=mesh_kind == "multi",

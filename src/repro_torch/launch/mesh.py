@@ -6,7 +6,8 @@ ranks as (pod=2, data=16, model=16); the "pod" dimension carries the DFL
 node axis (`repro_torch.dist.sharding.NODE_AXIS`).  `OnePodMesh` is the
 one-pod mesh of a process with no process group: its pod axis has size 1
 and its all-gather is the identity, as on the JAX package's one-device
-mesh.
+mesh.  On the multi mesh the DFL round runs each node's step on its pod's
+(data, model) sub-mesh (`pod_submesh`) and gossips over "pod".
 
 Functions, not module constants: importing this module initializes no
 process group.  `init_device_mesh` needs a world size equal to the mesh's
@@ -96,13 +97,30 @@ def make_production_mesh(*, multi_pod: bool = False,
     return _mesh(device_type, shape, axes)
 
 
-def make_host_mesh(*, data: int = 1, model: int = 1,
+def make_host_mesh(*, pod: int = None, data: int = 1, model: int = 1,
                    device_type: str = "cuda"):
-    """A small (data, model) mesh over the process group's ranks (tests
-    and examples): `data` capped at the world size, `model` at what is
-    left, as the reference caps them at the local device count; the
-    product must then be the world size."""
+    """A small mesh over the process group's ranks (tests and examples).
+
+    Without `pod`: a (data, model) mesh, `data` capped at the world size
+    and `model` at what is left, as the reference caps them at the local
+    device count; the product must then be the world size.  With `pod`:
+    the multi mesh (pod, data, model), whose product must be the world
+    size; `pod_axis(mesh)` gives its pod group and `pod_submesh(mesh)`
+    the pod's (data, model) sub-mesh."""
+    if pod is not None:
+        return _mesh(device_type, (pod, data, model),
+                     (NODE_AXIS, "data", "model"))
     n = _world_size()
     data = min(data, n)
     return _mesh(device_type, (data, max(1, min(model, n // data))),
                  ("data", "model"))
+
+
+def pod_submesh(mesh):
+    """The (data, model) sub-mesh of this rank's pod on a (pod, data,
+    model) mesh: where one node's partitioned step runs."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != (NODE_AXIS, "data", "model"):
+        raise ValueError(f"the multi mesh is (pod, data, model); got "
+                         f"{names}")
+    return mesh["data", "model"]

@@ -51,6 +51,9 @@ def _reduced(arch):
 
 @pytest.mark.parametrize("arch,shape_name,mesh,shape", [
     ("qwen1.5-0.5b", "train_4k", "single", (64, 8, "train")),
+    ("qwen1.5-0.5b", "train_4k", "multi", (64, 8, "train")),
+    ("qwen1.5-0.5b", "prefill_32k", "multi", (64, 8, "prefill")),
+    ("qwen1.5-0.5b", "decode_32k", "multi", (64, 8, "decode")),
     ("mixtral-8x7b", "train_4k", "multi", (64, 8, "train")),
     ("llava-next-mistral-7b", "prefill_32k", "multi", (64, 8, "prefill")),
     ("zamba2-2.7b", "decode_32k", "single", (64, 8, "decode")),
@@ -77,17 +80,27 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     mem = rec["memory_analysis"]
     coll = rec["collectives"]
     r = rec["roofline"]
-    part = mesh == "single" and cfg.family == "dense"
+    part = cfg.family == "dense"
     assert rec["partitioned"] is part
     if part:  # the sharded step's own per-device counts
         assert "flops_global" not in cost and not mem["temp_is_upper_bound"]
-        assert coll["intra_pod"] == coll["total"] > 0
-        assert coll["gossip"] == 0.0
-        assert coll["total"] == sum(v for k, v in coll.items()
-                                    if k in COLLECTIVE_OPS)
+        assert coll["intra_pod"] == sum(v for k, v in coll.items()
+                                        if k in COLLECTIVE_OPS) > 0
         assert all(coll[k + "_count"] > 0 for k in COLLECTIVE_OPS
                    if k in coll)
         assert r["collective_s"] > 0 and "not_partitioned" not in rec
+        if mesh == "single":
+            assert coll["gossip"] == 0.0 and "pod_axis" not in coll
+            assert coll["total"] == coll["intra_pod"]
+        else:  # the pod group's collectives, counted apart
+            ops = coll["pod_axis_ops"]
+            assert coll["pod_axis"] == ops["total"] == ops.get(
+                "all-gather", 0)
+            # prefill's batch lies over ("pod", "data"): nothing crosses
+            assert (coll["pod_axis"] > 0) == (shape[2] != "prefill")
+            assert coll["total"] == coll["intra_pod"] + coll["pod_axis"]
+            assert coll["gossip"] == (coll["pod_axis"]
+                                      if shape[2] == "train" else 0.0)
     else:
         assert cost["flops"] == cost["flops_global"] / n_chips
         assert cost["bytes accessed"] == \
@@ -103,7 +116,7 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     assert mem["temp_batch_per_device"] == {
         ("train", "single"): 4, ("train", "multi"): 2,
         ("prefill", "multi"): 2, ("decode", "single"): 4,
-        ("decode", "multi"): 1}[shape[2], mesh]
+        ("decode", "multi"): 2 if part else 1}[shape[2], mesh]
     assert rec["bytes_per_device"] == (mem["argument_size_in_bytes"]
                                        + mem["temp_size_in_bytes"]
                                        + mem["output_size_in_bytes"])
@@ -120,7 +133,8 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
 def test_argument_and_gossip_bytes_follow_the_specs(tmp_path):
     """Train on the multi mesh: the argument bytes are the params' and the
     momentum's shards plus the batch's, each leaf divided by the sizes of
-    the axes its spec names; the gossip is the other pod's param shard."""
+    the axes its spec names; the gossip, counted, is the pod all-gather of
+    the param shards and of the loss (each counts its input)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import make_batch_specs, make_param_specs
     from repro_torch.models.lm import build_lm
@@ -159,14 +173,18 @@ def test_argument_and_gossip_bytes_follow_the_specs(tmp_path):
     assert mem["argument_size_in_bytes"] == p_bytes + m_bytes + b_bytes
     # one device's share: 8 sequences over 2 nodes, each node's 4 over data
     assert mem["temp_batch_per_device"] == 2
-    assert rec["collectives"]["total"] == p_bytes  # (P - 1) = 1 shard
+    assert rec["partitioned"] and not mem["temp_is_upper_bound"]
+    assert rec["collectives"]["gossip"] == p_bytes + 4
+    assert rec["collectives"]["total"] > p_bytes + 4
     assert mem["output_size_in_bytes"] == p_bytes + 4
 
 
 def test_variants_that_only_steer_sharding_trace_their_twin(tmp_path):
     """Where the step is not partitioned, a variant that changes only the
     reference's sharding traces its twin's step; on a partitioned step
-    only the shard_map form does (the others change the step)."""
+    of the single mesh only the shard_map form does (the others change
+    the step), and on the multi mesh the shard_map form traces the round
+    over whole nodes."""
     assert dryrun.same_as(dryrun.VARIANTS["zero3"]) == "baseline"
     assert dryrun.same_as(dryrun.VARIANTS["seqshard"]) == "baseline"
     assert dryrun.same_as(dryrun.VARIANTS["shardmap"]) == "baseline"
@@ -179,13 +197,29 @@ def test_variants_that_only_steer_sharding_trace_their_twin(tmp_path):
     assert dryrun.same_as(dryrun.VARIANTS["shardmap"], True) == "baseline"
     assert dryrun.same_as(dryrun.VARIANTS["shardmap+seqshard"],
                           True) == "seqshard"
+    # on the multi mesh the shard_map form selects the round over whole
+    # nodes, the reference's own design, and only the sharding keys are
+    # inert there
+    keep = ("_dfl_shardmap",)
+    assert dryrun.same_as(dryrun.VARIANTS["shardmap+seqshard"], False,
+                          keep) == "shardmap"
+    assert dryrun.same_as(dryrun.VARIANTS["shardmap"], False, keep) is None
     rec = dryrun.run_one("q", "x", "multi", str(tmp_path),
-                         variant="zero3",
-                         variant_override=dryrun.VARIANTS["zero3"],
+                         variant="shardmap+seqshard",
+                         variant_override=dryrun.VARIANTS["shardmap+seqshard"],
                          cfg=_reduced("qwen1.5-0.5b"),
                          shape=(64, 8, "train"), mesh_dims=(2, 2, 2))
-    assert rec["ok"] and rec["same_as"] == "baseline"
+    assert rec["ok"] and rec["same_as"] == "shardmap"
     assert "cost_analysis" not in rec
+    rec = dryrun.run_one("q", "x", "multi", str(tmp_path),
+                         variant="shardmap",
+                         variant_override=dryrun.VARIANTS["shardmap"],
+                         cfg=_reduced("qwen1.5-0.5b"),
+                         shape=(64, 8, "train"), mesh_dims=(2, 2, 2))
+    assert rec["ok"] and not rec["partitioned"]
+    assert "shard_map" in rec["not_partitioned"]
+    assert "A.14" not in rec["not_partitioned"]
+    assert rec["memory_analysis"]["temp_is_upper_bound"]
     # on the single mesh zero3 gathers every weight: more all-gathered
     part = [dryrun.run_one("q", "x", "single", str(tmp_path), force=True,
                            variant=v, variant_override=dryrun.VARIANTS.get(v),

@@ -967,7 +967,7 @@ def test_serving_and_eq5_wrappers_count_no_launch_on_the_cpu():
 
 @pytest.mark.parametrize("fn,n_ptr,n_int,n_i64,n_float", [
     ("decode_attention_f32", 8, 2, 8, 1),
-    ("decdiff_sumsq_rows", 3, 1, 4, 0),
+    ("decdiff_sumsq_rows", 3, 1, 6, 0),
     ("decdiff_scale_rows", 4, 0, 2, 1),
     ("decdiff_step_rows", 4, 1, 2, 0),
 ])
