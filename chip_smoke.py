@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p |
-                           --path-q | --path-r]
+                           --path-q | --path-r | --path-s]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -375,6 +375,32 @@ It imports the port only (no JAX), and:
      version, timed against its byte bound; files go to `build/path_r/`
      (~11 GB of references, deleted at the end); `--path-r` runs the
      kernel build and path r alone;
+     then path s, the partitioned MoE step (ROADMAP A.14.2), each cut
+     printed: s0, full-width mixtral-8x7b cut to 2 of 32 layers in fp32,
+     per dispatch mode ("global", `moelocal`, `expertpar`) a train step
+     of 4 x 128, prefill and 32 decode steps on a 4,096-slot ring,
+     unpartitioned, then on a (1, 1) NCCL mesh, bitwise (loss, params,
+     logits, tokens, expert choices and kept assignments) with equal
+     launches; s1, the same on a (1, 2) mesh of two ranks sharing the card
+     over the host-staged backend, each against the unpartitioned run
+     kept in this process (the ranks' param shards compared over CUDA
+     IPC): loss and params within 1e-5 shard for shard, logits within
+     1e-3 of the largest, equal tokens and expert choices, launches exact
+     a rank; arctic-480b cut to 1 of 35 layers (bf16 params, fp32
+     activations; no train step: one layer's params, grads and momentum
+     exceed the card), prefill and 32 decode steps, "global" and
+     `expertpar`, within 2e-2 of the largest logit with equal tokens and
+     choices; the bf16 mixtral train step timed both ways; s2, a (2, 1,
+     2) mesh of four host-staged ranks, one DFL round of two `expertpar`
+     mixtral nodes (1 layer, fp32) per exchange (the bf16 cast, the
+     deterministic int8 codec; the fp32 exchange's gathered models do not
+     fit four ranks on the card) against the unpartitioned round, whose
+     params wait on the host, shard for shard within 1e-5 (int8: 1e-4
+     plus one grain), the loss within 1e-5, launches exact; then B.3's split forms at V = 32000
+     over two shards and B.9's at mixtral's (G = 4) and arctic's (G = 7)
+     [4, 4096, 8, 128] caches cut in two, fp32 and bf16, against their
+     plain versions and timed, and the split B.2 at s2's flat block;
+     `--path-s` runs the kernel build and path s alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -5617,13 +5643,14 @@ def r_worker(rank, n_ranks, out_dir, device="cuda:0"):
         dist.destroy_process_group()
 
 
-def r_split_check(torch, dev, gen):
-    """The split B.2 (`ops.decdiff_rows_split`) at path r1's shape: the
-    flat [1, D_local] fp32 block (the int8 round's form) of the rank at
-    model coordinate 1 of 2, whose spans leave out the leaves replicated
-    over "model", the all-reduce the identity; against its plain version
-    (the norm within 1e-5 relative, the step within what that moves) and
-    timed against its byte bound.  No single PyTorch call computes it
+def r_split_check(torch, dev, gen, lm=None, label="path r1's flat block"):
+    """The split B.2 (`ops.decdiff_rows_split`) at path r1's shape (or at
+    the node block of `lm`, placed with its `expert_parallel`): the flat
+    [1, D_local] fp32 block (the int8 round's form) of the rank at model
+    coordinate 1 of 2, whose spans leave out the leaves replicated over
+    "model", the all-reduce the identity; against its plain version (the
+    norm within 1e-5 relative, the step within what that moves) and timed
+    against its byte bound.  No single PyTorch call computes it
     (library_ms null)."""
     from repro_torch.dist.dfl_step import _counted_here, _flat_spans
     from repro_torch.dist.sharding import node_block_specs, placements
@@ -5636,14 +5663,16 @@ def r_split_check(torch, dev, gen):
             return [s for k in sorted(tree) for s in spec_leaves(tree[k])]
         return [tree]
 
+    lm = lm or r_lm(True)
     meta = tree_map(lambda t: torch.empty((1,) + tuple(t.shape),
                                           dtype=t.dtype, device="meta"),
-                    r_lm(True).init(torch.Generator(), device="meta"))
+                    lm.init(torch.Generator(), device="meta"))
     sizes = dict(zip(("pod", "data", "model"), R_MESH))
     sub = type("Sub", (), {"mesh_dim_names": ("data", "model")})()
     counted, widths = [], []
     for t, spec in zip(tree_leaves(meta), spec_leaves(node_block_specs(
-            meta, type("M", (), {"shape": sizes})()))):
+            meta, type("M", (), {"shape": sizes})(),
+            expert_parallel=lm.cfg.expert_parallel))):
         widths.append(t[0].numel() // math.prod(
             sizes[a] for a in ("data", "model") if a in spec))
         counted.append(_counted_here(placements(spec, sub), (0, 1)))
@@ -5678,7 +5707,7 @@ def r_split_check(torch, dev, gen):
     res = dict(t, max_abs_err=step_err, norm_err=norm_err, bound_ms=bound,
                bound_by=by, shape=[1, d], counted_columns=dc,
                spans=len(spans), dtype="torch.float32")
-    print(f"decdiff_update split (path r1's flat block [1, {d}] fp32, "
+    print(f"decdiff_update split ({label} [1, {d}] fp32, "
           f"{len(spans)} spans, {dc} counted columns): step |diff| "
           f"{step_err:g}, norm |diff| {norm_err:g} of {float(sq_p):.6g}; "
           f"kernel {t['ms']:.4f} ms call / {t['kernel_ms']:.4f} ms device, "
@@ -5845,6 +5874,732 @@ def path_r(torch, ops, dev, card):
     return {"launches": launches, "split": split, "ms": ms}
 
 
+# ----------------------------------------------------------------- path s
+# the partitioned MoE step (ROADMAP A.14.2) at full width
+
+S_DIR = ROOT / "build" / "path_s"     # path s's rendezvous
+S_MODES = {"global": {}, "moelocal": {"moe_dispatch": "batch_local"},
+           "expertpar": {"moe_dispatch": "batch_local",
+                         "expert_parallel": True}}
+S_LAYERS = {"mixtral-8x7b": 2, "arctic-480b": 1}  # of 32 and 35: one card
+S_ROUND_LAYERS = 1                    # s2's mixtral
+# s2's exchanges: the fp32 one's gathered models do not fit four ranks
+S_EXCHANGES = ("bf16", "int8")
+S_TIMED = 3                           # bf16 train steps timed after one
+
+
+def s_lm(arch, mode="global", dtype="float32", act=None, layers=None):
+    """Full-width `arch` cut to S_LAYERS layers (or `layers`), in dispatch
+    mode `mode`, with `dtype` params and `act` (default `dtype`)
+    activations."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+
+    return build_lm(dataclasses.replace(
+        get_config(arch), n_layers=layers or S_LAYERS[arch],
+        param_dtype=dtype, activation_dtype=act or dtype, **S_MODES[mode]))
+
+
+def s_walk(tree, specs, fn, name=""):
+    """fn(leaf name, leaf, its spec) over a param tree, in its order."""
+    if isinstance(tree, dict):
+        return {k: s_walk(v, None if specs is None else specs[k], fn, k)
+                for k, v in tree.items()}
+    return fn(name, tree, specs)
+
+
+def s_params(torch, lm, dev, seed, mesh=None, node=False):
+    """Params drawn leaf by leaf from `seed` on `dev`: norm scales 1,
+    biases 0, the embedding N(0, 0.02²), every other weight N(0, 1 /
+    fan_in) (fan_in its second-to-last dim), each drawn whole in its own
+    dtype and, on `mesh`, cut at once to this rank's shard by the specs
+    (`expert_parallel=cfg.expert_parallel`; `DTensor.from_local`: no
+    collective and never a whole model on a rank).  With `node`, a node
+    block [1, ...] on the pod's sub-mesh of the multi mesh
+    (`node_block_specs`)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import (make_param_specs,
+                                           node_block_specs, placements)
+    from repro_torch.launch.mesh import pod_submesh
+    from repro_torch.utils.pytree import tree_map
+
+    meta = lm.init(torch.Generator(), device="meta")
+    ep = lm.cfg.expert_parallel
+    sub = specs = None
+    if mesh is not None:
+        sub = pod_submesh(mesh) if node else mesh
+        specs = (node_block_specs(tree_map(lambda t: t[None], meta), mesh,
+                                  expert_parallel=ep) if node
+                 else make_param_specs(meta, mesh, expert_parallel=ep))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(name, t, spec):
+        if name == "scale":
+            full = torch.ones(t.shape, dtype=t.dtype, device=dev)
+        elif name in ("b", "bias"):
+            full = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        else:
+            full = torch.randn(t.shape, generator=gen, dtype=t.dtype,
+                               device=dev)
+            full.mul_(0.02 if name == "table"
+                      else 1.0 / math.sqrt(t.shape[-2]))
+        if node:
+            full = full[None]
+        if sub is None:
+            return full
+        pl = placements(spec, sub)
+        local = r_shard(full, pl, sub.get_coordinate(), tuple(sub.shape))
+        if local.numel() < full.numel():  # a copy: the rest is freed
+            local = local.clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, sub, pl, shape=full.shape,
+                                  stride=full.stride())
+
+    return s_walk(meta, specs, leaf)
+
+
+def s_batch(torch, lm, dev, seed, lead=()):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seq = torch.randint(0, lm.cfg.vocab, lead + (Q_BATCH, Q_SEQ + 1),
+                        generator=g, device=dev, dtype=torch.int32)
+    return {"tokens": seq[..., :-1].contiguous(),
+            "labels": seq[..., 1:].contiguous()}
+
+
+def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0):
+    """One train step of Q_BATCH x Q_SEQ (VT loss; with `train`), prefill
+    of the same batch, then Q_STEPS greedy decode steps on a Q_WINDOW-slot
+    ring, on `mesh` or whole, each MoE layer's routing recorded
+    (`moe.record_choices`); the launch counts set to 0 just before and read
+    just after.  With `timed`: that many train steps more, each timed,
+    and nothing else."""
+    from repro_torch.dist.dfl_step import (build_prefill_step,
+                                           build_serve_step,
+                                           build_train_step)
+    from repro_torch.dist.sharding import (distribute_tree, full_tree,
+                                           make_batch_specs,
+                                           make_cache_specs)
+    from repro_torch.models.lm import moe
+    from repro_torch.optim.sgd import sgd_momentum
+
+    def place(tree, specs):
+        return tree if mesh is None else distribute_tree(
+            tree, specs(tree, mesh), mesh)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    params = s_params(torch, lm, dev, 50, mesh)
+    whole = s_batch(torch, lm, dev, 51)
+    batch = place(whole, make_batch_specs)
+    out = {"ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    if train:
+        opt = sgd_momentum(lr=3e-3, momentum=0.9)
+        state = opt.init(params)
+        step = build_train_step(lm, opt, beta=LM_BETA, mesh=mesh)
+        (_, _, loss), ms = clock(lambda: step(params, state, 0, batch))
+        out.update(loss=float(loss), ms=[ms])
+        for i in range(timed):
+            out["ms"].append(clock(lambda: step(params, state, i + 1,
+                                                batch))[1])
+        del state
+        if timed:
+            out["peak"] = torch.cuda.max_memory_allocated()
+            return out
+    prefill = build_prefill_step(lm, mesh=mesh)
+    serve = build_serve_step(lm, mesh=mesh)
+    with moe.record_choices() as seen:
+        logits = prefill(params, batch)
+        cache = place(lm.init_cache(Q_BATCH, Q_WINDOW, device=dev),
+                      make_cache_specs)
+        tok = whole["tokens"][:, :1].contiguous()
+        dec, toks = [], []
+        for _ in range(Q_STEPS):
+            lg, cache = serve(params, cache, place(tok, make_batch_specs))
+            lg = full_tree(lg)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            dec.append(lg[:, 0].float())
+            toks.append(tok)
+    torch.cuda.synchronize()
+    out.update(launches=dict(ops.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated(),
+               prefill=full_tree(logits).float().cpu(),
+               decode=torch.stack(dec).cpu(), tokens=torch.cat(toks, 1).cpu(),
+               choices=[{k: v.cpu() for k, v in r.items()} for r in seen],
+               params=params if train else None)
+    return out
+
+
+def s_round(torch, ops, lm, dev, name, mesh=None):
+    """One DFL round of exchange `name` over two nodes on a ring, each
+    with a batch of Q_BATCH x Q_SEQ (VT loss): on `mesh` (the multi mesh)
+    this rank's pod block, node p drawn from seed 40 + p and cut to the
+    pod's sub-mesh at once, else both nodes stacked; the launch counts
+    set to 0 just before the round and read just after."""
+    from repro_torch.dist.dfl_step import build_dfl_round
+    from repro_torch.dist.sharding import place_node_block
+    from repro_torch.launch.mesh import pod_axis
+    from repro_torch.optim.sgd import sgd_momentum
+    from repro_torch.utils.pytree import tree_map
+
+    if mesh is None:
+        nodes = [s_params(torch, lm, dev, 40 + i) for i in range(2)]
+        params = tree_map(lambda *xs: torch.stack(xs), *nodes)
+        del nodes
+        batch = s_batch(torch, lm, dev, 41, lead=(2,))
+    else:
+        pod = pod_axis(mesh)[1]
+        params = s_params(torch, lm, dev, 40 + pod, mesh, node=True)
+        batch = place_node_block({k: v[pod:pod + 1].contiguous() for k, v in
+                                  s_batch(torch, lm, dev, 41, (2,)).items()},
+                                 mesh, batch=True)
+    opt = sgd_momentum(lr=3e-3, momentum=0.9)
+    state = opt.init(params)
+    step = build_dfl_round(lm, opt, [[0.0, 1.0], [1.0, 0.0]], beta=LM_BETA,
+                           mesh=mesh, **r_exchange(torch, name))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    new, state, loss = step(params, state, 0, batch)
+    torch.cuda.synchronize()
+    return {"launches": dict(ops.LAUNCHES), "loss": float(loss),
+            "ms": 1e3 * (time.perf_counter() - t0), "params": new,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def s_shards(params):
+    """A rank's params as (local shard, placements) leaves, to be sent to
+    the script's process (CUDA IPC) for the checks."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    return [(t.to_local(), tuple(t.placements)) for t in tree_leaves(params)]
+
+
+def s_worker(rank, n_ranks, out_dir, dims, jobs, results, acks):
+    """One rank of path s1 ((data, model) = (1, 2)) or s2 ((pod, data,
+    model) = (2, 1, 2)) on the card (cuda:0) over the host-staged backend:
+    runs the jobs the script's process sends (`jobs[rank]`), puts each
+    result on `results` (its param shards as CUDA tensors, which the
+    script compares over CUDA IPC) and frees it once `acks[rank]` says
+    the checks are done; None ends it."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    # each rank keeps under its share of the card: a caching allocator
+    # holding freed blocks would otherwise starve the ranks beside it
+    torch.cuda.set_per_process_memory_fraction(0.94 / n_ranks, 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import host_staging
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        host_staging.register(), rank=rank, world_size=n_ranks,
+        store=dist.FileStore(str(Path(out_dir) / f"store{n_ranks}"),
+                             n_ranks))
+    try:
+        mesh = (make_host_mesh(data=dims[0], model=dims[1])
+                if len(dims) == 2 else
+                make_host_mesh(pod=dims[0], data=dims[1], model=dims[2]))
+        while (job := jobs[rank].get()) is not None:
+            kind = job["kind"]
+            if kind == "round":
+                lm = s_lm("mixtral-8x7b", "expertpar",
+                          layers=S_ROUND_LAYERS)
+                got = s_round(torch, ops, lm, dev, job["exchange"], mesh)
+            else:
+                lm = s_lm(job["arch"], job["mode"], job["dtype"],
+                          job.get("act"))
+                got = s_run(torch, ops, lm, dev, mesh, kind != "serve",
+                            S_TIMED if kind == "timed" else 0)
+            shards = (s_shards(got.pop("params"))
+                      if got.get("params") is not None else None)
+            got = s_host(got)  # by value through the pipe, no shared memory
+            got.update(rank=rank, coord=tuple(mesh.get_coordinate()),
+                       params=shards)
+            gc.collect()
+            torch.cuda.empty_cache()  # keep only the shards while checked
+            results.put(got)
+            acks[rank].get()
+            del got, lm, shards
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.ipc_collect()
+            results.put({"rank": rank, "freed": True})
+        results.put({"rank": rank, "imported": sorted(
+            k for k in sys.modules if k.split(".")[0] in ("jax", "repro"))})
+    finally:
+        dist.destroy_process_group()
+
+
+def s_host(x):
+    """A result's CPU tensors as numpy arrays (bf16 as fp32), to cross
+    the queue by value; `s_torch` turns them back."""
+    import torch
+
+    if isinstance(x, dict):
+        return {k: s_host(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [s_host(v) for v in x]
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    return x
+
+
+def s_torch(x):
+    import numpy as np
+    import torch
+
+    if isinstance(x, dict):
+        return {k: s_torch(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [s_torch(v) for v in x]
+    return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+
+
+def s_param_err(torch, shards, ref, coord, sizes, dev, tol=1e-5,
+                lead=None):
+    """max |shard - the reference's same shard| over a rank's leaves, and
+    whether it is within `tol`; `lead` cuts the reference's node dim
+    first."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    err, ok = 0.0, True
+    for (got, pl), want in zip(shards, tree_leaves(ref)):
+        if lead is not None:
+            want = want[lead]
+        want = r_shard(want, pl, coord, sizes).to(dev).float()
+        d = (got.float() - want).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= tol).all())
+        del want, d
+    return err, ok
+
+
+def s_choices_equal(got, want, label):
+    """Each MoE layer's expert choices (and kept assignments) equal,
+    compared first: a flipped near-tie moves a token by a whole expert;
+    the count and probability gaps of the differing choices printed."""
+    same = len(got) == len(want) > 0
+    for layer, (g, w) in enumerate(zip(got, want)):
+        diff = (g["experts"].sort(-1).values
+                != w["experts"].sort(-1).values).any(-1)
+        if bool(diff.any()):
+            print(f"{label}, routed layer {layer}: {int(diff.sum())} tokens "
+                  f"chose other experts, probability gaps "
+                  f"{w['gap'][diff].tolist()}")
+        same = same and not bool(diff.any()) and bool(
+            (g["kept"] == w["kept"]).all())
+    return same
+
+
+def s_serve_against(torch, got, ref, label, bound):
+    """Prefill and decode logits within `bound` of the largest, equal
+    tokens, equal choices; (ok, text)."""
+    pre = float((got["prefill"] - ref["prefill"]).abs().max())
+    pre_max = float(ref["prefill"].abs().max())
+    dec = float((got["decode"] - ref["decode"]).abs().max())
+    dec_max = float(ref["decode"].abs().max())
+    tokens = bool(torch.equal(got["tokens"], ref["tokens"]))
+    choices = s_choices_equal(got["choices"], ref["choices"], label)
+    finite = bool(torch.isfinite(got["prefill"]).all()
+                  and torch.isfinite(got["decode"]).all())
+    ok = (pre <= bound * pre_max and dec <= bound * dec_max and tokens
+          and choices and finite)
+    return ok, (f"prefill |diff| {pre:.3g} of max {pre_max:.3g}, "
+                f"{Q_STEPS} decode steps |diff| {dec:.3g} of max "
+                f"{dec_max:.3g} (bound {bound:g} of the max), tokens equal "
+                f"{tokens}, expert choices equal {choices}")
+
+
+def s_spawn(n_ranks, dims):
+    """Path s's ranks on the card, waiting for jobs: (processes, job
+    queues, result queue, ack queues)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    jobs = [ctx.Queue() for _ in range(n_ranks)]
+    acks = [ctx.Queue() for _ in range(n_ranks)]
+    results = ctx.Queue()
+    procs = mp.spawn(s_worker, args=(n_ranks, str(S_DIR), dims, jobs,
+                                     results, acks),
+                     nprocs=n_ranks, join=False)
+    return procs, jobs, results, acks
+
+
+def s_get(procs, results):
+    """The next result; raises if a rank failed meanwhile."""
+    import queue
+
+    while True:
+        try:
+            return s_torch(results.get(timeout=2))
+        except queue.Empty:
+            procs.join(timeout=0)  # raises on a failed rank
+
+
+def s_ask(procs, jobs, results, job):
+    """Send `job` to every rank; their results by rank."""
+    for q in jobs:
+        q.put(job)
+    return sorted((s_get(procs, results) for _ in jobs),
+                  key=lambda r: r["rank"])
+
+
+def s_release(procs, results, acks):
+    """Tell the ranks the checks are done, and wait until each has freed
+    its memory on the card (the next run needs it)."""
+    gc.collect()
+    for q in acks:
+        q.put(True)
+    for _ in acks:
+        check(s_get(procs, results).get("freed"), "path s: a rank's reply "
+                                                  "out of order")
+
+
+def s_end(procs, jobs, results):
+    """End the ranks; their imports by rank."""
+    for q in jobs:
+        q.put(None)
+    out = sorted((s_get(procs, results) for _ in jobs),
+                 key=lambda r: r["rank"])
+    while not procs.join():
+        pass
+    return [r["imported"] for r in out]
+
+
+def s_kill(procs):
+    """Stop the ranks of a path that failed."""
+    for p in procs.processes:
+        if p.is_alive():
+            p.terminate()
+        p.join(10)
+
+
+def s_mixtral_arctic(torch, ops, dev, card, procs, jobs, results, acks,
+                     add):
+    """Paths s0 and s1 (the module docstring), with s1's two ranks
+    waiting for jobs: for each dispatch mode the unpartitioned fp32
+    mixtral run (kept on the card), the (1, 1) NCCL mesh bitwise against
+    it, then the (1, 2) ranks against it; arctic's prefill and decode;
+    the bf16 train step timed both ways."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import full_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    n_layers = S_LAYERS["mixtral-8x7b"]
+    out = {"s0": {}, "s1": {}}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(S_DIR / "store0"), 1), rank=0,
+        world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        for mode in S_MODES:
+            t_mode = time.perf_counter()
+            lm = s_lm("mixtral-8x7b", mode)
+            free = torch.cuda.mem_get_info()[0]
+            ref = s_run(torch, ops, lm, dev)
+            want = {"vt_kl_loss_fwd": 1, "vt_kl_loss_bwd": 1,
+                    "decode_attention_fused": n_layers * Q_STEPS}
+            check(ref["launches"] == {k: want.get(k, 0)
+                                      for k in ops.LAUNCHES},
+                  f"path s ({mode}, unpartitioned): launches "
+                  f"{ref['launches']}")
+            got = s_run(torch, ops, lm, dev, mesh)
+            add(got["launches"])
+            same = {"loss": got["loss"] == ref["loss"], "params": all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(full_tree(got["params"])),
+                    tree_leaves(ref["params"]))), "choices": all(
+                torch.equal(g[k], w[k])
+                for g, w in zip(got["choices"], ref["choices"])
+                for k in ("experts", "kept")),
+                **{k: bool(torch.equal(got[k], ref[k]))
+                   for k in ("prefill", "decode", "tokens")}}
+            print(f"path s0 ({mode}, (data, model) = (1, 1) on NCCL, "
+                  f"{card}): loss {got['loss']:.6f}, bitwise the "
+                  f"unpartitioned step (loss, params, prefill, {Q_STEPS} "
+                  f"decode steps, tokens, expert choices) = "
+                  f"{all(same.values())}; launches "
+                  f"{ {k: v for k, v in got['launches'].items() if v} }; "
+                  f"{free} B free on the card before it")
+            check(all(same.values()), f"path s0 ({mode}): the (1, 1) mesh "
+                                      f"differs: equal {same}")
+            check(got["launches"] == ref["launches"],
+                  f"path s0 ({mode}): launches {got['launches']}")
+            out["s0"][mode] = True
+            del got
+            gc.collect()
+            torch.cuda.empty_cache()
+            # -- s1: the same steps on (1, 2), against the run kept here
+            ranks = s_ask(procs, jobs, results, {
+                "kind": "steps", "mode": mode, "arch": "mixtral-8x7b",
+                "dtype": "float32"})
+            rows = []
+            for r in ranks:
+                add(r["launches"])
+                err, ok = s_param_err(torch, r["params"], ref["params"],
+                                      r["coord"], (1, 2), dev)
+                gap = abs(r["loss"] - ref["loss"])
+                s_ok, text = s_serve_against(
+                    torch, r, ref, f"path s1 ({mode}) rank {r['rank']}",
+                    1e-3)
+                want = {"vt_kl_partial_fwd": 1, "vt_kl_shard_bwd": 1,
+                        **{k: n_layers * Q_STEPS for k in R_SERVE}}
+                check(r["launches"] == {k: want.get(k, 0)
+                                        for k in ops.LAUNCHES},
+                      f"path s1 ({mode}) rank {r['rank']}: launches "
+                      f"{r['launches']}")
+                check(gap <= 1e-5 and ok and s_ok,
+                      f"path s1 ({mode}) rank {r['rank']}: loss gap "
+                      f"{gap:g}, params |diff| {err:g}; {text}")
+                rows.append(dict(loss_gap=gap, params_err=err, text=text,
+                                 peak=r["peak"], ms=r["ms"]))
+            print(f"path s1 ({mode}, (1, 2) over the host-staged backend, "
+                  f"fp32, {card}): loss gap "
+                  f"{max(x['loss_gap'] for x in rows):.3g}, params |diff| "
+                  f"{max(x['params_err'] for x in rows):.3g} shard for "
+                  f"shard (tolerance 1e-5); {rows[0]['text']}; peak "
+                  f"{[x['peak'] for x in rows]} B (whole {ref['peak']} B); "
+                  f"s0 and s1 of this mode in "
+                  f"{time.perf_counter() - t_mode:.1f} s")
+            out["s1"][mode] = rows
+            del ranks, ref, r  # the last rank's shards too (CUDA IPC)
+            s_release(procs, results, acks)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # -- s1: arctic, prefill and decode (bf16 params, fp32 activations)
+    for mode in ("global", "expertpar"):
+        lm = s_lm("arctic-480b", mode, "bfloat16", act="float32")
+        ref = s_run(torch, ops, lm, dev, train=False)
+        check(ref["launches"] == {k: Q_STEPS if k == "decode_attention_fused"
+                                  else 0 for k in ops.LAUNCHES},
+              f"path s (arctic {mode}, unpartitioned): launches "
+              f"{ref['launches']}")
+        torch.cuda.empty_cache()
+        ranks = s_ask(procs, jobs, results, {
+            "kind": "serve", "mode": mode, "arch": "arctic-480b",
+            "dtype": "bfloat16", "act": "float32"})
+        texts = []
+        for r in ranks:
+            add(r["launches"])
+            ok, text = s_serve_against(
+                torch, r, ref, f"path s1 (arctic {mode}) rank {r['rank']}",
+                2e-2)
+            check(ok, f"path s1 (arctic {mode}) rank {r['rank']}: {text}")
+            check(r["launches"] == {k: Q_STEPS if k in R_SERVE else 0
+                                    for k in ops.LAUNCHES},
+                  f"path s1 (arctic {mode}) rank {r['rank']}: launches "
+                  f"{r['launches']}")
+            texts.append(text)
+        print(f"path s1 (arctic-480b {mode}, 1 layer, (1, 2), {card}): "
+              f"{texts[0]}; peak {[r['peak'] for r in ranks]} B (whole "
+              f"{ref['peak']} B)")
+        out["s1"]["arctic_" + mode] = texts
+        del ranks, ref
+        s_release(procs, results, acks)
+    # -- the bf16 mixtral train step, timed both ways
+    base = s_run(torch, ops, s_lm("mixtral-8x7b", dtype="bfloat16"), dev,
+                 timed=S_TIMED)
+    check(math.isfinite(base["loss"]), "path s: bf16 loss not finite")
+    torch.cuda.empty_cache()
+    ranks = s_ask(procs, jobs, results, {
+        "kind": "timed", "mode": "global", "arch": "mixtral-8x7b",
+        "dtype": "bfloat16"})
+    s_release(procs, results, acks)
+    check(all(math.isfinite(r["loss"]) for r in ranks),
+          "path s1: bf16 loss not finite")
+
+    def med(ms):
+        return round(statistics.median(ms[1:] if len(ms) > 1 else ms), 3)
+
+    out["ms"] = {"unpartitioned_bf16": med(base["ms"]),
+                 "partitioned_bf16": [med(r["ms"]) for r in ranks]}
+    print(f"path s1 (bf16 mixtral-8x7b train step, {n_layers} layers, "
+          f"4 x 128, ms, median of {S_TIMED} after one; {card}): "
+          f"unpartitioned {out['ms']['unpartitioned_bf16']} (peak "
+          f"{base['peak']} B), (1, 2) over the host-staged backend by rank "
+          f"{out['ms']['partitioned_bf16']} (peak "
+          f"{[r['peak'] for r in ranks]} B)")
+    out["imported"] = s_end(procs, jobs, results)
+    return out
+
+
+def s_refs(torch, ops, lm, dev):
+    """Path s2's references: each exchange's unpartitioned round of the
+    two nodes, its params moved to the host (the int8 round alone nearly
+    fills the card: run before s2's ranks hold any of it)."""
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    refs = {}
+    for name in S_EXCHANGES:
+        ref = s_round(torch, ops, lm, dev, name)
+        want = {"vt_kl_loss_fwd": 2, "vt_kl_loss_bwd": 2,
+                "decdiff_update": 1}
+        check(ref["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
+              f"path s ({name} round, unpartitioned): launches "
+              f"{ref['launches']}")
+        ref["grain"] = [float(max(t[i].float().abs().max() for t in
+                                  tree_leaves(ref["params"]))) / 127.0
+                        for i in range(2)]
+        ref["params"] = tree_map(lambda t: t.cpu(), ref["params"])
+        refs[name] = ref
+        del ref
+        torch.cuda.empty_cache()
+    return refs
+
+
+def s_multi(torch, ops, dev, card, refs, procs, jobs, results, acks, add):
+    """Path s2 (the module docstring), with its four ranks waiting for
+    jobs: each exchange's round on the (2, 1, 2) ranks against the
+    unpartitioned one (`refs`, on the host), shard for shard (path r's
+    tolerances: 1e-5, int8 1e-4 plus one grain)."""
+    out = {}
+    for name in S_EXCHANGES:
+        ref = refs.pop(name)
+        grain = ref["grain"]
+        ranks = s_ask(procs, jobs, results, {"kind": "round",
+                                             "exchange": name})
+        rows = []
+        for r in ranks:
+            add(r["launches"])
+            pod = r["coord"][0]
+            tol = 1e-4 + grain[pod] if name == "int8" else 1e-5
+            err, ok = s_param_err(
+                torch, r["params"], ref["params"], r["coord"][1:], (1, 2),
+                dev, tol, lead=slice(pod, pod + 1))
+            gap = abs(r["loss"] - ref["loss"])
+            want = {"vt_kl_partial_fwd": 1, "vt_kl_shard_bwd": 1,
+                    "decdiff_update": 1}
+            if name == "int8":
+                want["dequant_neighbor_avg_rows"] = 1
+            check(r["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
+                  f"path s2 ({name}) rank {r['rank']}: launches "
+                  f"{r['launches']}")
+            check(gap <= 1e-5 and ok, f"path s2 ({name}) rank {r['rank']}: "
+                                      f"loss gap {gap:g}, params |diff| "
+                                      f"{err:g} (tolerance {tol:g})")
+            rows.append(dict(loss_gap=gap, params_err=err, peak=r["peak"],
+                             ms=r["ms"], tol=tol))
+        print(f"path s2 ({name} exchange, (2, 1, 2), fp32, {card}): loss "
+              f"{ref['loss']:.6f}, gap "
+              f"{max(x['loss_gap'] for x in rows):.3g}; params |diff| "
+              f"{max(x['params_err'] for x in rows):.3g} shard for shard "
+              f"(tolerance {max(x['tol'] for x in rows):.3g}); ms "
+              f"{[round(x['ms'], 1) for x in rows]} (unpartitioned "
+              f"{ref['ms']:.1f}); peak {[x['peak'] for x in rows]} B "
+              f"(unpartitioned {ref['peak']} B)")
+        out[name] = rows
+        del ranks, ref, r  # the last rank's shards too (CUDA IPC)
+        s_release(procs, results, acks)
+    return out, s_end(procs, jobs, results)
+
+
+def path_s(torch, ops, dev, card):
+    """The partitioned MoE step (see the module docstring): s0 the
+    unpartitioned mixtral runs and the (1, 1) NCCL mesh, bitwise; s1 the
+    (1, 2) mesh of two host-staged ranks sharing the card against them,
+    arctic's prefill and decode, and the bf16 train step timed both ways;
+    s2 the (2, 1, 2) mesh's DFL round of two nodes; then the split
+    kernels at path s's shapes.  Returns the launches, the kernels'
+    checks and the ms."""
+    import shutil
+
+    t_s = time.perf_counter()
+    if S_DIR.exists():
+        shutil.rmtree(S_DIR)
+    S_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path s starts with {torch.cuda.memory_allocated()} B held by "
+          f"this process, {torch.cuda.mem_get_info()[0]} B free on the "
+          f"card ({card})")
+    print(f"path s cuts: mixtral-8x7b {S_LAYERS['mixtral-8x7b']} of 32 "
+          f"layers (fp32 params, grads and momentum of 2 layers: ~38 GB), "
+          f"arctic-480b {S_LAYERS['arctic-480b']} of 35 layers with bf16 "
+          f"params and fp32 activations and no train step (one layer's "
+          f"bf16 params, grads and momentum exceed 84 GB: not one card), "
+          f"model = 2 on one card (the reference partitions over (16, "
+          f"16)); s2's round: mixtral {S_ROUND_LAYERS} of 32 layers in "
+          f"fp32 with the bf16 and int8 exchanges (four ranks on the card, "
+          f"the reference on the host; the fp32 exchange's gathered models "
+          f"do not fit beside)")
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    procs, jobs, results, acks = s_spawn(2, (1, 2))
+    try:
+        out = s_mixtral_arctic(torch, ops, dev, card, procs, jobs, results,
+                               acks, add)
+    except BaseException:
+        s_kill(procs)
+        raise
+    t_s1 = time.perf_counter() - t_s
+    lm = s_lm("mixtral-8x7b", "expertpar", layers=S_ROUND_LAYERS)
+    refs = s_refs(torch, ops, lm, dev)
+    procs, jobs, results, acks = s_spawn(4, (2, 1, 2))
+    try:
+        out["s2"], imported = s_multi(torch, ops, dev, card, refs, procs,
+                                      jobs, results, acks, add)
+    except BaseException:
+        s_kill(procs)
+        raise
+    imported += out.pop("imported")
+    check(all(i == [] for i in imported), f"path s: ranks imported "
+                                          f"{imported}")
+    t_s2 = time.perf_counter() - t_s - t_s1
+    # -- the split kernels at path s's shapes, against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(33)
+    vocab = lm.cfg.vocab
+    y = torch.randint(0, vocab, (Q_BATCH * Q_SEQ,), generator=gen,
+                      device=dev)
+    out["vt"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        z = (torch.randn((Q_BATCH * Q_SEQ, vocab), generator=gen,
+                         device=dev) * 3).to(dtype)
+        out["vt"][str(dtype)] = q_vt_split(torch, ops, z, y, 2)
+        del z
+    out["da"] = {}
+    sp = torch.arange(Q_WINDOW, dtype=torch.int32, device=dev)
+    pos = torch.tensor(Q_WINDOW - 1, dtype=torch.int32, device=dev)
+    for arch in ("mixtral-8x7b", "arctic-480b"):
+        cfg = s_lm(arch).cfg
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((Q_BATCH, cfg.n_heads, cfg.head_dim),
+                                     *[(Q_BATCH, Q_WINDOW, cfg.n_kv_heads,
+                                        cfg.head_dim)] * 2))
+            out["da"][arch, str(dtype)] = q_decode_split(
+                torch, ops, q, k, v, sp, pos, 2)
+            del q, k, v
+    out["split"] = r_split_check(
+        torch, dev, gen, lm, label="path s2's flat block (mixtral-8x7b, "
+                                   "1 layer, expertpar)")
+    out["launches"] = launches
+    print(f"path s in all {time.perf_counter() - t_s:.1f} s (s0 + s1 "
+          f"{t_s1:.1f} s, s2 {t_s2:.1f} s)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5912,6 +6667,11 @@ def main() -> int:
     if "--path-r" in sys.argv[1:]:  # path r alone, for its development
         path_r(torch, ops, dev, card)
         print(f"chip_smoke --path-r finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-s" in sys.argv[1:]:  # path s alone, for its development
+        path_s(torch, ops, dev, card)
+        print(f"chip_smoke --path-s finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--path-q-decode" in sys.argv[1:]:  # B.9's split kernels alone
@@ -6344,6 +7104,10 @@ def main() -> int:
 
     # -- path r: the DFL round partitioned inside each pod -----------------
     lmr = path_r(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- path s: the partitioned MoE step ------------------------------------
+    lms = path_s(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
@@ -6351,7 +7115,7 @@ def main() -> int:
                "o": {k: sum(r[k] for r in lmo["launches"].values())
                      for k in ops.LAUNCHES},
                "p": lmp["total"], "q": lmq["launches"],
-               "r": lmr["launches"],
+               "r": lmr["launches"], "s": lms["launches"],
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -6452,7 +7216,7 @@ def main() -> int:
               also_replaces="src/repro/kernels/decdiff_update.py:60",
               dtype=lmr["split"]["dtype"],
               counted_columns=lmr["split"]["counted_columns"],
-              norm_err=lmr["split"]["norm_err"]),
+              norm_err=lmr["split"]["norm_err"], path_s=at_j(lms["split"])),
         entry("drift_norms", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", drift,
               other_shapes=[at_j(drift_c)], path_m=at_j(drift_m)),
@@ -6463,12 +7227,14 @@ def main() -> int:
               at_j(lmq["vt"]["torch.float32", 2]["fwd"]),
               also_replaces="src/repro/kernels/vt_kl_loss.py:108",
               other_shapes=[at_j(c["fwd"]) for key, c in lmq["vt"].items()
-                            if key != ("torch.float32", 2)]),
+                            if key != ("torch.float32", 2)],
+              path_s=[at_j(c["fwd"]) for c in lms["vt"].values()]),
         entry("vt_kl_shard_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127",
               at_j(lmq["vt"]["torch.float32", 2]["bwd"]),
               other_shapes=[at_j(c["bwd"]) for key, c in lmq["vt"].items()
-                            if key != ("torch.float32", 2)]),
+                            if key != ("torch.float32", 2)],
+              path_s=[at_j(c["bwd"]) for c in lms["vt"].values()]),
         entry("decode_scores_partial", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["scores"]),
@@ -6477,14 +7243,16 @@ def main() -> int:
               other_shapes=[at_j(lmq["da"][n]["scores"])
                             for n in Q_SHARDS[1:]]
               + [at_j(m["scores"]) for m in lmq["da_gqa"].values()],
-              path_q1=[c["scores"] for c in lmq["da_q1"].values()]),
+              path_q1=[c["scores"] for c in lmq["da_q1"].values()],
+              path_s=[at_j(c["scores"]) for c in lms["da"].values()]),
         entry("decode_softmax_combine", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["combine"]),
               other_shapes=[at_j(lmq["da"][n]["combine"])
                             for n in Q_SHARDS[1:]]
               + [at_j(m["combine"]) for m in lmq["da_gqa"].values()],
-              path_q1=[c["combine"] for c in lmq["da_q1"].values()]),
+              path_q1=[c["combine"] for c in lmq["da_q1"].values()],
+              path_s=[at_j(c["combine"]) for c in lms["da"].values()]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -6559,6 +7327,9 @@ def main() -> int:
     print(f"path r (the round partitioned inside each pod, {card}): bf16 "
           f"ms per round unpartitioned {lmr['ms']['unpartitioned_bf16']}, "
           f"(2, 1, 2) by rank {lmr['ms']['partitioned_bf16']}")
+    print(f"path s (the partitioned MoE step, {card}): bf16 mixtral train "
+          f"ms unpartitioned {lms['ms']['unpartitioned_bf16']}, (1, 2) by "
+          f"rank {lms['ms']['partitioned_bf16']}")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -135,16 +135,19 @@ class Int8Codec(Codec):
         x = vec.to(torch.float32)
         if residual is not None:
             x = x + residual
-        amax = torch.amax(torch.abs(x), dim=-1)
+        # max|x| by two reductions and y rounded in place: one full-size
+        # fp32 temporary (y), where |x| and each rounding step made their
+        # own (a model's vector is large)
+        amax = torch.maximum(torch.amax(x, dim=-1), -torch.amin(x, dim=-1))
         if reduce_amax is not None:
             amax = reduce_amax(amax)
         scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
         y = x / scale[..., None]
         if self.stochastic and rng is not None:
-            y = y + _uniforms(rng, y)
+            y.add_(_uniforms(rng, y))
         else:
-            y = y + 0.5
-        q = torch.clamp(torch.floor(y), -127, 127).to(torch.int8)
+            y.add_(0.5)
+        q = torch.clamp_(torch.floor_(y), -127, 127).to(torch.int8)
         new_res = (x - q.to(torch.float32) * scale[..., None]
                    if residual is not None else None)
         return {"q": q, "scale": scale}, new_res

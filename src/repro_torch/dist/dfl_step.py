@@ -44,7 +44,12 @@ state, batch and cache as DTensors by `dist.sharding`'s specs
 (`models/lm/layers.py`: tensor parallelism over "model", the batch over
 "data", vocab-parallel logits and loss), returns the loss whole and the
 logits vocab-sharded, and updates the placed params, state and cache in
-place.  The dense family partitions (ROADMAP A.14 queues the others).
+place.  The dense and MoE families partition (`PARTITIONED_FAMILIES`;
+ROADMAP A.14.3 queues the others); an MoE model's params are placed by
+the specs with `expert_parallel=cfg.expert_parallel`
+(`models/lm/moe.py`: routing and dispatch on each rank's batch shard, the
+global pool's counts all-gathered, the expert GLU tensor-parallel or
+expert-parallel).
 
 `build_dfl_round(..., mesh=)` takes the multi mesh (pod, data, model): the
 round partitioned inside each pod, the counterpart of the reference's
@@ -55,10 +60,14 @@ there, and the gossip runs over "pod" on the local shards: Eq. 6 is
 linear per column, so each rank averages its own shard of the gathered
 block, and Eq. 5's norm over the whole model is split
 (`ops.decdiff_rows_split`: each rank's counted columns, an all-reduce
-over the pod's ranks).  Prefill and decode take the multi mesh as they
-are, with params replicated over "pod" and the batch over ("pod",
-"data"); the cache, split over "data" only, is written from the new k
-and v gathered over "pod", and decode attends with q gathered alike.
+over the pod's ranks; a leaf split over experts is a shard like any
+other, counted once).  MoE nodes are placed with
+`place_node_block(..., expert_parallel=cfg.expert_parallel)`.  Prefill
+and decode take the multi mesh as they are, with params replicated over
+"pod" and the batch over ("pod", "data") or "data" (the global MoE pool
+then spans the ranks that split it); the cache, split over "data" only,
+is written from the new k and v gathered over "pod" where the tokens lie
+over it, and decode attends with q gathered alike.
 """
 from __future__ import annotations
 
@@ -83,6 +92,9 @@ from repro_torch.utils.pytree import (
 )
 
 DEFAULT_S = 1.0  # the paper's Eq. 5 denominator offset
+
+# the families whose steps take a mesh (ROADMAP A.14.3 queues the others)
+PARTITIONED_FAMILIES = ("dense", "moe")
 
 
 def _normalized(adj: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -143,10 +155,11 @@ def _on_mesh(lm, mesh):
     """The context a step runs in: `use_mesh(mesh)`, or none."""
     if mesh is None:
         return contextlib.nullcontext
-    if lm.cfg.family != "dense":
+    if lm.cfg.family not in PARTITIONED_FAMILIES:
         raise NotImplementedError(
             f"a partitioned step of the {lm.cfg.family!r} family is not "
-            f"ported yet (ROADMAP A.14); the dense family partitions")
+            f"ported yet (ROADMAP A.14.3); the dense and MoE families "
+            f"partition")
     return lambda: use_mesh(mesh)
 
 
@@ -389,7 +402,9 @@ def _mesh_gossip(ctx, sub, s, gossip_dtype, codec):
     """DecDiff gossip over "pod" on the local shards of a pod's block of
     placed nodes.  Eq. 6 is linear per column, so each rank averages its
     own shard of the gathered block: fp32 or the `gossip_dtype` cast, as
-    `_gather_full` gathers them over the pods, or the deterministic
+    `_gather_full` gathers them over the pods (a leaf at a time, so that
+    one gathered leaf is resident, not the whole block), or the
+    deterministic
     `Int8Codec`'s payload, fused (its scale from the whole model's amax,
     an all-reduce MAX over the pod's (data, model) ranks; then
     `ops.dequant_neighbor_avg_rows` on the local [R, D_local] payload).
@@ -422,16 +437,19 @@ def _mesh_gossip(ctx, sub, s, gossip_dtype, codec):
             del payload
             avg = ops.dequant_neighbor_avg_rows(q, scale, wn_blk)
             del q
+            # the step into the flat copy itself: one block fewer resident
             (out,) = ops.decdiff_rows_split(
                 [w_local], [avg], row_blk.contiguous(), s,
-                _flat_spans(counted, widths), total)
+                _flat_spans(counted, widths), total, out=[w_local])
+            del avg
             new = tree_leaves(unflatten(out))
         else:
-            full = _gather_full(ctx, local_tree, None, gossip_dtype)
-            avg = [torch.einsum("rj,j...->r...", wn_blk,
-                                f.to(torch.float32)).contiguous()
-                   for f in tree_leaves(full)]
-            del full
+            avg = []
+            for x in local:  # one gathered leaf at a time: a lower peak
+                f = _gather_full(ctx, x, None, gossip_dtype)
+                avg.append(torch.einsum("rj,j...->r...", wn_blk,
+                                        f.to(torch.float32)).contiguous())
+                del f
             new = ops.decdiff_rows_split(
                 [x.contiguous() for x in local], avg, row_blk.contiguous(),
                 s, _leaf_spans(counted, widths), total)

@@ -250,25 +250,30 @@ def _strip_pod(specs):
     return type(specs)(_strip_pod(v) for v in specs)
 
 
-def node_block_specs(tree, mesh, *, batch: bool = False):
+def node_block_specs(tree, mesh, *, batch: bool = False,
+                     expert_parallel: bool = False):
     """The specs of one pod's block of stacked node state [R, ...] (params
     or optimizer state; with `batch`, the batch [R, B, S]) on the pod's
     (data, model) sub-mesh: the multi mesh's `make_param_specs(...,
-    dfl_node_axis=True)` (`make_batch_specs(..., dfl_node_axis=True)`: B
-    over "data") without their "pod" entry, which the block itself
-    stands for."""
-    fn = make_batch_specs if batch else make_param_specs
-    return _strip_pod(fn(tree, mesh, dfl_node_axis=True))
+    dfl_node_axis=True, expert_parallel=)` (`make_batch_specs(...,
+    dfl_node_axis=True)`: B over "data") without their "pod" entry, which
+    the block itself stands for."""
+    if batch:
+        return _strip_pod(make_batch_specs(tree, mesh, dfl_node_axis=True))
+    return _strip_pod(make_param_specs(tree, mesh, dfl_node_axis=True,
+                                       expert_parallel=expert_parallel))
 
 
-def place_node_block(tree, mesh, *, batch: bool = False):
+def place_node_block(tree, mesh, *, batch: bool = False,
+                     expert_parallel: bool = False):
     """A pod's block [R, ...] placed on its (data, model) sub-mesh of the
     multi mesh by `node_block_specs` (`distribute_tree`: every rank of
     the pod passes the same block); `full_tree` gathers it back."""
     from repro_torch.launch.mesh import pod_submesh
 
-    return distribute_tree(tree, node_block_specs(tree, mesh, batch=batch),
-                           pod_submesh(mesh))
+    return distribute_tree(tree, node_block_specs(
+        tree, mesh, batch=batch, expert_parallel=expert_parallel),
+        pod_submesh(mesh))
 
 
 def placements(spec, mesh):

@@ -98,11 +98,16 @@ def sumsq_spans_plain(xs, avgs, spans) -> torch.Tensor:
                if not spans else 0)
 
 
-def decdiff_rows_split_plain(xs, avgs, gate, s, spans,
-                             all_reduce) -> List[torch.Tensor]:
+def decdiff_rows_split_plain(xs, avgs, gate, s, spans, all_reduce,
+                             out=None) -> List[torch.Tensor]:
     sq = all_reduce(sumsq_spans_plain(xs, avgs, spans))
     scale = scale_from_sumsq(sq, gate, s)
-    return [step_rows_plain(x, a, scale) for x, a in zip(xs, avgs)]
+    steps = [step_rows_plain(x, a, scale) for x, a in zip(xs, avgs)]
+    if out is None:
+        return steps
+    for o, y in zip(out, steps):
+        o.copy_(y)
+    return list(out)
 
 
 def drift_norms_plain(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -188,11 +193,13 @@ def norms_cuda(xs, avgs, gate: Optional[torch.Tensor],
     return _scale_cuda(lib, _partials_cuda(lib, xs, avgs, spans), gate, s)
 
 
-def step_cuda(x: torch.Tensor, a: torch.Tensor,
-              scale: torch.Tensor) -> torch.Tensor:
-    """Pass B for one leaf, on the current stream: [R, ...] in x's dtype."""
+def step_cuda(x: torch.Tensor, a: torch.Tensor, scale: torch.Tensor,
+              out: torch.Tensor = None) -> torch.Tensor:
+    """Pass B for one leaf, on the current stream: [R, ...] in x's dtype,
+    into `out` when given (x itself may be it: each element is read
+    before it is written, by the same thread)."""
     lib = _library()
-    out = torch.empty_like(x)
+    out = torch.empty_like(x) if out is None else out
     r = x.shape[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -208,8 +215,8 @@ def decdiff_rows_cuda(xs, avgs, gate, s) -> List[torch.Tensor]:
     return [step_cuda(x, a, scale) for x, a in zip(xs, avgs)]
 
 
-def decdiff_rows_split_cuda(xs, avgs, gate, s, spans,
-                            all_reduce) -> List[torch.Tensor]:
+def decdiff_rows_split_cuda(xs, avgs, gate, s, spans, all_reduce,
+                            out=None) -> List[torch.Tensor]:
     """The split form on the card (module docstring): pass A over each
     span, the scale kernel into the rank's [R] sums, `all_reduce` of
     them, the scale kernel on the [R, 1] totals, pass B on every leaf.
@@ -219,7 +226,8 @@ def decdiff_rows_split_cuda(xs, avgs, gate, s, spans,
                         0.0)
     scale, _ = _scale_cuda(lib, all_reduce(sq)[:, None].contiguous(), gate,
                            s)
-    return [step_cuda(x, a, scale) for x, a in zip(xs, avgs)]
+    return [step_cuda(x, a, scale, o) for x, a, o in
+            zip(xs, avgs, out if out is not None else [None] * len(xs))]
 
 
 #: rows per pass-A launch (its grid's y dimension)

@@ -617,7 +617,8 @@ def decdiff_rows_split(xs: Sequence[torch.Tensor],
                        avgs: Sequence[torch.Tensor],
                        gate: Optional[torch.Tensor], s: float,
                        spans: Sequence[Tuple[int, int, int]],
-                       all_reduce: Callable[[torch.Tensor], torch.Tensor]
+                       all_reduce: Callable[[torch.Tensor], torch.Tensor],
+                       out: Optional[Sequence[torch.Tensor]] = None
                        ) -> List[torch.Tensor]:
     """Eq. 5 over this rank's local shards of R models that are split over
     a group of ranks (the LM round partitioned inside each pod): the norm
@@ -630,10 +631,17 @@ def decdiff_rows_split(xs: Sequence[torch.Tensor],
     all_reduce: sums an [R] float32 tensor over the group and returns it.
     Each rank sums (a − x)² over its spans, `all_reduce` adds the ranks'
     sums, and every leaf takes the step of the total: as new tensors in
-    the leaves' dtypes (see `repro_torch.kernels.decdiff_update`).  With
-    one rank and spans over every leaf it is bitwise `decdiff_rows`."""
+    the leaves' dtypes (see `repro_torch.kernels.decdiff_update`), or
+    into `out` (like xs; a leaf of xs itself may be its out, which saves
+    a model's worth of memory where x is a scratch copy).  With one rank
+    and spans over every leaf it is bitwise `decdiff_rows`."""
     xs, avgs = list(xs), list(avgs)
     _check_decdiff(xs, avgs, gate, "decdiff_rows_split")
+    if out is not None and (len(out) != len(xs) or any(
+            o.shape != x.shape or o.dtype != x.dtype or o.device != x.device
+            or not o.is_contiguous() for o, x in zip(out, xs))):
+        raise ValueError("decdiff_rows_split: out must be contiguous "
+                         "tensors like xs")
     spans = [(int(i), int(c0), int(c1)) for i, c0, c1 in spans]
     for i, c0, c1 in spans:
         if not (0 <= i < len(xs)
@@ -642,8 +650,9 @@ def decdiff_rows_split(xs: Sequence[torch.Tensor],
                              f"is not a column range of a leaf")
     if _device_kind(xs[0], "decdiff_rows_split") == "cpu":
         return _dd.decdiff_rows_split_plain(xs, avgs, gate, s, spans,
-                                            all_reduce)
-    out = _dd.decdiff_rows_split_cuda(xs, avgs, gate, s, spans, all_reduce)
+                                            all_reduce, out)
+    out = _dd.decdiff_rows_split_cuda(xs, avgs, gate, s, spans, all_reduce,
+                                      out)
     LAUNCHES["decdiff_update"] += 1
     return out
 

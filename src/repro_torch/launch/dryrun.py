@@ -33,9 +33,11 @@ combination it
      score block is 4096 x 8192 (the default 512 x 1024 chunks would make
      the trace walk 64 times the blocks).
 
-The dense family (`partitions`: qwen1.5-0.5b, deepseek-7b, qwen2.5-14b,
-qwen3-32b) traces the PARTITIONED step instead, as the reference compiles
-it: params, optimizer state, batch and cache placed by the specs, and
+The dense and MoE families (`partitions`: qwen1.5-0.5b, deepseek-7b,
+qwen2.5-14b, qwen3-32b, mixtral-8x7b, arctic-480b) trace the PARTITIONED
+step instead, as the reference compiles it: params (with
+`expert_parallel=cfg.expert_parallel`), optimizer state, batch and cache
+placed by the specs, and
 `build_*_step(mesh=)` run at the global batch on the fake group (steps 3
 and 4 above become one trace each, with remat off and with the shape's
 config, after one uncounted run that fills DTensor's sharding-propagation
@@ -43,8 +45,9 @@ cache).  On the multi mesh train_4k traces `build_dfl_round(mesh=)`: rank
 0's pod block of one node on the pod's (data, model) sub-mesh
 (`dist.sharding.place_node_block`), its share of the batch over "data",
 the gossip over "pod" on the local shards; prefill and decode run on the
-whole (pod, data, model) mesh, params replicated over "pod" and the batch
-over ("pod", "data").  A dispatch mode that steps aside for DTensor sees
+whole (pod, data, model) mesh, params replicated over "pod", prefill's
+batch over ("pod", "data") and decode's tokens over "data" only, as the
+reference's `t_specs` (`decode_token_specs`).  A dispatch mode that steps aside for DTensor sees
 the ops on rank 0's local shards, so the FLOPs and bytes (`_LocalCounts`)
 and the collectives (`launch/comm_analysis.py`, the counterpart of the
 reference's `hlo_analysis.collective_bytes`, under its keys) are per
@@ -97,6 +100,7 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.dist.dfl_step import (
+    PARTITIONED_FAMILIES,
     build_dfl_round,
     build_prefill_step,
     build_serve_step,
@@ -186,8 +190,6 @@ def _adapt_config(cfg, shape_name: str, layer_override=None):
 
 # Why a combination is not partitioned, by family (ROADMAP A.14's queue).
 _NOT_PARTITIONED = {
-    "moe": "the MoE family's partitioned step, with "
-           "constrain_expert_sharded's all-to-all (ROADMAP A.14.2)",
     "ssm": "the SSM family's partitioned step (ROADMAP A.14.3)",
     "hybrid": "the hybrid family's partitioned step (ROADMAP A.14.3)",
     "encdec": "the enc-dec family's partitioned step (ROADMAP A.14.3)",
@@ -201,10 +203,10 @@ _SHARDMAP_REASON = (
 
 def partitions(cfg, mesh_kind: str, variant_override=None):
     """(whether the combination traces the partitioned step, and why not
-    when it does not): the dense family does, on the single mesh and on
-    the multi mesh, except for the multi mesh's shard_map variants, which
-    trace the reference's own design (`_SHARDMAP_REASON`)."""
-    if cfg.family != "dense":
+    when it does not): the dense and MoE families do, on the single mesh
+    and on the multi mesh, except for the multi mesh's shard_map variants,
+    which trace the reference's own design (`_SHARDMAP_REASON`)."""
+    if cfg.family not in PARTITIONED_FAMILIES:
         return False, _NOT_PARTITIONED[cfg.family]
     if mesh_kind == "multi" and (variant_override or {}).get(
             "_dfl_shardmap"):
@@ -390,6 +392,13 @@ class _Combo:
         return self.step(*self.args)
 
 
+def decode_token_specs(tokens, mesh):
+    """The decode step's tokens [B, 1] placed as the reference's `t_specs`
+    (`make_batch_specs(tokens_a, mesh)`): B over "data" only, on the
+    multi mesh too (whose prefill batch lies over ("pod", "data"))."""
+    return make_batch_specs(tokens, mesh)
+
+
 def _dp_size(sizes, kind, multi) -> int:
     """How many ways the batch dim is split: over "pod" and "data" for
     multi-pod prefill, over "data" otherwise (in the DFL round the node
@@ -525,7 +534,9 @@ class _Placed:
         multi = NODE_AXIS in tuple(mesh.mesh_dim_names)
         if kind == "train" and multi:
             n_pods = int(mesh.size(0))
-            self.params = place_node_block(_init_params(lm, 1), mesh)
+            self.params = place_node_block(
+                _init_params(lm, 1), mesh,
+                expert_parallel=cfg.expert_parallel)
             b = place_node_block(_empty(lm.input_specs(
                 batch // n_pods, seq_len), (1,)), mesh, batch=True)
             self.step = build_dfl_round(lm, opt, ring_adjacency(n_pods),
@@ -542,8 +553,8 @@ class _Placed:
             cache = distribute_tree(cache, make_cache_specs(cache, mesh),
                                     mesh)
             tokens = torch.zeros((batch, 1), dtype=torch.int32)
-            tokens = distribute_tree(tokens, make_batch_specs(
-                tokens, mesh, dp_axes=dp), mesh)
+            tokens = distribute_tree(tokens, decode_token_specs(
+                tokens, mesh), mesh)
             self.step = build_serve_step(lm, mesh=mesh)
             self.args = (self.params, cache, tokens)
             return
@@ -621,7 +632,7 @@ def trace_partitioned(cfg, shape, mesh, *, shape_name: str = "",
     dp, batch = sizes.get(DATA_AXIS, 1), global_batch
     if pod_group and kind == "train":  # a node's share, over "data"
         batch //= sizes[NODE_AXIS]
-    elif pod_group:  # the batch over ("pod", "data")
+    elif pod_group and kind == "prefill":  # over ("pod", "data")
         dp *= sizes[NODE_AXIS]
     out.update(
         n_chips=n_chips, partitioned=True,
@@ -686,7 +697,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         part, reason = partitions(base, mesh_kind, variant_override)
         twin = same_as(variant_override, part,
                        keep=("_dfl_shardmap",) if mesh_kind == "multi"
-                       and base.family == "dense" else ())
+                       and base.family in PARTITIONED_FAMILIES else ())
         if twin is not None:
             rec.update(ok=True, same_as=twin)
         else:

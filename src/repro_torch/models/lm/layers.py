@@ -32,7 +32,9 @@ partitioned, the counterpart of GSPMD's partitioning of the reference:
     and over "model" takes the layout of its input: column-parallel
     (output features split) on an input whole over "model", row-parallel
     (input features split, the output's partial sums all-reduced) on an
-    input split over its last dim;
+    input split over its last dim; an MoE expert weight [E, D_in, D_out]
+    (its input [E, N, D_in]) the same way, or split over its experts
+    where its spec puts E over "model" (`expert_parallel`);
   * attention splits its heads over "model" when H (and K) divide by its
     size: q, k and v come out of column-parallel projections, RoPE,
     qk-norm and the score / softmax / combine (plain or chunked) run on
@@ -483,6 +485,9 @@ def unembed(cfg: ArchConfig, p_unemb, p_emb, x):
     w, dim = (p_emb["table"], 0) if cfg.tie_embeddings else (p_unemb["w"], 1)
     if mesh is not None:
         w = w.redistribute(mesh, _vocab_placements(mesh, w, dim))
+        # a "batch_seq" residual's tokens whole over "model" first: the
+        # vocabulary is split there
+        x = _whole_over_model(mesh, x)
     w = w.to(x.dtype)
     return torch.matmul(x, w.T if cfg.tie_embeddings else w)
 
@@ -534,26 +539,50 @@ def _vocab_placements(mesh, w, dim: int):
 
 
 def _use_weight(mesh, w, x, unit: int):
-    """(w, x) in the layouts of one product x @ w, w [D_in, D_out]
-    gathered over every axis but "model".  Over "model": row-parallel (w
-    split along D_in, x along its last dim, the product's partial sums
-    all-reduced after) where the spec splits D_in or x comes split along
-    its last dim; column-parallel (w split along D_out in whole groups of
-    `unit`, x whole) where the spec splits D_out; else whole."""
+    """(w, x) in the layouts of one product x @ w, w [D_in, D_out] (or
+    [E, D_in, D_out] with a leading expert dim, x then [E, N, D_in])
+    gathered over every axis but "model".  Over "model": expert-parallel
+    (w and x split along E, the product local) where the spec splits E;
+    row-parallel (w split along D_in, x along its last dim, the product's
+    partial sums all-reduced after) where the spec splits D_in or x comes
+    split along its last dim; column-parallel (w split along D_out in
+    whole groups of `unit`, x whole) where the spec splits D_out; else
+    whole."""
     from torch.distributed.tensor import Shard
 
     m, i = _model_size(mesh), _model_index(mesh)
     if m == 1:
         return w.redistribute(mesh, _gathered_but_model(mesh, w, None)), x
+    d_in = w.dim() - 2  # 1 after a leading expert dim, else 0
+    if d_in and w.placements[i] == Shard(0) and w.shape[0] % m == 0:
+        return (w.redistribute(mesh, _gathered_but_model(mesh, w, 0)),
+                _over_model(mesh, x, Shard(0)))
     xp = x.placements[i]
     x_split = isinstance(xp, Shard) and xp.dim in (-1, x.dim() - 1)
-    cols = w.shape[1] % unit == 0 and (w.shape[1] // unit) % m == 0
-    if (x_split or w.placements[i] == Shard(0)) and w.shape[0] % m == 0:
-        return (w.redistribute(mesh, _gathered_but_model(mesh, w, 0)),
+    d_out = w.shape[d_in + 1]
+    cols = d_out % unit == 0 and (d_out // unit) % m == 0
+    if (x_split or w.placements[i] == Shard(d_in)) \
+            and w.shape[d_in] % m == 0:
+        return (w.redistribute(mesh, _gathered_but_model(mesh, w, d_in)),
                 _over_model(mesh, x, Shard(x.dim() - 1)))
     x = _whole_over_model(mesh, x)
     return w.redistribute(mesh, _gathered_but_model(
-        mesh, w, 1 if cols else None)), x
+        mesh, w, d_in + 1 if cols else None)), x
+
+
+def _unsplit_singletons(mesh, t):
+    """t with its shards over one-rank mesh dims said to be replicas (the
+    same local tensor, no collective): a view cannot merge a dim of global
+    size 1 that such a mesh dim "splits" (the global MoE pool's rows when
+    one rank holds the batch)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    pl = [Replicate() if mesh.size(i) == 1 else p
+          for i, p in enumerate(t.placements)]
+    if pl == list(t.placements):
+        return t
+    return DTensor.from_local(t.to_local(), mesh, pl, shape=t.shape,
+                              stride=t.stride())
 
 
 def _settle(mesh, y):
@@ -594,17 +623,22 @@ def _like(mesh, y, x):
     return y.redistribute(mesh, x.placements)
 
 
-def _on_shards(mesh, fn, x, *others):
+def _on_shards(mesh, fn, x, *others, outs=None):
     """fn over the local shards of x and `others` (DTensors in x's
-    placements), the result in x's placements (`local_map`); fn(x,
-    *others) without a mesh."""
+    placements), the result in x's placements (`local_map`); for a fn of
+    several results, `outs` says for each whether it lies in x's
+    placements (True) or is whole on every rank (False); fn(x, *others)
+    without a mesh."""
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
     if mesh is None:
         return fn(x, *others)
 
     pl = tuple(x.placements)
-    return local_map(fn, out_placements=list(pl),
+    out = list(pl) if outs is None else tuple(
+        list(pl) if o else [Replicate()] * mesh.ndim for o in outs)
+    return local_map(fn, out_placements=out,
                      in_placements=tuple(pl for _ in (x,) + others),
                      device_mesh=mesh)(x, *others)
 

@@ -5,9 +5,11 @@ The PyTorch counterpart of the JAX package's `repro.models.lm.moe`, with
 its dispatch: capacity-based sorted scatter (Switch-style, token-dropping):
   1. router softmax (fp32) -> top-k experts and combine weights per token,
   2. assignments sorted by expert id (a stable sort, as `jnp.argsort`);
-     each expert processes a [C, D] buffer (C = capacity_factor · k · T /
-     E + 1, rounded up to a multiple of 8),
-  3. the expert GLU batched over experts: [E, C, D] x [E, D, F],
+     an assignment past its expert's capacity C (capacity_factor · k · T /
+     E + 1, rounded up to a multiple of 8) is dropped, and each expert's
+     kept ones fill a buffer of min(C, n) rows for n tokens (the k experts
+     of a token differ, so no expert takes more than n),
+  3. the expert GLU batched over experts: [E, C', D] x [E, D, F],
   4. outputs gathered back and combined with the router weights in fp32;
      an assignment past its expert's capacity is dropped (zero
      contribution): the dense residual (arctic) or the residual stream
@@ -19,15 +21,38 @@ read back to the host.  `cfg.moe_dispatch` picks one capacity pool over
 all B·S tokens ("global") or one per batch row ("batch_local", the
 reference's sharded-mesh variant; capacity per row).
 
+On a mesh (`dist.constraints.use_mesh`, params placed by the specs with
+`expert_parallel=cfg.expert_parallel`) the same functions run
+partitioned: the tokens are made whole over "model", the router product
+runs as `linear` uses its spec (arctic's router, D over "model", is
+row-parallel), and routing, dispatch and combine run on each rank's batch
+shard.  The global pool spans the ranks that split the batch: its
+capacity counts all B·S tokens, and an assignment's position adds the
+counts of the shards before this rank's (one all-gather of [E] counts
+over each dimension that splits the batch), so the drops are the
+unpartitioned ones while each rank fills only its own tokens' slots.
+The expert GLU runs on DTensors through `linear`: tensor-parallel inside
+the experts (mixtral's F over "model": column- then row-parallel;
+arctic's D: row- then column-parallel), or under `expert_parallel`
+(`constrain_expert_sharded`, E over "model") each rank's E / m experts
+on its slice of buffers that are whole over "model", the outputs
+all-gathered over "model" for the combine.
+
 The Switch load-balance auxiliary E · Σ_e f_e · P_e comes back beside
 the layer output: f_e, the share of assignments routed to e, is counted
 (no gradient), P_e the mean router probability (the gradient's only
-path); `forward_moe` returns the mean over layers, which `LM.loss` weighs
+path), both over the whole batch (on a mesh the counts all-gathered and
+the probabilities' sums all-reduced over the ranks that split it);
+`forward_moe` returns the mean over layers, which `LM.loss` weighs
 by `cfg.router_aux_weight`.  `torch.topk` breaks ties in no promised
 order where `lax.top_k` takes the lower index; random fp32 routers tie
 with probability 0.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +69,12 @@ from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.dense import init_cache_dense, ring_view
 from repro_torch.models.lm.layers import (
     _dense_init,
+    _like,
+    _mesh_of,
+    _on_shards,
+    _SumOverShards,
+    _unsplit_singletons,
+    _whole_over_model,
     apply_norm,
     attention,
     decode_attention,
@@ -54,6 +85,7 @@ from repro_torch.models.lm.layers import (
     init_mlp,
     init_norm,
     layer_params,
+    linear,
     mlp,
     remat,
     unembed,
@@ -76,120 +108,224 @@ def _capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-def _route(cfg: ArchConfig, p, x):
+# the lists of the enclosing `record_choices` blocks, innermost last
+_CHOICES: list = []
+
+
+@contextlib.contextmanager
+def record_choices():
+    """Collect, for each MoE layer the enclosed code runs, what it routed
+    on this rank's tokens [b, S]: a dict of "experts" (top_i [b, S, k]),
+    "gap" (the probability by which each token's k-th choice beat the best
+    expert it did not choose, [b, S]) and "kept" ([b, S, k], False where
+    the assignment was dropped past its expert's capacity), detached.  The
+    checks compare choices first: a near-tie that flips moves a token by a
+    whole expert."""
+    got: list = []
+    _CHOICES.append(got)
+    try:
+        yield got
+    finally:
+        _CHOICES.pop()
+
+
+def _route(p, h):
+    """The router's fp32 logits [..., E] of the tokens h [..., D]: one
+    `linear`, so that on a mesh a router the specs split over "model"
+    (arctic's D) is used row-parallel and a replicated one whole (unit E:
+    never split by columns)."""
+    return linear(h.to(torch.float32), {"w": p["router"]},
+                  unit=p["router"].shape[-1])
+
+
+def _choose(cfg: ArchConfig, logits):
     """Router probabilities [..., E] (fp32) and the top-k weights,
     renormalized, and experts [..., k]."""
-    probs = torch.softmax(torch.matmul(x.to(torch.float32), p["router"]),
-                          dim=-1)
+    probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     return probs, top_w / torch.sum(top_w, dim=-1, keepdim=True), top_i
 
 
-def _glu(p, h):
-    """The expert GLU on dispatch buffers h [..., E, C, D] in h's dtype."""
-    gate = F.silu(torch.einsum("...ecd,edf->...ecf", h, p["wg"].to(h.dtype)))
-    up = torch.einsum("...ecd,edf->...ecf", h, p["wu"].to(h.dtype))
-    return torch.einsum("...ecf,efd->...ecd", gate * up, p["wd"].to(h.dtype))
+def _record(probs, top_i, order, keep):
+    """One layer's entry of the innermost `record_choices` list."""
+    k = top_i.shape[-1]
+    best = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1).values
+    kept = torch.zeros_like(keep).scatter(1, order, keep)
+    _CHOICES[-1].append({"experts": top_i.detach().clone(),
+                         "gap": (best[..., k - 1] - best[..., -1]).detach(),
+                         "kept": kept.reshape(top_i.shape)})
 
 
-def moe_ffn(cfg: ArchConfig, p, x):
-    """x [B, S, D] -> (out [B, S, D] in x's dtype, the aux loss, 0-d).
+@dataclasses.dataclass(frozen=True)
+class _Pool:
+    """The ranks whose tokens form one load count: `tokens` in all, and
+    the mesh dims that split them (`dims`: (group, size, this rank's
+    index), outermost first, the order of DTensor's shards); none without
+    a mesh."""
+    tokens: int
+    dims: tuple = ()
 
-    "global" routes all B·S tokens through one capacity pool (the
-    baseline); "batch_local" sorts and dispatches each batch row on its
-    own, with the capacity of S tokens."""
-    b, s, d = x.shape
-    if cfg.moe_dispatch == "batch_local":
-        return _moe_batch_local(cfg, p, x)
-    out, aux = _moe_tokens(cfg, p, x.reshape(b * s, d))
-    return out.reshape(b, s, d).to(x.dtype), aux
+    def counts(self, local):
+        """(the counts of the shards before this rank's, the whole
+        pool's), from this rank's `local` [E] int64: an all-gather over
+        each dim, innermost first."""
+        import torch.distributed._functional_collectives as funcol
+
+        # torch 2.13 renamed all_gather_tensor (which now warns)
+        gather = getattr(funcol, "all_gather_single", None) \
+            or funcol.all_gather_tensor
+        before, total = torch.zeros_like(local), local
+        for group, n, r in reversed(self.dims):
+            every = funcol.wait_tensor(gather(total, 0, group)).view(n, -1)
+            before = before + torch.sum(every[:r], dim=0)
+            total = torch.sum(every, dim=0)
+        return before, total
+
+    def sum(self, x):
+        """x summed over the pool's ranks (all-reduces; the gradient of
+        the sum is every rank's own, as `layers._SumOverShards`)."""
+        for group, _, _ in self.dims:
+            x = _SumOverShards.apply(x, group)
+        return x
 
 
-def _moe_tokens(cfg: ArchConfig, p, xf):
-    """Sorted capacity dispatch and the expert GLU over a flat token block
-    xf [T, D] -> (out [T, D] fp32, aux)."""
-    t, d = xf.shape
+def _pool_of(mesh, h) -> _Pool:
+    """The pool of the tokens h [B, S, D]: the mesh dims that split B
+    (h's `Shard(0)`), and all B · S tokens."""
+    from torch.distributed.tensor import Shard
+
+    b, s, _ = h.shape
+    if mesh is None:
+        return _Pool(b * s)
+    return _Pool(b * s, tuple(
+        (mesh.get_group(i), int(mesh.size(i)), int(mesh.get_local_rank(i)))
+        for i, pl in enumerate(h.placements) if pl == Shard(0)))
+
+
+def _dispatch(cfg: ArchConfig, pool: _Pool, h, logits):
+    """Routing and the sorted capacity dispatch of this rank's tokens h
+    [b, S, D] (logits [b, S, E]) into R rows of expert buffers: one row of
+    all b · S tokens in the "global" pool, whose capacity and positions
+    count the whole pool (`pool`: an assignment's position adds the
+    counts of the shards before this one), or one row per sequence
+    ("batch_local", capacity of S tokens).  A row of n tokens fills
+    min(C, n) slots an expert (no expert takes more than n assignments
+    from n tokens: the k experts of a token differ).  Returns (buffers
+    [R, E, C', D], the sorted assignments' slots, tokens and combine
+    weights [R, n·k], the aux loss)."""
+    b, s, d = h.shape
     k, e = cfg.top_k, cfg.n_experts
-    probs, top_w, top_i = _route(cfg, p, xf)  # [T, E], [T, k], [T, k]
+    probs, top_w, top_i = _choose(cfg, logits)
+    per_row = cfg.moe_dispatch == "batch_local"
+    rows, n = (b, s) if per_row else (1, b * s)
+    flat_e = top_i.reshape(rows, n * k)
+    # static-shaped counts, which a fake-tensor trace (launch/dryrun.py)
+    # can follow
+    counts = torch.zeros((rows, e), dtype=torch.int64,
+                         device=h.device).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    before, total = pool.counts(torch.sum(counts, dim=0))
+    # Switch load balance: E · Σ_e f_e · P_e over the whole pool
+    f_e = total.to(torch.float32) / (pool.tokens * k)
+    p_e = pool.sum(torch.sum(probs.reshape(-1, e), dim=0)) / pool.tokens
+    aux = e * torch.sum(f_e * p_e)
 
-    flat_e = top_i.reshape(-1)  # [kT] the expert of each assignment
-    # bincount's integers from a static-shaped count, which a fake-tensor
-    # trace (launch/dryrun.py) can follow
-    counts = torch.zeros(e, dtype=torch.int64, device=xf.device).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    f_e = counts.to(torch.float32) / (t * k)
-    aux = e * torch.sum(f_e * torch.mean(probs, dim=0))
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    starts = torch.cumsum(counts, 1) - counts
+    pos = (torch.arange(n * k, device=h.device)[None, :]
+           - torch.gather(starts, 1, sorted_e))
+    if per_row:
+        cap = _capacity(cfg, s)
+        keep = pos < cap
+    else:  # the position in the whole pool
+        cap = _capacity(cfg, pool.tokens)
+        keep = pos + before[sorted_e] < cap
+    c = min(cap, n)
+    slot = torch.where(keep, sorted_e * c + pos, e * c)
+    tok = order // k  # [R, n·k] the source token of each assignment
+    if _CHOICES:
+        _record(probs, top_i, order, keep)
 
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(t * k, device=xf.device) - starts[sorted_e]
-    cap = _capacity(cfg, t)
-    keep = pos_in_e < cap
-    slot = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
-    tok = order // k  # the token of each sorted assignment
+    xr = h.to(cfg.adtype).reshape(rows, n, d)
+    gathered = torch.gather(xr, 1, _rows(tok, d))  # [R, n·k, D]
+    # row E·C' takes the dropped assignments and is cut off
+    buf = torch.zeros((rows, e * c + 1, d), dtype=cfg.adtype,
+                      device=h.device).scatter(1, _rows(slot, d), gathered)
+    w_sorted = torch.gather(top_w.reshape(rows, n * k), 1, order) \
+        * keep.to(torch.float32)
+    return buf[:, :e * c].reshape(rows, e, c, d), slot, tok, w_sorted, aux
 
-    # row E·C takes the dropped assignments and is cut off
-    buf = torch.zeros((e * cap + 1, d), dtype=cfg.adtype, device=xf.device)
-    buf = buf.index_copy(0, slot, xf[tok].to(cfg.adtype))
-    y = _glu(p, buf[:e * cap].reshape(e, cap, d)).reshape(e * cap, d)
 
-    w_sorted = top_w.reshape(-1)[order] * keep.to(torch.float32)
-    contrib = y[torch.clamp(slot, max=e * cap - 1)].to(torch.float32) \
-        * w_sorted[:, None]
+def _rows(idx, d: int):
+    """[R, n] -> an index over D for gather / scatter."""
+    return idx[..., None].expand(-1, -1, d)
+
+
+def _experts(cfg: ArchConfig, p, buf):
+    """The expert GLU on the buffers [R, E, C, D] -> [R, E·C, D]: each
+    expert's slots of every row as one [E, R·C, D] block through
+    `linear`, which uses the expert weights as their specs split them on
+    a mesh (tensor-parallel inside the experts, or, under
+    `expert_parallel`, E over "model": `constrain_expert_sharded` slices
+    a rank's experts out of buffers whole over "model")."""
+    r, e, c, d = buf.shape
+    mesh = _mesh_of(buf)
+    if mesh is not None:
+        buf = _unsplit_singletons(mesh, buf)
+    if cfg.expert_parallel:
+        buf = constrain_expert_sharded(buf)
+    h = buf.permute(1, 0, 2, 3).reshape(e, r * c, d)
+    y = linear(F.silu(linear(h, {"w": p["wg"]})) * linear(h, {"w": p["wu"]}),
+               {"w": p["wd"]})
+    y = y.reshape(e, r, c, d).permute(1, 0, 2, 3)
+    if cfg.expert_parallel:
+        y = constrain_expert_sharded(y)
+    return y.reshape(r, e * c, d)
+
+
+def _combine(cfg: ArchConfig, s: int, y, slot, tok, w_sorted):
+    """The outputs of the kept assignments, weighted, added onto their
+    tokens: y [R, E·C', D] -> [b, S, D] fp32 (S = `s`)."""
+    rows, d = y.shape[0], y.shape[-1]
+    contrib = torch.gather(y, 1, _rows(torch.clamp(slot, max=y.shape[1] - 1),
+                                       d))
+    contrib = contrib.to(torch.float32) * w_sorted[..., None]
     # each token gets its k addends onto zero; at k = 2 the fp32 sum
     # 0 + a + b is the same in either order, so the scatter's order
     # (atomics on the card) does not show; at k > 2 it may
-    out = torch.zeros((t, d), dtype=torch.float32, device=xf.device)
-    return out.index_add(0, tok, contrib), aux
+    out = torch.zeros((rows, tok.shape[1] // cfg.top_k, d),
+                      dtype=torch.float32, device=y.device)
+    return out.scatter_add(1, _rows(tok, d), contrib).reshape(-1, s, d)
 
 
-def _moe_batch_local(cfg: ArchConfig, p, x):
-    """Per-row sorted dispatch with the batch dim kept explicit: every
-    tensor carries B as dim 0, and a row's tokens only fill that row's
-    expert buffers (capacity of S tokens)."""
-    b, s, d = x.shape
-    k, e = cfg.top_k, cfg.n_experts
-    xf = constrain_batch(x)
-    probs, top_w, top_i = _route(cfg, p, xf)  # [B, S, E], [B, S, k] x 2
+def moe_ffn(cfg: ArchConfig, p, x):
+    """x [B, S, D] -> (out [B, S, D] in x's dtype and layout, the aux
+    loss, 0-d).
 
-    onehot = F.one_hot(top_i, e).to(torch.float32)  # [B, S, k, E]
-    f_e = torch.mean(onehot, dim=(0, 1, 2))
-    aux = e * torch.sum(f_e * torch.mean(probs, dim=(0, 1)))
-
-    flat_e = top_i.reshape(b, s * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)
-    counts = torch.sum(onehot, dim=(1, 2)).to(torch.int64)  # [B, E]
-    starts = torch.cumsum(counts, 1) - counts
-    pos_in_e = (torch.arange(s * k, device=x.device)[None, :]
-                - torch.gather(starts, 1, sorted_e))
-    cap = _capacity(cfg, s)
-    keep = pos_in_e < cap
-    slot = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
-    tok = order // k  # [B, kS] the source token of each assignment
-
-    def rows(idx):  # [B, n] -> an index over D for gather / scatter
-        return idx[..., None].expand(-1, -1, d)
-
-    gathered = torch.gather(xf.to(cfg.adtype), 1, rows(tok))  # [B, kS, D]
-    buf = torch.zeros((b, e * cap + 1, d), dtype=cfg.adtype, device=x.device)
-    buf = constrain_batch(buf.scatter(1, rows(slot), gathered))
-    h = buf[:, :e * cap].reshape(b, e, cap, d)
-    if cfg.expert_parallel:
-        h = constrain_expert_sharded(h)
-    y = _glu(p, h)
-    if cfg.expert_parallel:
-        y = constrain_expert_sharded(y)
-    y = constrain_batch(y.reshape(b, e * cap, d))
-
-    w_sorted = torch.gather(top_w.reshape(b, s * k), 1, order) \
-        * keep.to(torch.float32)
-    contrib = torch.gather(y, 1, rows(torch.clamp(slot, max=e * cap - 1)))
-    contrib = contrib.to(torch.float32) * w_sorted[..., None]
-    out = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
-    out = out.scatter_add(1, rows(tok), contrib)  # k addends onto zero
-    return constrain_batch(out).to(x.dtype), aux
+    "global" routes all B·S tokens through one capacity pool (the
+    baseline); "batch_local" sorts and dispatches each batch row on its
+    own, with the capacity of S tokens.  On a mesh the tokens are made
+    whole over "model" (a "batch_seq" residual's all-gather), the router
+    product runs as its spec splits it, routing, dispatch and combine run
+    on each rank's batch shard (`local_map`; the global pool's counts are
+    all-gathered over the ranks that split the batch, the aux's sums
+    all-reduced), the expert GLU runs on DTensors (`_experts`), and its
+    outputs come back whole over "model" for the combine."""
+    mesh = _mesh_of(x)
+    h = x if mesh is None else _whole_over_model(mesh, x)
+    logits = _route(p, h)
+    if mesh is not None:
+        logits = _like(mesh, logits, h)
+    buf, slot, tok, w_sorted, aux = _on_shards(
+        mesh, functools.partial(_dispatch, cfg, _pool_of(mesh, h)), h,
+        logits, outs=(True,) * 4 + (False,))
+    y = _experts(cfg, p, buf)
+    if mesh is not None:
+        y = _like(mesh, y, h)
+    out = _on_shards(mesh, functools.partial(_combine, cfg, h.shape[1]),
+                     y, slot, tok, w_sorted)
+    return _like(mesh, out.to(x.dtype), x), aux
 
 
 def init_layer_moe(gen: torch.Generator, cfg: ArchConfig, stack=(),

@@ -6,8 +6,10 @@ needs, against the JAX package, on the CPU.
     ((data = 2, model = 2); (pod = 2, data = 2, model = 2)): the record's
     fields, the argument bytes against the leaves' sizes divided as the
     specs say, the gossip bytes, the chip-count division where the step is
-    not partitioned, and for the dense family on the single mesh the
-    partitioned step's own per-device counts, temp and collectives;
+    not partitioned, and for the dense and MoE families the partitioned
+    step's own per-device counts, temp and collectives; every record
+    under `artifacts/port/dryrun/` says what `partitions` now says; the
+    decode tokens' spec is the reference's `t_specs`;
   * `FlopCounterMode` and the bytes counter under fake tensors count what
     they count on real CPU tensors;
   * `model_flops_per_chip` equals the reference's for every arch and
@@ -80,7 +82,7 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     mem = rec["memory_analysis"]
     coll = rec["collectives"]
     r = rec["roofline"]
-    part = cfg.family == "dense"
+    part = cfg.family in ("dense", "moe")
     assert rec["partitioned"] is part
     if part:  # the sharded step's own per-device counts
         assert "flops_global" not in cost and not mem["temp_is_upper_bound"]
@@ -96,8 +98,9 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
             ops = coll["pod_axis_ops"]
             assert coll["pod_axis"] == ops["total"] == ops.get(
                 "all-gather", 0)
-            # prefill's batch lies over ("pod", "data"): nothing crosses
-            assert (coll["pod_axis"] > 0) == (shape[2] != "prefill")
+            # prefill's batch lies over ("pod", "data") and decode's
+            # tokens over "data": only the round's gossip crosses
+            assert (coll["pod_axis"] > 0) == (shape[2] == "train")
             assert coll["total"] == coll["intra_pod"] + coll["pod_axis"]
             assert coll["gossip"] == (coll["pod_axis"]
                                       if shape[2] == "train" else 0.0)
@@ -116,7 +119,7 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     assert mem["temp_batch_per_device"] == {
         ("train", "single"): 4, ("train", "multi"): 2,
         ("prefill", "multi"): 2, ("decode", "single"): 4,
-        ("decode", "multi"): 2 if part else 1}[shape[2], mesh]
+        ("decode", "multi"): 4 if part else 1}[shape[2], mesh]
     assert rec["bytes_per_device"] == (mem["argument_size_in_bytes"]
                                        + mem["temp_size_in_bytes"]
                                        + mem["output_size_in_bytes"])
@@ -128,6 +131,66 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     assert path.is_file()
     assert dryrun.run_one(arch, shape_name, mesh, str(tmp_path)) == \
         __import__("json").loads(path.read_text())  # reused, not traced
+
+
+@pytest.mark.parametrize("arch,variant", [
+    ("qwen1.5-0.5b", "seqshard"), ("mixtral-8x7b", "moelocal+seqshard")])
+def test_seqshard_variants_trace_the_partitioned_step(tmp_path, arch,
+                                                       variant):
+    """A "batch_seq" residual (S over "model") reaches the vocab-parallel
+    unembed whole over "model": the partitioned step traces under fake
+    tensors on both meshes."""
+    for mesh in ("single", "multi"):
+        rec = dryrun.run_one(arch, "train_4k", mesh, str(tmp_path),
+                             variant=variant,
+                             variant_override=dryrun.VARIANTS[variant],
+                             cfg=_reduced(arch), shape=(64, 8, "train"),
+                             mesh_dims=SMALL[mesh], hbm_bytes=80e9)
+        assert rec["ok"], rec.get("traceback")
+        assert rec["partitioned"] and rec["collectives"]["intra_pod"] > 0
+
+
+RECORDS = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts",
+                       "port", "dryrun")
+
+
+def test_records_on_disk_say_what_partitions_says():
+    """Each record under `artifacts/port/dryrun/` (JSON only, nothing
+    traced): its `partitioned` and `not_partitioned` fields are what
+    `partitions` returns for its arch, mesh and variant now."""
+    import json
+
+    from repro_torch.configs import get_config
+
+    names = sorted(f for f in os.listdir(RECORDS) if f.endswith(".json"))
+    assert len(names) >= 80
+    for name in names:
+        with open(os.path.join(RECORDS, name)) as f:
+            rec = json.load(f)
+        if rec.get("same_as"):
+            continue
+        part, reason = dryrun.partitions(get_config(rec["arch"]),
+                                         rec["mesh"],
+                                         rec["variant_override"])
+        assert rec["partitioned"] is part, name
+        assert rec.get("not_partitioned") == reason, name
+
+
+@pytest.mark.parametrize("batch", [128, 1])
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_decode_tokens_are_placed_as_the_references_t_specs(batch, mesh):
+    """The decode step's tokens [B, 1] as the reference's dry run places
+    them (`make_batch_specs(tokens_a, mesh)`): over "data" only, on the
+    multi mesh too."""
+    from repro.dist.sharding import make_batch_specs
+
+    dims, names = dryrun.MESHES[mesh]
+    m = type("M", (), {"shape": dict(zip(names, dims))})()
+    want = make_batch_specs(jax.ShapeDtypeStruct((batch, 1), jnp.int32), m)
+    got = dryrun.decode_token_specs(
+        torch.zeros((batch, 1), dtype=torch.int32), m)
+    assert tuple(got) == tuple(want)
+    assert tuple(got) == (("data" if batch % 16 == 0 else None), None)
 
 
 def test_argument_and_gossip_bytes_follow_the_specs(tmp_path):

@@ -523,6 +523,24 @@ def test_split_norm_with_every_span_is_bitwise_the_unsplit_step():
         assert torch.equal(a, b)
 
 
+def test_split_norm_into_its_inputs_is_the_same_step():
+    """`out=` the xs themselves (the fused round's flat copy): the same
+    bits as the new tensors, written into the xs; out unlike xs raises."""
+    x = _sub_tree()
+    avg = {k: v.float() * 0.5 for k, v in x.items()}
+    xs, avs = list(x.values()), list(avg.values())
+    spans = [(i, 0, t[0].numel()) for i, t in enumerate(xs)]
+    want = ops.decdiff_rows_split(xs, avs, None, 1.0, spans, lambda t: t)
+    into = [t.clone() for t in xs]
+    got = ops.decdiff_rows_split(into, avs, None, 1.0, spans, lambda t: t,
+                                 out=into)
+    assert all(g is i for g, i in zip(got, into))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="out"):
+        ops.decdiff_rows_split(xs, avs, None, 1.0, spans, lambda t: t,
+                               out=[t.float() for t in xs])
+
+
 def test_flat_spans_join_adjacent_counted_leaves():
     from repro_torch.dist.dfl_step import _flat_spans, _leaf_spans
 
@@ -618,7 +636,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["leaves", "flat"])
+@pytest.mark.parametrize("layout", ["leaves", "flat", "flat_in_place"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_norm_kernels_match_their_plain_version(card, layout, dtype):
     """The split B.2 on the card (pass A over spans, rows ld apart, the
@@ -638,9 +656,11 @@ def test_split_norm_kernels_match_their_plain_version(card, layout, dtype):
     extra = torch.full((xs[0].shape[0],), 2.5)
     want = _dd.decdiff_rows_split_plain(xs, avgs, gate, 1.0, spans,
                                         lambda t: t + extra)
-    got = ops.decdiff_rows_split([x.to(card) for x in xs],
-                                 [a.to(card) for a in avgs], gate.to(card),
-                                 1.0, spans, lambda t: t + extra.to(card))
+    xd = [x.to(card) for x in xs]
+    got = ops.decdiff_rows_split(xd, [a.to(card) for a in avgs],
+                                 gate.to(card), 1.0, spans,
+                                 lambda t: t + extra.to(card),
+                                 out=xd if layout == "flat_in_place" else None)
     sq_p = _dd.sumsq_spans_plain(xs, avgs, spans) + extra
     scale_p = 1.0 / (torch.sqrt(sq_p) + 1.0)
     for o, w, x, a in zip(got, want, xs, avgs):

@@ -535,15 +535,17 @@ def test_decode_split_forms_check_their_inputs():
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-7b",
-                                  "qwen2.5-14b", "qwen3-32b"])
+                                  "qwen2.5-14b", "qwen3-32b",
+                                  "mixtral-8x7b", "arctic-480b"])
 @pytest.mark.parametrize("model", [2, 4, 8, 16])
 def test_decode_split_plan_covers_w_and_fits_a_block(arch, model):
     """B.9's split plan takes no batch size (a row's output is then
     bitwise the same at any B); its scores blocks and combine splits cover
     W in whole stages with none empty, and each kernel's shared memory
     fits a block (227 KB) and the combine's columns its threads, for the
-    dense archs' hd split over "model", bf16 and fp32, from a W below one
-    stage to 2^19 slots, on 132 and 114 SMs."""
+    dense and MoE archs' hd split over "model" (mixtral's G = 4 and
+    arctic's G = 7 at hd 128), bf16 and fp32, from a W below one stage to
+    2^19 slots, on 132 and 114 SMs."""
     import inspect
 
     from repro_torch.configs import get_config
