@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p |
-                           --path-q | --path-r | --path-s]
+                           --path-q | --path-r | --path-s | --path-t]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -296,8 +296,10 @@ It imports the port only (no JAX), and:
      0's restored params through `launch/serve.py:generate` (B.9 24 times
      a step), bitwise the same decode from the in-memory params; o4 the
      dry run (`python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b`,
-     one process per shape and mesh, started with o1 and run on the
-     host's cores beside it), every shape on both meshes `ok`, with FLOPs per chip,
+     one process per shape and mesh at nice 19, started before path n
+     and run on the host's cores beside paths n and o; with `--path-o`,
+     started with o1), every shape on both meshes `ok`, with FLOPs per
+     chip,
      argument and temp bytes per device and `fits_hbm` printed; the
      checkpoint's GB and its write and read seconds; launches counted
      from 0 around o1, o2's restored round and o3's restored decode, and
@@ -341,8 +343,9 @@ It imports the port only (no JAX), and:
      rank's launches checked exactly: the vocab-parallel VT kernels
      (`vt_kl_partial_fwd`, `vt_kl_shard_bwd`) once each, the split-hd
      decode kernels (`decode_scores_partial`, `decode_softmax_combine`)
-     24 x 32 times; then the same steps with bf16 activations timed both
-     ways (ms per train, prefill and decode step, medians); then, in this
+     4 x 32 times (4 of the 24 layers: the script's time limit); then
+     the same steps with bf16 activations timed both ways (ms per train,
+     prefill and decode step, medians); then, in this
      process, B.3's split forms at [512, 151936] (fp32 and bf16) and
      B.9's at path e's [8, 32768, 16, 64] bf16 cache and at qwen3-32b's
      GQA cache [8, 32768, 8, 128], each at 2 and 16 shards, against their
@@ -354,8 +357,8 @@ It imports the port only (no JAX), and:
      `build/path_q/`; `--path-q` runs the kernel build and path q alone,
      `--path-q-decode` the kernel build and B.9's split kernels alone;
      then path r, the LM DFL round partitioned inside each pod on the
-     multi mesh (pod, data, model): full-width qwen1.5-0.5b cut to 12 of
-     its 24 layers (the path's time), two nodes on a ring, each with a batch of 4 x 128 (VT loss), fp32 params and
+     multi mesh (pod, data, model): full-width qwen1.5-0.5b cut to 2 of
+     its 24 layers (the script's time limit), two nodes on a ring, each with a batch of 4 x 128 (VT loss), fp32 params and
      activations for the checks; r0 the unpartitioned round of each
      exchange (fp32, the bf16 cast, the deterministic int8 codec), then
      the same on a (1, 1, 1) mesh over NCCL in this process, bitwise
@@ -376,7 +379,7 @@ It imports the port only (no JAX), and:
      (~11 GB of references, deleted at the end); `--path-r` runs the
      kernel build and path r alone;
      then path s, the partitioned MoE step (ROADMAP A.14.2), each cut
-     printed: s0, full-width mixtral-8x7b cut to 2 of 32 layers in fp32,
+     printed: s0, full-width mixtral-8x7b cut to 1 of 32 layers in fp32,
      per dispatch mode ("global", `moelocal`, `expertpar`) a train step
      of 4 x 128, prefill and 32 decode steps on a 4,096-slot ring,
      unpartitioned, then on a (1, 1) NCCL mesh, bitwise (loss, params,
@@ -401,6 +404,26 @@ It imports the port only (no JAX), and:
      [4, 4096, 8, 128] caches cut in two, fp32 and bf16, against their
      plain versions and timed, and the split B.2 at s2's flat block;
      `--path-s` runs the kernel build and path s alone;
+     then path t, the partitioned SSM and hybrid steps (ROADMAP A.14.3),
+     each cut printed: t0, full-width mamba2-2.7b cut to 2 of 64 layers
+     and zamba2-2.7b to 18 of 54 (two groups of 9: the shared block
+     invoked twice, two rings), fp32, a train step of 2 x 512 (two SSD
+     chunks of 256, so the carried state is exercised), prefill and 32
+     decode steps on a 4,096-slot ring, unpartitioned, then on a (1, 1)
+     NCCL mesh, bitwise (loss, params, logits, tokens) with equal
+     launches; t1, the same on a (1, 2) mesh of two host-staged ranks
+     against the unpartitioned run (params within 1e-5 shard for shard,
+     the loss within 1e-5, logits within 1e-3 of the largest, equal
+     tokens, launches exact a rank: the vocab-parallel B.3 once each way,
+     zamba2's split B.9 twice a decode step); mamba2's bf16 train step
+     timed both ways; t2, a (2, 1, 2) mesh of four host-staged ranks, one DFL
+     round of two mamba2 nodes (2 layers, fp32) per exchange (bf16, the
+     deterministic int8 codec) against the unpartitioned round, as s2;
+     then B.3's split forms at [1024, 50280] and [1024, 32000] over two
+     shards, B.9's at zamba2's [2, 4096, 32, 80] ring cut in two (hd 40
+     a shard, G = 1), fp32 and bf16, and the split B.2 at t2's flat
+     block, against their plain versions and timed; `--path-t` runs the
+     kernel build and path t alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -439,6 +462,7 @@ LM_PARAMS = 463_987_712     # per node, bf16
 LM_NODES, LM_BATCH, LM_SEQ, LM_BETA = 4, 4, 128, 0.98
 SERVE_BATCH, SERVE_WINDOW, SERVE_PROMPT, SERVE_STEPS = 8, 32768, 16, 32
 LM_LAYERS = 24
+Q_LAYERS = 4                # path q's cut: the whole script's time limit
 H_NODES = 256               # path h: the sparse layout at full MLP width
 I_NODES = 10_000            # path i: bench_scale.py's tiny world
 # path j: benchmarks/common.py's WorldConfig at the paper's 50 nodes, and
@@ -4162,22 +4186,28 @@ def o_npz_descrs(path):
 
 def o_dryrun_start():
     """The dry run for qwen1.5-0.5b at its four shapes on both meshes, one
-    process per shape and mesh, started now and read by `o_dryrun_finish`
-    (they run on the host's cores beside o1-o3 and place nothing on the
-    card)."""
+    process per shape and mesh, started now (in a fresh `O_DIR`) and read
+    by `o_dryrun_finish`: they run on the host's cores beside paths n and
+    o, at the lowest priority (nice 19, so the paths they run beside keep
+    their cores), and place nothing on the card."""
     import os
+    import shutil
 
+    if O_DIR.exists():
+        shutil.rmtree(O_DIR)
+    O_DIR.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     procs = {}
     for shape in O_SHAPES:
         for mesh in ("single", "multi"):
             log = open(O_DIR / f"dryrun_{shape}_{mesh}.log", "w")
-            procs[(shape, mesh)] = (subprocess.Popen(
+            proc = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                  LM_ARCH, "--shape", shape, "--mesh", mesh, "--out",
                  str(O_DIR / "dryrun"), "--force"],
-                cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT),
-                log, time.perf_counter())
+                cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+            os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+            procs[(shape, mesh)] = (proc, log, time.perf_counter())
     return procs
 
 
@@ -4227,8 +4257,9 @@ def o_dryrun_finish(procs, card):
     return recs, out
 
 
-def path_o(torch, ops, dev, card):
-    """Path o: checkpoints and the dry run (see the module docstring).
+def path_o(torch, ops, dev, card, procs=None):
+    """Path o: checkpoints and the dry run (see the module docstring; the
+    dry run's processes `procs` from `o_dryrun_start`, or started here).
     Returns the launches of its main-path runs by sub-path, its timings
     and the dry run's records."""
     import shutil
@@ -4243,10 +4274,7 @@ def path_o(torch, ops, dev, card):
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     t_path = time.perf_counter()
-    if O_DIR.exists():
-        shutil.rmtree(O_DIR)
-    O_DIR.mkdir(parents=True)
-    procs = o_dryrun_start()
+    procs = procs or o_dryrun_start()
     res = {"launches": {}}
     try:
         # bf16 params and fp32 momentum of every node, and a margin
@@ -4882,13 +4910,15 @@ Q_KERNELS = ("vt_kl_partial_fwd", "vt_kl_shard_bwd", "decode_scores_partial",
 
 
 def q_lm(act):
-    """Full-width qwen1.5-0.5b (bf16 params) with `act` activations."""
+    """Full-width qwen1.5-0.5b (bf16 params) cut to Q_LAYERS of its 24
+    layers, with `act` activations."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_lm
 
     return build_lm(dataclasses.replace(get_config(LM_ARCH),
+                                        n_layers=Q_LAYERS,
                                         activation_dtype=act))
 
 
@@ -5328,11 +5358,13 @@ def path_q(torch, ops, dev, card):
         shutil.rmtree(Q_DIR)
     Q_DIR.mkdir(parents=True)
     torch.cuda.empty_cache()
+    print(f"path q cuts: qwen1.5-0.5b {Q_LAYERS} of {LM_LAYERS} layers (the "
+          f"script's time limit), model = 2 on one card ({card})")
     # -- q0: unpartitioned, then the (1, 1) NCCL mesh, fp32 activations
     lm = q_lm("float32")
     ref = q_steps(torch, ops, lm, dev)
     want = {"vt_kl_loss_fwd": 1, "vt_kl_loss_bwd": 1,
-            "decode_attention_fused": LM_LAYERS * Q_STEPS}
+            "decode_attention_fused": Q_LAYERS * Q_STEPS}
     check(ref["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
           f"path q (unpartitioned): launches {ref['launches']}")
     torch.save({k: ref[k] for k in ("loss", "prefill", "decode", "tokens")},
@@ -5383,8 +5415,8 @@ def path_q(torch, ops, dev, card):
     check(ranks[0]["ok"], f"path q1 against the unpartitioned step: "
                           f"{ranks[0]['text']}")
     want = {"vt_kl_partial_fwd": 1, "vt_kl_shard_bwd": 1,
-            "decode_scores_partial": LM_LAYERS * Q_STEPS,
-            "decode_softmax_combine": LM_LAYERS * Q_STEPS}
+            "decode_scores_partial": Q_LAYERS * Q_STEPS,
+            "decode_softmax_combine": Q_LAYERS * Q_STEPS}
     for r, res in enumerate(ranks):
         check(res["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
               f"path q1 rank {r}: launches {res['launches']}")
@@ -5427,7 +5459,7 @@ def path_q(torch, ops, dev, card):
 
 R_DIR = ROOT / "build" / "path_r"     # path r's rendezvous and results
 R_NODES, R_BATCH, R_SEQ = 2, 4, 128   # two nodes on a ring, 4 x 128 each
-R_LAYERS = 12                         # of 24: keeps path r near 150 s
+R_LAYERS = 2                          # of 24: the script's time limit
 R_MESH = (2, 1, 2)                    # (pod, data, model) on the card
 R_EXCHANGES = ("fp32", "bf16", "int8")
 R_TIMED = 3                           # bf16 rounds timed after one
@@ -5744,6 +5776,9 @@ def path_r(torch, ops, dev, card):
         shutil.rmtree(R_DIR)
     R_DIR.mkdir(parents=True)
     torch.cuda.empty_cache()
+    print(f"path r cuts: qwen1.5-0.5b {R_LAYERS} of {LM_LAYERS} layers (the "
+          f"script's time limit), (pod, data, model) = {R_MESH} on one card "
+          f"({card})")
     lm = r_lm(True)
 
     def want_launches(name, kernels):
@@ -5881,7 +5916,8 @@ S_DIR = ROOT / "build" / "path_s"     # path s's rendezvous
 S_MODES = {"global": {}, "moelocal": {"moe_dispatch": "batch_local"},
            "expertpar": {"moe_dispatch": "batch_local",
                          "expert_parallel": True}}
-S_LAYERS = {"mixtral-8x7b": 2, "arctic-480b": 1}  # of 32 and 35: one card
+S_LAYERS = {"mixtral-8x7b": 1, "arctic-480b": 1}  # of 32 and 35: one card
+#                                                   and the time limit
 S_ROUND_LAYERS = 1                    # s2's mixtral
 # s2's exchanges: the fp32 one's gathered models do not fit four ranks
 S_EXCHANGES = ("bf16", "int8")
@@ -5912,9 +5948,14 @@ def s_walk(tree, specs, fn, name=""):
 
 def s_params(torch, lm, dev, seed, mesh=None, node=False):
     """Params drawn leaf by leaf from `seed` on `dev`: norm scales 1,
-    biases 0, the embedding N(0, 0.02²), every other weight N(0, 1 /
-    fan_in) (fan_in its second-to-last dim), each drawn whole in its own
-    dtype and, on `mesh`, cut at once to this rank's shard by the specs
+    biases 0, the embedding N(0, 0.02²), a mamba2 layer's dynamics as
+    `models/lm/ssm.init_ssm_layer` draws them (A_log 0, D 1, conv_b 0,
+    dt_bias the inverse softplus of dt log-uniform on [1e-3, 0.1]: drawn
+    N(0, 1 / fan_in) instead, dt_bias makes a random 18-layer zamba2
+    amplify a 1e-7 relative change of its params ~40x more), every other
+    weight N(0, 1 / fan_in) (fan_in its second-to-last dim), each drawn
+    whole in its own dtype and, on `mesh`, cut at once to this rank's
+    shard by the specs
     (`expert_parallel=cfg.expert_parallel`; `DTensor.from_local`: no
     collective and never a whole model on a rank).  With `node`, a node
     block [1, ...] on the pod's sub-mesh of the multi mesh
@@ -5937,10 +5978,15 @@ def s_params(torch, lm, dev, seed, mesh=None, node=False):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def leaf(name, t, spec):
-        if name == "scale":
+        if name in ("scale", "D"):
             full = torch.ones(t.shape, dtype=t.dtype, device=dev)
-        elif name in ("b", "bias"):
+        elif name in ("b", "bias", "conv_b", "A_log"):
             full = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        elif name == "dt_bias":
+            lo, hi = math.log(1e-3), math.log(0.1)
+            dt = torch.exp(torch.rand(t.shape, generator=gen, device=dev)
+                           * (hi - lo) + lo)
+            full = (dt + torch.log(-torch.expm1(-dt))).to(t.dtype)
         else:
             full = torch.randn(t.shape, generator=gen, dtype=t.dtype,
                                device=dev)
@@ -5960,21 +6006,22 @@ def s_params(torch, lm, dev, seed, mesh=None, node=False):
     return s_walk(meta, specs, leaf)
 
 
-def s_batch(torch, lm, dev, seed, lead=()):
+def s_batch(torch, lm, dev, seed, lead=(), shape=(Q_BATCH, Q_SEQ)):
     g = torch.Generator(device=dev).manual_seed(seed)
-    seq = torch.randint(0, lm.cfg.vocab, lead + (Q_BATCH, Q_SEQ + 1),
+    seq = torch.randint(0, lm.cfg.vocab, lead + (shape[0], shape[1] + 1),
                         generator=g, device=dev, dtype=torch.int32)
     return {"tokens": seq[..., :-1].contiguous(),
             "labels": seq[..., 1:].contiguous()}
 
 
-def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0):
-    """One train step of Q_BATCH x Q_SEQ (VT loss; with `train`), prefill
-    of the same batch, then Q_STEPS greedy decode steps on a Q_WINDOW-slot
-    ring, on `mesh` or whole, each MoE layer's routing recorded
-    (`moe.record_choices`); the launch counts set to 0 just before and read
-    just after.  With `timed`: that many train steps more, each timed,
-    and nothing else."""
+def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0,
+          shape=(Q_BATCH, Q_SEQ)):
+    """One train step of `shape` (Q_BATCH x Q_SEQ; VT loss; with
+    `train`), prefill of the same batch, then Q_STEPS greedy decode steps
+    on a Q_WINDOW-slot ring, on `mesh` or whole, each MoE layer's routing
+    recorded (`moe.record_choices`); the launch counts set to 0 just
+    before and read just after.  With `timed`: that many train steps
+    more, each timed, and nothing else."""
     from repro_torch.dist.dfl_step import (build_prefill_step,
                                            build_serve_step,
                                            build_train_step)
@@ -5996,7 +6043,7 @@ def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0):
         return out, 1e3 * (time.perf_counter() - t0)
 
     params = s_params(torch, lm, dev, 50, mesh)
-    whole = s_batch(torch, lm, dev, 51)
+    whole = s_batch(torch, lm, dev, 51, shape=shape)
     batch = place(whole, make_batch_specs)
     out = {"ms": []}
     torch.cuda.synchronize()
@@ -6019,7 +6066,7 @@ def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0):
     serve = build_serve_step(lm, mesh=mesh)
     with moe.record_choices() as seen:
         logits = prefill(params, batch)
-        cache = place(lm.init_cache(Q_BATCH, Q_WINDOW, device=dev),
+        cache = place(lm.init_cache(shape[0], Q_WINDOW, device=dev),
                       make_cache_specs)
         tok = whole["tokens"][:, :1].contiguous()
         dec, toks = [], []
@@ -6039,9 +6086,10 @@ def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0):
     return out
 
 
-def s_round(torch, ops, lm, dev, name, mesh=None):
+def s_round(torch, ops, lm, dev, name, mesh=None, shape=(Q_BATCH, Q_SEQ)):
     """One DFL round of exchange `name` over two nodes on a ring, each
-    with a batch of Q_BATCH x Q_SEQ (VT loss): on `mesh` (the multi mesh)
+    with a batch of `shape` (Q_BATCH x Q_SEQ; VT loss): on `mesh` (the
+    multi mesh)
     this rank's pod block, node p drawn from seed 40 + p and cut to the
     pod's sub-mesh at once, else both nodes stacked; the launch counts
     set to 0 just before the round and read just after."""
@@ -6055,12 +6103,13 @@ def s_round(torch, ops, lm, dev, name, mesh=None):
         nodes = [s_params(torch, lm, dev, 40 + i) for i in range(2)]
         params = tree_map(lambda *xs: torch.stack(xs), *nodes)
         del nodes
-        batch = s_batch(torch, lm, dev, 41, lead=(2,))
+        batch = s_batch(torch, lm, dev, 41, lead=(2,), shape=shape)
     else:
         pod = pod_axis(mesh)[1]
         params = s_params(torch, lm, dev, 40 + pod, mesh, node=True)
         batch = place_node_block({k: v[pod:pod + 1].contiguous() for k, v in
-                                  s_batch(torch, lm, dev, 41, (2,)).items()},
+                                  s_batch(torch, lm, dev, 41, (2,),
+                                          shape).items()},
                                  mesh, batch=True)
     opt = sgd_momentum(lr=3e-3, momentum=0.9)
     state = opt.init(params)
@@ -6086,8 +6135,9 @@ def s_shards(params):
 
 
 def s_worker(rank, n_ranks, out_dir, dims, jobs, results, acks):
-    """One rank of path s1 ((data, model) = (1, 2)) or s2 ((pod, data,
-    model) = (2, 1, 2)) on the card (cuda:0) over the host-staged backend:
+    """One rank of path s1 or t1 ((data, model) = (1, 2)) or s2 or t2
+    ((pod, data, model) = (2, 1, 2)) on the card (cuda:0) over the
+    host-staged backend:
     runs the jobs the script's process sends (`jobs[rank]`), puts each
     result on `results` (its param shards as CUDA tensors, which the
     script compares over CUDA IPC) and frees it once `acks[rank]` says
@@ -6116,7 +6166,9 @@ def s_worker(rank, n_ranks, out_dir, dims, jobs, results, acks):
                 make_host_mesh(pod=dims[0], data=dims[1], model=dims[2]))
         while (job := jobs[rank].get()) is not None:
             kind = job["kind"]
-            if kind == "round":
+            if job.get("path") == "t":
+                lm, got = t_job(torch, ops, dev, mesh, job)
+            elif kind == "round":
                 lm = s_lm("mixtral-8x7b", "expertpar",
                           layers=S_ROUND_LAYERS)
                 got = s_round(torch, ops, lm, dev, job["exchange"], mesh)
@@ -6206,15 +6258,17 @@ def s_choices_equal(got, want, label):
     return same
 
 
-def s_serve_against(torch, got, ref, label, bound):
+def s_serve_against(torch, got, ref, label, bound, routed=True):
     """Prefill and decode logits within `bound` of the largest, equal
-    tokens, equal choices; (ok, text)."""
+    tokens, equal choices (`routed`: the model has MoE layers); (ok,
+    text)."""
     pre = float((got["prefill"] - ref["prefill"]).abs().max())
     pre_max = float(ref["prefill"].abs().max())
     dec = float((got["decode"] - ref["decode"]).abs().max())
     dec_max = float(ref["decode"].abs().max())
     tokens = bool(torch.equal(got["tokens"], ref["tokens"]))
-    choices = s_choices_equal(got["choices"], ref["choices"], label)
+    choices = (s_choices_equal(got["choices"], ref["choices"], label)
+               if routed else got["choices"] == ref["choices"] == [])
     finite = bool(torch.isfinite(got["prefill"]).all()
                   and torch.isfinite(got["decode"]).all())
     ok = (pre <= bound * pre_max and dec <= bound * dec_max and tokens
@@ -6222,19 +6276,20 @@ def s_serve_against(torch, got, ref, label, bound):
     return ok, (f"prefill |diff| {pre:.3g} of max {pre_max:.3g}, "
                 f"{Q_STEPS} decode steps |diff| {dec:.3g} of max "
                 f"{dec_max:.3g} (bound {bound:g} of the max), tokens equal "
-                f"{tokens}, expert choices equal {choices}")
+                f"{tokens}" + (f", expert choices equal {choices}"
+                               if routed else ""))
 
 
-def s_spawn(n_ranks, dims):
-    """Path s's ranks on the card, waiting for jobs: (processes, job
-    queues, result queue, ack queues)."""
+def s_spawn(n_ranks, dims, out_dir=S_DIR):
+    """Path s's (or t's) ranks on the card, waiting for jobs: (processes,
+    job queues, result queue, ack queues)."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     jobs = [ctx.Queue() for _ in range(n_ranks)]
     acks = [ctx.Queue() for _ in range(n_ranks)]
     results = ctx.Queue()
-    procs = mp.spawn(s_worker, args=(n_ranks, str(S_DIR), dims, jobs,
+    procs = mp.spawn(s_worker, args=(n_ranks, str(out_dir), dims, jobs,
                                      results, acks),
                      nprocs=n_ranks, join=False)
     return procs, jobs, results, acks
@@ -6441,15 +6496,16 @@ def s_mixtral_arctic(torch, ops, dev, card, procs, jobs, results, acks,
     return out
 
 
-def s_refs(torch, ops, lm, dev):
-    """Path s2's references: each exchange's unpartitioned round of the
-    two nodes, its params moved to the host (the int8 round alone nearly
-    fills the card: run before s2's ranks hold any of it)."""
+def s_refs(torch, ops, lm, dev, exchanges=S_EXCHANGES,
+           shape=(Q_BATCH, Q_SEQ)):
+    """Path s2's (or t2's) references: each exchange's unpartitioned
+    round of the two nodes, its params moved to the host (the int8 round
+    alone nearly fills the card: run before s2's ranks hold any of it)."""
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     refs = {}
-    for name in S_EXCHANGES:
-        ref = s_round(torch, ops, lm, dev, name)
+    for name in exchanges:
+        ref = s_round(torch, ops, lm, dev, name, shape=shape)
         want = {"vt_kl_loss_fwd": 2, "vt_kl_loss_bwd": 2,
                 "decdiff_update": 1}
         check(ref["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
@@ -6465,17 +6521,19 @@ def s_refs(torch, ops, lm, dev):
     return refs
 
 
-def s_multi(torch, ops, dev, card, refs, procs, jobs, results, acks, add):
-    """Path s2 (the module docstring), with its four ranks waiting for
-    jobs: each exchange's round on the (2, 1, 2) ranks against the
-    unpartitioned one (`refs`, on the host), shard for shard (path r's
-    tolerances: 1e-5, int8 1e-4 plus one grain)."""
+def s_multi(torch, ops, dev, card, refs, procs, jobs, results, acks, add,
+            label="s2", job=None):
+    """Path s2 (or t2 with `job` {"path": "t"}; the module docstring),
+    with its four ranks waiting for jobs: each exchange's round (those of
+    `refs`) on the (2, 1, 2) ranks against the unpartitioned one (`refs`,
+    on the host), shard for shard (path r's tolerances: 1e-5, int8 1e-4
+    plus one grain)."""
     out = {}
-    for name in S_EXCHANGES:
+    for name in list(refs):
         ref = refs.pop(name)
         grain = ref["grain"]
-        ranks = s_ask(procs, jobs, results, {"kind": "round",
-                                             "exchange": name})
+        ranks = s_ask(procs, jobs, results, dict(job or {}, kind="round",
+                                                 exchange=name))
         rows = []
         for r in ranks:
             add(r["launches"])
@@ -6490,15 +6548,16 @@ def s_multi(torch, ops, dev, card, refs, procs, jobs, results, acks, add):
             if name == "int8":
                 want["dequant_neighbor_avg_rows"] = 1
             check(r["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
-                  f"path s2 ({name}) rank {r['rank']}: launches "
+                  f"path {label} ({name}) rank {r['rank']}: launches "
                   f"{r['launches']}")
-            check(gap <= 1e-5 and ok, f"path s2 ({name}) rank {r['rank']}: "
-                                      f"loss gap {gap:g}, params |diff| "
-                                      f"{err:g} (tolerance {tol:g})")
+            check(gap <= 1e-5 and ok, f"path {label} ({name}) rank "
+                                      f"{r['rank']}: loss gap {gap:g}, "
+                                      f"params |diff| {err:g} (tolerance "
+                                      f"{tol:g})")
             rows.append(dict(loss_gap=gap, params_err=err, peak=r["peak"],
                              ms=r["ms"], tol=tol))
-        print(f"path s2 ({name} exchange, (2, 1, 2), fp32, {card}): loss "
-              f"{ref['loss']:.6f}, gap "
+        print(f"path {label} ({name} exchange, (2, 1, 2), fp32, {card}): "
+              f"loss {ref['loss']:.6f}, gap "
               f"{max(x['loss_gap'] for x in rows):.3g}; params |diff| "
               f"{max(x['params_err'] for x in rows):.3g} shard for shard "
               f"(tolerance {max(x['tol'] for x in rows):.3g}); ms "
@@ -6531,7 +6590,8 @@ def path_s(torch, ops, dev, card):
           f"this process, {torch.cuda.mem_get_info()[0]} B free on the "
           f"card ({card})")
     print(f"path s cuts: mixtral-8x7b {S_LAYERS['mixtral-8x7b']} of 32 "
-          f"layers (fp32 params, grads and momentum of 2 layers: ~38 GB), "
+          f"layers (the script's time limit; fp32 params, grads and "
+          f"momentum of a layer ~19 GB), "
           f"arctic-480b {S_LAYERS['arctic-480b']} of 35 layers with bf16 "
           f"params and fp32 activations and no train step (one layer's "
           f"bf16 params, grads and momentum exceed 84 GB: not one card), "
@@ -6597,6 +6657,258 @@ def path_s(torch, ops, dev, card):
     out["launches"] = launches
     print(f"path s in all {time.perf_counter() - t_s:.1f} s (s0 + s1 "
           f"{t_s1:.1f} s, s2 {t_s2:.1f} s)")
+    return out
+
+# ----------------------------------------------------------------- path t
+# the partitioned SSM and hybrid steps (ROADMAP A.14.3) at full width
+
+T_DIR = ROOT / "build" / "path_t"     # path t's rendezvous
+# of 64 and 54: zamba2's two groups of 9, mamba2 cut for the time limit
+T_LAYERS = {"mamba2-2.7b": 2, "zamba2-2.7b": 18}
+T_BATCH, T_SEQ = 2, 512               # two SSD chunks of 256: a carried state
+T_ROUND_LAYERS = 2                    # t2's mamba2
+T_EXCHANGES = ("bf16", "int8")
+T_TIMED = 3                           # bf16 train steps timed after one
+T_TIMED_ARCH = "mamba2-2.7b"          # the model timed (zamba2's (1, 2)
+#                                       step takes ~11 s a step)
+
+
+def t_lm(arch, dtype="float32", layers=None):
+    """Full-width `arch` cut to T_LAYERS layers (or `layers`), with
+    `dtype` params and activations."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+
+    return build_lm(dataclasses.replace(
+        get_config(arch), n_layers=layers or T_LAYERS[arch],
+        param_dtype=dtype, activation_dtype=dtype))
+
+
+def t_job(torch, ops, dev, mesh, job):
+    """A path t job on a rank (`s_worker`): (the model, its result)."""
+    if job["kind"] == "round":
+        lm = t_lm("mamba2-2.7b", layers=T_ROUND_LAYERS)
+        return lm, s_round(torch, ops, lm, dev, job["exchange"], mesh,
+                           shape=(T_BATCH, T_SEQ))
+    lm = t_lm(job["arch"], job["dtype"])
+    return lm, s_run(torch, ops, lm, dev, mesh, True,
+                     T_TIMED if job["kind"] == "timed" else 0,
+                     shape=(T_BATCH, T_SEQ))
+
+
+def t_launches(ops, lm, split):
+    """The launches of one `s_run` of `lm` (a train step, prefill and
+    Q_STEPS decode steps): the VT loss once each way, vocab-parallel on a
+    (1, 2) mesh (`split`); the decode attention once a shared-block
+    invocation a step, split-hd on (1, 2) (none in mamba2)."""
+    cfg = lm.cfg
+    calls = (cfg.n_layers // cfg.shared_attn_every
+             if cfg.family == "hybrid" else 0) * Q_STEPS
+    want = ({"vt_kl_partial_fwd": 1, "vt_kl_shard_bwd": 1,
+             **{k: calls for k in R_SERVE}} if split else
+            {"vt_kl_loss_fwd": 1, "vt_kl_loss_bwd": 1,
+             "decode_attention_fused": calls})
+    return {k: want.get(k, 0) for k in ops.LAUNCHES}
+
+
+def t_steps(torch, ops, dev, card, procs, jobs, results, acks, add):
+    """Paths t0 and t1 (the module docstring), with t1's two ranks waiting
+    for jobs: for each model the unpartitioned fp32 run (kept on the
+    card), the (1, 1) NCCL mesh bitwise against it, then the (1, 2) ranks
+    against it; mamba2's bf16 train step timed both ways."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import full_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.pytree import tree_leaves
+
+    shape = (T_BATCH, T_SEQ)
+    out = {"t0": {}, "t1": {}, "ms": {}}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(T_DIR / "store0"), 1), rank=0,
+        world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        for arch in T_LAYERS:
+            t_arch = time.perf_counter()
+            lm = t_lm(arch)
+            ref = s_run(torch, ops, lm, dev, shape=shape)
+            check(ref["launches"] == t_launches(ops, lm, False),
+                  f"path t ({arch}, unpartitioned): launches "
+                  f"{ref['launches']}")
+            got = s_run(torch, ops, lm, dev, mesh, shape=shape)
+            add(got["launches"])
+            same = {"loss": got["loss"] == ref["loss"], "params": all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(full_tree(got["params"])),
+                    tree_leaves(ref["params"]))),
+                **{k: bool(torch.equal(got[k], ref[k]))
+                   for k in ("prefill", "decode", "tokens")}}
+            print(f"path t0 ({arch}, {lm.cfg.n_layers} layers, (data, "
+                  f"model) = (1, 1) on NCCL, {card}): loss "
+                  f"{got['loss']:.6f}, bitwise the unpartitioned step "
+                  f"(loss, params, prefill, {Q_STEPS} decode steps, tokens) "
+                  f"= {all(same.values())}; launches "
+                  f"{ {k: v for k, v in got['launches'].items() if v} }")
+            check(all(same.values()), f"path t0 ({arch}): the (1, 1) mesh "
+                                      f"differs: equal {same}")
+            check(got["launches"] == ref["launches"],
+                  f"path t0 ({arch}): launches {got['launches']}")
+            out["t0"][arch] = True
+            del got
+            gc.collect()
+            torch.cuda.empty_cache()
+            # -- t1: the same steps on (1, 2), against the run kept here
+            ranks = s_ask(procs, jobs, results, {
+                "path": "t", "kind": "steps", "arch": arch,
+                "dtype": "float32"})
+            rows = []
+            for r in ranks:
+                add(r["launches"])
+                err, ok = s_param_err(torch, r["params"], ref["params"],
+                                      r["coord"], (1, 2), dev)
+                gap = abs(r["loss"] - ref["loss"])
+                s_ok, text = s_serve_against(
+                    torch, r, ref, f"path t1 ({arch}) rank {r['rank']}",
+                    1e-3, routed=False)
+                check(r["launches"] == t_launches(ops, lm, True),
+                      f"path t1 ({arch}) rank {r['rank']}: launches "
+                      f"{r['launches']}")
+                check(gap <= 1e-5 and ok and s_ok,
+                      f"path t1 ({arch}) rank {r['rank']}: loss gap "
+                      f"{gap:g}, params |diff| {err:g}; {text}")
+                rows.append(dict(loss_gap=gap, params_err=err, text=text,
+                                 peak=r["peak"], ms=r["ms"]))
+            print(f"path t1 ({arch}, (1, 2) over the host-staged backend, "
+                  f"fp32, {card}): loss gap "
+                  f"{max(x['loss_gap'] for x in rows):.3g}, params |diff| "
+                  f"{max(x['params_err'] for x in rows):.3g} shard for "
+                  f"shard (tolerance 1e-5); {rows[0]['text']}; peak "
+                  f"{[x['peak'] for x in rows]} B (whole {ref['peak']} B); "
+                  f"t0 and t1 of this model in "
+                  f"{time.perf_counter() - t_arch:.1f} s")
+            out["t1"][arch] = rows
+            del ranks, ref, r  # the last rank's shards too (CUDA IPC)
+            s_release(procs, results, acks)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # -- the bf16 train step, timed both ways
+
+    def med(ms):
+        return round(statistics.median(ms[1:] if len(ms) > 1 else ms), 3)
+
+    for arch in (T_TIMED_ARCH,):
+        base = s_run(torch, ops, t_lm(arch, "bfloat16"), dev,
+                     timed=T_TIMED, shape=shape)
+        check(math.isfinite(base["loss"]), f"path t ({arch}): bf16 loss "
+                                           f"not finite")
+        torch.cuda.empty_cache()
+        ranks = s_ask(procs, jobs, results, {
+            "path": "t", "kind": "timed", "arch": arch, "dtype": "bfloat16"})
+        s_release(procs, results, acks)
+        check(all(math.isfinite(r["loss"]) for r in ranks),
+              f"path t1 ({arch}): bf16 loss not finite")
+        out["ms"][arch] = {"unpartitioned_bf16": med(base["ms"]),
+                           "partitioned_bf16": [med(r["ms"]) for r in ranks],
+                           "peak": base["peak"],
+                           "partitioned_peak": [r["peak"] for r in ranks]}
+        print(f"path t1 (bf16 {arch} train step, {T_LAYERS[arch]} layers, "
+              f"{T_BATCH} x {T_SEQ}, ms, median of {T_TIMED} after one; "
+              f"{card}): unpartitioned "
+              f"{out['ms'][arch]['unpartitioned_bf16']} (peak "
+              f"{base['peak']} B), (1, 2) over the host-staged backend by "
+              f"rank {out['ms'][arch]['partitioned_bf16']} (peak "
+              f"{out['ms'][arch]['partitioned_peak']} B)")
+    out["imported"] = s_end(procs, jobs, results)
+    return out
+
+
+def path_t(torch, ops, dev, card):
+    """The partitioned SSM and hybrid steps (see the module docstring): t0
+    the unpartitioned mamba2 and zamba2 runs and the (1, 1) NCCL mesh,
+    bitwise; t1 the (1, 2) mesh of two host-staged ranks sharing the card
+    against them, and mamba2's bf16 train step timed both ways; t2 the
+    (2, 1, 2) mesh's DFL round of two mamba2 nodes; then the split
+    kernels at path t's shapes.  Returns the launches, the kernels' checks and the
+    ms."""
+    import shutil
+
+    t_t = time.perf_counter()
+    if T_DIR.exists():
+        shutil.rmtree(T_DIR)
+    T_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path t cuts: mamba2-2.7b {T_LAYERS['mamba2-2.7b']} of 64 "
+          f"layers, zamba2-2.7b {T_LAYERS['zamba2-2.7b']} of 54 (two groups "
+          f"of 9: the shared block invoked twice, two rings), fp32 for the "
+          f"checks, a train step of {T_BATCH} x {T_SEQ} (two SSD chunks of "
+          f"256), model = 2 on one card (the reference partitions over "
+          f"(16, 16)); t2's round: mamba2 {T_ROUND_LAYERS} of 64 layers in "
+          f"fp32 with the bf16 and int8 exchanges ({card})")
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    procs, jobs, results, acks = s_spawn(2, (1, 2), T_DIR)
+    try:
+        out = t_steps(torch, ops, dev, card, procs, jobs, results, acks, add)
+    except BaseException:
+        s_kill(procs)
+        raise
+    t_t1 = time.perf_counter() - t_t
+    lm = t_lm("mamba2-2.7b", layers=T_ROUND_LAYERS)
+    # the ranks start up while the references run (until its first job a
+    # rank holds only its CUDA context)
+    procs, jobs, results, acks = s_spawn(4, (2, 1, 2), T_DIR)
+    try:
+        refs = s_refs(torch, ops, lm, dev, T_EXCHANGES, (T_BATCH, T_SEQ))
+        out["t2"], imported = s_multi(torch, ops, dev, card, refs, procs,
+                                      jobs, results, acks, add, label="t2",
+                                      job={"path": "t"})
+    except BaseException:
+        s_kill(procs)
+        raise
+    imported += out.pop("imported")
+    check(all(i == [] for i in imported), f"path t: ranks imported "
+                                          f"{imported}")
+    t_t2 = time.perf_counter() - t_t - t_t1
+    # -- the split kernels at path t's shapes, against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(34)
+    rows = T_BATCH * T_SEQ
+    out["vt"] = {}
+    for arch in T_LAYERS:
+        vocab = t_lm(arch).cfg.vocab
+        y = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            z = (torch.randn((rows, vocab), generator=gen, device=dev)
+                 * 3).to(dtype)
+            out["vt"][arch, str(dtype)] = q_vt_split(torch, ops, z, y, 2)
+            del z
+    out["da"] = {}
+    cfg = t_lm("zamba2-2.7b").cfg
+    sp = torch.arange(Q_WINDOW, dtype=torch.int32, device=dev)
+    pos = torch.tensor(Q_WINDOW - 1, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((T_BATCH, cfg.n_heads, cfg.head_dim),
+                                 *[(T_BATCH, Q_WINDOW, cfg.n_kv_heads,
+                                    cfg.head_dim)] * 2))
+        out["da"][str(dtype)] = q_decode_split(torch, ops, q, k, v, sp, pos,
+                                               2, row=T_BATCH - 1)
+        del q, k, v
+    out["split"] = r_split_check(
+        torch, dev, gen, lm, label=f"path t2's flat block (mamba2-2.7b, "
+                                   f"{T_ROUND_LAYERS} layers)")
+    out["launches"] = launches
+    out["s"] = round(time.perf_counter() - t_t, 1)
+    print(f"path t in all {out['s']:.1f} s (t0 + t1 {t_t1:.1f} s, t2 "
+          f"{t_t2:.1f} s)")
     return out
 
 
@@ -6672,6 +6984,11 @@ def main() -> int:
     if "--path-s" in sys.argv[1:]:  # path s alone, for its development
         path_s(torch, ops, dev, card)
         print(f"chip_smoke --path-s finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-t" in sys.argv[1:]:  # path t alone, for its development
+        path_t(torch, ops, dev, card)
+        print(f"chip_smoke --path-t finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--path-q-decode" in sys.argv[1:]:  # B.9's split kernels alone
@@ -7087,11 +7404,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- path n: the other five LM families at their registered widths ---
-    l_n, da_n, vt_n = run_path_n(torch, ops, dev, card, profile)
+    # path o's dry run starts here, beside path n (module docstring)
+    o_procs = o_dryrun_start()
+    try:
+        l_n, da_n, vt_n = run_path_n(torch, ops, dev, card, profile)
+    except BaseException:
+        o_dryrun_stop(o_procs)
+        raise
     torch.cuda.empty_cache()
 
     # -- path o: checkpoints and the dry run at full width -----------------
-    lmo = path_o(torch, ops, dev, card)
+    lmo = path_o(torch, ops, dev, card, o_procs)
     torch.cuda.empty_cache()
 
     # -- path p: the examples at the reference examples' defaults ----------
@@ -7108,6 +7431,10 @@ def main() -> int:
 
     # -- path s: the partitioned MoE step ------------------------------------
     lms = path_s(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- path t: the partitioned SSM and hybrid steps ----------------------
+    lmt = path_t(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
@@ -7116,6 +7443,7 @@ def main() -> int:
                      for k in ops.LAUNCHES},
                "p": lmp["total"], "q": lmq["launches"],
                "r": lmr["launches"], "s": lms["launches"],
+               "t": lmt["launches"],
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -7216,7 +7544,8 @@ def main() -> int:
               also_replaces="src/repro/kernels/decdiff_update.py:60",
               dtype=lmr["split"]["dtype"],
               counted_columns=lmr["split"]["counted_columns"],
-              norm_err=lmr["split"]["norm_err"], path_s=at_j(lms["split"])),
+              norm_err=lmr["split"]["norm_err"], path_s=at_j(lms["split"]),
+              path_t=at_j(lmt["split"])),
         entry("drift_norms", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", drift,
               other_shapes=[at_j(drift_c)], path_m=at_j(drift_m)),
@@ -7228,13 +7557,15 @@ def main() -> int:
               also_replaces="src/repro/kernels/vt_kl_loss.py:108",
               other_shapes=[at_j(c["fwd"]) for key, c in lmq["vt"].items()
                             if key != ("torch.float32", 2)],
-              path_s=[at_j(c["fwd"]) for c in lms["vt"].values()]),
+              path_s=[at_j(c["fwd"]) for c in lms["vt"].values()],
+              path_t=[at_j(c["fwd"]) for c in lmt["vt"].values()]),
         entry("vt_kl_shard_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127",
               at_j(lmq["vt"]["torch.float32", 2]["bwd"]),
               other_shapes=[at_j(c["bwd"]) for key, c in lmq["vt"].items()
                             if key != ("torch.float32", 2)],
-              path_s=[at_j(c["bwd"]) for c in lms["vt"].values()]),
+              path_s=[at_j(c["bwd"]) for c in lms["vt"].values()],
+              path_t=[at_j(c["bwd"]) for c in lmt["vt"].values()]),
         entry("decode_scores_partial", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["scores"]),
@@ -7244,7 +7575,8 @@ def main() -> int:
                             for n in Q_SHARDS[1:]]
               + [at_j(m["scores"]) for m in lmq["da_gqa"].values()],
               path_q1=[c["scores"] for c in lmq["da_q1"].values()],
-              path_s=[at_j(c["scores"]) for c in lms["da"].values()]),
+              path_s=[at_j(c["scores"]) for c in lms["da"].values()],
+              path_t=[at_j(c["scores"]) for c in lmt["da"].values()]),
         entry("decode_softmax_combine", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["combine"]),
@@ -7252,7 +7584,8 @@ def main() -> int:
                             for n in Q_SHARDS[1:]]
               + [at_j(m["combine"]) for m in lmq["da_gqa"].values()],
               path_q1=[c["combine"] for c in lmq["da_q1"].values()],
-              path_s=[at_j(c["combine"]) for c in lms["da"].values()]),
+              path_s=[at_j(c["combine"]) for c in lms["da"].values()],
+              path_t=[at_j(c["combine"]) for c in lmt["da"].values()]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -7330,6 +7663,12 @@ def main() -> int:
     print(f"path s (the partitioned MoE step, {card}): bf16 mixtral train "
           f"ms unpartitioned {lms['ms']['unpartitioned_bf16']}, (1, 2) by "
           f"rank {lms['ms']['partitioned_bf16']}")
+    print(f"path t (the partitioned SSM and hybrid steps, {card}): bf16 "
+          f"train ms " + "; ".join(
+              f"{arch} unpartitioned {m['unpartitioned_bf16']}, (1, 2) by "
+              f"rank {m['partitioned_bf16']}"
+              for arch, m in lmt["ms"].items())
+          + f"; path t in all {lmt['s']:.1f} s")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -91,7 +91,12 @@ def _batch_axes(mesh, dim: int):
 def _constrain(mesh, x, spec):
     if all(s is None for s in spec):
         return x  # nothing left to say, as in the reference
-    return x.redistribute(mesh, placements(spec, mesh))
+    target = placements(spec, mesh)
+    if list(x.placements) == list(target):
+        # x itself: a redistribute would add an autograd node, which
+        # regroups the sum of the gradients of x's uses
+        return x
+    return x.redistribute(mesh, target)
 
 
 def _target(x):

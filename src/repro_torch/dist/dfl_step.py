@@ -44,12 +44,15 @@ state, batch and cache as DTensors by `dist.sharding`'s specs
 (`models/lm/layers.py`: tensor parallelism over "model", the batch over
 "data", vocab-parallel logits and loss), returns the loss whole and the
 logits vocab-sharded, and updates the placed params, state and cache in
-place.  The dense and MoE families partition (`PARTITIONED_FAMILIES`;
-ROADMAP A.14.3 queues the others); an MoE model's params are placed by
-the specs with `expert_parallel=cfg.expert_parallel`
-(`models/lm/moe.py`: routing and dispatch on each rank's batch shard, the
-global pool's counts all-gathered, the expert GLU tensor-parallel or
-expert-parallel).
+place.  The dense, MoE, SSM and hybrid families partition
+(`PARTITIONED_FAMILIES`; ROADMAP A.14.4 queues enc-dec and VLM); an MoE
+model's params are placed by the specs with
+`expert_parallel=cfg.expert_parallel` (`models/lm/moe.py`: routing and
+dispatch on each rank's batch shard, the global pool's counts
+all-gathered, the expert GLU tensor-parallel or expert-parallel); an SSM
+layer (mamba2, and zamba2's mamba layers) runs on each rank's own heads,
+and decodes in the cache specs' layout, its state split over N
+(`models/lm/ssm.py`).
 
 `build_dfl_round(..., mesh=)` takes the multi mesh (pod, data, model): the
 round partitioned inside each pod, the counterpart of the reference's
@@ -93,8 +96,8 @@ from repro_torch.utils.pytree import (
 
 DEFAULT_S = 1.0  # the paper's Eq. 5 denominator offset
 
-# the families whose steps take a mesh (ROADMAP A.14.3 queues the others)
-PARTITIONED_FAMILIES = ("dense", "moe")
+# the families whose steps take a mesh (ROADMAP A.14.4 queues the others)
+PARTITIONED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _normalized(adj: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -158,8 +161,8 @@ def _on_mesh(lm, mesh):
     if lm.cfg.family not in PARTITIONED_FAMILIES:
         raise NotImplementedError(
             f"a partitioned step of the {lm.cfg.family!r} family is not "
-            f"ported yet (ROADMAP A.14.3); the dense and MoE families "
-            f"partition")
+            f"ported yet (ROADMAP A.14.4); the dense, MoE, SSM and "
+            f"hybrid families partition")
     return lambda: use_mesh(mesh)
 
 

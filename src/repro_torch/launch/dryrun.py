@@ -33,9 +33,9 @@ combination it
      score block is 4096 x 8192 (the default 512 x 1024 chunks would make
      the trace walk 64 times the blocks).
 
-The dense and MoE families (`partitions`: qwen1.5-0.5b, deepseek-7b,
-qwen2.5-14b, qwen3-32b, mixtral-8x7b, arctic-480b) trace the PARTITIONED
-step instead, as the reference compiles it: params (with
+The dense, MoE, SSM and hybrid families (`partitions`: qwen1.5-0.5b,
+deepseek-7b, qwen2.5-14b, qwen3-32b, mixtral-8x7b, arctic-480b,
+mamba2-2.7b, zamba2-2.7b) trace the PARTITIONED step instead, as the reference compiles it: params (with
 `expert_parallel=cfg.expert_parallel`), optimizer state, batch and cache
 placed by the specs, and
 `build_*_step(mesh=)` run at the global batch on the fake group (steps 3
@@ -190,10 +190,8 @@ def _adapt_config(cfg, shape_name: str, layer_override=None):
 
 # Why a combination is not partitioned, by family (ROADMAP A.14's queue).
 _NOT_PARTITIONED = {
-    "ssm": "the SSM family's partitioned step (ROADMAP A.14.3)",
-    "hybrid": "the hybrid family's partitioned step (ROADMAP A.14.3)",
-    "encdec": "the enc-dec family's partitioned step (ROADMAP A.14.3)",
-    "vlm": "the VLM family's partitioned step (ROADMAP A.14.3)",
+    "encdec": "the enc-dec family's partitioned step (ROADMAP A.14.4)",
+    "vlm": "the VLM family's partitioned step (ROADMAP A.14.4)",
 }
 _SHARDMAP_REASON = (
     "the reference's shard_map form of the DFL round: every axis manual, "
@@ -203,8 +201,8 @@ _SHARDMAP_REASON = (
 
 def partitions(cfg, mesh_kind: str, variant_override=None):
     """(whether the combination traces the partitioned step, and why not
-    when it does not): the dense and MoE families do, on the single mesh
-    and on the multi mesh, except for the multi mesh's shard_map variants,
+    when it does not): the families of `PARTITIONED_FAMILIES` do, on the
+    single mesh and on the multi mesh, except for the multi mesh's shard_map variants,
     which trace the reference's own design (`_SHARDMAP_REASON`)."""
     if cfg.family not in PARTITIONED_FAMILIES:
         return False, _NOT_PARTITIONED[cfg.family]

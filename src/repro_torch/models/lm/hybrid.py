@@ -15,6 +15,14 @@ KV cache per invocation group, [G, B, W, K, hd] (`attn_k`, `attn_v`,
 shared block's one-token attention runs through `ops.decode_attention_fused`
 (the `decode_attention` kernel on the card).  The cache is updated in
 place.
+
+On a mesh the mamba layers partition as `ssm.py` says, each [G, E, ...]
+leaf unbound per group and then per layer; the shared block runs on the
+dense family's machinery (`layers.py`): its `in_proj` [2D, D]
+row-parallel where the specs split 2D, attention heads and the MLP over
+"model", and in decoding each group's ring, split over hd by the cache
+specs, through the split-hd kernels (`ops.decode_scores_partial`, an
+all-reduce, `ops.decode_softmax_combine`).
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.dense import ring_view
 from repro_torch.models.lm.layers import (
     CacheSpec,
+    _like,
+    _mesh_of,
     apply_norm,
     attention,
     decode_attention,
@@ -37,6 +47,7 @@ from repro_torch.models.lm.layers import (
     init_mlp,
     init_norm,
     layer_params,
+    linear,
     mlp,
     unembed,
 )
@@ -78,8 +89,10 @@ def init_hybrid_lm(gen: torch.Generator, cfg: ArchConfig, device=None):
 
 
 def _shared_in(sp, x, x0):
-    h = torch.cat([x, x0], dim=-1)
-    return torch.matmul(h, sp["in_proj"]["w"].to(h.dtype))
+    """[x | x0] @ in_proj [2D, D] (on a mesh x0 in x's layout first, and
+    in_proj used as its spec splits it: row-parallel over 2D)."""
+    h = torch.cat([x, _like(_mesh_of(x), x0, x)], dim=-1)
+    return linear(h, sp["in_proj"])
 
 
 def _shared_block(cfg: ArchConfig, sp, x, x0, positions):

@@ -48,7 +48,11 @@ partitioned, the counterpart of GSPMD's partitioning of the reference:
     cache split over hd ("model") and batch ("data"), and attends through
     the split-hd kernels: partial q·k over the local hd
     (`ops.decode_scores_partial`), an all-reduce over "model", then
-    mask, softmax and p·v into the local hd (`ops.decode_softmax_combine`).
+    mask, softmax and p·v into the local hd (`ops.decode_softmax_combine`);
+  * a computation written on local tensors (the SSM layer, `ssm.py`)
+    takes its inputs through `_local_part`, which says how autograd
+    sums their gradients, and a norm over features split over "model"
+    through `split_rms_norm` (one all-reduce of the sum of squares).
 
 Each sublayer returns its output in its input's layout.  One function
 serves both: without a mesh every placement step (`_to_heads`,
@@ -696,6 +700,64 @@ class _SumOverShards(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOfPartials(torch.autograd.Function):
+    """All-reduce (sum) over a process group of a value that each rank
+    then uses on its own shard of a split computation: each rank's
+    cotangent covers only its shard's uses, so the backward all-reduces
+    the cotangents too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(g, "sum", ctx.group)), \
+            None
+
+
+def split_rms_norm(x: torch.Tensor, scale: torch.Tensor, width: int, group,
+                   eps: float = 1e-6):
+    """`rms_norm` of a row split over the ranks of `group`: x [..., w] is
+    this rank's w of the row's `width` features and `scale` their scales;
+    the mean of squares sums each rank's part (one all-reduce of [..., 1],
+    whose backward all-reduces too)."""
+    x32 = x.to(torch.float32)
+    ss = torch.sum(torch.square(x32), dim=-1, keepdim=True)
+    var = _SumOfPartials.apply(ss, group) / width
+    return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def _local_part(mesh, t, like, split: bool, replica: bool = False):
+    """t's local tensor, for a computation on each rank's part of the
+    activation `like` (a DTensor) that autograd leaves: the gradient is a
+    shard where `like` is split, and, where the computation splits over
+    "model" (`split`), a partial sum there.  `replica`: t is a replicated
+    weight whose gradient is each rank's partial sum over every dimension
+    that splits `like` (and over "model" with `split`); else t is an
+    activation in `like`'s placements, or whole over "model" beside a
+    split one (`split`: its gradient a partial sum there)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    i = _model_index(mesh)
+    if replica:
+        t = t.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = []
+    for d, (tp, lp) in enumerate(zip(t.placements, like.placements)):
+        if d == i and split and not tp.is_shard():
+            grad.append(Partial())
+        elif replica:
+            grad.append(Partial() if lp.is_shard() else Replicate())
+        else:
+            grad.append(tp)
+    return t.to_local(grad_placements=grad)
 
 
 def _embed_on_mesh(cfg, mesh, table, tokens):

@@ -28,6 +28,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro_torch.dist.dfl_step import PARTITIONED_FAMILIES  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.comm_analysis import COLLECTIVE_OPS  # noqa: E402
 from repro_torch.utils import pytree as tp  # noqa: E402
@@ -82,7 +83,7 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     mem = rec["memory_analysis"]
     coll = rec["collectives"]
     r = rec["roofline"]
-    part = cfg.family in ("dense", "moe")
+    part = cfg.family in PARTITIONED_FAMILIES
     assert rec["partitioned"] is part
     if part:  # the sharded step's own per-device counts
         assert "flops_global" not in cost and not mem["temp_is_upper_bound"]

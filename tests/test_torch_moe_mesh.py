@@ -720,8 +720,8 @@ def test_partitioned_step_refuses_the_families_still_queued():
     from repro_torch.models.lm import build_lm
     from repro_torch.optim.sgd import sgd_momentum
 
-    lm = build_lm(get_config("zamba2-2.7b").reduced())
-    with pytest.raises(NotImplementedError, match="A.14.3"):
+    lm = build_lm(get_config("llava-next-mistral-7b").reduced())
+    with pytest.raises(NotImplementedError, match="A.14.4"):
         build_train_step(lm, sgd_momentum(lr=0.1), mesh=object())
 
 

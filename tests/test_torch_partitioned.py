@@ -420,8 +420,8 @@ def test_partitioned_step_refuses_other_families():
     from repro_torch.dist.dfl_step import build_prefill_step
     from repro_torch.models.lm import build_lm
 
-    lm = build_lm(get_config("mamba2-2.7b").reduced())
-    with pytest.raises(NotImplementedError, match="A.14"):
+    lm = build_lm(get_config("whisper-large-v3").reduced())
+    with pytest.raises(NotImplementedError, match="A.14.4"):
         build_prefill_step(lm, mesh=object())
 
 
