@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py [--profile | --path-n | --path-o | --path-p |
-                           --path-q | --path-r | --path-s | --path-t]
+                           --path-q | --path-r | --path-s | --path-t |
+                           --path-u]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port only (no JAX), and:
@@ -424,6 +425,29 @@ It imports the port only (no JAX), and:
      a shard, G = 1), fp32 and bf16, and the split B.2 at t2's flat
      block, against their plain versions and timed; `--path-t` runs the
      kernel build and path t alone;
+     then path u, the partitioned enc-dec and VLM steps (ROADMAP
+     A.14.4), each cut printed: u0, full-width whisper-large-v3 cut to 2
+     + 2 of 32 + 32 layers (a train step of 2 x 448 decoder tokens after
+     1500 encoder frames, prefill, the cross caches through
+     `build_prep_cache_step`, 32 decode steps on a 448-slot ring) and
+     llava-next-mistral-7b cut to 2 of 32 (2 x 128 text tokens after its
+     2880 image tokens, 32 decode steps on a 4,096-slot ring), fp32,
+     unpartitioned, then on a (1, 1) NCCL mesh, bitwise (loss, params,
+     logits, cross caches, tokens) with equal launches; u1, the same on a
+     (1, 2) mesh of two host-staged ranks against the unpartitioned run
+     (as t1; launches exact a rank: the vocab-parallel B.3 once each way,
+     the split B.9 twice a whisper decoder layer and step (its ring and
+     its cross caches, read in place) and once a llava layer and step);
+     whisper's bf16 train step timed both ways; u2, a (2, 1, 2) mesh of four
+     host-staged ranks, one DFL round of two whisper nodes (2 + 2 layers,
+     fp32, the batch carrying `enc_embeds`) per exchange (bf16, the
+     deterministic int8 codec) against the unpartitioned round, as s2;
+     then B.3's split forms at [896, 51866] (25933 columns a shard) and
+     [256, 32000] over two shards, B.9's at whisper's ring [2, 448, 20,
+     64] and cross cache [2, 1500, 20, 64] (every slot live) and llava's
+     [2, 4096, 8, 128] ring, each cut in two, fp32 and bf16, and the split
+     B.2 at u2's flat block, against their plain versions and timed;
+     `--path-u` runs the kernel build and path u alone;
   8. prints one JSON line listing the kernels, then the card's name and
      power limit, then, as its last line, `{"ok": true, "device": {...}}`.
 
@@ -6015,14 +6039,18 @@ def s_batch(torch, lm, dev, seed, lead=(), shape=(Q_BATCH, Q_SEQ)):
 
 
 def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0,
-          shape=(Q_BATCH, Q_SEQ)):
+          shape=(Q_BATCH, Q_SEQ), make_batch=None, window=Q_WINDOW):
     """One train step of `shape` (Q_BATCH x Q_SEQ; VT loss; with
-    `train`), prefill of the same batch, then Q_STEPS greedy decode steps
-    on a Q_WINDOW-slot ring, on `mesh` or whole, each MoE layer's routing
-    recorded (`moe.record_choices`); the launch counts set to 0 just
-    before and read just after.  With `timed`: that many train steps
-    more, each timed, and nothing else."""
+    `train`) on a batch from `make_batch` (`s_batch`'s signature; default
+    `s_batch`), prefill of the same batch, the enc-dec family's cross
+    caches (`build_prep_cache_step`; kept for the checks where the mesh
+    has one rank), then Q_STEPS greedy decode steps on a `window`-slot
+    ring, on `mesh` or whole, each MoE layer's routing recorded
+    (`moe.record_choices`); the launch counts set to 0 just before and
+    read just after.  With `timed`: that many train steps more, each
+    timed, and nothing else."""
     from repro_torch.dist.dfl_step import (build_prefill_step,
+                                           build_prep_cache_step,
                                            build_serve_step,
                                            build_train_step)
     from repro_torch.dist.sharding import (distribute_tree, full_tree,
@@ -6043,7 +6071,7 @@ def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0,
         return out, 1e3 * (time.perf_counter() - t0)
 
     params = s_params(torch, lm, dev, 50, mesh)
-    whole = s_batch(torch, lm, dev, 51, shape=shape)
+    whole = (make_batch or s_batch)(torch, lm, dev, 51, shape=shape)
     batch = place(whole, make_batch_specs)
     out = {"ms": []}
     torch.cuda.synchronize()
@@ -6066,8 +6094,14 @@ def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0,
     serve = build_serve_step(lm, mesh=mesh)
     with moe.record_choices() as seen:
         logits = prefill(params, batch)
-        cache = place(lm.init_cache(shape[0], Q_WINDOW, device=dev),
+        cache = place(lm.init_cache(shape[0], window, device=dev),
                       make_cache_specs)
+        if lm.prep_decode_cache is not None:
+            cache = build_prep_cache_step(lm, mesh=mesh)(
+                params, cache, batch["enc_embeds"])
+            if mesh is None or mesh.size() == 1:
+                out["cross"] = [full_tree(cache[k]).clone()
+                                for k in ("cross_k", "cross_v")]
         tok = whole["tokens"][:, :1].contiguous()
         dec, toks = [], []
         for _ in range(Q_STEPS):
@@ -6086,10 +6120,12 @@ def s_run(torch, ops, lm, dev, mesh=None, train=True, timed=0,
     return out
 
 
-def s_round(torch, ops, lm, dev, name, mesh=None, shape=(Q_BATCH, Q_SEQ)):
+def s_round(torch, ops, lm, dev, name, mesh=None, shape=(Q_BATCH, Q_SEQ),
+            make_batch=None):
     """One DFL round of exchange `name` over two nodes on a ring, each
-    with a batch of `shape` (Q_BATCH x Q_SEQ; VT loss): on `mesh` (the
-    multi mesh)
+    with a batch of `shape` (Q_BATCH x Q_SEQ; VT loss) from `make_batch`
+    (`s_batch`'s signature; default `s_batch`): on `mesh` (the multi
+    mesh)
     this rank's pod block, node p drawn from seed 40 + p and cut to the
     pod's sub-mesh at once, else both nodes stacked; the launch counts
     set to 0 just before the round and read just after."""
@@ -6099,17 +6135,18 @@ def s_round(torch, ops, lm, dev, name, mesh=None, shape=(Q_BATCH, Q_SEQ)):
     from repro_torch.optim.sgd import sgd_momentum
     from repro_torch.utils.pytree import tree_map
 
+    make_batch = make_batch or s_batch
     if mesh is None:
         nodes = [s_params(torch, lm, dev, 40 + i) for i in range(2)]
         params = tree_map(lambda *xs: torch.stack(xs), *nodes)
         del nodes
-        batch = s_batch(torch, lm, dev, 41, lead=(2,), shape=shape)
+        batch = make_batch(torch, lm, dev, 41, lead=(2,), shape=shape)
     else:
         pod = pod_axis(mesh)[1]
         params = s_params(torch, lm, dev, 40 + pod, mesh, node=True)
         batch = place_node_block({k: v[pod:pod + 1].contiguous() for k, v in
-                                  s_batch(torch, lm, dev, 41, (2,),
-                                          shape).items()},
+                                  make_batch(torch, lm, dev, 41, (2,),
+                                             shape).items()},
                                  mesh, batch=True)
     opt = sgd_momentum(lr=3e-3, momentum=0.9)
     state = opt.init(params)
@@ -6135,8 +6172,8 @@ def s_shards(params):
 
 
 def s_worker(rank, n_ranks, out_dir, dims, jobs, results, acks):
-    """One rank of path s1 or t1 ((data, model) = (1, 2)) or s2 or t2
-    ((pod, data, model) = (2, 1, 2)) on the card (cuda:0) over the
+    """One rank of path s1, t1 or u1 ((data, model) = (1, 2)) or s2, t2
+    or u2 ((pod, data, model) = (2, 1, 2)) on the card (cuda:0) over the
     host-staged backend:
     runs the jobs the script's process sends (`jobs[rank]`), puts each
     result on `results` (its param shards as CUDA tensors, which the
@@ -6168,6 +6205,8 @@ def s_worker(rank, n_ranks, out_dir, dims, jobs, results, acks):
             kind = job["kind"]
             if job.get("path") == "t":
                 lm, got = t_job(torch, ops, dev, mesh, job)
+            elif job.get("path") == "u":
+                lm, got = u_job(torch, ops, dev, mesh, job)
             elif kind == "round":
                 lm = s_lm("mixtral-8x7b", "expertpar",
                           layers=S_ROUND_LAYERS)
@@ -6497,15 +6536,17 @@ def s_mixtral_arctic(torch, ops, dev, card, procs, jobs, results, acks,
 
 
 def s_refs(torch, ops, lm, dev, exchanges=S_EXCHANGES,
-           shape=(Q_BATCH, Q_SEQ)):
-    """Path s2's (or t2's) references: each exchange's unpartitioned
-    round of the two nodes, its params moved to the host (the int8 round
-    alone nearly fills the card: run before s2's ranks hold any of it)."""
+           shape=(Q_BATCH, Q_SEQ), make_batch=None):
+    """Path s2's (or t2's, u2's) references: each exchange's
+    unpartitioned round of the two nodes, its params moved to the host
+    (the int8 round alone nearly fills the card: run before s2's ranks
+    hold any of it)."""
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     refs = {}
     for name in exchanges:
-        ref = s_round(torch, ops, lm, dev, name, shape=shape)
+        ref = s_round(torch, ops, lm, dev, name, shape=shape,
+                      make_batch=make_batch)
         want = {"vt_kl_loss_fwd": 2, "vt_kl_loss_bwd": 2,
                 "decdiff_update": 1}
         check(ref["launches"] == {k: want.get(k, 0) for k in ops.LAUNCHES},
@@ -6686,6 +6727,12 @@ def t_lm(arch, dtype="float32", layers=None):
         param_dtype=dtype, activation_dtype=dtype))
 
 
+def t_run(torch, ops, lm, dev, mesh=None, timed=0):
+    """`s_run` of `lm` at path t's batch of T_BATCH x T_SEQ."""
+    return s_run(torch, ops, lm, dev, mesh, True, timed,
+                 shape=(T_BATCH, T_SEQ))
+
+
 def t_job(torch, ops, dev, mesh, job):
     """A path t job on a rank (`s_worker`): (the model, its result)."""
     if job["kind"] == "round":
@@ -6693,19 +6740,24 @@ def t_job(torch, ops, dev, mesh, job):
         return lm, s_round(torch, ops, lm, dev, job["exchange"], mesh,
                            shape=(T_BATCH, T_SEQ))
     lm = t_lm(job["arch"], job["dtype"])
-    return lm, s_run(torch, ops, lm, dev, mesh, True,
-                     T_TIMED if job["kind"] == "timed" else 0,
-                     shape=(T_BATCH, T_SEQ))
+    return lm, t_run(torch, ops, lm, dev, mesh,
+                     T_TIMED if job["kind"] == "timed" else 0)
 
 
-def t_launches(ops, lm, split):
-    """The launches of one `s_run` of `lm` (a train step, prefill and
-    Q_STEPS decode steps): the VT loss once each way, vocab-parallel on a
-    (1, 2) mesh (`split`); the decode attention once a shared-block
-    invocation a step, split-hd on (1, 2) (none in mamba2)."""
+def lm_launches(ops, lm, split):
+    """The launches of one `s_run` of `lm` (a train step, prefill, the
+    enc-dec cross caches and Q_STEPS decode steps): the VT loss once each
+    way, vocab-parallel on a (1, 2) mesh (`split`); the decode attention
+    once an attention layer (zamba2's shared-block invocations; none in
+    mamba2) and step, split-hd on (1, 2), and on (1, 2) an enc-dec
+    decoder layer's cross-attention once more through the split kernels
+    (whole, the plain attention)."""
     cfg = lm.cfg
-    calls = (cfg.n_layers // cfg.shared_attn_every
-             if cfg.family == "hybrid" else 0) * Q_STEPS
+    layers = (0 if cfg.family == "ssm" else
+              cfg.n_layers // cfg.shared_attn_every
+              if cfg.family == "hybrid" else cfg.n_layers)
+    calls = layers * Q_STEPS * (2 if split and cfg.family == "encdec"
+                                else 1)
     want = ({"vt_kl_partial_fwd": 1, "vt_kl_shard_bwd": 1,
              **{k: calls for k in R_SERVE}} if split else
             {"vt_kl_loss_fwd": 1, "vt_kl_loss_bwd": 1,
@@ -6713,56 +6765,64 @@ def t_launches(ops, lm, split):
     return {k: want.get(k, 0) for k in ops.LAUNCHES}
 
 
-def t_steps(torch, ops, dev, card, procs, jobs, results, acks, add):
-    """Paths t0 and t1 (the module docstring), with t1's two ranks waiting
-    for jobs: for each model the unpartitioned fp32 run (kept on the
-    card), the (1, 1) NCCL mesh bitwise against it, then the (1, 2) ranks
-    against it; mamba2's bf16 train step timed both ways."""
+def mesh_steps(torch, ops, dev, card, procs, jobs, results, acks, add, p):
+    """Paths t0 and t1 (or u0 and u1; the module docstring) of the path
+    `p` (`T_PATH`, `U_PATH`), with its (1, 2) ranks waiting for jobs: for
+    each model the unpartitioned fp32 run (kept on the card), the (1, 1)
+    NCCL mesh bitwise against it, then the (1, 2) ranks against it; the
+    bf16 train step of `p["timed_archs"]` timed both ways."""
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import full_tree
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.utils.pytree import tree_leaves
 
-    shape = (T_BATCH, T_SEQ)
-    out = {"t0": {}, "t1": {}, "ms": {}}
+    n = p["name"]
+    out = {n + "0": {}, n + "1": {}, "ms": {}}
     dist.init_process_group(
-        "nccl", store=dist.FileStore(str(T_DIR / "store0"), 1), rank=0,
+        "nccl", store=dist.FileStore(str(p["dir"] / "store0"), 1), rank=0,
         world_size=1, device_id=dev)
     try:
         mesh = make_host_mesh(data=1, model=1)
-        for arch in T_LAYERS:
+        for arch in p["layers"]:
             t_arch = time.perf_counter()
-            lm = t_lm(arch)
-            ref = s_run(torch, ops, lm, dev, shape=shape)
-            check(ref["launches"] == t_launches(ops, lm, False),
-                  f"path t ({arch}, unpartitioned): launches "
+            lm = p["lm"](arch)
+            ref = p["run"](torch, ops, lm, dev)
+            check(ref["launches"] == lm_launches(ops, lm, False),
+                  f"path {n} ({arch}, unpartitioned): launches "
                   f"{ref['launches']}")
-            got = s_run(torch, ops, lm, dev, mesh, shape=shape)
+            got = p["run"](torch, ops, lm, dev, mesh)
             add(got["launches"])
             same = {"loss": got["loss"] == ref["loss"], "params": all(
                 torch.equal(a, b) for a, b in zip(
                     tree_leaves(full_tree(got["params"])),
                     tree_leaves(ref["params"]))),
+                "cross": all(torch.equal(a, b) for a, b in zip(
+                    got.get("cross", []), ref.get("cross", []))),
                 **{k: bool(torch.equal(got[k], ref[k]))
                    for k in ("prefill", "decode", "tokens")}}
-            print(f"path t0 ({arch}, {lm.cfg.n_layers} layers, (data, "
-                  f"model) = (1, 1) on NCCL, {card}): loss "
+            print(f"path {n}0 ({arch}, {lm.cfg.n_layers} layers"
+                  + (f" + {lm.cfg.n_enc_layers} encoder layers"
+                     if lm.cfg.n_enc_layers else "")
+                  + f", (data, model) = (1, 1) on NCCL, {card}): loss "
                   f"{got['loss']:.6f}, bitwise the unpartitioned step "
-                  f"(loss, params, prefill, {Q_STEPS} decode steps, tokens) "
-                  f"= {all(same.values())}; launches "
+                  f"(loss, params, prefill, "
+                  + ("cross caches, " if "cross" in ref else "")
+                  + f"{Q_STEPS} decode steps, tokens) = "
+                  f"{all(same.values())}; launches "
                   f"{ {k: v for k, v in got['launches'].items() if v} }")
-            check(all(same.values()), f"path t0 ({arch}): the (1, 1) mesh "
-                                      f"differs: equal {same}")
+            check(all(same.values()), f"path {n}0 ({arch}): the (1, 1) "
+                                      f"mesh differs: equal {same}")
             check(got["launches"] == ref["launches"],
-                  f"path t0 ({arch}): launches {got['launches']}")
-            out["t0"][arch] = True
+                  f"path {n}0 ({arch}): launches {got['launches']}")
+            out[n + "0"][arch] = True
             del got
+            ref.pop("cross", None)
             gc.collect()
             torch.cuda.empty_cache()
-            # -- t1: the same steps on (1, 2), against the run kept here
+            # -- the same steps on (1, 2), against the run kept here
             ranks = s_ask(procs, jobs, results, {
-                "path": "t", "kind": "steps", "arch": arch,
+                "path": n, "kind": "steps", "arch": arch,
                 "dtype": "float32"})
             rows = []
             for r in ranks:
@@ -6771,59 +6831,66 @@ def t_steps(torch, ops, dev, card, procs, jobs, results, acks, add):
                                       r["coord"], (1, 2), dev)
                 gap = abs(r["loss"] - ref["loss"])
                 s_ok, text = s_serve_against(
-                    torch, r, ref, f"path t1 ({arch}) rank {r['rank']}",
+                    torch, r, ref, f"path {n}1 ({arch}) rank {r['rank']}",
                     1e-3, routed=False)
-                check(r["launches"] == t_launches(ops, lm, True),
-                      f"path t1 ({arch}) rank {r['rank']}: launches "
+                check(r["launches"] == lm_launches(ops, lm, True),
+                      f"path {n}1 ({arch}) rank {r['rank']}: launches "
                       f"{r['launches']}")
                 check(gap <= 1e-5 and ok and s_ok,
-                      f"path t1 ({arch}) rank {r['rank']}: loss gap "
+                      f"path {n}1 ({arch}) rank {r['rank']}: loss gap "
                       f"{gap:g}, params |diff| {err:g}; {text}")
                 rows.append(dict(loss_gap=gap, params_err=err, text=text,
                                  peak=r["peak"], ms=r["ms"]))
-            print(f"path t1 ({arch}, (1, 2) over the host-staged backend, "
-                  f"fp32, {card}): loss gap "
+            print(f"path {n}1 ({arch}, (1, 2) over the host-staged "
+                  f"backend, fp32, {card}): loss gap "
                   f"{max(x['loss_gap'] for x in rows):.3g}, params |diff| "
                   f"{max(x['params_err'] for x in rows):.3g} shard for "
                   f"shard (tolerance 1e-5); {rows[0]['text']}; peak "
                   f"{[x['peak'] for x in rows]} B (whole {ref['peak']} B); "
-                  f"t0 and t1 of this model in "
+                  f"{n}0 and {n}1 of this model in "
                   f"{time.perf_counter() - t_arch:.1f} s")
-            out["t1"][arch] = rows
+            out[n + "1"][arch] = rows
             del ranks, ref, r  # the last rank's shards too (CUDA IPC)
             s_release(procs, results, acks)
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    # -- the bf16 train step, timed both ways
+    # -- the bf16 train steps, timed both ways
 
     def med(ms):
         return round(statistics.median(ms[1:] if len(ms) > 1 else ms), 3)
 
-    for arch in (T_TIMED_ARCH,):
-        base = s_run(torch, ops, t_lm(arch, "bfloat16"), dev,
-                     timed=T_TIMED, shape=shape)
-        check(math.isfinite(base["loss"]), f"path t ({arch}): bf16 loss "
+    for arch in p["timed_archs"]:
+        base = p["run"](torch, ops, p["lm"](arch, "bfloat16"), dev,
+                        timed=p["timed"])
+        check(math.isfinite(base["loss"]), f"path {n} ({arch}): bf16 loss "
                                            f"not finite")
         torch.cuda.empty_cache()
         ranks = s_ask(procs, jobs, results, {
-            "path": "t", "kind": "timed", "arch": arch, "dtype": "bfloat16"})
+            "path": n, "kind": "timed", "arch": arch, "dtype": "bfloat16"})
         s_release(procs, results, acks)
         check(all(math.isfinite(r["loss"]) for r in ranks),
-              f"path t1 ({arch}): bf16 loss not finite")
+              f"path {n}1 ({arch}): bf16 loss not finite")
         out["ms"][arch] = {"unpartitioned_bf16": med(base["ms"]),
                            "partitioned_bf16": [med(r["ms"]) for r in ranks],
                            "peak": base["peak"],
                            "partitioned_peak": [r["peak"] for r in ranks]}
-        print(f"path t1 (bf16 {arch} train step, {T_LAYERS[arch]} layers, "
-              f"{T_BATCH} x {T_SEQ}, ms, median of {T_TIMED} after one; "
-              f"{card}): unpartitioned "
+        print(f"path {n}1 (bf16 {arch} train step, {p['layers'][arch]} "
+              f"layers, {p['batch'](arch)}, ms, median of {p['timed']} "
+              f"after one; {card}): unpartitioned "
               f"{out['ms'][arch]['unpartitioned_bf16']} (peak "
               f"{base['peak']} B), (1, 2) over the host-staged backend by "
               f"rank {out['ms'][arch]['partitioned_bf16']} (peak "
               f"{out['ms'][arch]['partitioned_peak']} B)")
+        del base, ranks
+        torch.cuda.empty_cache()
     out["imported"] = s_end(procs, jobs, results)
     return out
+
+
+T_PATH = dict(name="t", dir=T_DIR, layers=T_LAYERS, lm=t_lm, run=t_run,
+              timed_archs=(T_TIMED_ARCH,), timed=T_TIMED,
+              batch=lambda arch: f"{T_BATCH} x {T_SEQ}")
 
 
 def path_t(torch, ops, dev, card):
@@ -6857,7 +6924,8 @@ def path_t(torch, ops, dev, card):
 
     procs, jobs, results, acks = s_spawn(2, (1, 2), T_DIR)
     try:
-        out = t_steps(torch, ops, dev, card, procs, jobs, results, acks, add)
+        out = mesh_steps(torch, ops, dev, card, procs, jobs, results, acks,
+                         add, T_PATH)
     except BaseException:
         s_kill(procs)
         raise
@@ -6909,6 +6977,173 @@ def path_t(torch, ops, dev, card):
     out["s"] = round(time.perf_counter() - t_t, 1)
     print(f"path t in all {out['s']:.1f} s (t0 + t1 {t_t1:.1f} s, t2 "
           f"{t_t2:.1f} s)")
+    return out
+
+
+# ----------------------------------------------------------------- path u
+# the partitioned enc-dec and VLM steps (ROADMAP A.14.4) at full width
+
+U_DIR = ROOT / "build" / "path_u"     # path u's rendezvous
+# of 32 + 32 (whisper: encoder + decoder; 4 + 4 until the whole script's
+# time limit) and 32 (llava): the time limit
+U_LAYERS = {"whisper-large-v3": 2, "llava-next-mistral-7b": 2}
+# whisper: 448 decoder tokens after a 30 s window's 1500 frames; llava:
+# 128 text tokens after its 2880 anyres image tokens
+U_SHAPE = {"whisper-large-v3": (2, 448), "llava-next-mistral-7b": (2, 128)}
+U_ENC_LEN = 1500
+U_WINDOW = {"whisper-large-v3": 448, "llava-next-mistral-7b": Q_WINDOW}
+U_ROUND_LAYERS = 2                    # u2's whisper, encoder and decoder
+U_EXCHANGES = ("bf16", "int8")
+U_TIMED = 3                           # bf16 train steps timed after one
+U_TIMED_ARCHS = ("whisper-large-v3",)  # the model timed (llava's (1, 2)
+#                                       step takes ~3.2 s a step)
+
+
+def u_lm(arch, dtype="float32", layers=None):
+    """Full-width `arch` cut to U_LAYERS layers (or `layers`; whisper's
+    encoder as its decoder), with `dtype` params and activations."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+
+    cfg = get_config(arch)
+    n = layers or U_LAYERS[arch]
+    return build_lm(dataclasses.replace(
+        cfg, n_layers=n, n_enc_layers=n if cfg.n_enc_layers else 0,
+        param_dtype=dtype, activation_dtype=dtype))
+
+
+def u_batch(torch, lm, dev, seed, lead=(), shape=None):
+    """`s_batch` at the model's U_SHAPE (or `shape`), with whisper's
+    U_ENC_LEN encoder frames or llava's image embeddings, N(0, 1) in the
+    activation dtype."""
+    cfg = lm.cfg
+    shape = shape or U_SHAPE[cfg.arch_id]
+    out = s_batch(torch, lm, dev, seed, lead, shape)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    key, n = (("enc_embeds", U_ENC_LEN) if cfg.family == "encdec"
+              else ("img_embeds", cfg.img_tokens))
+    out[key] = torch.randn(lead + (shape[0], n, cfg.d_model), generator=g,
+                           device=dev).to(cfg.adtype)
+    return out
+
+
+def u_run(torch, ops, lm, dev, mesh=None, timed=0):
+    """`s_run` of `lm` at its U_SHAPE batch (`u_batch`) and U_WINDOW
+    ring."""
+    arch = lm.cfg.arch_id
+    return s_run(torch, ops, lm, dev, mesh, True, timed,
+                 shape=U_SHAPE[arch], make_batch=u_batch,
+                 window=U_WINDOW[arch])
+
+
+def u_job(torch, ops, dev, mesh, job):
+    """A path u job on a rank (`s_worker`): (the model, its result)."""
+    if job["kind"] == "round":
+        lm = u_lm("whisper-large-v3", layers=U_ROUND_LAYERS)
+        return lm, s_round(torch, ops, lm, dev, job["exchange"], mesh,
+                           shape=U_SHAPE["whisper-large-v3"],
+                           make_batch=u_batch)
+    lm = u_lm(job["arch"], job["dtype"])
+    return lm, u_run(torch, ops, lm, dev, mesh,
+                     U_TIMED if job["kind"] == "timed" else 0)
+
+
+U_PATH = dict(name="u", dir=U_DIR, layers=U_LAYERS, lm=u_lm, run=u_run,
+              timed_archs=U_TIMED_ARCHS, timed=U_TIMED,
+              batch=lambda arch: " x ".join(map(str, U_SHAPE[arch])))
+
+
+def path_u(torch, ops, dev, card):
+    """The partitioned enc-dec and VLM steps (see the module docstring):
+    u0 the unpartitioned whisper and llava runs and the (1, 1) NCCL mesh,
+    bitwise; u1 the (1, 2) mesh of two host-staged ranks sharing the card
+    against them, and whisper's bf16 train step timed both ways; u2 the
+    (2, 1, 2) mesh's DFL round of two whisper nodes; then the split
+    kernels at path u's shapes.  Returns the launches, the kernels'
+    checks and the ms."""
+    import shutil
+
+    t_u = time.perf_counter()
+    if U_DIR.exists():
+        shutil.rmtree(U_DIR)
+    U_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wl, ll = U_LAYERS["whisper-large-v3"], U_LAYERS["llava-next-mistral-7b"]
+    print(f"path u cuts: whisper-large-v3 {wl} + {wl} of 32 + 32 layers "
+          f"(encoder + decoder), llava-next-mistral-7b {ll} of 32 (the "
+          f"script's time limit), fp32 for the checks; whisper's batch 2 x "
+          f"448 decoder tokens after {U_ENC_LEN} frames, llava's 2 x 128 "
+          f"text tokens after 2880 image tokens; model = 2 on one card (the "
+          f"reference partitions over (16, 16)); u2's round: whisper "
+          f"{U_ROUND_LAYERS} + {U_ROUND_LAYERS} layers in fp32 with the bf16 "
+          f"and int8 exchanges ({card})")
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    procs, jobs, results, acks = s_spawn(2, (1, 2), U_DIR)
+    try:
+        out = mesh_steps(torch, ops, dev, card, procs, jobs, results, acks,
+                         add, U_PATH)
+    except BaseException:
+        s_kill(procs)
+        raise
+    t_u1 = time.perf_counter() - t_u
+    lm = u_lm("whisper-large-v3", layers=U_ROUND_LAYERS)
+    procs, jobs, results, acks = s_spawn(4, (2, 1, 2), U_DIR)
+    try:
+        refs = s_refs(torch, ops, lm, dev, U_EXCHANGES,
+                      U_SHAPE["whisper-large-v3"], make_batch=u_batch)
+        out["u2"], imported = s_multi(torch, ops, dev, card, refs, procs,
+                                      jobs, results, acks, add, label="u2",
+                                      job={"path": "u"})
+    except BaseException:
+        s_kill(procs)
+        raise
+    imported += out.pop("imported")
+    check(all(i == [] for i in imported), f"path u: ranks imported "
+                                          f"{imported}")
+    t_u2 = time.perf_counter() - t_u - t_u1
+    # -- the split kernels at path u's shapes, against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(35)
+    out["vt"] = {}
+    for arch in U_LAYERS:
+        vocab, rows = u_lm(arch).cfg.vocab, math.prod(U_SHAPE[arch])
+        y = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            z = (torch.randn((rows, vocab), generator=gen, device=dev)
+                 * 3).to(dtype)
+            out["vt"][arch, str(dtype)] = q_vt_split(torch, ops, z, y, 2)
+            del z
+    out["da"] = {}
+    for label, arch, w in (("whisper ring", "whisper-large-v3", 448),
+                           ("whisper cross", "whisper-large-v3", U_ENC_LEN),
+                           ("llava ring", "llava-next-mistral-7b", Q_WINDOW)):
+        cfg = u_lm(arch).cfg
+        b = U_SHAPE[arch][0]
+        sp = torch.arange(w, dtype=torch.int32, device=dev)
+        pos = torch.tensor(w - 1, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, cfg.n_heads, cfg.head_dim),
+                                     *[(b, w, cfg.n_kv_heads,
+                                        cfg.head_dim)] * 2))
+            out["da"][label, str(dtype)] = q_decode_split(
+                torch, ops, q, k, v, sp, pos, 2, row=b - 1)
+            del q, k, v
+    out["split"] = r_split_check(
+        torch, dev, gen, lm, label=f"path u2's flat block (whisper-large-v3, "
+                                   f"{U_ROUND_LAYERS} + {U_ROUND_LAYERS} "
+                                   f"layers)")
+    out["launches"] = launches
+    out["s"] = round(time.perf_counter() - t_u, 1)
+    print(f"path u in all {out['s']:.1f} s (u0 + u1 {t_u1:.1f} s, u2 "
+          f"{t_u2:.1f} s)")
     return out
 
 
@@ -6989,6 +7224,11 @@ def main() -> int:
     if "--path-t" in sys.argv[1:]:  # path t alone, for its development
         path_t(torch, ops, dev, card)
         print(f"chip_smoke --path-t finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--path-u" in sys.argv[1:]:  # path u alone, for its development
+        path_u(torch, ops, dev, card)
+        print(f"chip_smoke --path-u finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--path-q-decode" in sys.argv[1:]:  # B.9's split kernels alone
@@ -7435,6 +7675,10 @@ def main() -> int:
 
     # -- path t: the partitioned SSM and hybrid steps ----------------------
     lmt = path_t(torch, ops, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- path u: the partitioned enc-dec and VLM steps ---------------------
+    lmu = path_u(torch, ops, dev, card)
 
     by_path = {"a": l_plain, "b": l_edge, "c": l_node, "d": lmd["launches"],
                "d_int8_route": l_dq1, "e": lme["launches"], "f": l_fed,
@@ -7443,7 +7687,7 @@ def main() -> int:
                      for k in ops.LAUNCHES},
                "p": lmp["total"], "q": lmq["launches"],
                "r": lmr["launches"], "s": lms["launches"],
-               "t": lmt["launches"],
+               "t": lmt["launches"], "u": lmu["launches"],
                **sparse_launches,
                "h": {k: sum(lmh[r]["launches"][k]
                             for r in ("h0", "h1", "h2", "h3"))
@@ -7545,7 +7789,7 @@ def main() -> int:
               dtype=lmr["split"]["dtype"],
               counted_columns=lmr["split"]["counted_columns"],
               norm_err=lmr["split"]["norm_err"], path_s=at_j(lms["split"]),
-              path_t=at_j(lmt["split"])),
+              path_t=at_j(lmt["split"]), path_u=at_j(lmu["split"])),
         entry("drift_norms", "decdiff_update",
               "src/repro/kernels/decdiff_update.py:42", drift,
               other_shapes=[at_j(drift_c)], path_m=at_j(drift_m)),
@@ -7558,14 +7802,16 @@ def main() -> int:
               other_shapes=[at_j(c["fwd"]) for key, c in lmq["vt"].items()
                             if key != ("torch.float32", 2)],
               path_s=[at_j(c["fwd"]) for c in lms["vt"].values()],
-              path_t=[at_j(c["fwd"]) for c in lmt["vt"].values()]),
+              path_t=[at_j(c["fwd"]) for c in lmt["vt"].values()],
+              path_u=[at_j(c["fwd"]) for c in lmu["vt"].values()]),
         entry("vt_kl_shard_bwd", "vt_kl_loss",
               "src/repro/kernels/vt_kl_loss.py:127",
               at_j(lmq["vt"]["torch.float32", 2]["bwd"]),
               other_shapes=[at_j(c["bwd"]) for key, c in lmq["vt"].items()
                             if key != ("torch.float32", 2)],
               path_s=[at_j(c["bwd"]) for c in lms["vt"].values()],
-              path_t=[at_j(c["bwd"]) for c in lmt["vt"].values()]),
+              path_t=[at_j(c["bwd"]) for c in lmt["vt"].values()],
+              path_u=[at_j(c["bwd"]) for c in lmu["vt"].values()]),
         entry("decode_scores_partial", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["scores"]),
@@ -7576,7 +7822,8 @@ def main() -> int:
               + [at_j(m["scores"]) for m in lmq["da_gqa"].values()],
               path_q1=[c["scores"] for c in lmq["da_q1"].values()],
               path_s=[at_j(c["scores"]) for c in lms["da"].values()],
-              path_t=[at_j(c["scores"]) for c in lmt["da"].values()]),
+              path_t=[at_j(c["scores"]) for c in lmt["da"].values()],
+              path_u=[at_j(c["scores"]) for c in lmu["da"].values()]),
         entry("decode_softmax_combine", "decode_attention_split",
               "src/repro/kernels/decode_attention.py:92",
               at_j(lmq["da"][2]["combine"]),
@@ -7585,7 +7832,8 @@ def main() -> int:
               + [at_j(m["combine"]) for m in lmq["da_gqa"].values()],
               path_q1=[c["combine"] for c in lmq["da_q1"].values()],
               path_s=[at_j(c["combine"]) for c in lms["da"].values()],
-              path_t=[at_j(c["combine"]) for c in lmt["da"].values()]),
+              path_t=[at_j(c["combine"]) for c in lmt["da"].values()],
+              path_u=[at_j(c["combine"]) for c in lmu["da"].values()]),
     ]
     print(f"path d: ms per round {lmd['ms']}, peak device memory "
           f"{lmd['peak']} B, losses {lmd['losses']}")
@@ -7669,6 +7917,12 @@ def main() -> int:
               f"rank {m['partitioned_bf16']}"
               for arch, m in lmt["ms"].items())
           + f"; path t in all {lmt['s']:.1f} s")
+    print(f"path u (the partitioned enc-dec and VLM steps, {card}): bf16 "
+          f"train ms " + "; ".join(
+              f"{arch} unpartitioned {m['unpartitioned_bf16']}, (1, 2) by "
+              f"rank {m['partitioned_bf16']}"
+              for arch, m in lmu["ms"].items())
+          + f"; path u in all {lmu['s']:.1f} s")
     print(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,7 +17,9 @@ reference's spec (`sharding.placements`):
                             is never gathered);
   * `constrain_expert_sharded` — [B, E, C, D]: experts over "model";
   * `gather_weights`      — one layer's weights replicated (ZeRO-3's
-                            just-in-time all-gather).
+                            just-in-time all-gather);
+  * `stack_like`          — per-layer tensors stacked into a placed
+                            cache's layout (the enc-dec cross caches).
 
 `vocab_shard(mesh, v)` states that vocabulary split once (whether V lies
 over "model", this rank's offset, the group) for the embedding, the
@@ -34,6 +36,8 @@ import contextlib
 import dataclasses
 import math
 from typing import Optional
+
+import torch
 
 from repro_torch.dist.sharding import (DATA_AXIS, MODEL_AXIS, NODE_AXIS,
                                        _sizes, placements)
@@ -188,6 +192,28 @@ def constrain_expert_sharded(h):
     spec[0] = _batch_axes(mesh, h.shape[0])
     spec[1] = _axis(mesh, MODEL_AXIS, h.shape[1])
     return _constrain(mesh, h, spec)
+
+
+def stack_like(parts, like):
+    """`torch.stack(parts)` in `like`'s dtype: [L, ...] from L tensors
+    [...], a stack of per-layer caches replacing `like`.  Where `like` is
+    a DTensor (a cache placed by the specs) each part is first placed as a
+    layer of `like` lies (its placements a dim lower; the stacked dim is
+    never split) and the local shards are stacked, so the result lies as
+    `like` does."""
+    if type(like).__name__ != "DTensor":
+        return torch.stack(parts).to(like.dtype)
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = like.device_mesh
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in like.placements]
+    local = torch.stack([t.redistribute(mesh, pl).to_local()
+                         for t in parts]).to(like.dtype)
+    shape = (len(parts),) + tuple(parts[0].shape)
+    return DTensor.from_local(local, mesh, like.placements, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def gather_weights(layer_params):

@@ -44,15 +44,18 @@ state, batch and cache as DTensors by `dist.sharding`'s specs
 (`models/lm/layers.py`: tensor parallelism over "model", the batch over
 "data", vocab-parallel logits and loss), returns the loss whole and the
 logits vocab-sharded, and updates the placed params, state and cache in
-place.  The dense, MoE, SSM and hybrid families partition
-(`PARTITIONED_FAMILIES`; ROADMAP A.14.4 queues enc-dec and VLM); an MoE
-model's params are placed by the specs with
+place.  Every family partitions; an MoE model's params are placed by the
+specs with
 `expert_parallel=cfg.expert_parallel` (`models/lm/moe.py`: routing and
 dispatch on each rank's batch shard, the global pool's counts
 all-gathered, the expert GLU tensor-parallel or expert-parallel); an SSM
 layer (mamba2, and zamba2's mamba layers) runs on each rank's own heads,
 and decodes in the cache specs' layout, its state split over N
-(`models/lm/ssm.py`).
+(`models/lm/ssm.py`); the enc-dec encoder and decoder and the VLM's
+trunk run on the dense layers (`models/lm/encdec.py`, `vlm.py`), and
+`build_prep_cache_step` fills the enc-dec cross caches in the cache
+specs' placements, which the decode step's cross-attention reads in
+place through the split-hd kernels.
 
 `build_dfl_round(..., mesh=)` takes the multi mesh (pod, data, model): the
 round partitioned inside each pod, the counterpart of the reference's
@@ -95,9 +98,6 @@ from repro_torch.utils.pytree import (
 )
 
 DEFAULT_S = 1.0  # the paper's Eq. 5 denominator offset
-
-# the families whose steps take a mesh (ROADMAP A.14.4 queues the others)
-PARTITIONED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _normalized(adj: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -154,20 +154,15 @@ def decdiff_gossip(stacked, adj, s=DEFAULT_S, *, mask=None,
     return _decdiff_apply(stacked, full, wn, row, s)
 
 
-def _on_mesh(lm, mesh):
+def _on_mesh(mesh):
     """The context a step runs in: `use_mesh(mesh)`, or none."""
     if mesh is None:
         return contextlib.nullcontext
-    if lm.cfg.family not in PARTITIONED_FAMILIES:
-        raise NotImplementedError(
-            f"a partitioned step of the {lm.cfg.family!r} family is not "
-            f"ported yet (ROADMAP A.14.4); the dense, MoE, SSM and "
-            f"hybrid families partition")
     return lambda: use_mesh(mesh)
 
 
 def _make_node_step(lm, opt, loss_kind, beta, mesh=None):
-    context = _on_mesh(lm, mesh)
+    context = _on_mesh(mesh)
 
     def node_step(params, opt_state, step, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -195,7 +190,7 @@ def build_train_step(lm, opt, *, loss_kind: str = "vt", beta: float = 0.98,
 def build_prefill_step(lm, *, mesh=None):
     """(params, batch) -> logits: the forward pass, teacher-forced (on
     `mesh`, vocab-sharded DTensor logits)."""
-    context = _on_mesh(lm, mesh)
+    context = _on_mesh(mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -212,7 +207,7 @@ def build_serve_step(lm, *, mesh=None):
     (`torch.no_grad()` on `mesh`).  The cache is updated in place and
     returned (on `mesh`, the placed cache's local shards; the logits
     vocab-sharded)."""
-    context = _on_mesh(lm, mesh)
+    context = _on_mesh(mesh)
 
     # DTensor ops do not run on inference tensors: no_grad on a mesh
     grad_off = torch.inference_mode if mesh is None else torch.no_grad
@@ -222,6 +217,27 @@ def build_serve_step(lm, *, mesh=None):
             return lm.decode_step(params, cache, tokens)
 
     return serve_step
+
+
+def build_prep_cache_step(lm, *, mesh=None):
+    """(params, cache, enc_embeds [B, S_enc, D]) -> the cache with every
+    decoder layer's cross-attention K / V (the enc-dec family's
+    `prep_decode_cache`: the encoder once), under
+    `torch.inference_mode()` (`torch.no_grad()` on `mesh`).  On `mesh`
+    the caller places enc_embeds by the batch specs and the cache by the
+    cache specs; the cross caches come back in the cache's placements,
+    where `build_serve_step` reads them."""
+    if lm.prep_decode_cache is None:
+        raise ValueError(f"the {lm.cfg.family!r} family has no cache to "
+                         f"prepare (enc-dec only)")
+    context = _on_mesh(mesh)
+    grad_off = torch.inference_mode if mesh is None else torch.no_grad
+
+    def prep_cache_step(params, cache, enc_embeds):
+        with context(), grad_off():
+            return lm.prep_decode_cache(params, cache, enc_embeds)
+
+    return prep_cache_step
 
 
 def _as_device(x, dev) -> Optional[torch.Tensor]:

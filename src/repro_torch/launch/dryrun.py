@@ -33,9 +33,8 @@ combination it
      score block is 4096 x 8192 (the default 512 x 1024 chunks would make
      the trace walk 64 times the blocks).
 
-The dense, MoE, SSM and hybrid families (`partitions`: qwen1.5-0.5b,
-deepseek-7b, qwen2.5-14b, qwen3-32b, mixtral-8x7b, arctic-480b,
-mamba2-2.7b, zamba2-2.7b) trace the PARTITIONED step instead, as the reference compiles it: params (with
+Every family (`partitions`: all ten archs) traces the PARTITIONED step
+instead, as the reference compiles it: params (with
 `expert_parallel=cfg.expert_parallel`), optimizer state, batch and cache
 placed by the specs, and
 `build_*_step(mesh=)` run at the global batch on the fake group (steps 3
@@ -53,10 +52,9 @@ and the collectives (`launch/comm_analysis.py`, the counterpart of the
 reference's `hlo_analysis.collective_bytes`, under its keys) are per
 device as they come, and `temp_size_in_bytes` is the sharded step's own
 peak (`temp_is_upper_bound: false`); the record says `"partitioned":
-true`.  Every other combination keeps the estimate above and says
-`"partitioned": false` with the ROADMAP item that would partition it, or,
-for the multi mesh's shard_map variants, that they trace the reference's
-own shard_map design (each pod holds its nodes whole).
+true`.  The multi mesh's shard_map variants keep the estimate above and
+say `"partitioned": false`: they trace the reference's own shard_map
+design (each pod holds its nodes whole).
 
 XLA counts a while-loop body once, so the reference compiles extra
 calibration points (1 and 2 layers) and extrapolates; a dispatch-level
@@ -100,7 +98,6 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.dist.dfl_step import (
-    PARTITIONED_FAMILIES,
     build_dfl_round,
     build_prefill_step,
     build_serve_step,
@@ -188,11 +185,6 @@ def _adapt_config(cfg, shape_name: str, layer_override=None):
     return dataclasses.replace(cfg, **over)
 
 
-# Why a combination is not partitioned, by family (ROADMAP A.14's queue).
-_NOT_PARTITIONED = {
-    "encdec": "the enc-dec family's partitioned step (ROADMAP A.14.4)",
-    "vlm": "the VLM family's partitioned step (ROADMAP A.14.4)",
-}
 _SHARDMAP_REASON = (
     "the reference's shard_map form of the DFL round: every axis manual, "
     "so each pod holds its nodes' full replicas (src/repro/dist/"
@@ -201,11 +193,9 @@ _SHARDMAP_REASON = (
 
 def partitions(cfg, mesh_kind: str, variant_override=None):
     """(whether the combination traces the partitioned step, and why not
-    when it does not): the families of `PARTITIONED_FAMILIES` do, on the
-    single mesh and on the multi mesh, except for the multi mesh's shard_map variants,
-    which trace the reference's own design (`_SHARDMAP_REASON`)."""
-    if cfg.family not in PARTITIONED_FAMILIES:
-        return False, _NOT_PARTITIONED[cfg.family]
+    when it does not): every family does, on the single mesh and on the
+    multi mesh, except for the multi mesh's shard_map variants, which
+    trace the reference's own design (`_SHARDMAP_REASON`)."""
     if mesh_kind == "multi" and (variant_override or {}).get(
             "_dfl_shardmap"):
         return False, _SHARDMAP_REASON
@@ -695,7 +685,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         part, reason = partitions(base, mesh_kind, variant_override)
         twin = same_as(variant_override, part,
                        keep=("_dfl_shardmap",) if mesh_kind == "multi"
-                       and base.family in PARTITIONED_FAMILIES else ())
+                       else ())
         if twin is not None:
             rec.update(ok=True, same_as=twin)
         else:

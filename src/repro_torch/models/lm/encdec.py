@@ -19,6 +19,15 @@ encoder.  A decode step's self-attention runs through
 its cross-attention over the encoder cache through the plain `attention`
 path, as the reference's does in `jnp`.  The self-attention ring is
 updated in place.
+
+On a mesh (`dist.constraints.use_mesh`, params, batch and cache placed by
+the specs) the encoder and the teacher-forced decoder run on the dense
+family's partitioned layers (the cross K / V projected column-parallel in
+the decoder q's head layout); `prefill_cross_cache` returns the cross
+caches in the cache specs' placements (B over "data", hd over "model");
+and a decode step's cross-attention over a cache whose hd "model" splits
+runs through the split-hd kernels (`layers.cross_decode_attention`), so
+that the cache never moves.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from repro_torch.dist.constraints import (
     constrain_logits,
     constrain_residual,
     gather_weights,
+    stack_like,
 )
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.dense import ring_view
@@ -36,6 +46,7 @@ from repro_torch.models.lm.layers import (
     CacheSpec,
     apply_norm,
     attention,
+    cross_decode_attention,
     cross_kv,
     decode_attention,
     embed,
@@ -169,12 +180,13 @@ def init_cache_encdec(cfg: ArchConfig, batch: int, seq_len: int,
 def prefill_cross_cache(cfg: ArchConfig, params, cache, enc_embeds):
     """Run the encoder once on enc_embeds [B, S_enc, D] and return the
     cache with every decoder layer's cross K / V [L, B, S_enc, K, hd] (new
-    tensors in the cache's dtype; the ring is the same)."""
+    tensors in the cache's dtype and, on a mesh, in its placements: B over
+    "data", hd over "model" by the cache specs; the ring is the same)."""
     enc_out = encode(cfg, params, enc_embeds)
     ks, vs = zip(*(cross_kv(cfg, lp["cross_attn"], enc_out)
                    for lp in layer_params(params["dec_layers"])))
-    return dict(cache, cross_k=torch.stack(ks).to(cache["cross_k"].dtype),
-                cross_v=torch.stack(vs).to(cache["cross_v"].dtype))
+    return dict(cache, cross_k=stack_like(ks, cache["cross_k"]),
+                cross_v=stack_like(vs, cache["cross_v"]))
 
 
 def decode_step_encdec(cfg: ArchConfig, params, cache, tokens):
@@ -182,17 +194,14 @@ def decode_step_encdec(cfg: ArchConfig, params, cache, tokens):
     caches: tokens [B, 1] -> (logits [B, 1, V], cache)."""
     x = embed(cfg, params["embed"], tokens)
     length = cache["length"]
-    enc_pos = torch.arange(cache["cross_k"].shape[2], dtype=torch.int32,
-                           device=x.device)
     for layer, lp in enumerate(layer_params(params["dec_layers"])):
         a, _ = decode_attention(cfg, lp["self_attn"],
                                 apply_norm(cfg, x, lp["ln1"]),
                                 ring_view(cache, layer), length)
         x = x + a
-        kv = (cache["cross_k"][layer], cache["cross_v"][layer], enc_pos)
-        x = x + attention(cfg, lp["cross_attn"],
-                          apply_norm(cfg, x, lp["ln_x"]), length.reshape(1),
-                          causal=False, kv_override=kv)
+        x = x + cross_decode_attention(
+            cfg, lp["cross_attn"], apply_norm(cfg, x, lp["ln_x"]),
+            cache["cross_k"][layer], cache["cross_v"][layer], length)
         x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
     x = apply_norm(cfg, x, params["final_norm"])
     logits = unembed(cfg, params.get("unembed"), params["embed"], x)

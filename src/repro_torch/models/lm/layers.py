@@ -49,6 +49,8 @@ partitioned, the counterpart of GSPMD's partitioning of the reference:
     the split-hd kernels: partial q·k over the local hd
     (`ops.decode_scores_partial`), an all-reduce over "model", then
     mask, softmax and p·v into the local hd (`ops.decode_softmax_combine`);
+    `cross_decode_attention` runs the enc-dec decoder's cross-attention
+    over its hd-split encoder cache through the same kernels;
   * a computation written on local tensors (the SSM layer, `ssm.py`)
     takes its inputs through `_local_part`, which says how autograd
     sums their gradients, and a norm over features split over "model"
@@ -372,13 +374,37 @@ def attention(cfg: ArchConfig, p, x, positions=None, *, causal: bool = True,
 def cross_kv(cfg: ArchConfig, p, enc_out):
     """Cross-attention K / V [B, S_enc, K, hd] from the encoder output (the
     enc-dec decoder's, precomputed once for decoding): the k and v
-    projections, qk-norm on k, no RoPE."""
+    projections, qk-norm on k, no RoPE.  On a mesh their heads lie as
+    `_project_qkv` lays a self-attention's K / V."""
     b, s, _ = enc_out.shape
-    k = linear(enc_out, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(enc_out, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        k = rms_norm(k, p["k_norm"]["scale"])
-    return k, v
+    hd = cfg.head_dim
+    _, kv_split = _head_split(cfg, _mesh_of(enc_out))
+    k = linear(enc_out, p["wk"], unit=hd).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(enc_out, p["wv"], unit=hd).reshape(b, s, cfg.n_kv_heads, hd)
+    return (_heads(cfg, p, k, None, False, "k_norm", kv_split),
+            _heads(cfg, p, v, None, False, None, kv_split))
+
+
+def cross_decode_attention(cfg: ArchConfig, p, x, cross_k, cross_v, length):
+    """One decoder token's cross-attention over one layer's encoder K / V
+    cache [B, S_enc, K, hd] (every slot live; k not turned by RoPE, q
+    turned at `length`): x [B, 1, D] -> [B, 1, D].  The plain `attention`,
+    as the reference computes it, except on a mesh whose "model" splits
+    the cache's hd: there the split-hd kernels of `decode_attention` run
+    on the local shards, over slot positions 0 .. S_enc − 1 with the
+    query at S_enc − 1, and the cache never moves."""
+    enc_len = cross_k.shape[1]
+    mesh = _mesh_of(x)
+    if mesh is None or not _hd_split(mesh, cross_k):
+        enc_pos = torch.arange(enc_len, dtype=torch.int32, device=x.device)
+        return attention(cfg, p, x, length.reshape(1), causal=False,
+                         kv_override=(cross_k, cross_v, enc_pos))
+    pos = _local_value(length)
+    q = _project_q(cfg, p, x, pos.reshape(1))
+    kl = cross_k.to_local()
+    slots = torch.arange(enc_len, dtype=torch.int32, device=kl.device)
+    return _attend_on_mesh(cfg, mesh, p, x, q, cross_k, kl,
+                           cross_v.to_local(), slots, slots[-1], 0)
 
 
 # ------------------------------------------------- decode (ring KV cache)
@@ -479,7 +505,7 @@ def embed(cfg: ArchConfig, p, tokens: torch.Tensor):
     mesh = _mesh_of(p["table"])
     if mesh is not None:
         return _embed_on_mesh(cfg, mesh, p["table"], tokens)
-    return p["table"].to(cfg.adtype)[tokens.to(torch.int64)]
+    return F.embedding(tokens.to(torch.int64), p["table"].to(cfg.adtype))
 
 
 def unembed(cfg: ArchConfig, p_unemb, p_emb, x):
@@ -776,10 +802,10 @@ def _embed_on_mesh(cfg, mesh, table, tokens):
     def look_up(t, tok):
         idx = tok.to(torch.int64)
         if not vocab.split:
-            return t.to(cfg.adtype)[idx]
+            return F.embedding(idx, t.to(cfg.adtype))
         idx = idx - vocab.offset
         ok = (idx >= 0) & (idx < t.shape[0])
-        rows = t.to(cfg.adtype)[torch.where(ok, idx, 0)]
+        rows = F.embedding(torch.where(ok, idx, 0), t.to(cfg.adtype))
         return _SumOverShards.apply(
             torch.where(ok[..., None], rows, torch.zeros_like(rows)),
             vocab.group)
@@ -793,15 +819,22 @@ def _embed_on_mesh(cfg, mesh, table, tokens):
                      device_mesh=mesh)(table, tokens)
 
 
+def _hd_split(mesh, k_cache) -> bool:
+    """Whether a placed ring [B, W, K, hd] has its hd split over "model"
+    (of more than one rank)."""
+    from torch.distributed.tensor import Shard
+
+    i = _model_index(mesh)
+    return i is not None and _model_size(mesh) > 1 \
+        and k_cache.placements[i] == Shard(3)
+
+
 def _decode_attention_on_mesh(cfg, mesh, p, x, layer_cache, length):
     """`decode_attention` on a mesh: the ring write into the local shard of
-    a cache split over batch ("data") and hd ("model"), then the split-hd
-    kernels with an all-reduce of the partial scores between them (the
-    fused kernel on the local batch when hd is not split)."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    a cache split over batch ("data") and hd ("model"), then
+    `_attend_on_mesh`."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    b = x.shape[0]
     pos = _local_value(length)
     q, k_new, v_new = _project_qkv(cfg, p, x, pos.reshape(1))
     k_cache, v_cache = layer_cache["k"], layer_cache["v"]
@@ -811,8 +844,6 @@ def _decode_attention_on_mesh(cfg, mesh, p, x, layer_cache, length):
         raise NotImplementedError(
             f"decode on a mesh takes a cache split over hd or whole over "
             f"'model'; got {k_cache.placements}")
-    hd_split = i is not None and k_cache.placements[i] == Shard(3) \
-        and _model_size(mesh) > 1
     kl, vl = k_cache.to_local(), v_cache.to_local()
     sp = _local_value(layer_cache["slot_pos"])
     slot = torch.remainder(pos, kl.shape[1]).reshape(1).to(torch.int64)
@@ -820,7 +851,22 @@ def _decode_attention_on_mesh(cfg, mesh, p, x, layer_cache, length):
         new = new.redistribute(mesh, k_cache.placements)
         loc.index_copy_(1, slot, new.to_local().to(loc.dtype))
     sp.index_copy_(0, slot, pos.reshape(1).to(torch.int32))
-    window = cfg.sliding_window or 0
+    return _attend_on_mesh(cfg, mesh, p, x, q, k_cache, kl, vl, sp, pos,
+                           cfg.sliding_window or 0), layer_cache
+
+
+def _attend_on_mesh(cfg, mesh, p, x, q, k_cache, kl, vl, sp, pos, window):
+    """One token's q [B, 1, H, hd] against a placed ring `k_cache` (its
+    local k / v shards kl, vl, slot positions sp, the query at pos), then
+    wo, the output in x's layout: the split-hd kernels with an all-reduce
+    of the partial scores between them where the ring's hd is split, else
+    the fused kernel on the local batch."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    b = x.shape[0]
+    i = _model_index(mesh)
+    hd_split = _hd_split(mesh, k_cache)
     # q [B, H, hd]: batch as the cache's, hd over "model" when it is split
     q_pl = [Shard(0) if pl == Shard(0) else Replicate()
             for pl in k_cache.placements]
@@ -842,4 +888,4 @@ def _decode_attention_on_mesh(cfg, mesh, p, x, layer_cache, length):
         h_split, _ = _head_split(cfg, mesh)
         out = _over_model(mesh, out, Shard(1) if h_split else Replicate())
     out = linear(out.reshape(b, 1, cfg.q_dim), p["wo"])
-    return _like(mesh, out, x), layer_cache
+    return _like(mesh, out, x)

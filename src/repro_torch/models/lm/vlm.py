@@ -11,6 +11,12 @@ only the text positions produce logits (the loss is on text labels).
 Decode is text-only and is the dense family's: the ring KV cache covers
 the whole multimodal sequence, which a prefill of the image and prompt
 would have filled; `decode_step` appends text tokens.
+
+On a mesh (`dist.constraints.use_mesh`) the image embeddings, placed by
+the batch specs, and the text embeddings, in the tokens' placements, lie
+alike and concatenate as they are; where "batch_seq" splits the
+sequence over "model", DTensor's slice to the text positions makes it
+whole first (the image count need not fall on a shard's edge).
 """
 from __future__ import annotations
 

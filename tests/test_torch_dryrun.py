@@ -28,7 +28,6 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from repro_torch.dist.dfl_step import PARTITIONED_FAMILIES  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.comm_analysis import COLLECTIVE_OPS  # noqa: E402
 from repro_torch.utils import pytree as tp  # noqa: E402
@@ -59,8 +58,11 @@ def _reduced(arch):
     ("qwen1.5-0.5b", "decode_32k", "multi", (64, 8, "decode")),
     ("mixtral-8x7b", "train_4k", "multi", (64, 8, "train")),
     ("llava-next-mistral-7b", "prefill_32k", "multi", (64, 8, "prefill")),
+    ("llava-next-mistral-7b", "train_4k", "multi", (64, 8, "train")),
     ("zamba2-2.7b", "decode_32k", "single", (64, 8, "decode")),
     ("whisper-large-v3", "long_500k", "multi", (128, 1, "decode")),
+    ("whisper-large-v3", "train_4k", "multi", (64, 8, "train")),
+    ("whisper-large-v3", "decode_32k", "single", (64, 8, "decode")),
 ])
 def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     import torch.distributed as dist
@@ -83,7 +85,7 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     mem = rec["memory_analysis"]
     coll = rec["collectives"]
     r = rec["roofline"]
-    part = cfg.family in PARTITIONED_FAMILIES
+    part, reason = dryrun.partitions(cfg, mesh)
     assert rec["partitioned"] is part
     if part:  # the sharded step's own per-device counts
         assert "flops_global" not in cost and not mem["temp_is_upper_bound"]
@@ -112,7 +114,7 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
         assert mem["temp_is_upper_bound"]
         assert coll["intra_pod"] is None
         assert coll["gossip"] == coll["total"]
-        assert "ROADMAP A.14" in rec["not_partitioned"]
+        assert rec["not_partitioned"] == reason
         assert (coll["total"] > 0) == (shape[2] == "train"
                                        and mesh == "multi")
     assert mem["argument_size_in_bytes"] > 0
@@ -120,7 +122,11 @@ def test_record_fields(tmp_path, arch, shape_name, mesh, shape):
     assert mem["temp_batch_per_device"] == {
         ("train", "single"): 4, ("train", "multi"): 2,
         ("prefill", "multi"): 2, ("decode", "single"): 4,
-        ("decode", "multi"): 4 if part else 1}[shape[2], mesh]
+        # decode's tokens lie over "data" only: long_500k's one sequence
+        # stays whole
+        ("decode", "multi"): (shape[1] // 2 if shape[1] % 2 == 0
+                              else shape[1]) if part else 1,
+    }[shape[2], mesh]
     assert rec["bytes_per_device"] == (mem["argument_size_in_bytes"]
                                        + mem["temp_size_in_bytes"]
                                        + mem["output_size_in_bytes"])
@@ -149,6 +155,29 @@ def test_seqshard_variants_trace_the_partitioned_step(tmp_path, arch,
                              mesh_dims=SMALL[mesh], hbm_bytes=80e9)
         assert rec["ok"], rec.get("traceback")
         assert rec["partitioned"] and rec["collectives"]["intra_pod"] > 0
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "llava-next-mistral-7b"])
+def test_enc_dec_and_vlm_records_trace_the_partitioned_step(tmp_path, arch):
+    """The enc-dec and VLM train records trace the sharded step: their
+    temp a device is the step's own peak, below the upper bound of the
+    unpartitioned estimate (`trace_combo`: every activation whole) that
+    such records held before these families partitioned."""
+    cfg = _reduced(arch)
+    shape, mesh_dims = (64, 8, "train"), SMALL["single"]
+    rec = dryrun.run_one(arch, "train_4k", "single", str(tmp_path), cfg=cfg,
+                         shape=shape, mesh_dims=mesh_dims, hbm_bytes=80e9)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["partitioned"] and "not_partitioned" not in rec
+    mem = rec["memory_analysis"]
+    assert not mem["temp_is_upper_bound"]
+    with dryrun.fake_mesh(mesh_dims, dryrun.MESHES["single"][1]) as mesh:
+        old = dryrun.trace_combo(dryrun._adapt_config(cfg, "train_4k"),
+                                 shape, mesh, multi=False)
+    bound = old["memory_analysis"]
+    assert bound["temp_is_upper_bound"]
+    assert 0 < mem["temp_size_in_bytes"] < bound["temp_size_in_bytes"]
 
 
 RECORDS = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts",

@@ -301,3 +301,38 @@ def test_synthetic_token_batch_is_the_reference_stream():
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_gradient_is_the_same_bits_at_four_threads(dtype):
+    """The embedding's backward sums the rows of repeated tokens in a fixed
+    order (`F.embedding`), so ten gradients of one dense train step at four
+    threads are the same bits; the tokens repeat as a Zipf law draws them
+    (vocabulary 512).  The thread count is restored at the end."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_lm
+    from repro_torch.utils.pytree import tree_unflatten_like
+
+    lm = build_lm(get_config("qwen1.5-0.5b").reduced(
+        param_dtype=dtype, activation_dtype=dtype))
+    params = lm.init(torch.Generator().manual_seed(6), device="cpu")
+    rng = np.random.default_rng(6)
+    seq = (rng.zipf(1.3, size=(8, 65)) - 1) % lm.cfg.vocab
+    batch = {"tokens": torch.from_numpy(seq[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(seq[:, 1:].astype(np.int32))}
+    assert len(np.unique(seq)) < seq.size // 3  # tokens repeat
+
+    def gradient():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        total, _ = lm.loss(tree_unflatten_like(params, leaves), batch)
+        return [total.detach()] + list(torch.autograd.grad(total, leaves))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        runs = [gradient() for _ in range(10)]
+    finally:
+        torch.set_num_threads(threads)
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))

@@ -714,17 +714,6 @@ def test_one_rank_mesh_is_bitwise_the_unpartitioned_step(tmp_path, runs,
             np.testing.assert_array_equal(g[key], w[key])
 
 
-def test_partitioned_step_refuses_the_families_still_queued():
-    from repro_torch.configs import get_config
-    from repro_torch.dist.dfl_step import build_train_step
-    from repro_torch.models.lm import build_lm
-    from repro_torch.optim.sgd import sgd_momentum
-
-    lm = build_lm(get_config("llava-next-mistral-7b").reduced())
-    with pytest.raises(NotImplementedError, match="A.14.4"):
-        build_train_step(lm, sgd_momentum(lr=0.1), mesh=object())
-
-
 # ------------------------------------------------------------------- specs
 
 def test_node_block_specs_with_expert_parallel_are_the_references():

@@ -415,16 +415,6 @@ def test_one_rank_mesh_is_bitwise_the_unpartitioned_step(tmp_path, runs):
         np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_partitioned_step_refuses_other_families():
-    from repro_torch.configs import get_config
-    from repro_torch.dist.dfl_step import build_prefill_step
-    from repro_torch.models.lm import build_lm
-
-    lm = build_lm(get_config("whisper-large-v3").reduced())
-    with pytest.raises(NotImplementedError, match="A.14.4"):
-        build_prefill_step(lm, mesh=object())
-
-
 # ------------------------------------------------------- plain split forms
 
 def _split_cols(z, n):
