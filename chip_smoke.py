@@ -354,9 +354,14 @@ It imports the port only (no JAX), and:
      of the batch) and calls, and timed against the byte bound (the
      16-shard shapes also with the L2 cold; B.9's scores beside one
      `torch.matmul`), and B.9's again at q1's own [4, 4096, 16, 64] cache
-     cut in 2, fp32 and bf16, against their plain versions; files go to
+     cut in 2, fp32 and bf16, against their plain versions, and B.3's
+     split forms at two many-row shapes, [4096, 51866] over 2 shards and
+     [4096, 151936] over 16; files go to
      `build/path_q/`; `--path-q` runs the kernel build and path q alone,
-     `--path-q-decode` the kernel build and B.9's split kernels alone;
+     `--path-q-decode` the kernel build and B.9's split kernels alone,
+     `--vt-split` the kernel build and B.3's split kernels alone at every
+     path's shard shape and the two many-row ones, fp32 and bf16, then
+     their bitwise checks;
      then path r, the LM DFL round partitioned inside each pod on the
      multi mesh (pod, data, model): full-width qwen1.5-0.5b cut to 2 of
      its 24 layers (the script's time limit), two nodes on a ring, each with a batch of 4 x 128 (VT loss), fp32 params and
@@ -5165,6 +5170,76 @@ def q_vt_split(torch, ops, z, y, n):
     return out
 
 
+# B.3's split kernels: (rows, V_total, shards) of the paths' shards (u's
+# whisper and llava, q's 16 and 2 shards, s's mixtral, t's mamba2 and
+# zamba2), then two many-row shapes: a 4096-token sequence at whisper's
+# 2-shard and qwen's 16-shard widths
+VT_SPLIT_SHAPES = ((896, 51866, 2), (256, 32000, 2), (512, 151936, 16),
+                   (512, 151936, 2), (512, 32000, 2), (1024, 50280, 2),
+                   (1024, 32000, 2))
+VT_SPLIT_NEW = ((4096, 51866, 2), (4096, 151936, 16))
+
+
+def q_vt_bitwise(torch, ops, z, y, v, offset):
+    """The split forward's four outputs on a shard z [B, V] (the columns
+    [offset, offset + V) of v) bitwise equal between one call, calls on
+    blocks of its rows (a row, a third, the rest), a second call, and
+    calls on copies of it that start 2, 4, ... 14 bytes (fp32: 4, 8, 12)
+    past a 16-byte boundary: at an odd width, every row phase."""
+    b, vl = z.shape
+    elt = z.element_size()
+    whole = ops.vt_partial_stats(z, y, offset, v)
+    cuts = [0, 1, 1 + b // 3, b]
+    parts = [ops.vt_partial_stats(z[lo:hi], y[lo:hi], offset, v)
+             for lo, hi in zip(cuts, cuts[1:])]
+    runs = [("blocks of rows", [torch.cat(t) for t in zip(*parts)]),
+            ("a second call", ops.vt_partial_stats(z, y, offset, v))]
+    for shift in range(elt, 16, elt):
+        buf = torch.empty(b * vl + 16 // elt, dtype=z.dtype, device=z.device)
+        moved = buf[shift // elt:shift // elt + b * vl].view(b, vl)
+        moved.copy_(z)
+        check(moved.data_ptr() % 16 == shift,
+              f"a copy meant {shift} bytes off 16 is at "
+              f"{moved.data_ptr() % 16}")
+        runs.append((f"{shift} bytes off",
+                     ops.vt_partial_stats(moved, y, offset, v)))
+    torch.cuda.synchronize()
+    bad = [label for label, got in runs
+           if not all(torch.equal(a, w) for a, w in zip(got, whole))]
+    print(f"vt_kl_partial_fwd bitwise at a shard [{b}, {vl}] of {v} "
+          f"({z.dtype}): {len(runs)} calls against one, differing: "
+          f"{bad or 'none'}")
+    check(not bad, f"vt_kl_partial_fwd [{b}, {vl}] {z.dtype}: bits differ "
+                   f"from one call's on {bad}")
+
+
+def vt_split_shapes(torch, ops, dev):
+    """`--vt-split`: B.3's split kernels at VT_SPLIT_SHAPES and
+    VT_SPLIT_NEW, fp32 and bf16, each through `q_vt_split` (checks and
+    times), their device times printed as one JSON line; then
+    `q_vt_bitwise` at whisper's odd shard with few and many rows."""
+    gen = torch.Generator(device=dev).manual_seed(37)
+    times = {}
+    for rows, v, n in VT_SPLIT_SHAPES + VT_SPLIT_NEW:
+        y = torch.randint(0, v, (rows,), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            z = (torch.randn((rows, v), generator=gen, device=dev)
+                 * 3).to(dtype)
+            c = q_vt_split(torch, ops, z, y, n)
+            times[f"{rows}x{v // n} {str(dtype)[6:]}"] = {
+                k: {"kernel_ms": c[k]["kernel_ms"], "ms": c[k]["ms"],
+                    "bound_ms": c[k]["bound_ms"]} for k in ("fwd", "bwd")}
+            del z
+    print("vt_split_times " + json.dumps(times))
+    for rows in (896, 4096):
+        y = torch.randint(0, 51866, (rows,), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            z = (torch.randn((rows, 25933), generator=gen, device=dev)
+                 * 3).to(dtype)
+            q_vt_bitwise(torch, ops, z, y, 51866, 25933)
+            del z
+
+
 def q_decode_split(torch, ops, q, k, v, sp, pos, n, timed=True, cold=False,
                    row=3):
     """B.9's split-hd kernels on a cache cut into n hd shards: each shard's
@@ -5471,6 +5546,15 @@ def path_q(torch, ops, dev, card):
         for n in Q_SHARDS:
             vt_checks[str(dtype), n] = q_vt_split(torch, ops, z, y, n)
         del z
+    gen_new = torch.Generator(device=dev).manual_seed(36)
+    for rows, v, n in VT_SPLIT_NEW:
+        y_new = torch.randint(0, v, (rows,), generator=gen_new, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            z = (torch.randn((rows, v), generator=gen_new, device=dev)
+                 * 3).to(dtype)
+            vt_checks[str(dtype), n, rows] = q_vt_split(torch, ops, z,
+                                                        y_new, n)
+            del z
     torch.cuda.empty_cache()
     da_checks, da_q1, da_gqa = q_decode_shapes(torch, ops, dev, gen)
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ops.LAUNCHES}
@@ -7119,6 +7203,9 @@ def path_u(torch, ops, dev, card):
             z = (torch.randn((rows, vocab), generator=gen, device=dev)
                  * 3).to(dtype)
             out["vt"][arch, str(dtype)] = q_vt_split(torch, ops, z, y, 2)
+            if (vocab // 2) % 2:  # an odd shard: every row phase
+                q_vt_bitwise(torch, ops, z[:, vocab // 2:].contiguous(), y,
+                             vocab, vocab // 2)
             del z
     out["da"] = {}
     for label, arch, w in (("whisper ring", "whisper-large-v3", 448),
@@ -7229,6 +7316,11 @@ def main() -> int:
     if "--path-u" in sys.argv[1:]:  # path u alone, for its development
         path_u(torch, ops, dev, card)
         print(f"chip_smoke --path-u finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--vt-split" in sys.argv[1:]:  # B.3's split kernels alone
+        vt_split_shapes(torch, ops, dev)
+        print(f"chip_smoke --vt-split finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--path-q-decode" in sys.argv[1:]:  # B.9's split kernels alone

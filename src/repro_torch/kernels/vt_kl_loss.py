@@ -18,12 +18,16 @@ and z_c where the label falls in the shard, else 0), `vt_combine` merges
 the shards' statistics as the all-reduces do (the max first, then the
 rescaled sums), `vt_kl_from_stats` turns the merged ones into the KL, and
 `vt_shard_backward_*` is the backward on the shard's columns.
-`vt_plan` picks each launch's vector width, lanes per row and rows per
-block from (V, dtype) and the pointers' alignment, never from the row
-count, so a row's summation order is the same in any call that
-holds it.  The plain versions compute the same formulas with PyTorch
-reductions, which sum in another order than the kernels, so on the card
-the two agree to fp32 rounding.  Use `repro_torch.kernels.ops.vt_kl_loss`,
+`vt_plan` picks each unsplit launch's vector width, lanes per row and rows
+per block from (V, dtype) and the pointers' alignment; `vt_shard_plan`
+picks the vocab-parallel kernels' warps per row (forward) and CTAs per row
+(backward) from (V, dtype) alone: they load 16-byte words at any width and
+row phase, and give each lane its columns by index, so a shard's rows are
+folded in the same order at every 16-byte phase.  Neither plan sees the
+row count, so a row's summation order is the same in any call that holds
+it.  The plain versions compute the same formulas with PyTorch reductions,
+which sum in another order than the kernels, so on the card the two agree
+to fp32 rounding.  Use `repro_torch.kernels.ops.vt_kl_loss`,
 which validates the inputs, picks between the two by the tensors' device
 and ties them together as one autograd function.
 """
@@ -89,6 +93,54 @@ def vt_plan(v: int, dtype: torch.dtype, align: int = 16) -> VTPlan:
     threads = min(MAX_THREADS, max(MIN_THREADS, _pow2_ceil(
         -(-row_bytes // 128))))
     return VTPlan(vec_bytes, threads, 1)
+
+
+# The vocab-parallel kernels (csrc/vt_kl_loss.cu): CTAs of SPLIT_THREADS;
+# a forward warp's lanes each hold a 16-byte chunk of a row a slot, 32 of
+# them when a row is whole 16-byte words, else SPLIT_LANES (the last lane
+# loads the word after its neighbour's chunk), SPLIT_STEP[dtype] slots a
+# step; a backward thread takes SPLIT_BWD_WORDS 16-byte words of a row.
+SPLIT_THREADS = 256
+SPLIT_LANES = 31
+SPLIT_STEP = {torch.float32: 2, torch.bfloat16: 3}
+SPLIT_BWD_WORDS = 5
+SPLIT_ROW_STEPS = 2  # the steps a row's lanes take at most, up to 8 warps
+
+
+class VTShardPlan(NamedTuple):
+    """The vocab-parallel launches' shape: `warps` a row in the forward
+    (1, 2, 4 or 8; SPLIT_THREADS // 32 // warps rows a CTA) and
+    `bwd_blocks` CTAs a row in the backward."""
+    warps: int
+    bwd_blocks: int
+
+    @property
+    def rows_per_block(self) -> int:
+        return SPLIT_THREADS // 32 // self.warps
+
+
+def shard_lanes(v: int, dtype: torch.dtype) -> int:
+    """The forward's chunk-holding lanes a warp for rows of `v` columns."""
+    return 32 if v * (torch.finfo(dtype).bits // 8) % 16 == 0 \
+        else SPLIT_LANES
+
+
+def vt_shard_plan(v: int, dtype: torch.dtype) -> VTShardPlan:
+    """The vocab-parallel kernels' plan for a shard of `v` columns of
+    `dtype`: the fewest warps (up to 8) whose lanes hold a row's 16-byte
+    chunks in SPLIT_ROW_STEPS steps, and enough backward CTAs to cover the
+    16-byte words a row spans at any phase.  It takes no row count and no
+    alignment: each row's summation order depends on (v, dtype) alone."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"vt_shard_plan wants float32 or bfloat16 logits, "
+                        f"got {dtype}")
+    if v < 2:
+        raise ValueError(f"vt_shard_plan wants at least 2 columns, got {v}")
+    chunks = -(-v * (torch.finfo(dtype).bits // 8) // 16)
+    per_warp = shard_lanes(v, dtype) * SPLIT_STEP[dtype] * SPLIT_ROW_STEPS
+    warps = min(8, _pow2_ceil(-(-chunks // per_warp)))
+    bwd_blocks = -(-(chunks + 1) // (SPLIT_THREADS * SPLIT_BWD_WORDS))
+    return VTShardPlan(warps, bwd_blocks)
 
 
 def _align(*tensors: torch.Tensor) -> int:
@@ -192,7 +244,7 @@ def _library() -> ctypes.CDLL:
     lib.vt_kl_partial_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_void_p] \
         + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int64] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
     lib.vt_kl_partial_fwd.restype = ctypes.c_int
     lib.vt_kl_bwd_shard.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_int64] \
@@ -254,9 +306,9 @@ def vt_partial_cuda(z: torch.Tensor, labels: torch.Tensor, offset: int,
                     vocab: int) -> Tuple[torch.Tensor, ...]:
     """Launch the partial-statistics forward on the current stream (inputs
     as `vt_forward_cuda`'s; the shard's columns start at `offset` of a
-    `vocab`-wide row)."""
+    `vocab`-wide row), planned by `vt_shard_plan`."""
     b, v = z.shape
-    plan = vt_plan(v, z.dtype, _align(z))
+    plan = vt_shard_plan(v, z.dtype)
     out = torch.empty((4, b), dtype=torch.float32, device=z.device)
     mx, sumexp, zsum, zc = out.unbind(0)
     lib = _library()
@@ -264,7 +316,7 @@ def vt_partial_cuda(z: torch.Tensor, labels: torch.Tensor, offset: int,
         err = lib.vt_kl_partial_fwd(
             z.data_ptr(), _DTYPE_CODE[z.dtype], labels.data_ptr(), offset,
             vocab, mx.data_ptr(), sumexp.data_ptr(), zsum.data_ptr(),
-            zc.data_ptr(), b, v, *plan, _stream(z.device))
+            zc.data_ptr(), b, v, plan.warps, _stream(z.device))
     if err != 0:
         raise RuntimeError(f"vt_kl_partial_fwd launch failed: cudaError "
                            f"{err} (B={b}, V={v} of {vocab} at {offset}, "
@@ -276,18 +328,20 @@ def vt_shard_backward_cuda(z: torch.Tensor, labels: torch.Tensor,
                            offset: int, mx: torch.Tensor,
                            sumexp: torch.Tensor, g: torch.Tensor,
                            beta: float, vocab: int) -> torch.Tensor:
-    """Launch the shard-local backward on the current stream."""
+    """Launch the shard-local backward on the current stream, planned by
+    `vt_shard_plan`."""
     b, v = z.shape
     dz = torch.empty_like(z)
-    vec_bytes = vt_plan(v, z.dtype, _align(z, dz)).vec_bytes
+    plan = vt_shard_plan(v, z.dtype)
     lib = _library()
     with torch.cuda.device(z.device):
         err = lib.vt_kl_bwd_shard(
             z.data_ptr(), _DTYPE_CODE[z.dtype], labels.data_ptr(), offset,
             mx.data_ptr(), sumexp.data_ptr(), g.data_ptr(), dz.data_ptr(), b,
-            v, vec_bytes, beta, teacher_tail(beta, vocab), _stream(z.device))
+            v, plan.bwd_blocks, beta, teacher_tail(beta, vocab),
+            _stream(z.device))
     if err != 0:
         raise RuntimeError(f"vt_kl_bwd_shard launch failed: cudaError {err} "
                            f"(B={b}, V={v} of {vocab} at {offset}, "
-                           f"{z.dtype}, {vec_bytes}-byte vectors)")
+                           f"{z.dtype}, {plan})")
     return dz

@@ -537,6 +537,82 @@ def test_vt_plan_takes_no_row_count_and_refuses_what_it_cannot_take():
     assert _align(x[1:]) == 4 and _align(x, x[2:]) == 8
 
 
+def _split_vocabs():
+    """Every registered vocabulary (full and reduced) split over 1, 2, 4,
+    8 and 16 shards where the split is whole: the shard widths."""
+    return sorted({v // n for v in _registered_vocabs()
+                   for n in (1, 2, 4, 8, 16) if v % n == 0 and v // n >= 2})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vt_shard_plan_over_every_split_vocabulary(dtype):
+    """`vt_shard_plan` at V = 2..5000 and every registered vocabulary's
+    shards: 32 chunk-holding lanes a warp when a row is whole 16-byte
+    words, else 31; the fewest warps (1-8, whole warps a CTA) whose lanes
+    hold a row's 16-byte chunks in SPLIT_ROW_STEPS steps, or 8 for wider
+    rows; the backward's CTAs the fewest that cover the 16-byte words a
+    row spans at any phase; each CTA within sm_90a's limits (1024
+    threads, 227 KB of shared memory: the forward keeps a (max, sum, sum
+    z) triple a warp, the backward nothing; no cluster)."""
+    from repro_torch.kernels import vt_kl_loss as vt
+
+    elt = 4 if dtype == torch.float32 else 2
+    shards = _split_vocabs()
+    assert {9496, 16000, 25140, 25933, 75968, 151936} <= set(shards)
+    bwd_span = vt.SPLIT_THREADS * vt.SPLIT_BWD_WORDS  # words a CTA
+    assert vt.SPLIT_THREADS <= 1024 and vt.SPLIT_THREADS // 32 * 12 <= 232448
+    for v in list(range(2, 5001)) + shards:
+        plan = vt.vt_shard_plan(v, dtype)
+        chunks = -(-v * elt // 16)
+        lanes = vt.shard_lanes(v, dtype)
+        assert lanes == (32 if v * elt % 16 == 0 else 31)
+        per_warp = lanes * vt.SPLIT_STEP[dtype] * vt.SPLIT_ROW_STEPS
+        assert plan.warps in (1, 2, 4, 8)
+        assert plan.rows_per_block * plan.warps * 32 == vt.SPLIT_THREADS
+        assert plan.warps == 8 or chunks <= plan.warps * per_warp
+        assert plan.warps == 1 or chunks > plan.warps // 2 * per_warp
+        assert plan.bwd_blocks * bwd_span >= chunks + 1
+        assert (plan.bwd_blocks - 1) * bwd_span < chunks + 1
+
+
+def test_vt_shard_plan_constants_are_the_kernels():
+    """The shard plan's CTA, lanes, steps and backward words are the ones
+    csrc/vt_kl_loss.cu launches and unrolls by."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import vt_kl_loss as vt
+
+    src = (_build.CSRC_DIR / "vt_kl_loss.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kSplitThreads") == vt.SPLIT_THREADS
+    assert const("kSplitLanes") == vt.SPLIT_LANES
+    assert const("kSplitStepF32") == vt.SPLIT_STEP[torch.float32]
+    assert const("kSplitStepBF16") == vt.SPLIT_STEP[torch.bfloat16]
+    assert const("kSplitBwdWords") == vt.SPLIT_BWD_WORDS
+    # 32 lanes for rows of whole 16-byte words, as shard_lanes
+    assert "% 16 ? kSplitLanes : 32;" in src
+
+
+def test_vt_shard_plan_takes_no_row_count_and_refuses_what_it_cannot_take():
+    """The shard plan's inputs are (V, dtype): no row count and no
+    alignment, so a row's summation order depends on neither.  It refuses
+    one column and a dtype the kernels do not take."""
+    import inspect
+
+    from repro_torch.kernels.vt_kl_loss import vt_shard_plan
+
+    assert list(inspect.signature(vt_shard_plan).parameters) == ["v",
+                                                                 "dtype"]
+    with pytest.raises(ValueError):
+        vt_shard_plan(1, torch.float32)
+    with pytest.raises(TypeError):
+        vt_shard_plan(10, torch.float16)
+
+
 def test_new_wrappers_count_no_launch_on_the_cpu():
     ops.reset_launches()
     q, scale, wn = map(torch.from_numpy, _payload(4, 2, 9))
@@ -554,9 +630,10 @@ def test_new_wrappers_count_no_launch_on_the_cpu():
     ("vt_kl_loss", "vt_kl_fwd", 5, 2, 3, 4),
     ("vt_kl_loss", "vt_kl_bwd", 6, 2, 2, 2),
     ("neighbor_avg", "neighbor_avg_f32", 3, 2, 0, 1),
-    # the vocab-parallel forms: their ints as the above, plus the shard's
-    # offset (and the whole vocabulary) as 64-bit sizes
-    ("vt_kl_loss", "vt_kl_partial_fwd", 6, 4, 0, 4),
+    # the vocab-parallel forms: their 32-bit ints the dtype and their plan
+    # (`vt_shard_plan`: the forward's warps a row, the backward's CTAs a
+    # row), the shard's offset (and the whole vocabulary) 64-bit sizes
+    ("vt_kl_loss", "vt_kl_partial_fwd", 6, 4, 0, 2),
     ("vt_kl_loss", "vt_kl_bwd_shard", 6, 3, 2, 2),
 ], ids=["dequant_avg-dequant_avg_rows_f32-3-3-0",
         "vt_kl_loss-vt_kl_fwd-5-2-3", "vt_kl_loss-vt_kl_bwd-6-2-2",

@@ -32,8 +32,11 @@ under the specs' small-leaf limit and replicate), batch 4 x 32.
     one row-parallel linear on a fake (2, 2) group;
   * B.9's split plan: no batch size, W covered, shared memory in a block
     for the dense archs at model = 2 to 16;
-  * `cuda`: the split kernels against their plain versions, a batch
-    row's output bitwise that of the whole batch, and two calls bitwise
+  * `cuda`: the split kernels against their plain versions (B.3's also
+    at odd widths, with no label in the shard and at V = 2), a batch
+    row's output bitwise that of the whole batch, and two calls bitwise;
+    B.3's split forward bitwise across row blocks and every 16-byte phase
+    of a row, its backward's tolerance rejecting a dropped teacher tail
     (skip here).
 
 All ranks run in ONE `torch.multiprocessing.spawn` per module, with a
@@ -618,17 +621,33 @@ def card():
     return torch.device("cuda")
 
 
+def _labels(rows, v, offset, vocab, inside, g):
+    """Labels over the whole vocabulary, one in the shard at least
+    (`inside`), or none in it."""
+    if inside:
+        labels = torch.randint(0, vocab, (rows,), generator=g)
+        labels[0] = offset
+        return labels
+    labels = torch.randint(0, vocab - v, (rows,), generator=g)
+    return torch.where(labels >= offset, labels + v, labels)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(24, 512, 0), (24, 512, 256),
-                                   (7, 75968, 75968), (5, 9496, 9496 * 3)])
+@pytest.mark.parametrize("shape", [
+    (24, 512, 0, True), (24, 512, 256, True), (7, 75968, 75968, True),
+    (5, 9496, 9496 * 3, True),
+    # odd widths: every row at another 16-byte phase
+    (6, 25933, 25933, True), (9, 777, 777 * 3, True),
+    (5, 777, 0, False),  # no row's label in the shard
+    (4, 2, 6, True),     # the narrowest shard the wrapper takes
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vt_split_kernels_match_their_plain_versions(card, shape, dtype):
-    rows, v, offset = shape
+    rows, v, offset, inside = shape
     vocab = max(2 * v, offset + v)
     g = torch.Generator().manual_seed(rows)
     z = (torch.randn(rows, v, generator=g) * 3).to(dtype)
-    labels = torch.randint(0, vocab, (rows,), generator=g)
-    labels[0] = offset  # one label in the shard at least
+    labels = _labels(rows, v, offset, vocab, inside, g)
     want = _vt.vt_partial_plain(z, labels, offset)
     got = ops.vt_partial_stats(z.to(card), labels.to(card), offset, vocab)
     z32 = z.float()
@@ -647,6 +666,76 @@ def test_vt_split_kernels_match_their_plain_versions(card, shape, dtype):
     if dtype == torch.bfloat16:
         tol = tol + ref.abs() * 2.0 ** -8
     assert (torch.abs(dz.cpu().float() - ref) <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [25933, 777, 9496])
+@pytest.mark.parametrize("rows", [3, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vt_partial_rows_are_bitwise_across_splits_and_phases(card, v, rows,
+                                                              dtype):
+    """The split forward's four outputs are bitwise equal between one
+    call on the rows, calls on blocks of them (a row, a third, the rest),
+    a second call, and calls on copies that start 2, 4, ... 14 bytes (fp32
+    4, 8, 12) past a 16-byte boundary: its plan sees neither the row count
+    nor the alignment, and each lane folds its columns by index, so at an
+    odd width every row phase gives the same bits."""
+    vocab = 2 * v
+    g = torch.Generator().manual_seed(v + rows)
+    z = (torch.randn(rows, v, generator=g) * 3).to(dtype).to(card)
+    labels = torch.randint(0, vocab, (rows,), generator=g).to(card)
+    whole = ops.vt_partial_stats(z, labels, v, vocab)
+    cuts = [0, 1, 1 + rows // 3, rows]
+    parts = [ops.vt_partial_stats(z[lo:hi], labels[lo:hi], v, vocab)
+             for lo, hi in zip(cuts, cuts[1:])]
+    runs = [[torch.cat(t) for t in zip(*parts)],
+            ops.vt_partial_stats(z, labels, v, vocab)]
+    elt = z.element_size()
+    for shift in range(elt, 16, elt):
+        buf = torch.empty(rows * v + 16 // elt, dtype=dtype, device=card)
+        moved = buf[shift // elt:shift // elt + rows * v].view(rows, v)
+        moved.copy_(z)
+        assert moved.data_ptr() % 16 == shift
+        runs.append(ops.vt_partial_stats(moved, labels, v, vocab))
+    torch.cuda.synchronize()
+    for got in runs:
+        for a, b in zip(got, whole):
+            assert torch.equal(a, b)
+    assert torch.isfinite(whole[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 9496, 9496 * 5, 151936),
+                                   (8, 25933, 25933, 51866)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vt_shard_backward_keeps_the_teachers_tail(card, shape, dtype):
+    """The shard backward within rtol·|ref| + 1e-5·(p + p_t)·|g| of its
+    plain version (rtol 1e-5 fp32, one bf16 rounding 2^-7), a bound that
+    rejects a backward which drops the teacher's tail a = (1-β)/(V-1) on
+    the wrong classes, at V = 151,936 over 16 shards and at an odd
+    width."""
+    rows, v, offset, vocab = shape
+    beta = 0.98
+    g = torch.Generator().manual_seed(v)
+    z = (torch.randn(rows, v, generator=g) * 4).to(dtype)
+    labels = _labels(rows, v, offset, vocab, True, g)
+    mx, s = _vt.vt_partial_plain(z, labels, offset)[:2]
+    s = s * 1.5  # the other shards' share of the row's sum
+    gr = torch.rand(rows, generator=g) + 0.1
+    dz = ops.vt_shard_backward(z.to(card), labels.to(card), offset,
+                               mx.to(card), s.to(card), gr.to(card), beta,
+                               vocab).cpu().float()
+    want = _vt.vt_shard_backward_plain(z, labels, offset, mx, s, gr, beta,
+                                       vocab).float()
+    a = _vt.teacher_tail(beta, vocab)
+    p = torch.exp(z.float() - mx[:, None]) / s[:, None]
+    is_label = (torch.arange(v) + offset)[None, :] == labels[:, None]
+    terms = p + torch.where(is_label, beta, a)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    tol = rtol * want.abs() + 1e-5 * terms * gr[:, None]
+    assert ((dz - want).abs() <= tol).all()
+    no_tail = torch.where(is_label, want, want + a * gr[:, None])
+    assert not ((no_tail.to(dtype).float() - want).abs() <= tol).all()
 
 
 def _split_inputs(shape, dtype, dev):
